@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's evaluation forward on an NVIDIA GPU.
+"""Drive the PyTorch port's evaluation forward and training step on an
+NVIDIA GPU.
 
 Run from the repository root with no arguments (needs one CUDA card):
 
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. device: card name, power limit, CUDA version; builds both kernels from
-     ``stratified_transformer_torch/csrc`` with nvcc (in parallel);
+  1. device: card name, power limit, CUDA version; builds the four kernels
+     from ``stratified_transformer_torch/csrc`` with nvcc (in parallel);
   2. host tier and plans: the S3DIS batch (N=40960, 2 scenes), and every
      attention plan built on the card bit-identical to the CPU plan;
   3. bins: the kernels' device bin function against
@@ -17,7 +18,17 @@ Phases, each fatal on failure:
   5. the full-width S3DIS eval step (channels 48/96/192/384, heads
      3/6/12/24, depths 2/2/6/2) on 3 synthetic batches, with random weights
      scaled for O(1) activations: finite loss, 12 + 12 kernel launches per
-     forward, logits equal to the same forward through the plain versions.
+     forward, logits equal to the same forward through the plain versions;
+  6. one profiled forward: device time by kernel and the busy share;
+  7. the two backward kernels against their plain versions at every stage's
+     real shapes and plans (cotangent and merged residuals of the forward):
+     errors, CUDA-event times, bounds;
+  8. three full-width training steps after one warm-up step (AdamW, the
+     YAML's schedule, drop-path 0.3 from a seeded generator, augmented
+     synthetic batches):
+     finite loss, 12 launches of each of the four kernels per step, every
+     parameter's gradient after step 1 and the 3-step loss trajectory equal
+     to the same steps through the plain versions; one profiled step.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -40,6 +51,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "s3dis_stratified.yaml")
 N_PAD, SCENES = 40960, 2
 EVAL_BATCHES = 3
+TRAIN_STEPS = 3
+# the synthetic train set's iterations per epoch (train.py's BatchLoader
+# over 32 synthetic scenes in batches of 2): epoch-stepped schedules read it
+TRAIN_ITERS_PER_EPOCH = 16
 # H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the tensor cores
 # and HBM3 bandwidth.
 PEAK_FP32 = 67e12
@@ -50,12 +65,34 @@ RTOL, ATOL = 2e-4, 2e-5
 # logits after 12 attention blocks and the U-Net: the same reorderings
 # compounded through the layers
 LOGIT_RTOL, LOGIT_ATOL = 1e-3, 1e-4
+# backward kernel vs plain version: |err| <= BWD_RTOL |want| + BWD_FLOOR
+# max|want| per tensor. dk/dv sum a key's queries over per-warp partials and
+# tiles, the table grads sum ~1e5-1e6 pair terms per entry through
+# shared-memory atomics and cancel, so near-zero entries of a large sum
+# carry the sum's own rounding (a floor of 1e-5 of its largest entry)
+BWD_RTOL, BWD_FLOOR = 5e-4, 1e-5
+# one training step, kernels vs plain versions (same weights, batch and
+# drop-path masks): each parameter's gradient within 1e-3 relative L2 over
+# the tensor plus an fp32 noise floor of 1e-6 per entry, which decides only
+# the five biases whose gradient is 0 in exact arithmetic (a constant shift
+# of the head's input is removed by the training-mode BatchNorm). Two fp32
+# backward passes through 12 blocks whose sums run in other orders.
+GRAD_REL_L2, GRAD_FLOOR = 1e-3, 1e-6
+# the 3-step loss trajectories: the same grads through AdamW's sign-like
+# first steps
+LOSS_RTOL = 1e-3
 TPU_KERNELS = {
     "band_attention": "stratified_transformer_tpu/ops/pallas/"
                       "fused_attention.py:50",
     "sparse_band_attention": "stratified_transformer_tpu/ops/pallas/"
                              "fused_attention.py:253",
+    "band_attention_bwd": "stratified_transformer_tpu/ops/pallas/"
+                          "fused_attention_bwd.py:53",
+    "sparse_band_attention_bwd": "stratified_transformer_tpu/ops/pallas/"
+                                 "fused_attention_bwd.py:428",
 }
+FWD_KERNELS = ("band_attention", "sparse_band_attention")
+BWD_KERNELS = ("band_attention_bwd", "sparse_band_attention_bwd")
 
 
 def log(msg):
@@ -190,6 +227,38 @@ def least_ops(pairs, n_q, n_k, h, d, nb):
     return h * per_head + 24 * pairs
 
 
+def least_ops_bwd(pairs, n_q, n_k, h, d, nb):
+    """Least fp32 operations of one backward call (both table sets present)
+    over ``pairs`` unmasked pairs, ``n_q`` valid queries, ``n_k`` valid
+    keys, ``nb`` table rows per axis. Per pair and head: the recomputed q·k
+    (2d), g·v (2d), r and dl (~5), dq += dl k, dk += dl q, dv += r g (2d
+    each). Per query and head: g·o (2d). Per pair, shared by the heads: the
+    bins (~24). Eight table terms, each at the cheaper of its per-pair form
+    (three d-long dot products or axpys, 6d) and the projection form (3
+    lookups or mass adds per pair, then 6·nb·d per query or key): the
+    logit's Tq (queries) and Tk (keys), gv's Tv (queries), dq's Tq
+    (queries), dk's Tk (keys) and the grads dTq (queries), dTk (keys) and
+    dTv (queries)."""
+    def table(rows):
+        return min(6 * d * pairs, 6 * nb * d * rows + 3 * pairs)
+    per_head = ((10 * d + 5) * pairs + 2 * d * n_q
+                + 5 * table(n_q) + 3 * table(n_k))
+    return h * per_head + 24 * pairs
+
+
+def grads_close(name, got, want):
+    """Backward-kernel tolerance (BWD_RTOL, BWD_FLOOR); returns the max abs
+    error."""
+    floor = BWD_FLOOR * float(want.abs().max())
+    bad = (got - want).abs() > floor + BWD_RTOL * want.abs()
+    err = float((got - want).abs().max())
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} of {bad.numel()} entries outside "
+            f"rtol {BWD_RTOL} / floor {floor:.3e}; max abs err {err:.3e}")
+    return err
+
+
 def o1_weights(model, seed):
     """Replace every weight and statistic with random values from ``seed``
     that keep activations O(1) through the layers (fan_in^-0.5 matrices,
@@ -218,25 +287,28 @@ def o1_weights(model, seed):
     model.load_state_dict(state, strict=True)
 
 
-def profile_forward(eval_step, model, batch):
-    """One profiled forward: device time by kernel and the device's busy
-    share of the (profiled) wall time."""
+def profile_call(label, fn):
+    """One profiled call of ``fn``: device time by kernel and the device's
+    busy share of the (profiled) wall time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eval_step(model, batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # device kernels and copies; a user annotation's range (AdamW's
+        # step) overlaps the kernels it encloses
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             ms, count = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
     rows = [(name, ms, count) for name, (ms, count) in by_name.items()]
     busy_ms = sum(r[1] for r in rows)
-    log(f"[profile] forward wall {wall_ms:.1f} ms (profiler on), device busy "
+    log(f"[profile] {label} wall {wall_ms:.1f} ms (profiler on), device busy "
         f"{busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% ; "
         f"{sum(r[2] for r in rows)} device kernels")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
@@ -253,9 +325,13 @@ def main():
     from stratified_transformer_torch.config import load_config
     from stratified_transformer_torch.data.loader import host_batch, to_device
     from stratified_transformer_torch.kernels import band_attention as band_k
+    from stratified_transformer_torch.kernels import (
+        band_attention_bwd as band_bwd_k)
     from stratified_transformer_torch.kernels import build
     from stratified_transformer_torch.kernels import (
         sparse_band_attention as sparse_k)
+    from stratified_transformer_torch.kernels import (
+        sparse_band_attention_bwd as sparse_bwd_k)
     from stratified_transformer_torch.models.stratified import build_model
     from stratified_transformer_torch.ops import attention as plain
     from stratified_transformer_torch.train.step import make_eval_step
@@ -266,8 +342,8 @@ def main():
         f"torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"count {torch.cuda.device_count()}")
     t0 = time.time()
-    build.build_all(["band_attention", "sparse_band_attention"])
-    log(f"[device] built both kernels with nvcc for sm_90a in "
+    build.build_all(list(TPU_KERNELS))
+    log(f"[device] built the four kernels with nvcc for sm_90a in "
         f"{time.time() - t0:.1f} s")
     for name, text in build.build_logs.items():
         for line in text.splitlines():
@@ -332,6 +408,20 @@ def main():
     report = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                   "max_abs_err": 0.0, "bound_by": {}}
               for k in TPU_KERNELS}
+
+    def add_timing(name, blocks, ms, plain_ms, t_bytes, t_ops, err):
+        """Adds one plan's launch to the kernel's per-step sums (``blocks``
+        launches of the step use this plan); returns (bound, bound_by)."""
+        bound = max(t_bytes / PEAK_BYTES, t_ops / PEAK_FP32) * 1e3
+        by = ("bytes" if t_bytes / PEAK_BYTES >= t_ops / PEAK_FP32
+              else "operations")
+        r = report[name]
+        r["ms"] += blocks * ms
+        r["plain_ms"] += blocks * plain_ms
+        r["bound_ms"] += blocks * bound
+        r["bound_by"][by] = r["bound_by"].get(by, 0) + blocks * bound
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        return bound, by
     for i in range(cfg.num_layers):
         h, d = cfg.num_heads[i], cfg.channels[i] // cfg.num_heads[i]
         ws, qs = cfg.window_sizes()[i], cfg.quant_sizes()[i]
@@ -392,17 +482,9 @@ def main():
                         errs.append(max_errors(g, w))
                     ms = cuda_time_ms(lambda: mod.KERNEL(*args), 20)
                     plain_ms = cuda_time_ms(plain_fn, 3)
-                    t_bytes = nbytes(inputs + outs)
                     t_ops = least_ops(pairs, nq, nk, h, d, rows)
-                    bound = max(t_bytes / PEAK_BYTES, t_ops / PEAK_FP32) * 1e3
-                    by = ("bytes" if t_bytes / PEAK_BYTES >= t_ops / PEAK_FP32
-                          else "operations")
-                    r = report[name]
-                    r["ms"] += blocks * ms
-                    r["plain_ms"] += blocks * plain_ms
-                    r["bound_ms"] += blocks * bound
-                    r["bound_by"][by] = r["bound_by"].get(by, 0) + blocks * bound
-                    r["max_abs_err"] = max(r["max_abs_err"],
+                    bound, by = add_timing(name, blocks, ms, plain_ms,
+                                           nbytes(inputs + outs), t_ops,
                                            max(e[0] for e in errs))
                     log(f"[kernel] {name} stage {i} shifted={int(shifted)} "
                         f"N={n} h={h} d={d} pairs={pairs} "
@@ -411,8 +493,8 @@ def main():
                         f"{by}); max abs/rel err acc {errs[0][0]:.2e}/"
                         f"{errs[0][1]:.2e} m {errs[1][0]:.2e}/{errs[1][1]:.2e}"
                         f" den {errs[2][0]:.2e}/{errs[2][1]:.2e}")
-                out_k = plain.merge([triples[n_][0] for n_ in TPU_KERNELS])[0]
-                out_p = plain.merge([triples[n_][1] for n_ in TPU_KERNELS])[0]
+                out_k = plain.merge([triples[n_][0] for n_ in FWD_KERNELS])[0]
+                out_p = plain.merge([triples[n_][1] for n_ in FWD_KERNELS])[0]
                 assert_close(f"merged stage {i}", out_k, out_p, RTOL, ATOL)
                 e = max_errors(out_k, out_p)
                 log(f"[kernel] merged output stage {i} shifted={int(shifted)}"
@@ -430,8 +512,15 @@ def main():
                for s in range(EVAL_BATCHES)]
     eval_step(model, batches[0])                # first call: lazy set-up
     torch.cuda.synchronize()
-    band_k.KERNEL.launches = 0
-    sparse_k.KERNEL.launches = 0
+    kernel_mods = {"band_attention": band_k, "sparse_band_attention": sparse_k,
+                   "band_attention_bwd": band_bwd_k,
+                   "sparse_band_attention_bwd": sparse_bwd_k}
+
+    def counts():
+        return {k: m_.KERNEL.launches for k, m_ in kernel_mods.items()}
+
+    for m_ in kernel_mods.values():
+        m_.KERNEL.launches = 0
     torch.cuda.reset_peak_memory_stats()
     outputs, times = [], []
     for b in batches:
@@ -451,8 +540,10 @@ def main():
                 and bool(torch.isfinite(stats["loss"]))):
             raise AssertionError("non-finite logits or loss")
         outputs.append((logits, stats))
-    launches = {"band_attention": band_k.KERNEL.launches,
-                "sparse_band_attention": sparse_k.KERNEL.launches}
+    launches = counts()
+    if launches["band_attention_bwd"] or launches["sparse_band_attention_bwd"]:
+        raise AssertionError(f"the eval forward launched a backward kernel: "
+                             f"{launches}")
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     for j, (logits, stats) in enumerate(outputs):
         log(f"[eval] batch {j}: loss {float(stats['loss']):.4f}, "
@@ -474,15 +565,196 @@ def main():
         e = max_errors(outputs[j][0], ref_logits)
         log(f"[eval] batch {j}: logits vs plain-version forward max abs/rel "
             f"err {e[0]:.2e}/{e[1]:.2e}; loss {float(ref_stats['loss']):.4f}")
-    if (band_k.KERNEL.launches, sparse_k.KERNEL.launches) != tuple(
-            launches.values()):
+    if counts() != launches:
         raise AssertionError("the plain-version forward launched a kernel")
     fwd_ms = float(np.median(times))
     log(f"[eval] full-width forward median {fwd_ms:.1f} ms over "
         f"{EVAL_BATCHES} batches")
 
     # ---- 6. where the forward's time goes ----------------------------------
-    profile_forward(eval_step, model, batches[0])
+    profile_call("forward", lambda: eval_step(model, batches[0]))
+
+    # ---- 7. backward kernels against their plain versions -----------------
+    grad_names = ("dq", "dk", "dv", "dtq", "dtk", "dtv")
+    for i in range(cfg.num_layers):
+        h, d = cfg.num_heads[i], cfg.channels[i] // cfg.num_heads[i]
+        ws, qs = cfg.window_sizes()[i], cfg.quant_sizes()[i]
+        nbf = 2 * int((2 * ws + 1e-4) // qs)
+        band = cfg.stage_band(i)
+        n = len(levels[i][0])
+        q, k, v, g = (torch.randn(n, h, d, generator=gen).to(dev)
+                      for _ in range(4))
+        tables = tuple((torch.randn(nbf, h, d, 3, generator=gen) * 0.05
+                        ).to(dev) for _ in range(3))
+        kw = dict(window_size=ws, quant_size=qs, scale=d ** -0.5)
+        for shifted in (False, True):
+            blocks = (cfg.depths[i] + (0 if shifted else 1)) // 2
+            plan = plans[i, shifted]
+            geom = (plan.xyz_sorted, plan.seg_start, plan.seg_end,
+                    plan.valid_sorted)
+            sb = plan.sparse_band
+            bkw = dict(kw, band=band, tile=cfg.tile)
+            skw = dict(kw, s_band=cfg.s_band, tile=cfg.tile)
+            with torch.no_grad():
+                # the merged forward's residuals, as the autograd Function
+                # saves them
+                out, m, den = plain.merge([
+                    plain.band_attention_plain(q, k, v, *geom, *tables,
+                                               **bkw),
+                    plain.sparse_band_attention_plain(q, k, v, sb, *tables,
+                                                      **skw)])
+                res = (g, out, m, den)
+                n_q = int(plan.valid_sorted.sum())
+                s_pairs, s_q, s_k = sparse_pairs(plan, cfg.s_band, cfg.tile)
+                nb = plain.band_table_slice(nbf)[1]
+                runs = {
+                    "band_attention_bwd": (
+                        band_bwd_k, band_bwd_k.launch_args(
+                            q, k, v, *geom, *res, *tables, **bkw),
+                        lambda: band_bwd_k.band_attention_bwd(
+                            q, k, v, *geom, *res, *tables, **bkw),
+                        lambda: plain.band_attention_bwd_plain(
+                            q, k, v, *geom, *res, *tables, **bkw),
+                        band_pairs(plan, band, cfg.tile), n_q, n_q, nb),
+                    "sparse_band_attention_bwd": (
+                        sparse_bwd_k, sparse_bwd_k.launch_args(
+                            q, k, v, sb, *res, *tables, **skw),
+                        lambda: sparse_bwd_k.sparse_band_attention_bwd(
+                            q, k, v, sb, *res, *tables, **skw),
+                        lambda: plain.sparse_band_attention_bwd_plain(
+                            q, k, v, sb, *res, *tables, **skw),
+                        s_pairs, s_q, s_k, nbf),
+                }
+                for name, (mod, (args, _outs, inputs), wrapper, plain_fn,
+                           pairs, nq, nk, rows) in runs.items():
+                    got = wrapper()
+                    want = plain_fn()
+                    torch.cuda.synchronize()
+                    errs = [grads_close(f"{name} stage {i} shifted="
+                                        f"{int(shifted)} {gn}", a, b)
+                            for gn, a, b in zip(grad_names, got, want)]
+                    ms = cuda_time_ms(lambda: mod.KERNEL(*args), 10)
+                    plain_ms = cuda_time_ms(plain_fn, 2)
+                    # the function's bytes: its inputs (as the kernel takes
+                    # them) read once, the six grads written once
+                    t_ops = least_ops_bwd(pairs, nq, nk, h, d, rows)
+                    bound, by = add_timing(name, blocks, ms, plain_ms,
+                                           nbytes(inputs + tuple(got)),
+                                           t_ops, max(errs))
+                    log(f"[bwd] {name} stage {i} shifted={int(shifted)} "
+                        f"N={n} h={h} d={d} pairs={pairs} "
+                        f"ops/pair/head={t_ops / pairs / h:.1f}: {ms:.4f} ms "
+                        f"(plain {plain_ms:.3f} ms, bound {bound:.4f} ms by "
+                        f"{by}); max abs err "
+                        + " ".join(f"{gn} {e:.2e}"
+                                   for gn, e in zip(grad_names, errs))
+                        + " (of max |grad| "
+                        + " ".join(f"{float(w.abs().max()):.2e}"
+                                   for w in want) + ")")
+    log("[bwd] library_ms: null for both backward kernels — no single "
+        "PyTorch call computes the gradients of attention with per-pair cRPE "
+        "table terms on q, k and v")
+
+    # ---- 8. full-width training steps -------------------------------------
+    from stratified_transformer_torch.train import schedulers
+    from stratified_transformer_torch.train.state import make_optimizer
+    from stratified_transformer_torch.train.step import make_train_step
+    from stratified_transformer_torch.utils.config import load_cfg
+    yaml_cfg = load_cfg(CONFIG)
+    schedule = schedulers.from_config(yaml_cfg, TRAIN_ITERS_PER_EPOCH)[0]
+    train_step = make_train_step(255, cfg.num_classes)
+    t0 = time.time()
+    train_batches = [
+        to_device(host_batch(cfg, seed=10 + s, train=True,
+                             rng=np.random.default_rng(100 + s),
+                             aug=yaml_cfg), dev)
+        for s in range(TRAIN_STEPS)]
+    log(f"[train] {TRAIN_STEPS} augmented S3DIS batches (N={N_PAD}, "
+        f"{SCENES} scenes) built in {time.time() - t0:.2f} s; drop-path "
+        f"{cfg.drop_path_rate}, base_lr {yaml_cfg['base_lr']}, weight decay "
+        f"{yaml_cfg['weight_decay']}, x{yaml_cfg['transformer_lr_scale']} "
+        "on blocks")
+    init_state = {k_: v_.clone() for k_, v_ in model.state_dict().items()}
+
+    def trainer(impl):
+        m_ = build_model(dataclasses.replace(cfg, attn_impl=impl), "cuda",
+                         seed=0, train=True)
+        m_.load_state_dict(init_state)
+        opt = make_optimizer(
+            m_, schedule, weight_decay=float(yaml_cfg["weight_decay"]),
+            transformer_lr_scale=float(yaml_cfg["transformer_lr_scale"]))
+        return m_, opt
+
+    def run_steps(m_, opt, via_kernels):
+        losses, times, grads = [], [], None
+        for step, b in enumerate(train_batches):
+            gen_s = torch.Generator(device="cuda").manual_seed(1000 + step)
+            before = counts()
+            t0 = time.perf_counter()
+            stats = train_step(m_, opt, b, gen_s)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_step = {k_: counts()[k_] - before[k_] for k_ in before}
+            want_n = 12 if via_kernels else 0
+            if any(c != want_n for c in per_step.values()):
+                raise AssertionError(f"kernel launches in train step {step}: "
+                                     f"{per_step}, expected {want_n} each")
+            if not bool(torch.isfinite(stats["loss"])):
+                raise AssertionError(f"non-finite loss at train step {step}")
+            losses.append(float(stats["loss"]))
+            if step == 0:
+                grads = {n_: p_.grad.clone()
+                         for n_, p_ in m_.named_parameters()}
+        return losses, times, grads
+
+    # one step of a throwaway copy pays the backward's one-time set-up
+    # (cuBLAS, autograd, AdamW state) outside the timed steps
+    model_w, opt_w = trainer("fused")
+    train_step(model_w, opt_w, train_batches[0],
+               torch.Generator(device="cuda").manual_seed(999))
+    torch.cuda.synchronize()
+    del model_w, opt_w
+    model_k, opt_k = trainer("fused")
+    for m_ in kernel_mods.values():
+        m_.KERNEL.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses_k, times_k, grads_k = run_steps(model_k, opt_k, True)
+    train_launches = counts()
+    train_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    for step in range(TRAIN_STEPS):
+        log(f"[train] step {step}: loss {losses_k[step]:.5f}, "
+            f"{times_k[step]:.1f} ms (host clock, synchronized)")
+    log(f"[train] launches over {TRAIN_STEPS} steps: {train_launches}; "
+        f"max_memory_allocated {train_peak_mb:.0f} MiB")
+
+    model_p, opt_p = trainer("reference")
+    losses_p, times_p, grads_p = run_steps(model_p, opt_p, False)
+    worst = (0.0, "")
+    for name, gp in grads_p.items():
+        gk = grads_k[name]
+        err = float((gk - gp).norm())
+        bound = (GRAD_REL_L2 * float(gp.norm())
+                 + GRAD_FLOOR * gp.numel() ** 0.5)
+        if not err <= bound:
+            raise AssertionError(f"grad {name}: |kernel - plain| {err:.3e} "
+                                 f"> {bound:.3e} (|plain| "
+                                 f"{float(gp.norm()):.3e})")
+        if float(gp.norm()) > 1e3 * GRAD_FLOOR * gp.numel() ** 0.5:
+            worst = max(worst, (err / float(gp.norm()), name))
+    log(f"[train] step-1 grads of all {len(grads_p)} parameters within "
+        f"{GRAD_REL_L2} relative L2 (+{GRAD_FLOOR}/entry) of the plain-version"
+        f" step; largest relative L2 {worst[0]:.2e} ({worst[1]})")
+    np.testing.assert_allclose(losses_k, losses_p, rtol=LOSS_RTOL,
+                               err_msg="loss trajectory")
+    log(f"[train] loss trajectory kernels {losses_k} vs plain {losses_p}; "
+        f"plain-version step median {float(np.median(times_p)):.1f} ms")
+    train_ms = float(np.median(times_k))
+    log(f"[train] full-width train step median {train_ms:.1f} ms over "
+        f"{TRAIN_STEPS} steps")
+    del model_p, opt_p, grads_p
+    profile_call("train step", lambda: train_step(
+        model_k, opt_k, train_batches[0],
+        torch.Generator(device="cuda").manual_seed(2000)))
     log(f"[run] total {time.time() - t_start:.0f} s")
 
     kernels = []
@@ -491,16 +763,23 @@ def main():
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"stratified_transformer_torch/csrc/{name}.cu",
-            "replaces": path, "launches": launches[name],
+            "replaces": path, "launches": train_launches[name],
+            "eval_launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["bound_by"], key=r["bound_by"].get),
             "library_ms": None})
-    print(json.dumps({"kernels": kernels,
-                      "times_per": "one full-width forward",
-                      "launches_over_forwards": EVAL_BATCHES,
-                      "eval_forward_ms": fwd_ms,
-                      "max_memory_allocated_mib": peak_mb}))
+    print(json.dumps({
+        "kernels": kernels,
+        "times_per": "one full-width training step (12 launches of each "
+                     "kernel; a forward kernel's time is also one eval "
+                     "forward's)",
+        "launches_over_train_steps": TRAIN_STEPS,
+        "eval_launches_over_forwards": EVAL_BATCHES,
+        "train_step_ms": train_ms,
+        "train_max_memory_allocated_mib": train_peak_mb,
+        "eval_forward_ms": fwd_ms,
+        "eval_max_memory_allocated_mib": peak_mb}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
+
 from stratified_transformer_torch.utils.config import CfgNode, load_cfg
 
 
@@ -31,6 +33,7 @@ class StratifiedConfig:
     rel_query: bool = True
     rel_key: bool = True
     rel_value: bool = True
+    drop_path_rate: float = 0.3
     concat_xyz: bool = True
     up_k: int = 3
     ratio: float = 0.25
@@ -80,6 +83,13 @@ class StratifiedConfig:
     def quant_sizes(self):
         return [self.quant_size * 2 ** i for i in range(self.num_layers)]
 
+    def drop_path_schedule(self):
+        """Drop-path rate of each block in global order,
+        ``linspace(0, rate, sum(depths))`` (``models/stratified.py:165-168``);
+        block ``b`` of stage ``i`` takes entry ``sum(depths[:i]) + b``."""
+        return [float(x) for x in
+                np.linspace(0.0, self.drop_path_rate, sum(self.depths))]
+
     def stage_band(self, i):
         return (self.band_per_stage[i] if self.band_per_stage is not None
                 else self.band)
@@ -123,6 +133,7 @@ def from_cfg(cfg: CfgNode) -> StratifiedConfig:
         rel_query=bool(cfg.get("rel_query", True)),
         rel_key=bool(cfg.get("rel_key", True)),
         rel_value=bool(cfg.get("rel_value", True)),
+        drop_path_rate=float(cfg.get("drop_path_rate", 0.3)),
         concat_xyz=concat_xyz,
         up_k=int(cfg.get("up_k", 3)),
         ratio=float(cfg.get("ratio", 0.25)),

@@ -15,7 +15,7 @@ from stratified_transformer_torch.data.prepare import data_prepare
 class SyntheticRooms:
     def __init__(self, num_scenes=16, points=60_000, extent=6.0,
                  num_classes=13, voxel_size=0.04, voxel_max=None,
-                 seed=0, split="train"):
+                 seed=0, split="train", transform=None, transform_rng=None):
         self.num_scenes = num_scenes
         self.points = points
         self.extent = extent
@@ -24,6 +24,9 @@ class SyntheticRooms:
         self.voxel_max = voxel_max
         self.seed = seed
         self.split = split
+        # training augmentation and the generator it draws from
+        self.transform = transform
+        self.transform_rng = transform_rng
 
     def __len__(self):
         return self.num_scenes
@@ -77,4 +80,5 @@ class SyntheticRooms:
         rng = np.random.default_rng(self.seed + 7919 * (idx + 1))
         return data_prepare(
             coord, feat, label, self.split, self.voxel_size, self.voxel_max,
-            feat_scale=255.0, rng=rng)
+            feat_scale=255.0, rng=rng, transform=self.transform,
+            transform_rng=self.transform_rng)

@@ -1,9 +1,9 @@
 """Per-sample preparation pipeline (numpy, host-side).
 
 The JAX package's ``data/prepare.py`` (reference ``util/data_util.py:154-255``):
-voxelize (random point per voxel) -> sphere-crop to ``voxel_max`` around a
-random (train) / central (val) seed -> shift coords to their min corner ->
-feature scaling.
+transform (training augmentation) -> voxelize (random point per voxel) ->
+sphere-crop to ``voxel_max`` around a random (train) / central (val) seed
+-> shift coords to their min corner -> feature scaling.
 """
 
 from __future__ import annotations
@@ -35,14 +35,21 @@ def data_prepare(
     voxel_max=None,
     feat_scale=255.0,
     rng: Optional[np.random.Generator] = None,
+    transform=None,
+    transform_rng: Optional[np.random.Generator] = None,
 ):
-    """Returns a scene dict ``{xyz, feats, labels}`` for `collate_scenes`."""
+    """Returns a scene dict ``{xyz, feats, labels}`` for `collate_scenes`.
+
+    ``transform`` (e.g. `data.transforms.train_transform`) augments the raw
+    points first, as the JAX package does, drawing from ``transform_rng``."""
     if rng is None:
         raise ValueError("data_prepare needs an explicit numpy Generator")
     coord = np.asarray(coord, np.float32).copy()
     feat = np.asarray(feat, np.float32).copy()
     label = np.asarray(label).copy()
 
+    if transform is not None:
+        coord, feat = transform(coord, feat, transform_rng)
     if voxel_size:
         coord -= coord.min(0)
         uniq = voxelize(coord, voxel_size, rng)

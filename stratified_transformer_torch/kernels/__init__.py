@@ -52,8 +52,10 @@ def ptr(t):
 
 
 def check_cuda_inputs(name, tensors):
-    """Every given tensor lies on one CUDA device and needs no gradient
-    (the kernels have no backward yet)."""
+    """Every given tensor lies on one CUDA device, and none needs a gradient
+    while autograd records: a wrapper is no autograd node itself (the
+    autograd Function of ``ops/attention_fused.py`` pairs the forward and
+    backward kernels)."""
     dev = None
     for t in tensors:
         if t is None:
@@ -65,7 +67,9 @@ def check_cuda_inputs(name, tensors):
         dev = t.device
         if t.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(
-                f"{name}: the CUDA kernel has no backward yet; run under "
+                f"{name}: the wrapper records no autograd graph; call "
+                "ops.attention_fused.stratified_attention_fused, whose "
+                "autograd Function runs the backward kernels, or run under "
                 "torch.no_grad()")
     return dev
 
@@ -81,3 +85,12 @@ def pack_tables(tables, lo, rows):
 
 def stream_of(dev):
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def sum_table_partials(dt_part, tables):
+    """Per-(tile, head) table grads ``[tiles, h, 3 tables, 3 axes, nb, d]``
+    -> one ``[nb, h, d, 3]`` grad per present table (None for an absent
+    one), summed over tiles in order."""
+    return tuple(
+        None if t is None else dt_part[:, :, i].sum(0).permute(2, 0, 3, 1)
+        for i, t in enumerate(tables))

@@ -3,8 +3,8 @@
 114-248``).
 
 Fused QKV projection, contextual RPE tables of shape ``(2*qgl, heads,
-head_dim, 3)``, attention in fp32, pre-LN residual blocks. Drop-path is an
-identity in eval mode, the only mode this slice runs.
+head_dim, 3)``, attention in fp32, pre-LN residual blocks with drop-path in
+training mode.
 """
 
 from __future__ import annotations
@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from stratified_transformer_torch.models.layers import Mlp, layer_norm
+from stratified_transformer_torch.models.layers import (
+    Mlp, drop_path, layer_norm)
 from stratified_transformer_torch.ops.attention_fused import (
     stratified_attention_fused)
 
@@ -61,12 +62,14 @@ class WindowAttention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN attention + MLP (reference :219-248)."""
+    """Pre-LN attention + MLP, each branch through drop-path in training
+    mode (reference :219-248; ``models/attention.py:175-203``)."""
 
     def __init__(self, dim, num_heads, window_size, quant_size, *, band,
                  tile, s_band, mlp_ratio=4.0, rel_query=True, rel_key=True,
-                 rel_value=True, plain=False):
+                 rel_value=True, plain=False, drop_path_rate=0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.norm1 = layer_norm(dim)
         self.attn = WindowAttention(
             dim, num_heads, window_size, quant_size, band=band, tile=tile,
@@ -75,6 +78,10 @@ class Block(nn.Module):
         self.norm2 = layer_norm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
-    def forward(self, feats, plan):
-        feats = feats + self.attn(self.norm1(feats), plan)
-        return feats + self.mlp(self.norm2(feats))
+    def forward(self, feats, plan, generator=None):
+        """``generator`` draws the drop-path masks (training mode only)."""
+        rate = self.drop_path_rate if self.training else 0.0
+        feats = feats + drop_path(self.attn(self.norm1(feats), plan), rate,
+                                  generator)
+        return feats + drop_path(self.mlp(self.norm2(feats)), rate,
+                                 generator)

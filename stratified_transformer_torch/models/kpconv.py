@@ -74,14 +74,15 @@ class KPConv(nn.Module):
 
 
 class KPConvSimpleBlock(nn.Module):
-    """KPConv -> BN -> LeakyReLU(0.2) (reference :344-359)."""
+    """KPConv -> BN (momentum 0.02) -> LeakyReLU(0.2) (reference
+    :344-359)."""
 
     def __init__(self, in_channels, out_channels, point_influence,
                  negative_slope=0.2):
         super().__init__()
         self.negative_slope = negative_slope
         self.kpconv = KPConv(in_channels, out_channels, point_influence)
-        self.bn = MaskedBatchNorm(out_channels)
+        self.bn = MaskedBatchNorm(out_channels, momentum=0.02)
 
     def forward(self, feats, xyz, neighbor_idx, neighbor_mask, valid):
         x = self.kpconv(feats, xyz, neighbor_idx, neighbor_mask)

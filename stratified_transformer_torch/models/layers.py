@@ -1,5 +1,4 @@
-"""Shared model building blocks, eval mode (the JAX package's
-``models/layers.py``).
+"""Shared model building blocks (the JAX package's ``models/layers.py``).
 
 Module and parameter names mirror the flax ones (``norm``, ``linear``,
 ``fc1``...) so that `convert.from_flax` is a mechanical walk. Mirrors the
@@ -20,24 +19,37 @@ def layer_norm(dim):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over valid points with running statistics; this slice runs
-    it in eval mode only: ``(x - mean) * rsqrt(var + eps) * weight + bias``.
-    Buffers ``mean``/``var`` hold the flax ``batch_stats``."""
+    """BatchNorm over valid points with running statistics (``layers.py:
+    45-88``): ``(x - mean) * rsqrt(var + eps) * weight + bias``. Training
+    mode normalises with the valid points' batch statistics and updates the
+    buffers in place, torch style: ``(1 - momentum) * running + momentum *
+    batch``, the variance unbiased (``var * cnt / (cnt - 1)``). Buffers
+    ``mean``/``var`` hold the flax ``batch_stats``."""
 
-    def __init__(self, dim, epsilon=1e-5):
+    def __init__(self, dim, epsilon=1e-5, momentum=0.1):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("mean", torch.zeros(dim))
         self.register_buffer("var", torch.ones(dim))
 
     def forward(self, x, valid):
+        xf = x.to(torch.float32)
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm statistics updates are not ported yet")
-        y = (x.to(torch.float32) - self.mean) * torch.rsqrt(
-            self.var + self.epsilon)
+            w = valid.to(torch.float32)[:, None]
+            count = w.sum().clamp_min(1.0)
+            mean = (xf * w).sum(0) / count
+            var = ((xf * xf * w).sum(0) / count - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * count / (count - 1.0).clamp_min(1.0)
+                self.mean.copy_((1 - m) * self.mean + m * mean)
+                self.var.copy_((1 - m) * self.var + m * unbiased)
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         return (y * self.weight + self.bias).to(x.dtype)
 
 
@@ -51,6 +63,20 @@ class Mlp(nn.Module):
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+
+
+def drop_path(x, rate, generator):
+    """Per-point stochastic depth (``layers.py:111-118``, timm ``DropPath``):
+    each row is kept with probability ``1 - rate`` and scaled by
+    ``1 / (1 - rate)``. The keep mask is drawn from ``generator`` (a
+    ``torch.Generator`` on ``x``'s device), so a seed fixes it."""
+    if rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape[0], generator=generator,
+                      device=x.device) < keep
+    return torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)), x / keep,
+                       torch.zeros_like(x))
 
 
 def gather_group(feats, idx, mask, fill=0.0):
@@ -93,7 +119,8 @@ class TransitionDown(nn.Module):
         projected = self.linear(self.norm(feats))
         gathered = gather_group(projected, precomp["knn_idx"],
                                 precomp["knn_mask"], fill=-float("inf"))
-        pooled = gathered.max(1).values
+        # amax splits the gradient evenly among tied maxima, as JAX's max
+        pooled = gathered.amax(1)
         pooled = torch.where(out_valid[:, None], pooled,
                              torch.zeros_like(pooled))
         return pooled, xyz[idx], precomp["offsets"]

@@ -5,10 +5,11 @@
 KPConv stem, U-Net encoder of `BasicLayer` stages with stratified window
 attention, ``TransitionDown``/``Upsample`` pyramid, classifier head. Flat
 ``[N_pad]`` arrays + cumulative ``offsets``; per-stage attention plans are
-built once per shift parity and shared across the stage's blocks. This slice
-runs the evaluation forward from a host-computed batch: stem radius
-neighbours and geometry pyramid arrive with the batch
-(``data/loader.py::host_batch``).
+built once per shift parity and shared across the stage's blocks. The
+forward runs from a host-computed batch: stem radius neighbours and
+geometry pyramid arrive with the batch (``data/loader.py::host_batch``).
+In training mode the BatchNorms use batch statistics and the blocks
+drop-path with the rates of ``StratifiedConfig.drop_path_schedule``.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ class BasicLayer(nn.Module):
         self.cfg = cfg
         self.stage = stage
         i = stage
+        rates = cfg.drop_path_schedule()[sum(cfg.depths[:i]):]
         for b in range(cfg.depths[i]):
             self.add_module(f"blocks_{b}", Block(
                 cfg.channels[i], cfg.num_heads[i], cfg.window_sizes()[i],
@@ -48,9 +50,10 @@ class BasicLayer(nn.Module):
                 s_band=cfg.s_band, mlp_ratio=cfg.mlp_ratio,
                 rel_query=cfg.rel_query, rel_key=cfg.rel_key,
                 rel_value=cfg.rel_value,
-                plain=cfg.attn_impl == "reference"))
+                plain=cfg.attn_impl == "reference",
+                drop_path_rate=rates[b]))
 
-    def forward(self, feats, xyz, offsets, is_down):
+    def forward(self, feats, xyz, offsets, is_down, generator=None):
         cfg = self.cfg
         n = xyz.shape[0]
         batch = sampling.offsets_to_batch(offsets, n)
@@ -64,7 +67,8 @@ class BasicLayer(nn.Module):
             for parity in (0, 1)
         ]
         for b in range(cfg.depths[self.stage]):
-            feats = getattr(self, f"blocks_{b}")(feats, plans[b % 2])
+            feats = getattr(self, f"blocks_{b}")(feats, plans[b % 2],
+                                                  generator)
         return feats
 
 
@@ -87,11 +91,13 @@ class Stratified(nn.Module):
         self.cls_fc2 = nn.Linear(c[0], cfg.num_classes)
 
     def forward(self, feats, xyz, offsets, *, stem_nidx, stem_nmask,
-                pyramid):
+                pyramid, generator=None):
         """feats ``[N_pad, C_in]``, xyz ``[N_pad, 3]``, offsets ``[B]``;
         stem_nidx/stem_nmask ``[N_pad, K]`` host radius neighbours; pyramid
-        the host geometry pyramid. Returns ``(logits [N_pad, classes],
-        None)`` (the offset head is not ported yet)."""
+        the host geometry pyramid; ``generator`` (a ``torch.Generator`` on
+        the model's device) draws the drop-path masks in training mode.
+        Returns ``(logits [N_pad, classes], None)`` (the offset head is not
+        ported yet)."""
         cfg = self.cfg
         n = xyz.shape[0]
         if n % cfg.tile:
@@ -102,7 +108,8 @@ class Stratified(nn.Module):
         stack = []
         for i in range(cfg.num_layers):
             feats = getattr(self, f"layer_{i}")(
-                feats, xyz, offsets, pyramid["stage_down"][i]["is_down"])
+                feats, xyz, offsets, pyramid["stage_down"][i]["is_down"],
+                generator)
             stack.append((feats, xyz, offsets))
             if i < cfg.num_layers - 1:
                 feats, xyz, offsets = getattr(self, f"down_{i}")(
@@ -154,9 +161,11 @@ def init_weights(model: nn.Module, seed: int = 0):
             _trunc_normal_(p, 0.02, gen)
 
 
-def build_model(cfg: StratifiedConfig, device="cuda", seed=0) -> Stratified:
-    """An eval-mode `Stratified` with weights from ``seed`` on ``device``."""
+def build_model(cfg: StratifiedConfig, device="cuda", seed=0,
+                train=False) -> Stratified:
+    """A `Stratified` with weights from ``seed`` on ``device``, in eval mode
+    or, with ``train=True``, in training mode."""
     dev = resolve_device(device)
     model = Stratified(cfg)
     init_weights(model, seed)
-    return model.to(dev).eval()
+    return model.to(dev).train(train)

@@ -14,7 +14,10 @@ Per query, one softmax spans two key sets (reference
 Logits are ``q·k + Σ_a q·T_q[bin_a] + Σ_a k·T_k[bin_a]`` over the 3 axes;
 values are ``v + Σ_a T_v[bin_a]``. Each half returns the unnormalised
 online-softmax triple ``(acc [N,h,d], m [N,h], den [N,h])``; `merge`
-composes them. These are the arithmetic the CUDA kernels in
+composes them. The backward of each half (`band_attention_bwd_plain`,
+`sparse_band_attention_bwd_plain`) takes the cotangent and the MERGED
+statistics and output, and returns the grads of q, k, v and the tables.
+These are the arithmetic the CUDA kernels in
 ``stratified_transformer_torch/csrc`` implement: the tests hold them
 against the JAX package's Pallas kernels, and the chip smoke run holds the
 kernels against them.
@@ -27,8 +30,8 @@ import torch
 
 NEG_INF = -1e30
 
-# Tiles per vectorised step of the plain versions: bounds the [B, h, T, W]
-# pair tensors to ~2**24 elements each.
+# Tiles per vectorised step of the plain versions (forward and backward):
+# bounds the [B, h, T, W] pair tensors to ~2**24 elements each.
 _PAIR_BUDGET = 1 << 24
 
 _INV_1E5 = float(np.float32(1e-5))
@@ -76,16 +79,17 @@ def num_bins(table_q, table_k, table_v):
     return 0
 
 
-def _triple(q_t, x_t, k_b, v_b, x_b, mask, tables, *, window_size,
-            quant_size, num_bins_full, bin_lo, nb):
-    """Online-softmax triple for a batch of query tiles.
+def _logits(q_t, x_t, k_b, x_b, mask, tables, *, window_size, quant_size,
+            num_bins_full, bin_lo, nb):
+    """Masked logits ``[B,h,T,W]`` of a batch of query tiles and the clamped
+    per-axis bins ``[B,T,W,3]`` (None without tables).
 
-    q_t ``[B,T,h,d]`` (pre-scaled), x_t ``[B,T,3]``, k_b/v_b ``[B,W,h,d]``,
+    q_t ``[B,T,h,d]`` (pre-scaled), x_t ``[B,T,3]``, k_b ``[B,W,h,d]``,
     x_b ``[B,W,3]``, mask ``[B,T,W]``; tables ``(tq, tk, tv)`` each
     ``[nb,h,d,3]`` or None.
     """
-    tq, tk, tv = tables
-    bsz, t, h, d = q_t.shape
+    tq, tk, _ = tables
+    bsz, t, h, _ = q_t.shape
     w = k_b.shape[1]
     logits = torch.einsum("bthd,bwhd->bhtw", q_t, k_b)
     ridx = None
@@ -105,19 +109,82 @@ def _triple(q_t, x_t, k_b, v_b, x_b, mask, tables, *, window_size,
             logits = logits + kproj[:, :, None].expand(
                 bsz, h, t, w, nb).gather(
                 4, r_a[:, None, :, :, None].expand(bsz, h, t, w, 1))[..., 0]
+    return torch.where(mask[:, None], logits, NEG_INF), ridx
+
+
+def _bin_mass(ridx_a, weights, nb):
+    """``[B,h,T,nb]`` sums of ``weights [B,h,T,W]`` over the keys of each
+    bin ``ridx_a [B,T,W]``."""
+    bsz, h, t, w = weights.shape
+    mass = torch.zeros(bsz, h, t, nb, dtype=weights.dtype,
+                       device=weights.device)
+    return mass.scatter_add_(3, ridx_a[:, None].expand(bsz, h, t, w),
+                             weights)
+
+
+def _triple(q_t, x_t, k_b, v_b, x_b, mask, tables, **bins):
+    """Online-softmax triple ``(acc [B,T,h,d], m [B,T,h], den [B,T,h])``
+    for a batch of query tiles (arguments as `_logits`)."""
+    tv = tables[2]
+    logits, ridx = _logits(q_t, x_t, k_b, x_b, mask, tables, **bins)
     mask_h = mask[:, None]
-    logits = torch.where(mask_h, logits, NEG_INF)
     m = logits.amax(-1).clamp_min(NEG_INF)                          # [B,h,T]
     p = torch.where(mask_h, torch.exp(logits - m[..., None]), 0.0)
     den = p.sum(-1)
     acc = torch.einsum("bhtw,bwhd->bthd", p, v_b)
     if tv is not None and ridx is not None:
         for a in range(3):
-            mass = torch.zeros(bsz, h, t, nb, dtype=p.dtype, device=p.device)
-            mass.scatter_add_(
-                3, ridx[..., a][:, None].expand(bsz, h, t, w), p)
-            acc = acc + torch.einsum("bhtl,lhd->bthd", mass, tv[..., a])
+            acc = acc + torch.einsum("bhtl,lhd->bthd",
+                                     _bin_mass(ridx[..., a], p, bins["nb"]),
+                                     tv[..., a])
     return acc, m.transpose(1, 2), den.transpose(1, 2)
+
+
+def _triple_bwd(q_t, x_t, k_b, v_b, x_b, mask, tables, g_t, o_t, m_t, den_t,
+                **bins):
+    """Backward of a batch of query tiles against the merged statistics
+    (``fused_attention_bwd.py:5-15``): ``r = exp(l - m) / den`` and
+    ``dl = r * (g·(v + ΣT_v[bin]) - g·o)``.
+
+    g_t/o_t ``[B,T,h,d]``, m_t/den_t ``[B,T,h]``. Returns ``(dq_t
+    [B,T,h,d]`` (w.r.t. the pre-scaled q), ``dk_w, dv_w [B,W,h,d]`` per key
+    slot of each tile, ``(dtq, dtk, dtv)`` each ``[nb,h,d,3]`` summed over
+    the batch or None).
+    """
+    tq, tk, tv = tables
+    nb = bins["nb"]
+    logits, ridx = _logits(q_t, x_t, k_b, x_b, mask, tables, **bins)
+    m = m_t.transpose(1, 2)[..., None]                              # [B,h,T,1]
+    den = den_t.transpose(1, 2).clamp_min(1e-20)[..., None]
+    r = torch.where(mask[:, None], torch.exp(logits - m) / den, 0.0)
+    gv = torch.einsum("bthd,bwhd->bhtw", g_t, v_b)
+    if tv is not None and ridx is not None:
+        bsz, h, t, w = gv.shape
+        for a in range(3):
+            gproj = torch.einsum("bthd,lhd->bhtl", g_t, tv[..., a])
+            gv = gv + gproj.gather(
+                3, ridx[..., a][:, None].expand(bsz, h, t, w))
+    go = (g_t * o_t).sum(-1).transpose(1, 2)[..., None]            # [B,h,T,1]
+    dl = r * (gv - go)
+    dq = torch.einsum("bhtw,bwhd->bthd", dl, k_b)
+    dk = torch.einsum("bhtw,bthd->bwhd", dl, q_t)
+    dv = torch.einsum("bhtw,bthd->bwhd", r, g_t)
+    dtabs = [None if tb is None or ridx is None else torch.zeros_like(tb)
+             for tb in tables]
+    for a in range(3 if ridx is not None else 0):
+        r_a = ridx[..., a]
+        if tq is not None:
+            dmq = _bin_mass(r_a, dl, nb)                            # [B,h,T,nb]
+            dq = dq + torch.einsum("bhtl,lhd->bthd", dmq, tq[..., a])
+            dtabs[0][..., a] = torch.einsum("bhtl,bthd->lhd", dmq, q_t)
+        if tk is not None:
+            dmk = _bin_mass(r_a.transpose(1, 2), dl.transpose(2, 3), nb)
+            dk = dk + torch.einsum("bhwl,lhd->bwhd", dmk, tk[..., a])
+            dtabs[1][..., a] = torch.einsum("bhwl,bwhd->lhd", dmk, k_b)
+        if tv is not None:
+            dtabs[2][..., a] = torch.einsum(
+                "bhtl,bthd->lhd", _bin_mass(r_a, r, nb), g_t)
+    return dq, dk, dv, tuple(dtabs)
 
 
 def _tile_batches(nt, tile, w, h):
@@ -172,6 +239,106 @@ def band_attention_plain(q, k, v, xyz, seg_start, seg_end, valid,
         m[s * tile:e * tile] = m_.reshape(-1, h)
         den[s * tile:e * tile] = d_.reshape(-1, h)
     return acc, m, den
+
+
+def compose_band(part, band, tile, n):
+    """Per-tile key-slot partials ``[nt, tile + 2*band, ...]`` -> ``[n, ...]``
+    summed by absolute key position (slot ``s`` of tile ``t`` is key
+    ``t*tile - band + s``). The slots are taken ``tile`` at a time: each such
+    run over all tiles is one contiguous shifted add, for any ``band``
+    (``fused_attention_bwd.py::diag_add`` needs ``band % tile == 0``)."""
+    nt, w = part.shape[:2]
+    rest = tuple(part.shape[2:])
+    runs = -(-w // tile)
+    if runs * tile != w:
+        part = torch.cat([part, part.new_zeros((nt, runs * tile - w) + rest)],
+                         1)
+    total = part.new_zeros((n,) + rest)
+    for j in range(runs):
+        rows = part[:, j * tile:(j + 1) * tile].reshape((nt * tile,) + rest)
+        shift = j * tile - band
+        if abs(shift) >= n:
+            continue                    # band wider than the whole input
+        if shift >= 0:
+            total[shift:] += rows[:n - shift]
+        else:
+            total[:n + shift] += rows[-shift:]
+    return total
+
+
+def place_table_grads(dtabs, bin_lo, num_bins_full):
+    """Table-slice grads ``[nb,h,d,3]`` -> zero ``[L,h,d,3]`` with the slice
+    at row ``bin_lo`` (None passing through)."""
+    out = []
+    for t in dtabs:
+        if t is not None and t.shape[0] != num_bins_full:
+            full = t.new_zeros((num_bins_full,) + tuple(t.shape[1:]))
+            full[bin_lo:bin_lo + t.shape[0]] = t
+            t = full
+        out.append(t)
+    return tuple(out)
+
+
+def _sum_tables(acc, dt):
+    return [a if b is None else (b if a is None else a + b)
+            for a, b in zip(acc, dt)]
+
+
+def band_attention_bwd_plain(q, k, v, xyz, seg_start, seg_end, valid, g, o,
+                             m, den, table_q=None, table_k=None, table_v=None,
+                             *, window_size, quant_size, scale, band,
+                             tile=128):
+    """Backward of the dense half w.r.t. ``(q, k, v, table_q/k/v)``.
+
+    Arguments as `band_attention_plain`, plus the output cotangent ``g``
+    ``[N,h,d]``, the normalised merged output ``o`` ``[N,h,d]`` and the
+    statistics ``m``/``den`` ``[N,h]`` merged over BOTH halves. Returns
+    ``(dq, dk, dv, dtq, dtk, dtv)``; a table's grad is None when the table
+    is. dk/dv are composed from per-tile slots by absolute key position
+    (`compose_band`), so any ``band`` works.
+    """
+    n, h, d = q.shape
+    if n % tile:
+        raise ValueError(f"N={n} is not a multiple of tile={tile}")
+    nt = n // tile
+    w = tile + 2 * band
+    dev = q.device
+    qf = q.to(torch.float32) * scale
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    gf, of = g.to(torch.float32), o.to(torch.float32)
+    mf, denf = m.to(torch.float32), den.to(torch.float32)
+    xf = xyz.to(torch.float32)
+    num_bins_full = num_bins(table_q, table_k, table_v)
+    bin_lo, nb = (band_table_slice(num_bins_full) if num_bins_full
+                  else (0, 0))
+    tables = tuple(None if tb is None else
+                   tb.to(torch.float32)[bin_lo:bin_lo + nb]
+                   for tb in (table_q, table_k, table_v))
+
+    dq = torch.empty(n, h, d, dtype=torch.float32, device=dev)
+    dk_part = torch.empty(nt, w, h, d, dtype=torch.float32, device=dev)
+    dv_part = torch.empty_like(dk_part)
+    dtabs = [None, None, None]
+    for s, e in _tile_batches(nt, tile, w, h):
+        rows = torch.arange(s * tile, e * tile, device=dev).view(e - s, tile)
+        pos = (torch.arange(s, e, device=dev)[:, None] * tile - band
+               + torch.arange(w, device=dev)[None])                 # [B,W]
+        inside = (pos >= 0) & (pos < n)
+        safe = pos.clamp(0, n - 1)
+        mask = ((pos[:, None, :] >= seg_start[rows][..., None].long())
+                & (pos[:, None, :] < seg_end[rows][..., None].long())
+                & valid[rows][..., None]
+                & (valid[safe] & inside)[:, None, :])
+        dq_, dk_part[s:e], dv_part[s:e], dt = _triple_bwd(
+            qf[rows], xf[rows], kf[safe], vf[safe], xf[safe], mask, tables,
+            gf[rows], of[rows], mf[rows], denf[rows],
+            window_size=window_size, quant_size=quant_size,
+            num_bins_full=num_bins_full, bin_lo=bin_lo, nb=nb)
+        dq[s * tile:e * tile] = dq_.reshape(-1, h, d)
+        dtabs = _sum_tables(dtabs, dt)
+    return (dq * scale, compose_band(dk_part, band, tile, n),
+            compose_band(dv_part, band, tile, n)) + place_table_grads(
+                dtabs, bin_lo, num_bins_full)
 
 
 def sparse_inputs(q, k, v, sb, scale):
@@ -243,6 +410,78 @@ def sparse_band_attention_plain(q, k, v, sb, table_q=None, table_k=None,
         den[s0 * tile:e0 * tile] = d_.reshape(-1, h)
     u = sb.lw_unmap.long()
     return acc[u], m[u], den[u]
+
+
+def sparse_bwd_finish(sb, dq_lw, dk_part, dv_part, bases):
+    """The plain PyTorch around the sparse backward (``fused_attention_bwd.
+    py:797-812``): dq from lw order back to small-window order; dk/dv from
+    each tile's window ``[nt, s, h, d]`` scatter-added into aux slots, then
+    into points through ``sb_src`` where ``sb_valid``."""
+    n = dq_lw.shape[0]
+    nt, s = dk_part.shape[:2]
+    rest = tuple(dk_part.shape[2:])
+    slots = (bases[:, None] + torch.arange(s, device=bases.device)[None]
+             ).reshape(-1)
+    src = sb.sb_src.clamp(0, n - 1).long()
+    ok = sb.sb_valid.reshape((-1,) + (1,) * len(rest))
+    out = []
+    for part in (dk_part, dv_part):
+        aux = part.new_zeros((sb.sb_src.shape[0],) + rest).index_add_(
+            0, slots, part.reshape((nt * s,) + rest))
+        out.append(part.new_zeros((n,) + rest).index_add_(
+            0, src, torch.where(ok, aux, 0.0)))
+    return dq_lw[sb.lw_unmap.long()], out[0], out[1]
+
+
+def sparse_band_attention_bwd_plain(q, k, v, sb, g, o, m, den, table_q=None,
+                                    table_k=None, table_v=None, *,
+                                    window_size, quant_size, scale,
+                                    s_band=128, tile=128):
+    """Backward of the far-key half w.r.t. ``(q, k, v, table_q/k/v)``.
+
+    q/k/v/g/o ``[N,h,d]`` and m/den ``[N,h]`` in small-window-sorted order,
+    the statistics merged over BOTH halves. Returns ``(dq, dk, dv, dtq, dtk,
+    dtv)`` in small-window order; the tables' grads cover every bin.
+    """
+    n, h, d = q.shape
+    if n % tile:
+        raise ValueError(f"N={n} is not a multiple of tile={tile}")
+    nt = n // tile
+    dev = q.device
+    q_lw, k_aux, v_aux = sparse_inputs(q, k, v, sb, scale)
+    lw = sb.lw_map.long()
+    g_lw, o_lw = g.to(torch.float32)[lw], o.to(torch.float32)[lw]
+    m_lw, den_lw = m.to(torch.float32)[lw], den.to(torch.float32)[lw]
+    s, bases = sparse_window(sb, tile, s_band)
+    num_bins_full = num_bins(table_q, table_k, table_v)
+    tables = tuple(None if tb is None else tb.to(torch.float32)
+                   for tb in (table_q, table_k, table_v))
+    x_lw = sb.xyz_lw.to(torch.float32)
+    x_aux = sb.sb_xyz.to(torch.float32)
+
+    dq_lw = torch.empty(n, h, d, dtype=torch.float32, device=dev)
+    dk_part = torch.empty(nt, s, h, d, dtype=torch.float32, device=dev)
+    dv_part = torch.empty_like(dk_part)
+    dtabs = [None, None, None]
+    for s0, e0 in _tile_batches(nt, tile, s, h):
+        rows = torch.arange(s0 * tile, e0 * tile, device=dev).view(
+            e0 - s0, tile)
+        pos = bases[s0:e0, None] + torch.arange(s, device=dev)[None]
+        mask = ((pos[:, None, :] >= sb.sb_start[rows][..., None].long())
+                & (pos[:, None, :] < sb.sb_end[rows][..., None].long())
+                & (sb.sb_skey[pos][:, None, :]
+                   != sb.q_skey_lw[rows][..., None])
+                & sb.valid_lw[rows][..., None]
+                & sb.sb_valid[pos][:, None, :])
+        dq_, dk_part[s0:e0], dv_part[s0:e0], dt = _triple_bwd(
+            q_lw[rows], x_lw[rows], k_aux[pos], v_aux[pos], x_aux[pos],
+            mask, tables, g_lw[rows], o_lw[rows], m_lw[rows], den_lw[rows],
+            window_size=window_size, quant_size=quant_size,
+            num_bins_full=num_bins_full, bin_lo=0, nb=num_bins_full)
+        dq_lw[s0 * tile:e0 * tile] = dq_.reshape(-1, h, d)
+        dtabs = _sum_tables(dtabs, dt)
+    return sparse_bwd_finish(sb, dq_lw * scale, dk_part, dv_part,
+                             bases) + tuple(dtabs)
 
 
 def merge(parts):

@@ -1,5 +1,6 @@
 """Masked cross-entropy with an ignore label (reference
-``nn.CrossEntropyLoss(ignore_index=ignore_label)``, ``train.py:123-124``)."""
+``nn.CrossEntropyLoss(ignore_index=ignore_label)``, ``train.py:123-124``;
+label smoothing as ``util/common_util.py:180-185``)."""
 
 from __future__ import annotations
 
@@ -7,13 +8,20 @@ import torch
 from torch.nn import functional as F
 
 
-def cross_entropy(logits, labels, ignore_label, valid=None):
-    """Mean CE over non-ignored valid points."""
+def cross_entropy(logits, labels, ignore_label, valid=None, smoothing=0.0):
+    """Mean CE over non-ignored valid points; with ``smoothing`` the target
+    is ``one_hot * (1 - smoothing) + smoothing / classes``."""
     mask = labels != ignore_label
     if valid is not None:
         mask = mask & valid
-    safe = labels.clamp(0, logits.shape[-1] - 1).long()
+    n_class = logits.shape[-1]
+    safe = labels.clamp(0, n_class - 1).long()
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -logp.gather(1, safe[:, None])[:, 0]
+    if smoothing > 0.0:
+        target = (F.one_hot(safe, n_class).to(logp.dtype) * (1 - smoothing)
+                  + smoothing / n_class)
+        nll = -(target * logp).sum(-1)
+    else:
+        nll = -logp.gather(1, safe[:, None])[:, 0]
     nll = torch.where(mask, nll, torch.zeros_like(nll))
     return nll.sum() / mask.sum().clamp_min(1)

@@ -1,6 +1,5 @@
-"""The forward-only evaluation step (the JAX package's
-``train/step.py::make_eval_step``; reference val loop
-``train_backup.py:397-409``)."""
+"""Train and eval steps (the JAX package's ``train/step.py``; reference
+loop body ``train.py:314-358``, val loop ``train_backup.py:397-409``)."""
 
 from __future__ import annotations
 
@@ -8,6 +7,44 @@ import torch
 
 from stratified_transformer_torch.ops import sampling
 from stratified_transformer_torch.train import losses, metrics
+from stratified_transformer_torch.train.state import optimizer_step
+
+
+def make_train_step(ignore_label, num_classes):
+    """Returns ``train_step(model, optimizer, batch, generator) -> stats``:
+    forward in training mode (batch statistics, drop-path masks from
+    ``generator``), masked CE, backward through the attention kernels, one
+    scheduled optimizer update (`train.state.optimizer_step`), IoU counters.
+    The stats keys are the JAX step's (``train/step.py:68-72``).
+
+    ``batch`` holds device tensors as for `make_eval_step`.
+    """
+
+    def train_step(model, optimizer, batch, generator=None):
+        if not model.training:
+            raise ValueError("train_step expects a model in training mode")
+        n = batch["xyz"].shape[0]
+        valid = sampling.offsets_to_valid(batch["offsets"], n)
+        logits, _ = model(
+            batch["feats"], batch["xyz"], batch["offsets"],
+            stem_nidx=batch["stem_nidx"], stem_nmask=batch["stem_nmask"],
+            pyramid=batch["pyramid"], generator=generator)
+        loss = losses.cross_entropy(logits, batch["labels"], ignore_label,
+                                    valid)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer_step(optimizer)
+        with torch.no_grad():
+            pred = logits.argmax(-1)
+            inter, union, target = metrics.intersection_and_union(
+                pred, batch["labels"], num_classes, ignore_label, valid)
+        loss = loss.detach()
+        return {"loss": loss, "loss_seg": loss,
+                "loss_offset": torch.zeros_like(loss),
+                "intersection": inter, "union": union, "target": target,
+                "points": valid.sum()}
+
+    return train_step
 
 
 def make_eval_step(ignore_label, num_classes):

@@ -1,4 +1,5 @@
-"""CUDA kernels of the PyTorch port against their plain PyTorch versions.
+"""CUDA kernels of the PyTorch port (attention forward and backward) against
+their plain PyTorch versions.
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for the card
 and is skipped where there is none. Run them on a GPU machine with
@@ -14,12 +15,19 @@ import pytest
 import torch
 
 from stratified_transformer_torch.kernels import band_attention as band_k
+from stratified_transformer_torch.kernels import band_attention_bwd as band_bwd_k
 from stratified_transformer_torch.kernels import sparse_band_attention as sparse_k
+from stratified_transformer_torch.kernels import (
+    sparse_band_attention_bwd as sparse_bwd_k)
 from stratified_transformer_torch.ops import attention as plain
 from stratified_transformer_torch.ops import plan as plan_mod
 
 # kernel vs plain version, both fp32: sums in another order
 RTOL, ATOL = 2e-4, 2e-5
+# backward kernel vs plain version: as the JAX package holds its Pallas
+# backward against jax.grad (tests/test_pallas_attention.py:91-94); the
+# table grads also carry the order of the kernel's shared-memory atomics
+BWD_RTOL, BWD_ATOL = 5e-4, 5e-5
 
 
 @pytest.fixture
@@ -107,7 +115,7 @@ def test_kernel_bins_match_cpu(cuda_device):
 def test_kernel_refuses_gradients(cuda_device):
     plan, (q, k, v), tables, kw = _case(cuda_device, 16, True)
     q.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="autograd Function"):
         band_k.band_attention(q, k, v, plan.xyz_sorted, plan.seg_start,
                               plan.seg_end, plan.valid_sorted, *tables, **kw,
                               band=128, tile=128)
@@ -122,3 +130,68 @@ def test_cuda_plan_equals_cpu_plan(cuda_device):
                                    getattr(plan_cpu, name), rtol=0, atol=0)
     for a, b in zip(plan_gpu.sparse_band, plan_cpu.sparse_band):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0)
+
+
+def _bwd_case(dev, with_rpe, band, seed):
+    """Inputs of both backward kernels: random q/k/v/tables and cotangent,
+    and the merged forward residuals of the plain versions."""
+    plan, (q, k, v), tables, kw = _case(dev, 16, with_rpe, seed=seed)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(seed)
+                    ).to(dev)
+    with torch.no_grad():
+        parts = [plain.band_attention_plain(
+            q, k, v, plan.xyz_sorted, plan.seg_start, plan.seg_end,
+            plan.valid_sorted, *tables, **kw, band=band, tile=128),
+            plain.sparse_band_attention_plain(
+                q, k, v, plan.sparse_band, *tables, **kw, s_band=64,
+                tile=128)]
+        out, m, den = plain.merge(parts)
+    return plan, (q, k, v), tables, kw, (g, out, m, den)
+
+
+def _assert_grads(got, want):
+    for name, g_, w_ in zip(("dq", "dk", "dv", "dtq", "dtk", "dtv"), got,
+                            want):
+        if w_ is None:
+            assert g_ is None, name
+            continue
+        torch.testing.assert_close(g_, w_, rtol=BWD_RTOL, atol=BWD_ATOL,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_rpe", [False, True])
+@pytest.mark.parametrize("band", [128, 192])
+def test_band_bwd_kernel_matches_plain(cuda_device, with_rpe, band):
+    """band 192 with tile 128 is stage 3 of the S3DIS configuration: the
+    slots are composed by absolute key position."""
+    plan, qkv, tables, kw, res = _bwd_case(cuda_device, with_rpe, band, 2)
+    args = qkv + (plan.xyz_sorted, plan.seg_start, plan.seg_end,
+                  plan.valid_sorted) + res + tables
+    before = band_bwd_k.KERNEL.launches
+    with torch.no_grad():
+        got = band_bwd_k.band_attention_bwd(*args, **kw, band=band, tile=128)
+        want = plain.band_attention_bwd_plain(*args, **kw, band=band,
+                                              tile=128)
+    torch.cuda.synchronize()
+    assert band_bwd_k.KERNEL.launches == before + 1
+    _assert_grads(got, want)
+    assert float(want[1].abs().max()) > 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_rpe", [False, True])
+def test_sparse_bwd_kernel_matches_plain(cuda_device, with_rpe):
+    plan, qkv, tables, kw, res = _bwd_case(cuda_device, with_rpe, 128, 3)
+    before = sparse_bwd_k.KERNEL.launches
+    with torch.no_grad():
+        got = sparse_bwd_k.sparse_band_attention_bwd(
+            *qkv, plan.sparse_band, *res, *tables, **kw, s_band=64,
+            tile=128)
+        want = plain.sparse_band_attention_bwd_plain(
+            *qkv, plan.sparse_band, *res, *tables, **kw, s_band=64,
+            tile=128)
+    torch.cuda.synchronize()
+    assert sparse_bwd_k.KERNEL.launches == before + 1
+    _assert_grads(got, want)
+    assert float(want[1].abs().max()) > 1e-2

@@ -64,3 +64,33 @@ def test_least_ops_projects_rows_with_many_pairs():
     ops = chip_smoke.least_ops(pairs, rows, rows, h, d, nb)
     assert ops == h * ((4 * d + 5) * pairs + 3 * proj) + 24 * pairs
     assert ops / pairs / h < 170
+
+
+def test_least_ops_bwd_per_pair_form_when_rows_have_few_pairs():
+    d, h, pairs = 16, 3, 1000
+    ops = chip_smoke.least_ops_bwd(pairs, pairs, pairs, h, d, 64)
+    # recompute, dq, dk, dv and g·o, plus eight per-pair table terms
+    assert ops == h * ((10 * d + 5) * pairs + 2 * d * pairs
+                       + 8 * 6 * d * pairs) + 24 * pairs
+
+
+def test_least_ops_bwd_projects_rows_with_many_pairs():
+    d, h, nb, rows, per_row = 16, 12, 40, 100, 150
+    pairs = rows * per_row
+    proj = 6 * nb * d * rows + 3 * pairs
+    ops = chip_smoke.least_ops_bwd(pairs, rows, rows, h, d, nb)
+    assert ops == h * ((10 * d + 5) * pairs + 2 * d * rows + 8 * proj) \
+        + 24 * pairs
+    # about 2.4x the forward's least work per pair and head
+    fwd = chip_smoke.least_ops(pairs, rows, rows, h, d, nb)
+    assert 2.0 < ops / fwd < 3.0
+
+
+def test_backward_tolerance_floor_is_relative_to_the_tensor():
+    want = torch.tensor([1000.0, 0.0, 1.0])
+    got = want + torch.tensor([0.4, 0.005, 0.0])
+    assert chip_smoke.grads_close("x", got, want) == pytest.approx(0.4,
+                                                                  rel=1e-4)
+    with pytest.raises(AssertionError, match="1 of 3"):
+        chip_smoke.grads_close("x", want + torch.tensor([0.0, 0.02, 0.0]),
+                               want)
