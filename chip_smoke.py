@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's evaluation forward and training step on an
-NVIDIA GPU.
+"""Drive the PyTorch port's evaluation forward and training step, and its
+two probes, on an NVIDIA GPU.
 
 Run from the repository root with no arguments (needs one CUDA card):
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --bwd-only`` builds the two backward kernels and
+runs phase 7 alone, printing its times as one JSON line. Copied into
+another checkout (say a parent commit unpacked beside the tree) and run
+from there, it times that checkout's kernels and wrappers the same way, so
+two versions can be compared in turns on one card.
+
 Phases, each fatal on failure:
-  1. device: card name, power limit, CUDA version; builds the four kernels
+  1. device: card name, power limit, CUDA version; builds the six kernels
      from ``stratified_transformer_torch/csrc`` with nvcc (in parallel);
   2. host tier and plans: the S3DIS batch (N=40960, 2 scenes), and every
      attention plan built on the card bit-identical to the CPU plan;
@@ -22,13 +28,20 @@ Phases, each fatal on failure:
   6. one profiled forward: device time by kernel and the busy share;
   7. the two backward kernels against their plain versions at every stage's
      real shapes and plans (cotangent and merged residuals of the forward):
-     errors, CUDA-event times, bounds;
+     errors, CUDA-event times of the bare launch and of the public wrapper
+     (its input copies, zeroed partials and the sums around the launch),
+     the wrapper's device-busy time from the profiler, bounds;
   8. three full-width training steps after one warm-up step (AdamW, the
      YAML's schedule, drop-path 0.3 from a seeded generator, augmented
      synthetic batches):
      finite loss, 12 launches of each of the four kernels per step, every
      parameter's gradient after step 1 and the 3-step loss trajectory equal
-     to the same steps through the plain versions; one profiled step.
+     to the same steps through the plain versions; one profiled step;
+  9. the probes (``stratified_transformer_torch/tools``): the bin-math
+     kernel equal to its plain version on the CPU on all 65536 sweep values
+     (``[probe]`` line with the probe's counts), and the cache-key probe run
+     twice in fresh processes, both reporting the same keys as this process
+     and every library reused; both probe kernels timed.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -66,10 +79,11 @@ RTOL, ATOL = 2e-4, 2e-5
 # compounded through the layers
 LOGIT_RTOL, LOGIT_ATOL = 1e-3, 1e-4
 # backward kernel vs plain version: |err| <= BWD_RTOL |want| + BWD_FLOOR
-# max|want| per tensor. dk/dv sum a key's queries over per-warp partials and
-# tiles, the table grads sum ~1e5-1e6 pair terms per entry through
-# shared-memory atomics and cancel, so near-zero entries of a large sum
-# carry the sum's own rounding (a floor of 1e-5 of its largest entry)
+# max|want| per tensor. dk/dv sum a key's queries over row slices and
+# tiles; the table grads sum ~1e5-1e6 pair terms per entry through bin
+# masses (per row, per key) and their products with q, k and g, in another
+# order than the plain version, and cancel, so near-zero entries of a large
+# sum carry the sum's own rounding (a floor of 1e-5 of its largest entry)
 BWD_RTOL, BWD_FLOOR = 5e-4, 1e-5
 # one training step, kernels vs plain versions (same weights, batch and
 # drop-path masks): each parameter's gradient within 1e-3 relative L2 over
@@ -90,9 +104,12 @@ TPU_KERNELS = {
                           "fused_attention_bwd.py:53",
     "sparse_band_attention_bwd": "stratified_transformer_tpu/ops/pallas/"
                                  "fused_attention_bwd.py:428",
+    "bin_math_probe": "tools/bin_math_probe.py:54",
+    "cache_key_probe": "tools/cache_key_probe.py:33",
 }
 FWD_KERNELS = ("band_attention", "sparse_band_attention")
 BWD_KERNELS = ("band_attention_bwd", "sparse_band_attention_bwd")
+PROBE_KERNELS = ("bin_math_probe", "cache_key_probe")
 
 
 def log(msg):
@@ -246,6 +263,27 @@ def least_ops_bwd(pairs, n_q, n_k, h, d, nb):
     return h * per_head + 24 * pairs
 
 
+def new_report(names):
+    return {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "max_abs_err": 0.0, "bound_by": {}} for k in names}
+
+
+def add_timing(report, name, blocks, ms, plain_ms, t_bytes, t_ops, err):
+    """Adds one plan's launch to the kernel's per-step sums in ``report``
+    (``blocks`` launches of the step use this plan); returns (bound,
+    bound_by)."""
+    bound = max(t_bytes / PEAK_BYTES, t_ops / PEAK_FP32) * 1e3
+    by = ("bytes" if t_bytes / PEAK_BYTES >= t_ops / PEAK_FP32
+          else "operations")
+    r = report[name]
+    r["ms"] += blocks * ms
+    r["plain_ms"] += blocks * plain_ms
+    r["bound_ms"] += blocks * bound
+    r["bound_by"][by] = r["bound_by"].get(by, 0) + blocks * bound
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    return bound, by
+
+
 def grads_close(name, got, want):
     """Backward-kernel tolerance (BWD_RTOL, BWD_FLOOR); returns the max abs
     error."""
@@ -287,9 +325,10 @@ def o1_weights(model, seed):
     model.load_state_dict(state, strict=True)
 
 
-def profile_call(label, fn):
-    """One profiled call of ``fn``: device time by kernel and the device's
-    busy share of the (profiled) wall time."""
+def device_kernels(fn):
+    """One profiled call of ``fn``: its wall time (ms, profiler on) and
+    ``{name: (device ms, count)}`` of the device kernels and copies it
+    ran."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -306,6 +345,23 @@ def profile_call(label, fn):
                 and not getattr(e, "is_user_annotation", False)):
             ms, count = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    return wall_ms, by_name
+
+
+def device_busy_ms(fn, reps):
+    """Device time of ``fn()`` per call, summed over the device kernels and
+    copies of ``reps`` profiled calls after one warm-up: unlike
+    `cuda_time_ms`, it leaves out the device's idle gaps while the host
+    dispatches."""
+    fn()
+    by_name = device_kernels(lambda: [fn() for _ in range(reps)])[1]
+    return sum(ms for ms, _ in by_name.values()) / reps
+
+
+def profile_call(label, fn):
+    """One profiled call of ``fn``: device time by kernel and the device's
+    busy share of the (profiled) wall time."""
+    wall_ms, by_name = device_kernels(fn)
     rows = [(name, ms, count) for name, (ms, count) in by_name.items()]
     busy_ms = sum(r[1] for r in rows)
     log(f"[profile] {label} wall {wall_ms:.1f} ms (profiler on), device busy "
@@ -315,11 +371,235 @@ def profile_call(label, fn):
         log(f"[profile]   {ms:8.3f} ms  x{count:<5d} {key[:90]}")
 
 
-def main():
+def probe_phase(dev, report):
+    """Phase 9: the two probes through their entry points, then their
+    kernels timed against the plain versions (and ``torch.mul`` for
+    ``x * 2``). Fills ``report``; returns each probe kernel's launches by
+    its entry point."""
+    from stratified_transformer_torch.kernels import build, ptr, stream_of
+    from stratified_transformer_torch.tools import bin_math_probe as bin_p
+    from stratified_transformer_torch.tools import cache_key_probe as key_p
+    for m_ in (bin_p, key_p):
+        m_.KERNEL.launches = 0
+    counts = bin_p.probe(dev)
+    log(f"[probe] bin_math_probe: {json.dumps(counts)}")
+    if counts["kernel_vs_cpu"] or counts["values"] != 65536:
+        raise AssertionError("bin-math kernel differs from its plain version "
+                             f"on the CPU on {counts['kernel_vs_cpu']} values")
+    y = key_p.times_two(torch.ones(128, 128, device=dev))
+    if float(y.sum()) != 32768.0:
+        raise AssertionError(f"times_two sum {float(y.sum())}")
+    launched = {"bin_math_probe": bin_p.KERNEL.launches,
+                "cache_key_probe": key_p.KERNEL.launches}
+    runs = []
+    for _ in range(2):
+        out = subprocess.run(
+            [sys.executable, "-m",
+             "stratified_transformer_torch.tools.cache_key_probe"],
+            cwd=REPO, timeout=120, capture_output=True, text=True)
+        if out.returncode != 0:
+            raise AssertionError(f"cache_key_probe failed:\n{out.stderr}")
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    keys = [{n: r["key"] for n, r in run["sources"].items()} for run in runs]
+    here = {n: build.cache_key(build.key_components(n))
+            for n in build.sources()}
+    built = [n for run in runs for n, r in run["sources"].items()
+             if r["built_by"] != "reused"]
+    if keys[0] != keys[1] or keys[0] != here or built or any(
+            run["sum"] != 32768.0 for run in runs):
+        raise AssertionError(f"cache_key_probe: keys {keys} vs {here}, "
+                             f"rebuilt {built}, sums "
+                             f"{[run['sum'] for run in runs]}")
+    nvcc = build.nvcc_version().strip().splitlines()[-1]
+    log(f"[probe] cache_key_probe: two fresh processes, identical keys for "
+        f"all {len(here)} sources ({json.dumps(keys[0])}), every library "
+        f"reused, sum 32768; {nvcc}")
+
+    # timing: the bare launches, the plain versions, the library call
+    x = torch.from_numpy(bin_p.sweep()).to(dev)
+    bins = torch.empty(x.shape, dtype=torch.int32, device=dev)
+    two_ws, qs = float(np.float32(2 * bin_p.WS)), float(np.float32(bin_p.QS))
+    xr = torch.randn(128, 128,
+                     generator=torch.Generator().manual_seed(0)).to(dev)
+    doubled = torch.empty_like(xr)
+    cases = {
+        "bin_math_probe": (
+            lambda: bin_p.KERNEL(ptr(x), ptr(bins), x.numel(), two_ws, qs,
+                                 stream_of(dev)),
+            lambda: bin_p.bin_formula_plain(x, bin_p.WS, bin_p.QS), None,
+            x.numel() * 8,
+            lambda: float((bin_p.bin_formula(x, bin_p.WS, bin_p.QS).cpu()
+                           - bin_p.bin_formula_plain(x.cpu(), bin_p.WS,
+                                                     bin_p.QS)).abs().max())),
+        "cache_key_probe": (
+            lambda: key_p.KERNEL(ptr(xr), ptr(doubled), xr.numel(),
+                                 stream_of(dev)),
+            lambda: key_p.times_two_plain(xr), lambda: torch.mul(xr, 2),
+            xr.numel() * 8,
+            lambda: float((key_p.times_two(xr) - key_p.times_two_plain(
+                xr)).abs().max())),
+    }
+    for name, (kern, plain_fn, lib_fn, n_bytes, err_fn) in cases.items():
+        r = report[name]
+        r["max_abs_err"] = err_fn()
+        r["ms"] = cuda_time_ms(kern, 200)
+        r["plain_ms"] = cuda_time_ms(plain_fn, 200)
+        r["library_ms"] = None if lib_fn is None else cuda_time_ms(lib_fn,
+                                                                   200)
+        r["bound_ms"] = n_bytes / PEAK_BYTES * 1e3
+        r["bound_by"] = {"bytes": r["bound_ms"]}
+        log(f"[probe] {name}: {r['ms'] * 1e3:.2f} us per launch (plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, library "
+            + ("none" if lib_fn is None else f"{r['library_ms'] * 1e3:.2f} us")
+            + f", bound {r['bound_ms'] * 1e3:.3f} us by bytes); max abs err "
+            f"{r['max_abs_err']}")
+    log("[probe] library_ms: null for bin_math_probe — no single PyTorch call "
+        "computes the bin formula (round, divide, add, divide, floor); "
+        "torch.mul(x, 2) for cache_key_probe")
+    return launched
+
+
+def bwd_phase(cfg, levels, plans, dev, report):
+    """Phase 7: both backward kernels against their plain versions at every
+    stage's plans, with random q/k/v/g and tables from seed 0 and the merged
+    forward residuals of the plain versions. Adds each kernel's per-step
+    times, bounds and errors to ``report``, and the public wrapper's time
+    under ``wrapper_ms``."""
+    from stratified_transformer_torch.kernels import (
+        band_attention_bwd as band_bwd_k)
+    from stratified_transformer_torch.kernels import (
+        sparse_band_attention_bwd as sparse_bwd_k)
+    from stratified_transformer_torch.ops import attention as plain
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    grad_names = ("dq", "dk", "dv", "dtq", "dtk", "dtv")
+    for name in BWD_KERNELS:
+        report[name]["wrapper_ms"] = report[name]["wrapper_busy_ms"] = 0.0
+    for i in range(cfg.num_layers):
+        h, d = cfg.num_heads[i], cfg.channels[i] // cfg.num_heads[i]
+        ws, qs = cfg.window_sizes()[i], cfg.quant_sizes()[i]
+        nbf = 2 * int((2 * ws + 1e-4) // qs)
+        band = cfg.stage_band(i)
+        n = len(levels[i][0])
+        q, k, v, g = (torch.randn(n, h, d, generator=gen).to(dev)
+                      for _ in range(4))
+        tables = tuple((torch.randn(nbf, h, d, 3, generator=gen) * 0.05
+                        ).to(dev) for _ in range(3))
+        kw = dict(window_size=ws, quant_size=qs, scale=d ** -0.5)
+        for shifted in (False, True):
+            blocks = (cfg.depths[i] + (0 if shifted else 1)) // 2
+            plan = plans[i, shifted]
+            geom = (plan.xyz_sorted, plan.seg_start, plan.seg_end,
+                    plan.valid_sorted)
+            sb = plan.sparse_band
+            bkw = dict(kw, band=band, tile=cfg.tile)
+            skw = dict(kw, s_band=cfg.s_band, tile=cfg.tile)
+            with torch.no_grad():
+                # the merged forward's residuals, as the autograd Function
+                # saves them
+                out, m, den = plain.merge([
+                    plain.band_attention_plain(q, k, v, *geom, *tables,
+                                               **bkw),
+                    plain.sparse_band_attention_plain(q, k, v, sb, *tables,
+                                                      **skw)])
+                res = (g, out, m, den)
+                n_q = int(plan.valid_sorted.sum())
+                s_pairs, s_q, s_k = sparse_pairs(plan, cfg.s_band, cfg.tile)
+                nb = plain.band_table_slice(nbf)[1]
+                runs = {
+                    "band_attention_bwd": (
+                        band_bwd_k, band_bwd_k.launch_args(
+                            q, k, v, *geom, *res, *tables, **bkw),
+                        lambda: band_bwd_k.band_attention_bwd(
+                            q, k, v, *geom, *res, *tables, **bkw),
+                        lambda: plain.band_attention_bwd_plain(
+                            q, k, v, *geom, *res, *tables, **bkw),
+                        band_pairs(plan, band, cfg.tile), n_q, n_q, nb),
+                    "sparse_band_attention_bwd": (
+                        sparse_bwd_k, sparse_bwd_k.launch_args(
+                            q, k, v, sb, *res, *tables, **skw),
+                        lambda: sparse_bwd_k.sparse_band_attention_bwd(
+                            q, k, v, sb, *res, *tables, **skw),
+                        lambda: plain.sparse_band_attention_bwd_plain(
+                            q, k, v, sb, *res, *tables, **skw),
+                        s_pairs, s_q, s_k, nbf),
+                }
+                for name, (mod, (args, _outs, inputs), wrapper, plain_fn,
+                           pairs, nq, nk, rows) in runs.items():
+                    got = wrapper()
+                    want = plain_fn()
+                    torch.cuda.synchronize()
+                    errs = [grads_close(f"{name} stage {i} shifted="
+                                        f"{int(shifted)} {gn}", a, b)
+                            for gn, a, b in zip(grad_names, got, want)]
+                    ms = cuda_time_ms(lambda: mod.KERNEL(*args), 10)
+                    wrapper_ms = cuda_time_ms(wrapper, 10)
+                    busy_ms = device_busy_ms(wrapper, 3)
+                    report[name]["wrapper_ms"] += blocks * wrapper_ms
+                    report[name]["wrapper_busy_ms"] += blocks * busy_ms
+                    plain_ms = cuda_time_ms(plain_fn, 2)
+                    # the function's bytes: its inputs (as the kernel takes
+                    # them) read once, the six grads written once
+                    t_ops = least_ops_bwd(pairs, nq, nk, h, d, rows)
+                    bound, by = add_timing(report, name, blocks, ms,
+                                           plain_ms,
+                                           nbytes(inputs + tuple(got)),
+                                           t_ops, max(errs))
+                    log(f"[bwd] {name} stage {i} shifted={int(shifted)} "
+                        f"N={n} h={h} d={d} pairs={pairs} "
+                        f"ops/pair/head={t_ops / pairs / h:.1f}: {ms:.4f} ms "
+                        f"(wrapper {wrapper_ms:.4f} ms, device busy "
+                        f"{busy_ms:.4f} ms; plain {plain_ms:.3f} ms, bound "
+                        f"{bound:.4f} ms by {by}); max abs err "
+                        + " ".join(f"{gn} {e:.2e}"
+                                   for gn, e in zip(grad_names, errs))
+                        + " (of max |grad| "
+                        + " ".join(f"{float(w.abs().max()):.2e}"
+                                   for w in want) + ")")
+    log("[bwd] library_ms: null for both backward kernels — no single "
+        "PyTorch call computes the gradients of attention with per-pair cRPE "
+        "table terms on q, k and v")
+    for name in BWD_KERNELS:
+        r = report[name]
+        log(f"[bwd] {name}: {r['ms']:.3f} ms per train step (wrapper "
+            f"{r['wrapper_ms']:.3f} ms, of which the device is busy "
+            f"{r['wrapper_busy_ms']:.3f} ms; bound {r['bound_ms']:.3f} ms)")
+
+
+def bwd_only():
+    """``--bwd-only``: phase 1's build of the backward kernels, the host
+    batch and plans of phase 2 (on the card), and phase 7; prints one JSON
+    line."""
+    sys.path.insert(0, REPO)
+    from stratified_transformer_torch.config import load_config
+    from stratified_transformer_torch.data.loader import host_batch
+    from stratified_transformer_torch.kernels import build
+    dev = torch.device("cuda")
+    build.build_all(list(BWD_KERNELS))
+    ptxas = [f"{name}: {line.strip()}"
+             for name, text in build.build_logs.items()
+             for line in text.splitlines()
+             if "registers" in line or "spill" in line]
+    cfg = load_config(CONFIG, n_pad=N_PAD, num_scenes=SCENES)
+    levels = stage_levels(cfg, host_batch(cfg, seed=0))
+    plans = {(i, shifted): build_plan(cfg, i, levels[i], shifted, dev)
+             for i in range(cfg.num_layers) for shifted in (False, True)}
+    report = new_report(BWD_KERNELS)
+    bwd_phase(cfg, levels, plans, dev, report)
+    print(json.dumps({"card": card_line(), "repo": REPO,
+                      "ms_per_train_step": report, "ptxas": ptxas}))
+    return 0
+
+
+def main(argv):
     t_start = time.time()
     # ---- 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if argv == ["--bwd-only"]:
+        return bwd_only()
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     from stratified_transformer_torch.config import load_config
@@ -343,7 +623,8 @@ def main():
         f"count {torch.cuda.device_count()}")
     t0 = time.time()
     build.build_all(list(TPU_KERNELS))
-    log(f"[device] built the four kernels with nvcc for sm_90a in "
+    log(f"[device] built the {len(TPU_KERNELS)} kernels with nvcc for "
+        f"sm_90a in "
         f"{time.time() - t0:.1f} s")
     for name, text in build.build_logs.items():
         for line in text.splitlines():
@@ -405,23 +686,7 @@ def main():
 
     # ---- 4. kernels against their plain versions --------------------------
     gen = torch.Generator(device="cpu").manual_seed(0)
-    report = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                  "max_abs_err": 0.0, "bound_by": {}}
-              for k in TPU_KERNELS}
-
-    def add_timing(name, blocks, ms, plain_ms, t_bytes, t_ops, err):
-        """Adds one plan's launch to the kernel's per-step sums (``blocks``
-        launches of the step use this plan); returns (bound, bound_by)."""
-        bound = max(t_bytes / PEAK_BYTES, t_ops / PEAK_FP32) * 1e3
-        by = ("bytes" if t_bytes / PEAK_BYTES >= t_ops / PEAK_FP32
-              else "operations")
-        r = report[name]
-        r["ms"] += blocks * ms
-        r["plain_ms"] += blocks * plain_ms
-        r["bound_ms"] += blocks * bound
-        r["bound_by"][by] = r["bound_by"].get(by, 0) + blocks * bound
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        return bound, by
+    report = new_report(TPU_KERNELS)
     for i in range(cfg.num_layers):
         h, d = cfg.num_heads[i], cfg.channels[i] // cfg.num_heads[i]
         ws, qs = cfg.window_sizes()[i], cfg.quant_sizes()[i]
@@ -483,9 +748,9 @@ def main():
                     ms = cuda_time_ms(lambda: mod.KERNEL(*args), 20)
                     plain_ms = cuda_time_ms(plain_fn, 3)
                     t_ops = least_ops(pairs, nq, nk, h, d, rows)
-                    bound, by = add_timing(name, blocks, ms, plain_ms,
-                                           nbytes(inputs + outs), t_ops,
-                                           max(e[0] for e in errs))
+                    bound, by = add_timing(report, name, blocks, ms,
+                                           plain_ms, nbytes(inputs + outs),
+                                           t_ops, max(e[0] for e in errs))
                     log(f"[kernel] {name} stage {i} shifted={int(shifted)} "
                         f"N={n} h={h} d={d} pairs={pairs} "
                         f"ops/pair/head={t_ops / pairs / h:.1f}: {ms:.4f} ms "
@@ -575,85 +840,7 @@ def main():
     profile_call("forward", lambda: eval_step(model, batches[0]))
 
     # ---- 7. backward kernels against their plain versions -----------------
-    grad_names = ("dq", "dk", "dv", "dtq", "dtk", "dtv")
-    for i in range(cfg.num_layers):
-        h, d = cfg.num_heads[i], cfg.channels[i] // cfg.num_heads[i]
-        ws, qs = cfg.window_sizes()[i], cfg.quant_sizes()[i]
-        nbf = 2 * int((2 * ws + 1e-4) // qs)
-        band = cfg.stage_band(i)
-        n = len(levels[i][0])
-        q, k, v, g = (torch.randn(n, h, d, generator=gen).to(dev)
-                      for _ in range(4))
-        tables = tuple((torch.randn(nbf, h, d, 3, generator=gen) * 0.05
-                        ).to(dev) for _ in range(3))
-        kw = dict(window_size=ws, quant_size=qs, scale=d ** -0.5)
-        for shifted in (False, True):
-            blocks = (cfg.depths[i] + (0 if shifted else 1)) // 2
-            plan = plans[i, shifted]
-            geom = (plan.xyz_sorted, plan.seg_start, plan.seg_end,
-                    plan.valid_sorted)
-            sb = plan.sparse_band
-            bkw = dict(kw, band=band, tile=cfg.tile)
-            skw = dict(kw, s_band=cfg.s_band, tile=cfg.tile)
-            with torch.no_grad():
-                # the merged forward's residuals, as the autograd Function
-                # saves them
-                out, m, den = plain.merge([
-                    plain.band_attention_plain(q, k, v, *geom, *tables,
-                                               **bkw),
-                    plain.sparse_band_attention_plain(q, k, v, sb, *tables,
-                                                      **skw)])
-                res = (g, out, m, den)
-                n_q = int(plan.valid_sorted.sum())
-                s_pairs, s_q, s_k = sparse_pairs(plan, cfg.s_band, cfg.tile)
-                nb = plain.band_table_slice(nbf)[1]
-                runs = {
-                    "band_attention_bwd": (
-                        band_bwd_k, band_bwd_k.launch_args(
-                            q, k, v, *geom, *res, *tables, **bkw),
-                        lambda: band_bwd_k.band_attention_bwd(
-                            q, k, v, *geom, *res, *tables, **bkw),
-                        lambda: plain.band_attention_bwd_plain(
-                            q, k, v, *geom, *res, *tables, **bkw),
-                        band_pairs(plan, band, cfg.tile), n_q, n_q, nb),
-                    "sparse_band_attention_bwd": (
-                        sparse_bwd_k, sparse_bwd_k.launch_args(
-                            q, k, v, sb, *res, *tables, **skw),
-                        lambda: sparse_bwd_k.sparse_band_attention_bwd(
-                            q, k, v, sb, *res, *tables, **skw),
-                        lambda: plain.sparse_band_attention_bwd_plain(
-                            q, k, v, sb, *res, *tables, **skw),
-                        s_pairs, s_q, s_k, nbf),
-                }
-                for name, (mod, (args, _outs, inputs), wrapper, plain_fn,
-                           pairs, nq, nk, rows) in runs.items():
-                    got = wrapper()
-                    want = plain_fn()
-                    torch.cuda.synchronize()
-                    errs = [grads_close(f"{name} stage {i} shifted="
-                                        f"{int(shifted)} {gn}", a, b)
-                            for gn, a, b in zip(grad_names, got, want)]
-                    ms = cuda_time_ms(lambda: mod.KERNEL(*args), 10)
-                    plain_ms = cuda_time_ms(plain_fn, 2)
-                    # the function's bytes: its inputs (as the kernel takes
-                    # them) read once, the six grads written once
-                    t_ops = least_ops_bwd(pairs, nq, nk, h, d, rows)
-                    bound, by = add_timing(name, blocks, ms, plain_ms,
-                                           nbytes(inputs + tuple(got)),
-                                           t_ops, max(errs))
-                    log(f"[bwd] {name} stage {i} shifted={int(shifted)} "
-                        f"N={n} h={h} d={d} pairs={pairs} "
-                        f"ops/pair/head={t_ops / pairs / h:.1f}: {ms:.4f} ms "
-                        f"(plain {plain_ms:.3f} ms, bound {bound:.4f} ms by "
-                        f"{by}); max abs err "
-                        + " ".join(f"{gn} {e:.2e}"
-                                   for gn, e in zip(grad_names, errs))
-                        + " (of max |grad| "
-                        + " ".join(f"{float(w.abs().max()):.2e}"
-                                   for w in want) + ")")
-    log("[bwd] library_ms: null for both backward kernels — no single "
-        "PyTorch call computes the gradients of attention with per-pair cRPE "
-        "table terms on q, k and v")
+    bwd_phase(cfg, levels, plans, dev, report)
 
     # ---- 8. full-width training steps -------------------------------------
     from stratified_transformer_torch.train import schedulers
@@ -755,25 +942,36 @@ def main():
     profile_call("train step", lambda: train_step(
         model_k, opt_k, train_batches[0],
         torch.Generator(device="cuda").manual_seed(2000)))
+
+    # ---- 9. the probes -----------------------------------------------------
+    probe_launches = probe_phase(dev, report)
     log(f"[run] total {time.time() - t_start:.0f} s")
 
     kernels = []
     for name, path in TPU_KERNELS.items():
         r = report[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": f"stratified_transformer_torch/csrc/{name}.cu",
-            "replaces": path, "launches": train_launches[name],
-            "eval_launches": launches[name],
+            "replaces": path, "launches": train_launches.get(name, 0),
+            "eval_launches": launches.get(name, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["bound_by"], key=r["bound_by"].get),
-            "library_ms": None})
+            "library_ms": r.get("library_ms")}
+        if "wrapper_ms" in r:
+            entry["wrapper_ms"] = r["wrapper_ms"]
+            entry["wrapper_busy_ms"] = r["wrapper_busy_ms"]
+        if name in PROBE_KERNELS:
+            entry["probe_launches"] = probe_launches[name]
+            entry["times_per"] = "one launch of the probe"
+        kernels.append(entry)
     print(json.dumps({
         "kernels": kernels,
         "times_per": "one full-width training step (12 launches of each "
-                     "kernel; a forward kernel's time is also one eval "
-                     "forward's)",
+                     "attention kernel; a forward kernel's time is also one "
+                     "eval forward's); a probe's: one launch, and its "
+                     "launches on the train step are 0",
         "launches_over_train_steps": TRAIN_STEPS,
         "eval_launches_over_forwards": EVAL_BATCHES,
         "train_step_ms": train_ms,
@@ -788,4 +986,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,12 +1,14 @@
 // Shared device code of the two stratified-attention backward kernels.
 //
-// Both kernels give one thread block to each (query tile, head), as the
-// forward kernels do, and run the same routine (attention_bwd_block) over a
-// window of keys; they differ only in which keys a tile sees.
+// Both kernels give one block of 256 threads to each (row slice, head): a
+// slice is R consecutive rows of a 128-row query tile, and it sees the
+// tile's window of keys (the 128-row tile stays semantic). The kernels run
+// the same routine (attention_bwd_block) and differ only in which keys a
+// tile sees.
 //
 // Given the forward's merged statistics m and den (over BOTH halves) and its
-// normalised output o, each pair (t, j) recomputes its logit l exactly as the
-// forward kernel does and forms (fused_attention_bwd.py:5-15)
+// normalised output o, each pair (t, j) recomputes its logit l and forms
+// (fused_attention_bwd.py:5-15)
 //   r  = exp(l - m_t) / den_t,
 //   dl = r * (g_t·(v_j + Σ_a Tv[b_a]) - g_t·o_t),
 // and the gradients
@@ -14,51 +16,57 @@
 //   dk_j  += dl (q_t + Σ_a Tk[b_a]),   dv_j += r g_t
 //   dTq[b_a] += dl q_t,  dTk[b_a] += dl k_j,  dTv[b_a] += r g_t.
 //
-// Per key chunk (kBwdChunk keys staged in shared memory) a block runs three
-// phases:
-//   A. one thread per query row: recompute the pair terms, accumulate the
-//      row's dq in registers, and leave dl, r and the three bins of every
-//      (key, row) pair in shared memory. Lane L of a warp visits the chunk's
-//      keys from key -L (mod chunk), so the lanes read different key rows
-//      (padded strides keep them on distinct banks);
-//   B. one lane per key, one warp per 32-row slice of the tile: sum dk and
-//      dv over the slice's rows in row order, then add the warps' partial
-//      sums in warp order and write the chunk's keys into the tile's slot
-//      buffer;
-//   C. the table grads: warp a (one per axis) walks the chunk's pairs in
-//      (key, row) order, its two half-warps taking alternate rows, each
-//      lane one channel; it adds dl·q, dl·k and r·g into the pair's bin row
-//      of its own accumulators (an absent table's are never written out).
-//      No two lanes share an address, so there are no atomics: many pairs of a tile fall into the same bin, and float
-//      atomic adds in shared memory are compare-and-swap loops that
-//      serialise on such an address (the first version of this kernel,
-//      with 144 of them per pair and head, was 40x slower per step).
-// Every sum has a fixed order, so the kernel is deterministic. Each block
-// writes its table sums out per (tile, head); the wrapper reduces them over
-// tiles in order.
+// The table terms take the projection form of the TPU kernel
+// (fused_attention_bwd.py:132-259). Per block, each row's q is projected
+// onto the 3·nb rows of Tq and its g onto those of Tv, once; per key chunk,
+// each key's k onto those of Tk. A pair then reads three projections per
+// table instead of taking 16-long dot products. The table terms of the
+// gradients go through bin masses: per row and (axis, bin), Mq = Σ dl and
+// Mr = Σ r over the row's keys in that bin; per key of a chunk, Mk = Σ dl
+// over the rows. Then dq += Mq·Tq and dTq = Mqᵀq, dTv = Mrᵀg at the end of
+// the block, and dk += Mk·Tk and dTk += Mkᵀk per chunk: small matrix
+// products instead of sums per pair.
+//
+// Per key chunk (kBwdChunk keys staged in shared memory):
+//   1. every thread: the chunk's key projections onto Tk;
+//   2. pair phase, kBwdThreads / R lanes per row, each lane taking every
+//      (256 / R)-th key of those the warp's rows reach: the pair's logit,
+//      r and dl with 16-channel dot products and three lookups per table,
+//      the row's dq in registers, and dl, r and the bins into shared
+//      memory. Then lane a < 3 of the row walks the chunk's keys in order
+//      and adds dl and r into the row's masses of axis a;
+//   3. key phase: warps 0-3 sum dk and dv over the rows in row order (4
+//      lanes per key, 4 channels each), warps 4-7 the key's dl mass per
+//      bin (one lane per axis); a warp's rows are visited only for the keys
+//      they reached;
+//   4. every thread: dk's Tk term Mk·Tk and the block's dTk += Mkᵀk, then
+//      dk and dv go out to the tile's key slots.
+// At the end of the block the row's lanes add their dq parts by shuffles.
+// The products run on fp32 FMA: at d = 16 they take a minority of the
+// kernels' time (PERF.md, Findings), so the tensor cores are not yet the
+// lever.
+// No two threads write one shared-memory address in a phase, so there are
+// no atomics (shared-memory float atomics serialise where the lanes of a
+// warp share bins: the first backward kernel of the port was 40x slower for
+// them), and every sum runs in a fixed order, so the kernel is
+// deterministic. Each block writes its dk/dv slots and table sums per
+// (slice, head); the wrapper adds the slices and tiles in order.
 #pragma once
 
 #include "attention_common.cuh"
 
 namespace stratified {
 
-constexpr int kBwdChunk = 32;   // keys per round: one key per lane in phase B
+constexpr int kBwdChunk = 32;     // keys per round
+constexpr int kBwdThreads = 256;  // 8 warps per block
+constexpr int kBwdMaxNb = 64;     // table rows per axis (smem, registers)
+// floats per staged q/g/k/v row and per table row: 16-byte rows whose
+// float4 reads by 8 neighbouring rows fall on distinct banks
+constexpr int kBwdRowStride = 20;
 
-// Shared-memory row strides (floats) that keep the lanes of a warp on
-// distinct banks: key rows of D + 1 (phase A lanes read different keys),
-// key coordinates of 5, and (key, row) pair rows of tile + 2 (phase A lanes
-// write row t of key t - L; phase B lanes read one row of 32 keys).
-// Bins are packed 8 bits per axis, so a table may have at most 256 rows.
-template <int D>
-struct BwdStride {
-  static constexpr int kKey = D + 1;
-  static constexpr int kXyz = 5;
-  static __device__ __forceinline__ int pair(int tile) { return tile + 2; }
-};
-
-// Query side of a tile: rows [t0, t0 + blockDim.x) of [N,H,D] / [N,H] / [N]
-// arrays. key_lo/key_hi bound each row's keys; skey (null for the band
-// half) excludes keys of the row's own small window.
+// Query side of a tile: rows of [N,H,D] / [N,H] / [N] arrays. key_lo/key_hi
+// bound each row's keys; skey (null for the band half) excludes keys of the
+// row's own small window.
 struct BwdQueries {
   const float* q;        // pre-scaled by d^-0.5
   const float* g;        // output cotangent
@@ -93,9 +101,10 @@ struct BwdTables {
   float inv_quant;
 };
 
-// dq [N,H,D] (times scale); dk_part/dv_part [tiles][slots][H][D], zeroed by
-// the wrapper, slot = key - slot0 of the tile; dt_part [tiles][H][3 tables]
-// [3 axes][nb][D], the block's table-grad sums.
+// dq [N,H,D] (times scale); dk_part/dv_part [blocks][slots][H][D], zeroed
+// by the wrapper, block = tile * slices + slice, slot = key - slot0 of the
+// tile; dt_part [blocks][H][3 tables][3 axes][nb][D], the block's
+// table-grad sums.
 struct BwdOutputs {
   float* dq;
   float* dk_part;
@@ -103,312 +112,449 @@ struct BwdOutputs {
   float* dt_part;
 };
 
-// Shared-memory bytes of a block of `tile` threads: the three table slices,
-// the table-grad accumulators (3 axes x 2 half-warps x 3 tables), the rows'
-// q and g and coordinates, the key chunk, and the chunk's pairs (dl, r and
-// packed bins).
-template <int D>
-constexpr size_t bwd_smem_bytes(int nb, int tile) {
-  return sizeof(float) *
-             ((9 + 18) * static_cast<size_t>(nb) * TableSmem<D>::kStride +
-              static_cast<size_t>(tile) * (2 * D + 3) +
-              kBwdChunk * (2 * BwdStride<D>::kKey + BwdStride<D>::kXyz) +
-              2 * kBwdChunk * static_cast<size_t>(tile + 2)) +
-         sizeof(int) * kBwdChunk * (static_cast<size_t>(tile + 2) + 1);
+// Shared-memory layout of a block of R rows (offsets in 4-byte words, each
+// array 16-byte aligned). Per-row arrays of (axis, bin) pairs have an odd
+// stride (3·nb + 1) so that neighbouring rows fall on other banks.
+template <int D, int R>
+struct BwdSmem {
+  static constexpr int C = kBwdChunk;
+  static constexpr int S = kBwdRowStride;
+  int nb3, ps;
+  int tab, proj, mass, kp, k, v, xk, q, g, dl, r, bin, skey, act, total;
+
+  __host__ __device__ static int up4(int x) { return (x + 3) & ~3; }
+  __host__ __device__ explicit BwdSmem(int nb) : nb3(3 * nb), ps(3 * nb + 1) {
+    int o = 0;
+    tab = o;  o += 3 * nb3 * S;           // Tq, Tk, Tv: [3][3·nb][S]
+    proj = o; o += up4(2 * R * ps);       // float2 (q·Tq, g·Tv) [R][ps]
+    mass = o; o += up4(2 * R * ps);       // float2 (Mq, Mr) [R][ps]
+    kp = o;   o += up4(C * ps);           // k·Tk, then Mk [C][ps]
+    k = o;    o += up4(C * S);
+    v = o;    o += up4(C * S);
+    xk = o;   o += 4 * C;                 // xyz, valid
+    q = o;    o += up4(R * S);
+    g = o;    o += up4(R * S);
+    dl = o;   o += up4(R * (C + 1));
+    r = o;    o += up4(R * (C + 1));
+    bin = o;  o += up4(R * (C + 1));      // the axes' bins, 8 bits each
+    skey = o; o += C;
+    act = o;  o += 2 * kBwdThreads / 32;  // each warp's keys of the chunk
+    total = o;
+  }
+  __host__ size_t bytes() const { return sizeof(float) * static_cast<size_t>(total); }
+};
+
+// Bytes of dynamic shared memory that a block of `kernel` may take on the
+// current device: the opt-in limit per block less the kernel's static
+// shared memory (227 KB less a few bytes on the H100).
+template <typename Kernel>
+__host__ cudaError_t bwd_smem_room(Kernel kernel, size_t* room) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    *room = static_cast<size_t>(optin) - attr.sharedSizeBytes;
+  return err;
 }
 
-__device__ __forceinline__ void pair_bins(float xq0, float xq1, float xq2,
-                                          const float* xk,
-                                          const BwdTables& T, int* bins) {
-  bins[0] = rel_bin(__fsub_rn(xq0, xk[0]), T.bin_offset, T.inv_quant,
-                    T.nb_full, T.bin_lo, T.nb);
-  bins[1] = rel_bin(__fsub_rn(xq1, xk[1]), T.bin_offset, T.inv_quant,
-                    T.nb_full, T.bin_lo, T.nb);
-  bins[2] = rel_bin(__fsub_rn(xq2, xk[2]), T.bin_offset, T.inv_quant,
-                    T.nb_full, T.bin_lo, T.nb);
+// The most table rows per axis (at most kBwdMaxNb) for which a block of R
+// rows fits in `room` bytes. On the H100: 45 for 64-row blocks, 64 (all)
+// for 32-row blocks.
+template <int D, int R>
+__host__ int bwd_max_nb(size_t room) {
+  int nb = kBwdMaxNb;
+  while (nb > 0 && BwdSmem<D, R>(nb).bytes() > room) --nb;
+  return nb;
 }
 
-// The backward of one (tile, head) over keys [win_lo, win_hi) ∩ the union of
-// the rows' [key_lo, key_hi). blockDim.x is the tile (a multiple of 32).
-template <int D>
+// 4 consecutive floats of shared memory at a 16-byte aligned address.
+__device__ __forceinline__ void lds4(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+
+template <int N>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int s = 1; s < N; s <<= 1) x += __shfl_xor_sync(0xffffffffu, x, s);
+  return x;
+}
+
+// The backward of rows [row0, row0 + R), for the head blockIdx.y, over keys
+// [win_lo, win_hi) ∩ the union of the rows' [key_lo, key_hi). The tile's
+// n_slots key slots start at key slot0; blk indexes dk_part/dv_part and
+// dt_part.
+template <int D, int R>
 __device__ void attention_bwd_block(const BwdQueries& Q, const BwdKeys& K,
                                     const BwdTables& T, const BwdOutputs& O,
-                                    int n, int h, int tile_idx, int win_lo,
-                                    int win_hi, int slot0, int n_slots,
-                                    float scale) {
-  static_assert(D == 16, "phase C gives one lane of a half-warp a channel");
-  extern __shared__ float smem[];
+                                    int h, int blk, int row0,
+                                    int win_lo, int win_hi, int slot0,
+                                    int n_slots, float scale) {
+  static_assert(D == 16, "the key phase gives 4 lanes 4 channels each");
+  constexpr int NT = kBwdThreads;
   constexpr int C = kBwdChunk;
-  const int tile = blockDim.x;
-  const int nb = T.nb;
-  const int tf = 3 * nb * TableSmem<D>::kStride;
-  const int rf = nb * TableSmem<D>::kStride;   // one table's rows of one axis
-  float* s_tq = smem;
-  float* s_tk = s_tq + tf;
-  float* s_tv = s_tk + tf;
-  float* s_acc = s_tv + tf;             // [3 axes][2 halves][3 tables][nb][D+1]
-  float* s_q = s_acc + 6 * tf;          // [tile][D]
-  float* s_g = s_q + tile * D;          // [tile][D]
-  float* s_xq = s_g + tile * D;         // [tile][3]
-  constexpr int KS = BwdStride<D>::kKey;
-  constexpr int XS = BwdStride<D>::kXyz;
-  const int PS = BwdStride<D>::pair(tile);
-  float* s_k = s_xq + tile * 3;         // [C][KS]
-  float* s_v = s_k + C * KS;            // [C][KS]
-  float* s_xk = s_v + C * KS;           // [C][XS]: xyz, valid
-  float* s_dl = s_xk + C * XS;          // [C][PS]
-  float* s_r = s_dl + C * PS;           // [C][PS]
-  int* s_bin = reinterpret_cast<int*>(s_r + C * PS);   // [C][PS]
-  int* s_skey = s_bin + C * PS;
+  constexpr int S = kBwdRowStride;
+  constexpr int LPR = NT / R;           // lanes per row in the pair phase
+  constexpr int RPW = 32 / LPR;         // rows per warp
+  // (bin row, 4 channels) units of a table grad owned by each thread
+  constexpr int NU = (3 * kBwdMaxNb * (D / 4) + NT - 1) / NT;
+  static_assert(LPR >= 4 && LPR <= 32, "R in [8, 64]");
+
+  extern __shared__ __align__(16) float smem[];
   __shared__ int s_lo, s_hi;
+  const BwdSmem<D, R> L(T.nb);
+  const int nb = T.nb, nb3 = L.nb3, ps = L.ps;
+  const bool tabs = nb > 0;
+  float* s_tab = smem + L.tab;
+  float2* s_proj = reinterpret_cast<float2*>(smem + L.proj);
+  float2* s_mass = reinterpret_cast<float2*>(smem + L.mass);
+  float* s_kp = smem + L.kp;
+  float* s_k = smem + L.k;
+  float* s_v = smem + L.v;
+  float* s_xk = smem + L.xk;
+  float* s_q = smem + L.q;
+  float* s_g = smem + L.g;
+  float* s_dl = smem + L.dl;
+  float* s_r = smem + L.r;
+  int* s_bin = reinterpret_cast<int*>(smem + L.bin);
+  int* s_skey = reinterpret_cast<int*>(smem + L.skey);
+  int* s_act = reinterpret_cast<int*>(smem + L.act);
 
   const int head = blockIdx.y;
   const int tid = threadIdx.x;
-  const int row = tile_idx * tile + tid;
-  const float* ptq = T.tq != nullptr ? s_tq : nullptr;
-  const float* ptk = T.tk != nullptr ? s_tk : nullptr;
-  const float* ptv = T.tv != nullptr ? s_tv : nullptr;
+  const int lane = tid & 31, warp = tid >> 5;
 
-  if (ptq != nullptr) load_table<D>(s_tq, T.tq, head, nb);
-  if (ptk != nullptr) load_table<D>(s_tk, T.tk, head, nb);
-  if (ptv != nullptr) load_table<D>(s_tv, T.tv, head, nb);
-  for (int i = tid; i < 6 * tf; i += tile) s_acc[i] = 0.0f;
+  // ---- tables, rows, masses ----------------------------------------------
+  const float* tabs_in[3] = {T.tq, T.tk, T.tv};
+  for (int tb = 0; tb < 3; ++tb) {
+    const float* src = tabs_in[tb] == nullptr ? nullptr
+        : tabs_in[tb] + static_cast<size_t>(head) * nb3 * D;
+    for (int i = tid; i < nb3 * D; i += NT) {
+      const int ab = i / D, c = i - ab * D;
+      s_tab[(tb * nb3 + ab) * S + c] = src != nullptr ? src[i] : 0.0f;
+    }
+  }
+  for (int i = tid; i < 2 * R * ps; i += NT)
+    reinterpret_cast<float*>(s_mass)[i] = 0.0f;
+  for (int i = tid; i < R * D; i += NT) {
+    const int t = i / D, c = i - t * D;
+    const size_t o = (static_cast<size_t>(row0 + t) * h + head) * D + c;
+    s_q[t * S + c] = Q.q[o];
+    s_g[t * S + c] = Q.g[o];
+  }
   if (tid == 0) {
     s_lo = win_hi;
     s_hi = win_lo;
   }
   __syncthreads();
 
-  const bool row_ok = row < n && Q.valid[row];
+  // this thread's row in the pair phase (LPR lanes per row)
+  const int t = tid / LPR, sub = tid % LPR;
+  const int row = row0 + t;
+  const bool row_ok = Q.valid[row] != 0;
   const int ks = row_ok ? Q.key_lo[row] : 0;
   const int ke = row_ok ? Q.key_hi[row] : 0;
-  const int skey = (Q.skey != nullptr && row < n) ? Q.skey[row] : 0;
-  if (row_ok && ke > ks) {
+  const int skey = Q.skey != nullptr ? Q.skey[row] : 0;
+  if (sub == 0 && row_ok && ke > ks) {
     atomicMin(&s_lo, ks);
     atomicMax(&s_hi, ke);
   }
+  const size_t ro = static_cast<size_t>(row) * h + head;
   float q[D], g[D], dq[D];
-  float m = 0.0f, den = 1.0f, go = 0.0f;
-  float xq0 = 0.0f, xq1 = 0.0f, xq2 = 0.0f;
-  if (row < n) {
-    const size_t o = static_cast<size_t>(row) * h + head;
 #pragma unroll
-    for (int c = 0; c < D; ++c) {
-      q[c] = Q.q[o * D + c];
-      g[c] = Q.g[o * D + c];
-      go = fmaf(g[c], Q.o[o * D + c], go);
-    }
-    m = Q.m[o];
-    den = fmaxf(Q.den[o], 1e-20f);
-    xq0 = Q.xyz[row * 3 + 0];
-    xq1 = Q.xyz[row * 3 + 1];
-    xq2 = Q.xyz[row * 3 + 2];
-  } else {
-#pragma unroll
-    for (int c = 0; c < D; ++c) q[c] = g[c] = 0.0f;
+  for (int c = 0; c < D; c += 4) {
+    lds4(s_q + t * S + c, q + c);
+    lds4(s_g + t * S + c, g + c);
   }
+  float go = 0.0f;
 #pragma unroll
   for (int c = 0; c < D; ++c) {
-    s_q[tid * D + c] = q[c];
-    s_g[tid * D + c] = g[c];
+    go = fmaf(g[c], Q.o[ro * D + c], go);
     dq[c] = 0.0f;
   }
-  s_xq[tid * 3 + 0] = xq0;
-  s_xq[tid * 3 + 1] = xq1;
-  s_xq[tid * 3 + 2] = xq2;
+  const float m = Q.m[ro];
+  const float den = fmaxf(Q.den[ro], 1e-20f);
+  const float xq0 = Q.xyz[row * 3 + 0], xq1 = Q.xyz[row * 3 + 1],
+              xq2 = Q.xyz[row * 3 + 2];
+
+  // the rows' projections onto Tq and Tv: a thread keeps one row's q and g
+  // in registers and takes every (NT / R)-th table row
+  {
+    const int tt = tid % R;
+    float qr[D], gr[D];
+#pragma unroll
+    for (int c = 0; c < D; c += 4) {
+      lds4(s_q + tt * S + c, qr + c);
+      lds4(s_g + tt * S + c, gr + c);
+    }
+    for (int ab = tid / R; ab < nb3; ab += NT / R) {
+      float tq[D], tv[D];
+#pragma unroll
+      for (int c = 0; c < D; c += 4) {
+        lds4(s_tab + ab * S + c, tq + c);
+        lds4(s_tab + (2 * nb3 + ab) * S + c, tv + c);
+      }
+      float sq = 0.0f, sg = 0.0f;
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        sq = fmaf(qr[c], tq[c], sq);
+        sg = fmaf(gr[c], tv[c], sg);
+      }
+      s_proj[tt * ps + ab] = make_float2(sq, sg);
+    }
+  }
+  float acc_k[NU][4];                   // this thread's units of dTk
+#pragma unroll
+  for (int u = 0; u < NU; ++u)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_k[u][c] = 0.0f;
   __syncthreads();
   const int lo = max(s_lo, win_lo);
   const int hi = min(s_hi, win_hi);
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = tile >> 5;
 
   for (int c0 = lo; c0 < hi; c0 += C) {
     const int cn = min(C, hi - c0);
-    for (int i = tid; i < cn * D; i += tile) {
+    for (int i = tid; i < cn * D; i += NT) {
       const int j = i / D, c = i - j * D;
       const size_t src = (static_cast<size_t>(c0 + j) * h + head) * D + c;
-      s_k[j * KS + c] = K.k[src];
-      s_v[j * KS + c] = K.v[src];
+      s_k[j * S + c] = K.k[src];
+      s_v[j * S + c] = K.v[src];
     }
-    for (int j = tid; j < cn; j += tile) {
+    for (int j = tid; j < cn; j += NT) {
       const int p = c0 + j;
-      s_xk[j * XS + 0] = K.xyz[p * 3 + 0];
-      s_xk[j * XS + 1] = K.xyz[p * 3 + 1];
-      s_xk[j * XS + 2] = K.xyz[p * 3 + 2];
-      s_xk[j * XS + 3] = K.valid[p] ? 1.0f : 0.0f;
+      s_xk[j * 4 + 0] = K.xyz[p * 3 + 0];
+      s_xk[j * 4 + 1] = K.xyz[p * 3 + 1];
+      s_xk[j * 4 + 2] = K.xyz[p * 3 + 2];
+      s_xk[j * 4 + 3] = K.valid[p] ? 1.0f : 0.0f;
       s_skey[j] = K.skey != nullptr ? K.skey[p] : 0;
     }
     __syncthreads();
 
-    // ---- phase A: one thread per query row ------------------------------
-    const int lane_off = lane % cn;
-    for (int step = 0; step < cn; ++step) {
-      const int j = step >= lane_off ? step - lane_off : step - lane_off + cn;
+    // ---- 1. the chunk's keys projected onto Tk: a thread keeps one key in
+    //         registers and takes every (NT / C)-th table row -------------
+    if (tabs && (tid & (C - 1)) < cn) {
+      const int j = tid & (C - 1);
+      float kr[D];
+#pragma unroll
+      for (int c = 0; c < D; c += 4) lds4(s_k + j * S + c, kr + c);
+      for (int ab = tid / C; ab < nb3; ab += NT / C) {
+        float tk[D];
+#pragma unroll
+        for (int c = 0; c < D; c += 4)
+          lds4(s_tab + (nb3 + ab) * S + c, tk + c);
+        float s = 0.0f;
+#pragma unroll
+        for (int c = 0; c < D; ++c) s = fmaf(kr[c], tk[c], s);
+        s_kp[j * ps + ab] = s;
+      }
+    }
+    __syncthreads();
+
+    // ---- 2. pair phase: the LPR lanes of a row take every LPR-th key of
+    //         the keys of the chunk that the warp's rows reach ------------
+    const bool reach = row_ok && ks < c0 + cn && ke > c0;
+    const int jlo = static_cast<int>(__reduce_min_sync(
+        0xffffffffu, reach ? static_cast<unsigned>(max(ks - c0, 0)) : C));
+    const int jhi = static_cast<int>(__reduce_max_sync(
+        0xffffffffu, reach ? static_cast<unsigned>(min(ke - c0, cn)) : 0u));
+    if (lane == 0) {
+      s_act[2 * warp] = jlo;
+      s_act[2 * warp + 1] = jhi;
+    }
+    for (int j = jlo + sub; j < jhi; j += LPR) {
       const int p = c0 + j;
-      float dl = 0.0f, r = 0.0f;
+      float r = 0.0f, dl = 0.0f;
       int packed = 0;
-      if (row_ok && p >= ks && p < ke && s_xk[j * XS + 3] != 0.0f &&
+      if (row_ok && p >= ks && p < ke && s_xk[j * 4 + 3] != 0.0f &&
           (K.skey == nullptr || s_skey[j] != skey)) {
-        const float* kj = s_k + j * KS;
-        const float* vj = s_v + j * KS;
-        int bins[3] = {0, 0, 0};
-        if (nb > 0) pair_bins(xq0, xq1, xq2, s_xk + j * XS, T, bins);
-        packed = bins[0] | (bins[1] << 8) | (bins[2] << 16);
-        // the logit in the forward kernel's order (RowState::add_key)
-        float l = 0.0f;
+        float kc[D], vc[D];
 #pragma unroll
-        for (int c = 0; c < D; ++c) l = fmaf(q[c], kj[c], l);
-        if (ptq != nullptr) {
-#pragma unroll
-          for (int a = 0; a < 3; ++a) {
-            const float* tr = ptq + TableSmem<D>::offset(a, bins[a], nb);
-            float s = 0.0f;
-#pragma unroll
-            for (int c = 0; c < D; ++c) s = fmaf(q[c], tr[c], s);
-            l += s;
-          }
+        for (int c = 0; c < D; c += 4) {
+          lds4(s_k + j * S + c, kc + c);
+          lds4(s_v + j * S + c, vc + c);
         }
-        if (ptk != nullptr) {
+        float l = 0.0f, gv = 0.0f;
 #pragma unroll
-          for (int a = 0; a < 3; ++a) {
-            const float* tr = ptk + TableSmem<D>::offset(a, bins[a], nb);
-            float s = 0.0f;
+        for (int c = 0; c < D; ++c) {
+          l = fmaf(q[c], kc[c], l);
+          gv = fmaf(g[c], vc[c], gv);
+        }
+        if (tabs) {
+          const float xq[3] = {xq0, xq1, xq2};
 #pragma unroll
-            for (int c = 0; c < D; ++c) s = fmaf(kj[c], tr[c], s);
-            l += s;
+          for (int ax = 0; ax < 3; ++ax) {
+            const int bn = rel_bin(__fsub_rn(xq[ax], s_xk[j * 4 + ax]),
+                                   T.bin_offset, T.inv_quant, T.nb_full,
+                                   T.bin_lo, nb);
+            const float2 pr = s_proj[t * ps + ax * nb + bn];
+            l += pr.x + s_kp[j * ps + ax * nb + bn];
+            gv += pr.y;
+            packed |= bn << (8 * ax);
           }
         }
         r = expf(l - m) / den;
-        float gv = 0.0f;
-#pragma unroll
-        for (int c = 0; c < D; ++c) gv = fmaf(g[c], vj[c], gv);
-        if (ptv != nullptr) {
-#pragma unroll
-          for (int a = 0; a < 3; ++a) {
-            const float* tr = ptv + TableSmem<D>::offset(a, bins[a], nb);
-            float s = 0.0f;
-#pragma unroll
-            for (int c = 0; c < D; ++c) s = fmaf(g[c], tr[c], s);
-            gv += s;
-          }
-        }
         dl = r * (gv - go);
-        if (ptq != nullptr) {
-          const float* t0r = ptq + TableSmem<D>::offset(0, bins[0], nb);
-          const float* t1r = ptq + TableSmem<D>::offset(1, bins[1], nb);
-          const float* t2r = ptq + TableSmem<D>::offset(2, bins[2], nb);
 #pragma unroll
-          for (int c = 0; c < D; ++c)
-            dq[c] = fmaf(dl, kj[c] + t0r[c] + t1r[c] + t2r[c], dq[c]);
-        } else {
-#pragma unroll
-          for (int c = 0; c < D; ++c) dq[c] = fmaf(dl, kj[c], dq[c]);
+        for (int c = 0; c < D; ++c) dq[c] = fmaf(dl, kc[c], dq[c]);
+      }
+      s_dl[t * (C + 1) + j] = dl;
+      s_r[t * (C + 1) + j] = r;
+      s_bin[t * (C + 1) + j] = packed;
+    }
+    __syncwarp();
+    // the row masses: lane ax of the row walks the keys in order
+    if (tabs && sub < 3 && row_ok) {
+      float2* mrow = s_mass + t * ps + sub * nb;
+      for (int j = jlo; j < jhi; ++j) {
+        const float dl = s_dl[t * (C + 1) + j];
+        const float r = s_r[t * (C + 1) + j];
+        if (dl != 0.0f || r != 0.0f) {
+          float2* mp = mrow + ((s_bin[t * (C + 1) + j] >> (8 * sub)) & 255);
+          const float2 mv = *mp;
+          *mp = make_float2(mv.x + dl, mv.y + r);
         }
       }
-      s_dl[j * PS + tid] = dl;
-      s_r[j * PS + tid] = r;
-      s_bin[j * PS + tid] = packed;
     }
     __syncthreads();
+    for (int i = tid; i < C * ps; i += NT) s_kp[i] = 0.0f;   // Mk from here
+    __syncthreads();
 
-    // ---- phase B: lane = key, warp = 32-row slice -------------------------
-    float dk[D], dv[D];
+    // ---- 3. key phase, rows in order: warps 0-3 sum dk and dv (4 lanes
+    //         per key, 4 channels each), warps 4-7 the key's dl mass per
+    //         bin (lane a < 3 of 4 per key: axis a) ------------------------
+    const int kj = (tid & (NT / 2 - 1)) >> 2, kq = tid & 3;
+    const bool sums = tid < NT / 2;
+    float dk[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (kj < cn && (sums || (tabs && kq < 3))) {
+      for (int w = 0; w < NT / 32; ++w) {
+        if (kj < s_act[2 * w] || kj >= s_act[2 * w + 1]) continue;
+        for (int tt = w * RPW; tt < (w + 1) * RPW; ++tt) {
+          const float dl = s_dl[tt * (C + 1) + kj];
+          if (sums) {
+            const float r = s_r[tt * (C + 1) + kj];
+            float qc[4], gc[4];
+            lds4(s_q + tt * S + kq * 4, qc);
+            lds4(s_g + tt * S + kq * 4, gc);
 #pragma unroll
-    for (int c = 0; c < D; ++c) dk[c] = dv[c] = 0.0f;
-    if (lane < cn) {
-      for (int tt = warp * 32; tt < warp * 32 + 32; ++tt) {
-        const float dl = s_dl[lane * PS + tt];
-        const float r = s_r[lane * PS + tt];
-        if (dl == 0.0f && r == 0.0f) continue;
-        const float* qt = s_q + tt * D;
-        const float* gt = s_g + tt * D;
-        if (ptk != nullptr) {
-          const int packed = s_bin[lane * PS + tt];
-          const float* t0r = ptk + TableSmem<D>::offset(0, packed & 255, nb);
-          const float* t1r =
-              ptk + TableSmem<D>::offset(1, (packed >> 8) & 255, nb);
-          const float* t2r =
-              ptk + TableSmem<D>::offset(2, (packed >> 16) & 255, nb);
-#pragma unroll
-          for (int c = 0; c < D; ++c)
-            dk[c] = fmaf(dl, qt[c] + t0r[c] + t1r[c] + t2r[c], dk[c]);
-        } else {
-#pragma unroll
-          for (int c = 0; c < D; ++c) dk[c] = fmaf(dl, qt[c], dk[c]);
-        }
-#pragma unroll
-        for (int c = 0; c < D; ++c) dv[c] = fmaf(r, gt[c], dv[c]);
-      }
-    }
-
-    // ---- phase C: warp = axis, half-warp = row parity, lane = channel ---
-    if (nb > 0) {
-      const int half = lane >> 4, c = lane & 15;
-      for (int a = warp; a < 3; a += n_warps) {
-        float* aq = s_acc + ((a * 2 + half) * 3 + 0) * rf + c;
-        float* ak = s_acc + ((a * 2 + half) * 3 + 1) * rf + c;
-        float* av = s_acc + ((a * 2 + half) * 3 + 2) * rf + c;
-        for (int j = 0; j < cn; ++j) {
-          const float kjc = s_k[j * KS + c];
-          for (int tt = half; tt < tile; tt += 2) {
-            const float dl = s_dl[j * PS + tt];
-            const float r = s_r[j * PS + tt];
-            if (dl == 0.0f && r == 0.0f) continue;
-            const int off = ((s_bin[j * PS + tt] >> (8 * a)) & 255) *
-                            TableSmem<D>::kStride;
-            aq[off] = fmaf(dl, s_q[tt * D + c], aq[off]);
-            ak[off] = fmaf(dl, kjc, ak[off]);
-            av[off] = fmaf(r, s_g[tt * D + c], av[off]);
+            for (int c = 0; c < 4; ++c) {
+              dk[c] = fmaf(dl, qc[c], dk[c]);
+              dv[c] = fmaf(r, gc[c], dv[c]);
+            }
+          } else if (dl != 0.0f) {
+            s_kp[kj * ps + kq * nb +
+                 ((s_bin[tt * (C + 1) + kj] >> (8 * kq)) & 255)] += dl;
           }
         }
       }
     }
-    __syncthreads();                      // s_dl / s_r are reused below
-    float* s_pk = s_dl;                   // [n_warps][C][D]
-    float* s_pv = s_dl + n_warps * C * D;
-    if (lane < cn) {
-#pragma unroll
-      for (int c = 0; c < D; ++c) {
-        s_pk[(warp * C + lane) * D + c] = dk[c];
-        s_pv[(warp * C + lane) * D + c] = dv[c];
-      }
-    }
     __syncthreads();
-    for (int i = tid; i < cn * D; i += tile) {
-      const int j = i / D, c = i - j * D;
-      float sk = 0.0f, sv = 0.0f;
-      for (int w = 0; w < n_warps; ++w) {
-        sk += s_pk[(w * C + j) * D + c];
-        sv += s_pv[(w * C + j) * D + c];
+
+    // ---- 4. dk's Tk term Mk·Tk (8 lanes per key, into s_r) and the
+    //         block's dTk += Mkᵀk; then dk and dv out ------------------------
+    if (tabs) {
+      const int j8 = tid >> 3, cg = (tid >> 1) & 3, half = tid & 1;
+      float sk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (j8 < cn) {
+        for (int ab = half; ab < nb3; ab += 2) {
+          const float mk = s_kp[j8 * ps + ab];
+          float tk[4];
+          lds4(s_tab + (nb3 + ab) * S + cg * 4, tk);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sk[c] = fmaf(mk, tk[c], sk[c]);
+        }
       }
-      const size_t o =
-          ((static_cast<size_t>(tile_idx) * n_slots + (c0 + j - slot0)) * h +
-           head) * D + c;
-      O.dk_part[o] = sk;
-      O.dv_part[o] = sv;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        sk[c] += __shfl_xor_sync(0xffffffffu, sk[c], 1);
+      if (j8 < cn && half == 0) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s_r[j8 * D + cg * 4 + c] = sk[c];
+      }
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const int i = tid + u * NT;
+        if (i < nb3 * (D / 4)) {
+          const int ab = i >> 2, c4 = (i & 3) * 4;
+          for (int j = 0; j < cn; ++j) {
+            const float mk = s_kp[j * ps + ab];
+            float kc[4];
+            lds4(s_k + j * S + c4, kc);
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              acc_k[u][c] = fmaf(mk, kc[c], acc_k[u][c]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (sums && kj < cn) {
+      if (tabs) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dk[c] += s_r[kj * D + kq * 4 + c];
+      }
+      const size_t o = ((static_cast<size_t>(blk) * n_slots +
+                         (c0 + kj - slot0)) * h + head) * D + kq * 4;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        O.dk_part[o + c] = dk[c];
+        O.dv_part[o + c] = dv[c];
+      }
     }
     __syncthreads();
   }
 
-  if (row < n) {
-    const size_t o = (static_cast<size_t>(row) * h + head) * D;
+  // ---- end of block: dq += Mq·Tq; dTq = Mqᵀq, dTv = Mrᵀg --------------------
+  // each lane adds the Tq term of every LPR-th bin row to its keys' part of
+  // dq; the row's lanes then add their parts
+  if (tabs) {
+    for (int ab = sub; ab < nb3; ab += LPR) {
+      const float mq = s_mass[t * ps + ab].x;
+      float tq[D];
 #pragma unroll
-    for (int c = 0; c < D; ++c) O.dq[o + c] = dq[c] * scale;
+      for (int c = 0; c < D; c += 4) lds4(s_tab + ab * S + c, tq + c);
+#pragma unroll
+      for (int c = 0; c < D; ++c) dq[c] = fmaf(mq, tq[c], dq[c]);
+    }
   }
-  __syncthreads();
-  const float* tabs[3] = {T.tq, T.tk, T.tv};
-  for (int tb = 0; tb < 3; ++tb) {
-    if (tabs[tb] == nullptr) continue;
-    float* dst = O.dt_part +
-                 ((static_cast<size_t>(tile_idx) * h + head) * 3 + tb) * 3 *
-                     nb * D;
-    for (int i = tid; i < 3 * nb * D; i += tile) {
-      const int a = i / (nb * D), rest = i - a * nb * D;
-      const int bin = rest / D, c = rest - bin * D;
-      const int o = bin * TableSmem<D>::kStride + c;
-      dst[i] = s_acc[((a * 2 + 0) * 3 + tb) * rf + o] +
-               s_acc[((a * 2 + 1) * 3 + tb) * rf + o];
+#pragma unroll
+  for (int c = 0; c < D; ++c) dq[c] = group_sum<LPR>(dq[c]);
+  if (sub == 0) {
+#pragma unroll
+    for (int c = 0; c < D; ++c) O.dq[ro * D + c] = dq[c] * scale;
+  }
+  if (!tabs) return;
+  float* dst = O.dt_part + (static_cast<size_t>(blk) * h + head) * 3 * nb3 * D;
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    const int i = tid + u * NT;
+    if (i < nb3 * (D / 4)) {
+      const int ab = i >> 2, c4 = (i & 3) * 4;
+      float sq[4] = {0.0f, 0.0f, 0.0f, 0.0f}, sv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int tt = 0; tt < R; ++tt) {
+        const float2 mv = s_mass[tt * ps + ab];
+        float qc[4], gc[4];
+        lds4(s_q + tt * S + c4, qc);
+        lds4(s_g + tt * S + c4, gc);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          sq[c] = fmaf(mv.x, qc[c], sq[c]);
+          sv[c] = fmaf(mv.y, gc[c], sv[c]);
+        }
+      }
+      const int o = ab * D + c4;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (T.tq != nullptr) dst[o + c] = sq[c];
+        if (T.tk != nullptr) dst[nb3 * D + o + c] = acc_k[u][c];
+        if (T.tv != nullptr) dst[2 * nb3 * D + o + c] = sv[c];
+      }
     }
   }
 }

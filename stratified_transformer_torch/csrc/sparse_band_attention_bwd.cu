@@ -10,36 +10,42 @@
 // kernel takes them. Tile t reads the s_band aux slots from
 // base = (min(sb_start[t * tile], A - s_band) / 16) * 16; a row attends to
 // slots [sb_start, sb_end) of that window whose small-window key differs
-// from its own, both ends valid. Bins span the full table. The block runs
-// attention_bwd_block (attention_bwd_common.cuh: formulas, and how sums are
-// ordered) over the window. Outputs: dq in lw order (times scale); dk and
-// dv per slot of the tile's window, [tiles][s_band][H][D]; the table grads
-// per (tile, head). The wrapper un-permutes dq, scatter-adds the windows
-// into aux slots and then into points through sb_src (plain PyTorch, as
-// they sit outside the pallas_call in the JAX package), and sums the table
-// partials over tiles.
+// from its own, both ends valid. Bins span the full table (nb = 64 in the
+// S3DIS configuration), so a block takes 32 rows of the tile, which keeps
+// its per-row masses and projections within shared memory. The block runs
+// attention_bwd_block (attention_bwd_common.cuh: formulas, the projection
+// form, and how sums are ordered) over the window. Outputs: dq in lw order
+// (times scale); dk and dv per slot of the tile's window, [tiles * slices]
+// [s_band][H][D]; the table grads per (tile, slice, head). The wrapper
+// un-permutes dq, adds the slices, scatter-adds the windows into aux slots
+// and then into points through sb_src (plain PyTorch, as they sit outside
+// the pallas_call in the JAX package), and sums the table partials.
 //
-// What bounds it on the H100: as the band backward, ~450 fp32 operations
-// per unmasked pair and head plus the table grads' serial walk (phase C),
-// against reading q, g, o, m, den and the aux k/v once and writing dq, the
-// windows and the table grads. A tile's far keys span a few dozen aux
-// slots, so the bytes are a large share of the bound; chip_smoke.py
-// computes it from the run's data. wgmma tiles, TMA staging and a bf16 mode
-// are left for later work.
+// What bounds it on the H100: as the band backward, the fp32 work of the
+// unmasked pairs and the table projections and masses, against reading q,
+// g, o, m, den and the aux k/v once and writing dq, the windows and the
+// table grads. A tile's far keys span a few dozen aux slots, so the bytes
+// are a large share of the bound; chip_smoke.py computes it from the run's
+// data. Tensor cores, TMA staging and a bf16 mode are left for later work.
 
 #include "attention_bwd_common.cuh"
 
 namespace stratified {
 
-template <int D>
-__global__ void sparse_band_attention_bwd_kernel(BwdQueries Q, BwdKeys K,
-                                                 BwdTables T, BwdOutputs O,
-                                                 int n, int a_sz, int h,
-                                                 int s_band, float scale) {
-  const int t0 = blockIdx.x * blockDim.x;
+constexpr int kSparseBwdRows = 32;   // rows per block: 4 slices of a tile
+
+template <int D, int R>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+sparse_band_attention_bwd_kernel(BwdQueries Q, BwdKeys K, BwdTables T,
+                                 BwdOutputs O, int a_sz, int h, int tile,
+                                 int s_band, float scale) {
+  const int slices = tile / R;
+  const int tile_idx = blockIdx.x / slices;
+  const int t0 = tile_idx * tile;
   const int base = (min(Q.key_lo[t0], a_sz - s_band) / 16) * 16;
-  attention_bwd_block<D>(Q, K, T, O, n, h, blockIdx.x, base, base + s_band,
-                         base, s_band, scale);
+  attention_bwd_block<D, R>(Q, K, T, O, h, blockIdx.x,
+                            t0 + (blockIdx.x - tile_idx * slices) * R, base,
+                            base + s_band, base, s_band, scale);
 }
 
 }  // namespace stratified
@@ -47,10 +53,11 @@ __global__ void sparse_band_attention_bwd_kernel(BwdQueries Q, BwdKeys K,
 // C entry point, bound with ctypes. Query arrays are in lw order (q_lw
 // pre-scaled, g/o [N,H,D], m/den [N,H] merged over both halves); aux arrays
 // have A rows (k_aux/v_aux [A,H,D], zero in empty slots); s_band <= A; the
-// tables are [H,3,nb,D] fp32 or null. dk_part/dv_part must be zeroed by the
-// caller. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a head size other than 16, a tile that is not
-// a multiple of 32, or more than 256 table rows).
+// tables are [H,3,nb,D] fp32 or null. dk_part/dv_part ([N / 32][s_band]
+// [H][D]) must be zeroed by the caller; dt_part is [N / 32][H][3][3][nb]
+// [D]. Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
+// for a head size other than 16, a tile that is not a multiple of 32, or
+// more table rows per axis than sparse_band_attention_bwd_limits gives).
 extern "C" int sparse_band_attention_bwd(
     const float* q_lw, const float* g_lw, const float* o_lw,
     const float* m_lw, const float* den_lw, const float* xyz_lw,
@@ -62,23 +69,44 @@ extern "C" int sparse_band_attention_bwd(
     int d, int tile, int s_band, int nb, float bin_offset, float inv_quant,
     float scale, void* stream) {
   using namespace stratified;
+  constexpr int R = kSparseBwdRows;
+  size_t room = 0;
+  cudaError_t err =
+      bwd_smem_room(sparse_band_attention_bwd_kernel<16, R>, &room);
+  if (err != cudaSuccess) return static_cast<int>(err);
   // Every stage of the ported configurations has D = 16; instantiate more
   // head sizes when a configuration needs them.
-  if (d != 16 || tile % 32 != 0 || tile <= 0 || tile > 1024 || nb > 256)
+  if (d != 16 || tile <= 0 || tile % R != 0 || n % tile != 0 || nb < 0 ||
+      nb > bwd_max_nb<16, R>(room))
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdQueries Q{q_lw, g_lw, o_lw, m_lw, den_lw, xyz_lw, valid_lw,
                      sb_start, sb_end, skey_lw};
   const BwdKeys K{k_aux, v_aux, xyz_aux, valid_aux, skey_aux};
   const BwdTables T{tq, tk, tv, nb, 0, nb, bin_offset, inv_quant};
   const BwdOutputs O{dq_lw, dk_part, dv_part, dt_part};
-  const size_t smem = bwd_smem_bytes<16>(nb, tile);
-  cudaError_t err = cudaFuncSetAttribute(
-      sparse_band_attention_bwd_kernel<16>,
+  const size_t smem = BwdSmem<16, R>(nb).bytes();
+  err = cudaFuncSetAttribute(
+      sparse_band_attention_bwd_kernel<16, R>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(n / tile, h);
-  sparse_band_attention_bwd_kernel<16><<<grid, tile, smem,
-                                         static_cast<cudaStream_t>(stream)>>>(
-      Q, K, T, O, n, a_sz, h, s_band, scale);
+  dim3 grid(n / R, h);
+  sparse_band_attention_bwd_kernel<16, R><<<
+      grid, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      Q, K, T, O, a_sz, h, tile, s_band, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Rows per block, and the most table rows per axis that the entry point
+// takes on the current device: kBwdMaxNb = 64 on the H100, where the
+// block's shared memory would fit 78. Returns a cudaError_t.
+extern "C" int sparse_band_attention_bwd_limits(int* rows, int* max_nb) {
+  using namespace stratified;
+  constexpr int R = kSparseBwdRows;
+  size_t room = 0;
+  const cudaError_t err =
+      bwd_smem_room(sparse_band_attention_bwd_kernel<16, R>, &room);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *rows = R;
+  *max_nb = bwd_max_nb<16, R>(room);
+  return 0;
 }

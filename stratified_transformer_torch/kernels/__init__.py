@@ -9,6 +9,7 @@ card to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,6 +45,28 @@ class CudaKernel:
             raise RuntimeError(
                 f"{self.symbol} failed to launch: cudaError_t {rc}")
         self.launches += 1
+
+
+@functools.lru_cache(maxsize=None)
+def _limits(source, index):
+    fn = getattr(build.load(source), f"{source}_limits")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    rows, max_nb = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(index):
+        rc = fn(ctypes.byref(rows), ctypes.byref(max_nb))
+    if rc != 0:
+        raise RuntimeError(f"{source}_limits failed: cudaError_t {rc}")
+    return rows.value, max_nb.value
+
+
+def block_limits(source, dev):
+    """``(rows per block, most table rows per axis)`` of the backward kernel
+    of ``csrc/<source>.cu`` on the CUDA device ``dev``, from its C entry
+    point ``<source>_limits``: the second is what the block's shared memory
+    fits on that device."""
+    return _limits(source, dev.index if dev.index is not None
+                   else torch.cuda.current_device())
 
 
 def ptr(t):

@@ -1,11 +1,11 @@
 """Wrapper of the dense-half backward CUDA kernel
 (``csrc/band_attention_bwd.cu``).
 
-The kernel leaves dk/dv per key slot of each tile and the table grads per
-(tile, head); composing the slots by absolute key position, summing the
-table partials over tiles and placing them at ``bin_lo`` are plain PyTorch
-around it, as the JAX package's wrapper does them outside the
-``pallas_call``.
+The kernel leaves dk/dv per key slot of each (tile, row slice) and the
+table grads per (tile, slice, head); adding the slices, composing the slots
+by absolute key position, summing the table partials over tiles and
+placing them at ``bin_lo`` are plain PyTorch around it, as the JAX
+package's wrapper does them outside the ``pallas_call``.
 """
 
 from __future__ import annotations
@@ -13,8 +13,8 @@ from __future__ import annotations
 import torch
 
 from stratified_transformer_torch.kernels import (
-    CudaKernel, F, I, P, check_cuda_inputs, pack_tables, ptr, stream_of,
-    sum_table_partials)
+    CudaKernel, F, I, P, block_limits, check_cuda_inputs, pack_tables, ptr,
+    stream_of, sum_table_partials)
 from stratified_transformer_torch.ops.attention import (
     band_attention_bwd_plain, band_table_slice, bin_constants, compose_band,
     num_bins, place_table_grads)
@@ -39,12 +39,18 @@ def launch_args(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
         "band_attention_bwd",
         (q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den) + tables)
     n, h, d = q.shape
-    if d not in HEAD_DIMS or n % tile or tile % 32 or not 0 < tile <= 1024:
-        raise ValueError(
-            f"band_attention_bwd: unsupported shape N={n}, d={d}, "
-            f"tile={tile}")
     nb_full = num_bins(*tables)
     bin_lo, nb = band_table_slice(nb_full) if nb_full else (0, 0)
+    rows, max_nb = block_limits("band_attention_bwd", dev)
+    if d not in HEAD_DIMS or tile <= 0 or n % tile or tile % rows:
+        raise ValueError(
+            f"band_attention_bwd: unsupported shape N={n}, d={d}, "
+            f"tile={tile} (a multiple of {rows} rows)")
+    if nb > max_nb:
+        raise ValueError(
+            f"band_attention_bwd: a band slice of {nb} table rows per axis "
+            f"(of {nb_full}) does not fit a {rows}-row block's shared memory "
+            f"on {dev}, which holds at most {max_nb}")
     bin_offset, inv_quant = bin_constants(window_size, quant_size)
     f32 = torch.float32
     inputs = (
@@ -55,11 +61,11 @@ def launch_args(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
         valid.to(torch.bool).contiguous(), g.to(f32).contiguous(),
         o.to(f32).contiguous(), m.to(f32).contiguous(),
         den.to(f32).contiguous()) + pack_tables(tables, bin_lo, nb)
-    nt = n // tile
+    nblk = n // rows
     outs = (torch.empty((n, h, d), dtype=f32, device=dev),
-            torch.zeros((nt, tile + 2 * band, h, d), dtype=f32, device=dev),
-            torch.zeros((nt, tile + 2 * band, h, d), dtype=f32, device=dev),
-            torch.empty((nt, h, 3, 3, nb, d), dtype=f32, device=dev))
+            torch.zeros((nblk, tile + 2 * band, h, d), dtype=f32, device=dev),
+            torch.zeros((nblk, tile + 2 * band, h, d), dtype=f32, device=dev),
+            torch.empty((nblk, h, 3, 3, nb, d), dtype=f32, device=dev))
     args = tuple(ptr(t) for t in inputs + outs) + (
         n, h, d, tile, band, nb, bin_lo, nb_full, bin_offset, inv_quant,
         float(scale), stream_of(dev))
@@ -84,6 +90,8 @@ def band_attention_bwd(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
     n = q.shape[0]
     nb_full = num_bins(*tables)
     bin_lo = band_table_slice(nb_full)[0] if nb_full else 0
-    return (dq, compose_band(dk_part, band, tile, n),
-            compose_band(dv_part, band, tile, n)) + place_table_grads(
-                sum_table_partials(dt_part, tables), bin_lo, nb_full)
+    dk, dv = (compose_band(part.view(n // tile, -1, *part.shape[1:]).sum(1),
+                           band, tile, n)
+              for part in (dk_part, dv_part))
+    return (dq, dk, dv) + place_table_grads(
+        sum_table_partials(dt_part, tables), bin_lo, nb_full)

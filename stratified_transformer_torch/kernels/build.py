@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, compiled for Hopper (``sm_90a``) at first use into ``_build/``
-inside the package (git-ignored). The library's file name carries a hash
-of its sources and flags, so an edited source is rebuilt and a built one is
-reused. Builds of several sources run in parallel (`build_all`).
+inside the package (git-ignored). The library's file name carries its cache
+key: a hash of the flags, of every file that goes in (the ``.cu`` and the
+headers it includes from ``csrc/``) and of ``nvcc --version``'s output
+(`key_components`). An edited source or another compiler gets a new
+library; a library built under the same key, by this process or another,
+is reused. Builds of several sources run in parallel (`build_all`).
 
 The bin arithmetic must not be contracted into FMAs or approximated:
 ``--use_fast_math`` is never passed, and the kernels spell it with ``_rn``
@@ -15,11 +18,13 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -33,6 +38,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each source built by
 # this process
 build_logs: Dict[str, str] = {}
+# `nvcc --version`'s output, read once per process (`nvcc_version`)
+_nvcc_version: Optional[str] = None
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def nvcc_path() -> str:
@@ -46,17 +54,54 @@ def nvcc_path() -> str:
     return found
 
 
-def _sources_hash(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fn in sorted(os.listdir(CSRC)):
-        if fn == f"{name}.cu" or fn.endswith(".cuh"):
-            with open(os.path.join(CSRC, fn), "rb") as f:
-                h.update(fn.encode() + f.read())
-    return h.hexdigest()[:16]
+def nvcc_version() -> str:
+    """`nvcc --version`'s output, read once per process."""
+    global _nvcc_version
+    if _nvcc_version is None:
+        _nvcc_version = subprocess.run(
+            [nvcc_path(), "--version"], capture_output=True, text=True,
+            check=True).stdout
+    return _nvcc_version
+
+
+def sources(csrc: str = CSRC) -> List[str]:
+    """The names of the sources in ``csrc`` (one library each)."""
+    return sorted(fn[:-3] for fn in os.listdir(csrc) if fn.endswith(".cu"))
+
+
+def _inputs(name: str, csrc: str) -> List[str]:
+    """``<name>.cu`` and the ``csrc`` headers it includes, transitively."""
+    todo, seen = [f"{name}.cu"], []
+    while todo:
+        fn = todo.pop()
+        if fn in seen:
+            continue
+        seen.append(fn)
+        with open(os.path.join(csrc, fn)) as f:
+            todo += [inc for inc in _INCLUDE.findall(f.read())
+                     if os.path.exists(os.path.join(csrc, inc))]
+    return sorted(seen)
+
+
+def key_components(name: str, csrc: str = CSRC) -> dict:
+    """What the cache key of ``<name>.cu`` covers: the nvcc flags, the
+    sha256 of each file that goes in, and `nvcc_version`."""
+    files = {}
+    for fn in _inputs(name, csrc):
+        with open(os.path.join(csrc, fn), "rb") as f:
+            files[fn] = hashlib.sha256(f.read()).hexdigest()
+    return {"flags": " ".join(NVCC_FLAGS), "files": files,
+            "nvcc_version": nvcc_version()}
+
+
+def cache_key(components: dict) -> str:
+    return hashlib.sha256(
+        json.dumps(components, sort_keys=True).encode()).hexdigest()[:16]
 
 
 def library_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{name}-{_sources_hash(name)}.so")
+    return os.path.join(BUILD_DIR,
+                        f"lib{name}-{cache_key(key_components(name))}.so")
 
 
 def _start(name: str):

@@ -2,9 +2,10 @@
 (``csrc/sparse_band_attention_bwd.cu``).
 
 The gathers into large-window and aux order, the un-permutation of dq, the
-scatter-adds of the tiles' windows into aux slots and then into points, and
-the sum of the table partials over tiles are plain PyTorch around the
-kernel, as they sit outside the ``pallas_call`` in the JAX package.
+sum of each tile's row slices, the scatter-adds of the tiles' windows
+into aux slots and then into points, and the sum of the table partials
+over tiles are plain PyTorch around the kernel, as they sit outside the
+``pallas_call`` in the JAX package.
 """
 
 from __future__ import annotations
@@ -12,8 +13,8 @@ from __future__ import annotations
 import torch
 
 from stratified_transformer_torch.kernels import (
-    CudaKernel, F, I, P, check_cuda_inputs, pack_tables, ptr, stream_of,
-    sum_table_partials)
+    CudaKernel, F, I, P, block_limits, check_cuda_inputs, pack_tables, ptr,
+    stream_of, sum_table_partials)
 from stratified_transformer_torch.ops.attention import (
     bin_constants, num_bins, sparse_band_attention_bwd_plain,
     sparse_bwd_finish, sparse_inputs, sparse_window)
@@ -38,13 +39,18 @@ def launch_args(q, k, v, sb, g, o, m, den, table_q=None, table_k=None,
         "sparse_band_attention_bwd", (q, k, v, g, o, m, den) + tables
         + tuple(sb))
     n, h, d = q.shape
-    if d not in HEAD_DIMS or n % tile or tile % 32 or not 0 < tile <= 1024:
+    nb = num_bins(*tables)
+    rows, max_nb = block_limits("sparse_band_attention_bwd", dev)
+    if d not in HEAD_DIMS or tile <= 0 or n % tile or tile % rows:
         raise ValueError(
             f"sparse_band_attention_bwd: unsupported shape N={n}, d={d}, "
-            f"tile={tile}")
+            f"tile={tile} (a multiple of {rows} rows)")
+    if nb > max_nb:
+        raise ValueError(
+            f"sparse_band_attention_bwd: {nb} table rows per axis exceed the "
+            f"{max_nb} that a {rows}-row block takes on {dev}")
     a_sz = sb.sb_src.shape[0]
     s = min(s_band, a_sz)
-    nb = num_bins(*tables)
     bin_offset, inv_quant = bin_constants(window_size, quant_size)
     f32 = torch.float32
     lw = sb.lw_map.long()
@@ -60,11 +66,11 @@ def launch_args(q, k, v, sb, g, o, m, den, table_q=None, table_k=None,
         v_aux.contiguous(), sb.sb_xyz.to(f32).contiguous(),
         sb.sb_valid.to(torch.bool).contiguous(),
         sb.sb_skey.to(torch.int32).contiguous()) + pack_tables(tables, 0, nb)
-    nt = n // tile
+    nblk = n // rows
     outs = (torch.empty((n, h, d), dtype=f32, device=dev),
-            torch.zeros((nt, s, h, d), dtype=f32, device=dev),
-            torch.zeros((nt, s, h, d), dtype=f32, device=dev),
-            torch.empty((nt, h, 3, 3, nb, d), dtype=f32, device=dev))
+            torch.zeros((nblk, s, h, d), dtype=f32, device=dev),
+            torch.zeros((nblk, s, h, d), dtype=f32, device=dev),
+            torch.empty((nblk, h, 3, 3, nb, d), dtype=f32, device=dev))
     args = tuple(ptr(t) for t in inputs + outs) + (
         n, a_sz, h, d, tile, s, nb, bin_offset, inv_quant, float(scale),
         stream_of(dev))
@@ -87,6 +93,9 @@ def sparse_band_attention_bwd(q, k, v, sb, g, o, m, den, table_q=None,
         q, k, v, sb, g, o, m, den, *tables, **kw)
     with torch.cuda.device(q.device):
         KERNEL(*args)
+    n = q.shape[0]
     bases = sparse_window(sb, tile, s_band)[1]
+    dk_part, dv_part = (part.view(n // tile, -1, *part.shape[1:]).sum(1)
+                        for part in (dk_part, dv_part))
     return sparse_bwd_finish(sb, dq_lw, dk_part, dv_part, bases) + \
         sum_table_partials(dt_part, tables)

@@ -1,5 +1,5 @@
-"""CUDA kernels of the PyTorch port (attention forward and backward) against
-their plain PyTorch versions.
+"""CUDA kernels of the PyTorch port (attention forward and backward, the two
+probes) against their plain PyTorch versions.
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for the card
 and is skipped where there is none. Run them on a GPU machine with
@@ -21,12 +21,13 @@ from stratified_transformer_torch.kernels import (
     sparse_band_attention_bwd as sparse_bwd_k)
 from stratified_transformer_torch.ops import attention as plain
 from stratified_transformer_torch.ops import plan as plan_mod
+from stratified_transformer_torch.tools import bin_math_probe, cache_key_probe
 
 # kernel vs plain version, both fp32: sums in another order
 RTOL, ATOL = 2e-4, 2e-5
 # backward kernel vs plain version: as the JAX package holds its Pallas
 # backward against jax.grad (tests/test_pallas_attention.py:91-94); the
-# table grads also carry the order of the kernel's shared-memory atomics
+# table grads sum many pair terms through bin masses in another order
 BWD_RTOL, BWD_ATOL = 5e-4, 5e-5
 
 
@@ -132,10 +133,11 @@ def test_cuda_plan_equals_cpu_plan(cuda_device):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0)
 
 
-def _bwd_case(dev, with_rpe, band, seed):
+def _bwd_case(dev, with_rpe, band, seed, **case):
     """Inputs of both backward kernels: random q/k/v/tables and cotangent,
     and the merged forward residuals of the plain versions."""
-    plan, (q, k, v), tables, kw = _case(dev, 16, with_rpe, seed=seed)
+    plan, (q, k, v), tables, kw = _case(dev, 16, with_rpe, seed=seed,
+                                        **case)
     g = torch.randn(q.shape, generator=torch.Generator().manual_seed(seed)
                     ).to(dev)
     with torch.no_grad():
@@ -195,3 +197,124 @@ def test_sparse_bwd_kernel_matches_plain(cuda_device, with_rpe):
     assert sparse_bwd_k.KERNEL.launches == before + 1
     _assert_grads(got, want)
     assert float(want[1].abs().max()) > 1e-2
+
+
+# stage 2 of the S3DIS configuration: band 384, 12 heads, 64 bins per axis
+# (window 0.64, quant 0.04), a few thousand points
+STAGE2 = dict(n_pad=2688, n_valid=2500, h=12, ws=0.64, quant=0.04)
+
+
+def _band_bwd_args(plan, qkv, tables, res):
+    return qkv + (plan.xyz_sorted, plan.seg_start, plan.seg_end,
+                  plan.valid_sorted) + res + tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_rpe", [False, True])
+def test_bwd_kernels_match_plain_at_stage2_shape(cuda_device, with_rpe):
+    plan, qkv, tables, kw, res = _bwd_case(cuda_device, with_rpe, 384, 4,
+                                           **STAGE2)
+    if with_rpe:
+        assert tables[0].shape[0] == 64
+    args = _band_bwd_args(plan, qkv, tables, res)
+    with torch.no_grad():
+        got = band_bwd_k.band_attention_bwd(*args, **kw, band=384, tile=128)
+        want = plain.band_attention_bwd_plain(*args, **kw, band=384,
+                                              tile=128)
+        got_s = sparse_bwd_k.sparse_band_attention_bwd(
+            *qkv, plan.sparse_band, *res, *tables, **kw, s_band=128,
+            tile=128)
+        want_s = plain.sparse_band_attention_bwd_plain(
+            *qkv, plan.sparse_band, *res, *tables, **kw, s_band=128,
+            tile=128)
+    torch.cuda.synchronize()
+    _assert_grads(got, want)
+    _assert_grads(got_s, want_s)
+    assert float(want[1].abs().max()) > 1e-2
+    assert float(want_s[1].abs().max()) > 1e-2
+
+
+@pytest.mark.cuda
+def test_bwd_kernels_are_deterministic(cuda_device):
+    """Two launches on the same inputs give bit-identical outputs (dq, the
+    dk/dv slots and the table partials): every sum of the backward kernels
+    runs in a fixed order. (The sparse wrapper's scatter of the slots into
+    points is PyTorch's ``index_add_``, which is not.)"""
+    plan, qkv, tables, kw, res = _bwd_case(cuda_device, True, 384, 5,
+                                           **STAGE2)
+    args = _band_bwd_args(plan, qkv, tables, res)
+    launches = {
+        "band": (band_bwd_k, lambda: band_bwd_k.launch_args(
+            *args, **kw, band=384, tile=128)),
+        "sparse": (sparse_bwd_k, lambda: sparse_bwd_k.launch_args(
+            *qkv, plan.sparse_band, *res, *tables, **kw, s_band=128,
+            tile=128)),
+    }
+    with torch.no_grad():
+        for name, (mod, make) in launches.items():
+            outs = []
+            for _ in range(2):
+                largs, out, _inputs = make()
+                mod.KERNEL(*largs)
+                torch.cuda.synchronize()
+                outs.append(out)
+            for o_name, a, b in zip(("dq", "dk_part", "dv_part", "dt_part"),
+                                    *outs):
+                assert torch.equal(a, b), (name, o_name)
+        got = [band_bwd_k.band_attention_bwd(*args, **kw, band=384,
+                                             tile=128) for _ in range(2)]
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bwd_kernels_refuse_tables_beyond_shared_memory(cuda_device):
+    """A block's shared memory bounds the table rows per axis: the band
+    slice of S3DIS's 64-bin tables (40 rows) fits a 64-row block, the
+    sparse half's full 64 rows a 32-row block. ScanNet's 80-bin tables
+    (grid 0.02, window 5 x 0.02, quant 0.005; band slice 48) fit neither,
+    and the wrappers refuse them before any launch."""
+    from stratified_transformer_torch.kernels import block_limits
+    rows, max_nb = block_limits("band_attention_bwd", cuda_device)
+    assert rows == 64 and 40 <= max_nb < 48
+    assert block_limits("sparse_band_attention_bwd", cuda_device) == (32, 64)
+    assert plain.band_table_slice(80)[1] == 48
+    plan, qkv, tables, kw, res = _bwd_case(cuda_device, True, 128, 6)
+    gen = torch.Generator().manual_seed(6)
+    big = tuple(torch.randn((80,) + t.shape[1:], generator=gen).to(
+        cuda_device) * 0.05 for t in tables)
+    before = (band_bwd_k.KERNEL.launches, sparse_bwd_k.KERNEL.launches)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="shared memory"):
+            band_bwd_k.band_attention_bwd(*_band_bwd_args(plan, qkv, big, res),
+                                          **kw, band=128, tile=128)
+        with pytest.raises(ValueError, match="80 table rows"):
+            sparse_bwd_k.sparse_band_attention_bwd(
+                *qkv, plan.sparse_band, *res, *big, **kw, s_band=64,
+                tile=128)
+    assert (band_bwd_k.KERNEL.launches,
+            sparse_bwd_k.KERNEL.launches) == before
+
+
+@pytest.mark.cuda
+def test_bin_math_probe_kernel_equals_cpu(cuda_device):
+    x = torch.from_numpy(bin_math_probe.sweep())
+    before = bin_math_probe.KERNEL.launches
+    got = bin_math_probe.bin_formula(x.to(cuda_device), bin_math_probe.WS,
+                                     bin_math_probe.QS)
+    torch.cuda.synchronize()
+    assert bin_math_probe.KERNEL.launches == before + 1
+    want = bin_math_probe.bin_formula_plain(x, bin_math_probe.WS,
+                                            bin_math_probe.QS)
+    assert got.dtype == torch.int32 and got.shape == (256, 256)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cache_key_probe_kernel_doubles(cuda_device):
+    x = torch.randn(128, 128, generator=torch.Generator().manual_seed(0))
+    before = cache_key_probe.KERNEL.launches
+    got = cache_key_probe.times_two(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert cache_key_probe.KERNEL.launches == before + 1
+    assert torch.equal(got.cpu(), cache_key_probe.times_two_plain(x))

@@ -94,3 +94,28 @@ def test_backward_tolerance_floor_is_relative_to_the_tensor():
     with pytest.raises(AssertionError, match="1 of 3"):
         chip_smoke.grads_close("x", want + torch.tensor([0.0, 0.02, 0.0]),
                                want)
+
+
+def test_add_timing_sums_blocks_and_takes_the_larger_bound():
+    report = chip_smoke.new_report(["k"])
+    # 3.35 MB moved: 1 us by bytes; 67 MFLOP: 1 us by operations
+    bound, by = chip_smoke.add_timing(report, "k", 2, 0.5, 4.0, 3.35e6,
+                                      2 * 67e6, 1e-6)
+    assert by == "operations" and bound == pytest.approx(2e-3)
+    bound, by = chip_smoke.add_timing(report, "k", 1, 0.25, 1.0, 3 * 3.35e6,
+                                      67e6, 5e-7)
+    assert by == "bytes" and bound == pytest.approx(3e-3)
+    r = report["k"]
+    assert r["ms"] == pytest.approx(1.25) and r["plain_ms"] == 9.0
+    assert r["bound_ms"] == pytest.approx(7e-3)
+    assert r["bound_by"] == pytest.approx({"operations": 4e-3,
+                                           "bytes": 3e-3})
+    assert r["max_abs_err"] == 1e-6
+
+
+def test_chip_smoke_refuses_unknown_arguments_or_a_missing_card(capsys):
+    # without a card it exits non-zero before reading its arguments
+    rc = chip_smoke.main(["--no-such-option"])
+    assert rc != 0
+    if not torch.cuda.is_available():
+        assert "no CUDA device" in capsys.readouterr().err
