@@ -6,11 +6,13 @@ Run from the repository root with no arguments (needs one CUDA card):
 
     python3 chip_smoke.py
 
-``python3 chip_smoke.py --bwd-only`` builds the two backward kernels and
-runs phase 7 alone, printing its times as one JSON line. Copied into
-another checkout (say a parent commit unpacked beside the tree) and run
-from there, it times that checkout's kernels and wrappers the same way, so
-two versions can be compared in turns on one card.
+``python3 chip_smoke.py --fwd-only`` builds the two forward kernels and
+runs phase 4 alone; ``--bwd-only`` builds the two backward kernels and runs
+phase 7 alone. Each prints its times as one JSON line (``--fwd-only`` also
+per stage and parity). Copied into another checkout (say a parent commit
+unpacked beside the tree) and run from there, it times that checkout's
+kernels and wrappers the same way, so two versions can be compared in
+turns on one card.
 
 Phases, each fatal on failure:
   1. device: card name, power limit, CUDA version; builds the six kernels
@@ -19,12 +21,15 @@ Phases, each fatal on failure:
      attention plan built on the card bit-identical to the CPU plan;
   3. bins: the kernels' device bin function against
      ``relative_position_index`` on the CPU over a boundary-dense sweep;
-  4. kernels against their plain PyTorch versions at every stage's real
-     shapes and plans: errors, CUDA-event times, bounds;
+  4. the forward kernels against their plain PyTorch versions at every
+     stage's real shapes and plans: errors, CUDA-event times of the bare
+     launch, the public wrapper's device-busy time from the profiler,
+     bounds;
   5. the full-width S3DIS eval step (channels 48/96/192/384, heads
      3/6/12/24, depths 2/2/6/2) on 3 synthetic batches, with random weights
-     scaled for O(1) activations: finite loss, 12 + 12 kernel launches per
-     forward, logits equal to the same forward through the plain versions;
+     scaled for O(1) activations: each batch's pairs per stage
+     (``[pairs]``), finite loss, 12 + 12 kernel launches per forward,
+     logits equal to the same forward through the plain versions;
   6. one profiled forward: device time by kernel and the busy share;
   7. the two backward kernels against their plain versions at every stage's
      real shapes and plans (cotangent and merged residuals of the forward):
@@ -33,7 +38,7 @@ Phases, each fatal on failure:
      the wrapper's device-busy time from the profiler, bounds;
   8. three full-width training steps after one warm-up step (AdamW, the
      YAML's schedule, drop-path 0.3 from a seeded generator, augmented
-     synthetic batches):
+     synthetic batches, whose pairs per stage it logs):
      finite loss, 12 launches of each of the four kernels per step, every
      parameter's gradient after step 1 and the 3-step loss trajectory equal
      to the same steps through the plain versions; one profiled step;
@@ -225,6 +230,24 @@ def sparse_pairs(plan, s_band, tile):
                        device=bases.device)
     used[pos[mask.any(1)]] = True
     return int(mask.sum()), int(mask.any(2).sum()), int(used.sum())
+
+
+def log_pairs(label, cfg, hb, dev):
+    """Logs the unmasked pairs of the dense and far-key halves per forward
+    (all blocks of a stage) for the host batch ``hb``, stage by stage, with
+    the plans a forward builds from it."""
+    levels = stage_levels(cfg, hb)
+    parts = []
+    for i in range(cfg.num_layers):
+        band = far = 0
+        for shifted in (False, True):
+            blocks = (cfg.depths[i] + (0 if shifted else 1)) // 2
+            plan = build_plan(cfg, i, levels[i], shifted, dev)
+            band += blocks * band_pairs(plan, cfg.stage_band(i), cfg.tile)
+            far += blocks * sparse_pairs(plan, cfg.s_band, cfg.tile)[0]
+        valid = int(levels[i][1][-1])
+        parts.append(f"stage {i}: {valid} points, band {band}, sparse {far}")
+    log(f"[pairs] {label}: " + "; ".join(parts))
 
 
 def least_ops(pairs, n_q, n_k, h, d, nb):
@@ -459,6 +482,129 @@ def probe_phase(dev, report):
     return launched
 
 
+def fwd_bytes(name, inputs, outs, sb):
+    """Bytes a forward call must move: what its kernel reads (``inputs``
+    of ``launch_args``: q, k, v, the plan's fields, the tables or their
+    band slices) once and the triple written once; the far-key half needs
+    k and v only at its A aux slots' points, not at all N."""
+    total = nbytes(inputs + outs)
+    if name == "sparse_band_attention":
+        k, v = inputs[1], inputs[2]
+        total += (sb.sb_src.shape[0] - k.shape[0]) * (
+            nbytes([k]) + nbytes([v])) // k.shape[0]
+    return total
+
+
+def fwd_phase(cfg, levels, plans, dev, report):
+    """Phase 4: both forward kernels against their plain versions at every
+    stage's plans, with random q/k/v and tables from seed 0. Adds each
+    kernel's per-step times, bounds and errors to ``report``, and the public
+    wrapper's device-busy time under ``wrapper_busy_ms``; returns one row
+    per (kernel, stage, parity)."""
+    from stratified_transformer_torch.kernels import band_attention as band_k
+    from stratified_transformer_torch.kernels import (
+        sparse_band_attention as sparse_k)
+    from stratified_transformer_torch.ops import attention as plain
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    for name in FWD_KERNELS:
+        report[name]["wrapper_busy_ms"] = 0.0
+    rows_out = []
+    for i in range(cfg.num_layers):
+        h, d = cfg.num_heads[i], cfg.channels[i] // cfg.num_heads[i]
+        ws, qs = cfg.window_sizes()[i], cfg.quant_sizes()[i]
+        nbf = 2 * int((2 * ws + 1e-4) // qs)
+        band = cfg.stage_band(i)
+        n = len(levels[i][0])
+        q, k, v = (torch.randn(n, h, d, generator=gen).to(dev)
+                   for _ in range(3))
+        tables = tuple((torch.randn(nbf, h, d, 3, generator=gen) * 0.05
+                        ).to(dev) for _ in range(3))
+        kw = dict(window_size=ws, quant_size=qs, scale=d ** -0.5)
+        for shifted in (False, True):
+            blocks = (cfg.depths[i] + (0 if shifted else 1)) // 2
+            plan = plans[i, shifted]
+            pargs = (q, k, v, plan.xyz_sorted, plan.seg_start, plan.seg_end,
+                     plan.valid_sorted) + tables
+            sb = plan.sparse_band
+            bkw = dict(kw, band=band, tile=cfg.tile)
+            skw = dict(kw, s_band=cfg.s_band, tile=cfg.tile)
+            n_q = int(plan.valid_sorted.sum())
+            s_pairs, s_q, s_k = sparse_pairs(plan, cfg.s_band, cfg.tile)
+            nb = plain.band_table_slice(nbf)[1]
+            with torch.no_grad():
+                # name: (module, launch_args for timing, public wrapper,
+                #        plain version, pairs, queries and keys in a pair,
+                #        table rows per axis); every valid point is its
+                #        own band key
+                runs = {
+                    "band_attention": (
+                        band_k, band_k.launch_args(*pargs, **bkw),
+                        lambda: band_k.band_attention(*pargs, **bkw),
+                        lambda: plain.band_attention_plain(*pargs, **bkw),
+                        band_pairs(plan, band, cfg.tile), n_q, n_q, nb),
+                    "sparse_band_attention": (
+                        sparse_k, sparse_k.launch_args(
+                            q, k, v, sb, *tables, **skw),
+                        lambda: sparse_k.sparse_band_attention(
+                            q, k, v, sb, *tables, **skw),
+                        lambda: plain.sparse_band_attention_plain(
+                            q, k, v, sb, *tables, **skw),
+                        s_pairs, s_q, s_k, nbf),
+                }
+                triples = {}
+                for name, (mod, (args, outs, inputs), wrapper, plain_fn,
+                           pairs, nq, nk, rows) in runs.items():
+                    got = wrapper()
+                    want = plain_fn()
+                    torch.cuda.synchronize()
+                    triples[name] = (got, want)
+                    errs = []
+                    for tn, g, w in zip(("acc", "m", "den"), got, want):
+                        assert_close(f"{name} stage {i} shifted={shifted} "
+                                     f"{tn}", g, w, RTOL, ATOL)
+                        errs.append(max_errors(g, w))
+                    ms = cuda_time_ms(lambda: mod.KERNEL(*args), 20)
+                    busy_ms = device_busy_ms(wrapper, 3)
+                    report[name]["wrapper_busy_ms"] += blocks * busy_ms
+                    plain_ms = cuda_time_ms(plain_fn, 3)
+                    t_ops = least_ops(pairs, nq, nk, h, d, rows)
+                    bound, by = add_timing(report, name, blocks, ms,
+                                           plain_ms,
+                                           fwd_bytes(name, inputs, outs, sb),
+                                           t_ops, max(e[0] for e in errs))
+                    rows_out.append({
+                        "kernel": name, "stage": i, "shifted": int(shifted),
+                        "blocks": blocks, "n": n, "h": h, "pairs": pairs,
+                        "ops_per_pair_head": t_ops / max(pairs, 1) / h,
+                        "ms": ms, "wrapper_busy_ms": busy_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by})
+                    log(f"[kernel] {name} stage {i} shifted={int(shifted)} "
+                        f"N={n} h={h} d={d} pairs={pairs} "
+                        f"ops/pair/head={t_ops / max(pairs, 1) / h:.1f}: "
+                        f"{ms:.4f} ms (wrapper device busy {busy_ms:.4f} ms; "
+                        f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms by "
+                        f"{by}); max abs/rel err acc {errs[0][0]:.2e}/"
+                        f"{errs[0][1]:.2e} m {errs[1][0]:.2e}/{errs[1][1]:.2e}"
+                        f" den {errs[2][0]:.2e}/{errs[2][1]:.2e}")
+                out_k = plain.merge([triples[n_][0] for n_ in FWD_KERNELS])[0]
+                out_p = plain.merge([triples[n_][1] for n_ in FWD_KERNELS])[0]
+                assert_close(f"merged stage {i}", out_k, out_p, RTOL, ATOL)
+                e = max_errors(out_k, out_p)
+                log(f"[kernel] merged output stage {i} shifted={int(shifted)}"
+                    f": max abs/rel err {e[0]:.2e}/{e[1]:.2e}")
+    log("[kernel] library_ms: null for both kernels — no single PyTorch call "
+        "computes attention with per-pair cRPE table terms on q, k and v "
+        "(scaled_dot_product_attention takes one additive bias and no value "
+        "term)")
+    for name in FWD_KERNELS:
+        r = report[name]
+        log(f"[kernel] {name}: {r['ms']:.3f} ms per eval forward (wrapper "
+            f"device busy {r['wrapper_busy_ms']:.3f} ms; bound "
+            f"{r['bound_ms']:.3f} ms)")
+    return rows_out
+
+
 def bwd_phase(cfg, levels, plans, dev, report):
     """Phase 7: both backward kernels against their plain versions at every
     stage's plans, with random q/k/v/g and tables from seed 0 and the merged
@@ -565,16 +711,17 @@ def bwd_phase(cfg, levels, plans, dev, report):
             f"{r['wrapper_busy_ms']:.3f} ms; bound {r['bound_ms']:.3f} ms)")
 
 
-def bwd_only():
-    """``--bwd-only``: phase 1's build of the backward kernels, the host
-    batch and plans of phase 2 (on the card), and phase 7; prints one JSON
+def phase_only(names):
+    """``--fwd-only`` / ``--bwd-only``: phase 1's build of the named kernels,
+    the host batch and plans of phase 2 (on the card), and phase 4 (the
+    forward kernels) or phase 7 (the backward kernels); prints one JSON
     line."""
     sys.path.insert(0, REPO)
     from stratified_transformer_torch.config import load_config
     from stratified_transformer_torch.data.loader import host_batch
     from stratified_transformer_torch.kernels import build
     dev = torch.device("cuda")
-    build.build_all(list(BWD_KERNELS))
+    build.build_all(list(names))
     ptxas = [f"{name}: {line.strip()}"
              for name, text in build.build_logs.items()
              for line in text.splitlines()
@@ -583,11 +730,32 @@ def bwd_only():
     levels = stage_levels(cfg, host_batch(cfg, seed=0))
     plans = {(i, shifted): build_plan(cfg, i, levels[i], shifted, dev)
              for i in range(cfg.num_layers) for shifted in (False, True)}
-    report = new_report(BWD_KERNELS)
-    bwd_phase(cfg, levels, plans, dev, report)
-    print(json.dumps({"card": card_line(), "repo": REPO,
-                      "ms_per_train_step": report, "ptxas": ptxas}))
+    report = new_report(names)
+    out = {"card": card_line(), "repo": REPO}
+    if names == FWD_KERNELS:
+        out["stages"] = fwd_phase(cfg, levels, plans, dev, report)
+        out["ms_per_eval_forward"] = report
+    else:
+        bwd_phase(cfg, levels, plans, dev, report)
+        out["ms_per_train_step"] = report
+    out["ptxas"] = ptxas
+    print(json.dumps(out))
     return 0
+
+
+PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS}
+
+
+def parse_args(argv):
+    """The kernels one phase runs alone for (``--fwd-only``,
+    ``--bwd-only``), None for the whole run; raises ValueError on anything
+    else."""
+    if not argv:
+        return None
+    if len(argv) == 1 and argv[0] in PHASE_ONLY:
+        return PHASE_ONLY[argv[0]]
+    raise ValueError(f"unknown arguments {argv}; give none, --fwd-only or "
+                     "--bwd-only")
 
 
 def main(argv):
@@ -596,11 +764,13 @@ def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    if argv == ["--bwd-only"]:
-        return bwd_only()
-    if argv:
-        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+    try:
+        only = parse_args(argv)
+    except ValueError as e:
+        print(f"chip_smoke: {e}", file=sys.stderr)
         return 2
+    if only is not None:
+        return phase_only(only)
     sys.path.insert(0, REPO)
     from stratified_transformer_torch.config import load_config
     from stratified_transformer_torch.data.loader import host_batch, to_device
@@ -685,96 +855,17 @@ def main(argv):
         f"{n_bins} boundary-dense sweep values over 4 stages")
 
     # ---- 4. kernels against their plain versions --------------------------
-    gen = torch.Generator(device="cpu").manual_seed(0)
     report = new_report(TPU_KERNELS)
-    for i in range(cfg.num_layers):
-        h, d = cfg.num_heads[i], cfg.channels[i] // cfg.num_heads[i]
-        ws, qs = cfg.window_sizes()[i], cfg.quant_sizes()[i]
-        nbf = 2 * int((2 * ws + 1e-4) // qs)
-        band = cfg.stage_band(i)
-        n = len(levels[i][0])
-        q, k, v = (torch.randn(n, h, d, generator=gen).to(dev)
-                   for _ in range(3))
-        tables = tuple((torch.randn(nbf, h, d, 3, generator=gen) * 0.05
-                        ).to(dev) for _ in range(3))
-        kw = dict(window_size=ws, quant_size=qs, scale=d ** -0.5)
-        for shifted in (False, True):
-            blocks = (cfg.depths[i] + (0 if shifted else 1)) // 2
-            plan = plans[i, shifted]
-            pargs = (q, k, v, plan.xyz_sorted, plan.seg_start, plan.seg_end,
-                     plan.valid_sorted) + tables
-            sb = plan.sparse_band
-            n_q = int(plan.valid_sorted.sum())
-            s_pairs, s_q, s_k = sparse_pairs(plan, cfg.s_band, cfg.tile)
-            nb = plain.band_table_slice(nbf)[1]
-            with torch.no_grad():
-                # name: (module, launch_args for timing, public wrapper,
-                #        plain version, pairs, queries and keys in a pair,
-                #        table rows per axis); every valid point is its
-                #        own band key
-                runs = {
-                    "band_attention": (
-                        band_k, band_k.launch_args(*pargs, **kw, band=band,
-                                                   tile=cfg.tile),
-                        lambda: band_k.band_attention(
-                            *pargs, **kw, band=band, tile=cfg.tile),
-                        lambda: plain.band_attention_plain(
-                            *pargs, **kw, band=band, tile=cfg.tile),
-                        band_pairs(plan, band, cfg.tile), n_q, n_q, nb),
-                    "sparse_band_attention": (
-                        sparse_k, sparse_k.launch_args(
-                            q, k, v, sb, *tables, **kw, s_band=cfg.s_band,
-                            tile=cfg.tile),
-                        lambda: sparse_k.sparse_band_attention(
-                            q, k, v, sb, *tables, **kw, s_band=cfg.s_band,
-                            tile=cfg.tile),
-                        lambda: plain.sparse_band_attention_plain(
-                            q, k, v, sb, *tables, **kw, s_band=cfg.s_band,
-                            tile=cfg.tile),
-                        s_pairs, s_q, s_k, nbf),
-                }
-                triples = {}
-                for name, (mod, (args, outs, inputs), wrapper, plain_fn,
-                           pairs, nq, nk, rows) in runs.items():
-                    got = wrapper()
-                    want = plain_fn()
-                    torch.cuda.synchronize()
-                    triples[name] = (got, want)
-                    errs = []
-                    for tn, g, w in zip(("acc", "m", "den"), got, want):
-                        assert_close(f"{name} stage {i} shifted={shifted} "
-                                     f"{tn}", g, w, RTOL, ATOL)
-                        errs.append(max_errors(g, w))
-                    ms = cuda_time_ms(lambda: mod.KERNEL(*args), 20)
-                    plain_ms = cuda_time_ms(plain_fn, 3)
-                    t_ops = least_ops(pairs, nq, nk, h, d, rows)
-                    bound, by = add_timing(report, name, blocks, ms,
-                                           plain_ms, nbytes(inputs + outs),
-                                           t_ops, max(e[0] for e in errs))
-                    log(f"[kernel] {name} stage {i} shifted={int(shifted)} "
-                        f"N={n} h={h} d={d} pairs={pairs} "
-                        f"ops/pair/head={t_ops / pairs / h:.1f}: {ms:.4f} ms "
-                        f"(plain {plain_ms:.3f} ms, bound {bound:.4f} ms by "
-                        f"{by}); max abs/rel err acc {errs[0][0]:.2e}/"
-                        f"{errs[0][1]:.2e} m {errs[1][0]:.2e}/{errs[1][1]:.2e}"
-                        f" den {errs[2][0]:.2e}/{errs[2][1]:.2e}")
-                out_k = plain.merge([triples[n_][0] for n_ in FWD_KERNELS])[0]
-                out_p = plain.merge([triples[n_][1] for n_ in FWD_KERNELS])[0]
-                assert_close(f"merged stage {i}", out_k, out_p, RTOL, ATOL)
-                e = max_errors(out_k, out_p)
-                log(f"[kernel] merged output stage {i} shifted={int(shifted)}"
-                    f": max abs/rel err {e[0]:.2e}/{e[1]:.2e}")
-    log("[kernel] library_ms: null for both kernels — no single PyTorch call "
-        "computes attention with per-pair cRPE table terms on q, k and v "
-        "(scaled_dot_product_attention takes one additive bias and no value "
-        "term)")
+    fwd_phase(cfg, levels, plans, dev, report)
 
     # ---- 5. full-width eval step ------------------------------------------
     model = build_model(cfg, "cuda", seed=0)
     o1_weights(model, seed=0)
     eval_step = make_eval_step(255, cfg.num_classes)
-    batches = [to_device(host_batch(cfg, seed=s), dev)
-               for s in range(EVAL_BATCHES)]
+    eval_hbs = [host_batch(cfg, seed=s) for s in range(EVAL_BATCHES)]
+    batches = [to_device(hb, dev) for hb in eval_hbs]
+    for j, hb in enumerate(eval_hbs):
+        log_pairs(f"eval batch {j}", cfg, hb, dev)
     eval_step(model, batches[0])                # first call: lazy set-up
     torch.cuda.synchronize()
     kernel_mods = {"band_attention": band_k, "sparse_band_attention": sparse_k,
@@ -851,16 +942,17 @@ def main(argv):
     schedule = schedulers.from_config(yaml_cfg, TRAIN_ITERS_PER_EPOCH)[0]
     train_step = make_train_step(255, cfg.num_classes)
     t0 = time.time()
-    train_batches = [
-        to_device(host_batch(cfg, seed=10 + s, train=True,
-                             rng=np.random.default_rng(100 + s),
-                             aug=yaml_cfg), dev)
-        for s in range(TRAIN_STEPS)]
+    train_hbs = [host_batch(cfg, seed=10 + s, train=True,
+                            rng=np.random.default_rng(100 + s), aug=yaml_cfg)
+                 for s in range(TRAIN_STEPS)]
+    train_batches = [to_device(hb, dev) for hb in train_hbs]
     log(f"[train] {TRAIN_STEPS} augmented S3DIS batches (N={N_PAD}, "
         f"{SCENES} scenes) built in {time.time() - t0:.2f} s; drop-path "
         f"{cfg.drop_path_rate}, base_lr {yaml_cfg['base_lr']}, weight decay "
         f"{yaml_cfg['weight_decay']}, x{yaml_cfg['transformer_lr_scale']} "
         "on blocks")
+    for j, hb in enumerate(train_hbs):
+        log_pairs(f"train batch {j}", cfg, hb, dev)
     init_state = {k_: v_.clone() for k_, v_ in model.state_dict().items()}
 
     def trainer(impl):
@@ -959,9 +1051,9 @@ def main(argv):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["bound_by"], key=r["bound_by"].get),
             "library_ms": r.get("library_ms")}
-        if "wrapper_ms" in r:
-            entry["wrapper_ms"] = r["wrapper_ms"]
-            entry["wrapper_busy_ms"] = r["wrapper_busy_ms"]
+        for key in ("wrapper_ms", "wrapper_busy_ms"):
+            if key in r:
+                entry[key] = r[key]
         if name in PROBE_KERNELS:
             entry["probe_launches"] = probe_launches[name]
             entry["times_per"] = "one launch of the probe"

@@ -144,23 +144,6 @@ struct BwdSmem {
   __host__ size_t bytes() const { return sizeof(float) * static_cast<size_t>(total); }
 };
 
-// Bytes of dynamic shared memory that a block of `kernel` may take on the
-// current device: the opt-in limit per block less the kernel's static
-// shared memory (227 KB less a few bytes on the H100).
-template <typename Kernel>
-__host__ cudaError_t bwd_smem_room(Kernel kernel, size_t* room) {
-  int dev = 0, optin = 0;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  if (err == cudaSuccess)
-    *room = static_cast<size_t>(optin) - attr.sharedSizeBytes;
-  return err;
-}
-
 // The most table rows per axis (at most kBwdMaxNb) for which a block of R
 // rows fits in `room` bytes. On the H100: 45 for 64-row blocks, 64 (all)
 // for 32-row blocks.
@@ -169,22 +152,6 @@ __host__ int bwd_max_nb(size_t room) {
   int nb = kBwdMaxNb;
   while (nb > 0 && BwdSmem<D, R>(nb).bytes() > room) --nb;
   return nb;
-}
-
-// 4 consecutive floats of shared memory at a 16-byte aligned address.
-__device__ __forceinline__ void lds4(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
-
-template <int N>
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int s = 1; s < N; s <<= 1) x += __shfl_xor_sync(0xffffffffu, x, s);
-  return x;
 }
 
 // The backward of rows [row0, row0 + R), for the head blockIdx.y, over keys

@@ -1,11 +1,6 @@
-// Shared device code of the two stratified-attention forward kernels.
-//
-// Both kernels give one thread block to each (128-row query tile, head) and
-// one thread to each query row. A thread keeps its query (pre-scaled), its
-// coordinates and an online-softmax state (running max m, denominator den,
-// unnormalised accumulator acc[D]) in registers; key chunks are staged
-// through shared memory, and the head's slice of the three cRPE tables
-// stays in shared memory for the whole block.
+// Device code shared by the stratified-attention kernels, forward
+// (attention_fwd_common.cuh) and backward (attention_bwd_common.cuh): the
+// cRPE bin of one axis, shared-memory and warp helpers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,7 +10,6 @@
 namespace stratified {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kChunk = 64;   // keys staged per shared-memory round
 
 // Quantized relative-position bin of one axis, bit-identical to
 // relative_position_index (ops/attention.py) and to the JAX package's
@@ -34,114 +28,47 @@ __device__ __forceinline__ int rel_bin(float rel, float bin_offset,
   return min(max(b, 0), nb - 1);
 }
 
-// Shared-memory row stride of a table slice: D + 1 floats, so that threads
-// reading different bins of one column hit different banks.
-template <int D>
-struct TableSmem {
-  static constexpr int kStride = D + 1;
-  static __device__ __forceinline__ int offset(int a, int bin, int nb) {
-    return (a * nb + bin) * kStride;
-  }
-};
-
-// Copies the head's [3][nb][D] slice of one packed table ([H][3][nb][D] in
-// device memory) into shared memory with the padded row stride.
-template <int D>
-__device__ __forceinline__ void load_table(float* dst, const float* src,
-                                           int head, int nb) {
-  const float* t = src + static_cast<size_t>(head) * 3 * nb * D;
-  for (int i = threadIdx.x; i < 3 * nb * D; i += blockDim.x) {
-    int row = i / D, col = i - row * D;
-    dst[row * TableSmem<D>::kStride + col] = t[i];
-  }
+// 4 consecutive floats of shared memory at a 16-byte aligned address.
+__device__ __forceinline__ void lds4(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
 }
 
-// One query row's attention state over its keys.
-template <int D>
-struct RowState {
-  float q[D];
-  float acc[D];
-  float m;
-  float den;
+// Sum / max over aligned groups of N neighbouring lanes (a butterfly: every
+// lane of the group gets the same value, summed in a fixed order).
+template <int N>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int s = 1; s < N; s <<= 1) x += __shfl_xor_sync(0xffffffffu, x, s);
+  return x;
+}
 
-  __device__ __forceinline__ void init(const float* q_row) {
+template <int N>
+__device__ __forceinline__ float group_max(float x) {
 #pragma unroll
-    for (int j = 0; j < D; ++j) {
-      q[j] = q_row[j];
-      acc[j] = 0.0f;
-    }
-    m = kNegInf;
-    den = 0.0f;
-  }
+  for (int s = 1; s < N; s <<= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, s));
+  return x;
+}
 
-  // Adds one unmasked key: logit l = q·k + Σ_a q·Tq[b_a] + Σ_a k·Tk[b_a],
-  // value v + Σ_a Tv[b_a]. Tables are shared-memory slices or null.
-  __device__ __forceinline__ void add_key(const float* k, const float* v,
-                                          const int* bins, const float* tq,
-                                          const float* tk, const float* tv,
-                                          int nb) {
-    float l = 0.0f;
-#pragma unroll
-    for (int j = 0; j < D; ++j) l = fmaf(q[j], k[j], l);
-    if (tq != nullptr) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const float* row = tq + TableSmem<D>::offset(a, bins[a], nb);
-        float s = 0.0f;
-#pragma unroll
-        for (int j = 0; j < D; ++j) s = fmaf(q[j], row[j], s);
-        l += s;
-      }
-    }
-    if (tk != nullptr) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const float* row = tk + TableSmem<D>::offset(a, bins[a], nb);
-        float s = 0.0f;
-#pragma unroll
-        for (int j = 0; j < D; ++j) s = fmaf(k[j], row[j], s);
-        l += s;
-      }
-    }
-    if (l > m) {
-      const float r = expf(m - l);
-      den *= r;
-#pragma unroll
-      for (int j = 0; j < D; ++j) acc[j] *= r;
-      m = l;
-    }
-    const float p = expf(l - m);
-    den += p;
-    if (tv != nullptr) {
-      const float* r0 = tv + TableSmem<D>::offset(0, bins[0], nb);
-      const float* r1 = tv + TableSmem<D>::offset(1, bins[1], nb);
-      const float* r2 = tv + TableSmem<D>::offset(2, bins[2], nb);
-#pragma unroll
-      for (int j = 0; j < D; ++j)
-        acc[j] = fmaf(p, v[j] + r0[j] + r1[j] + r2[j], acc[j]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < D; ++j) acc[j] = fmaf(p, v[j], acc[j]);
-    }
-  }
-
-  __device__ __forceinline__ void store(float* acc_row, float* m_out,
-                                        float* den_out) const {
-#pragma unroll
-    for (int j = 0; j < D; ++j) acc_row[j] = acc[j];
-    *m_out = m;
-    *den_out = den;
-  }
-};
-
-// Shared-memory bytes of a block: three table slices, then the key chunk
-// (k and v rows, xyz + validity, and one int per key).
-template <int D>
-constexpr size_t smem_bytes(int nb) {
-  return sizeof(float) * (3 * 3 * static_cast<size_t>(nb) *
-                              TableSmem<D>::kStride +
-                          kChunk * (2 * D + 4)) +
-         sizeof(int) * kChunk;
+// Bytes of dynamic shared memory that a block of `kernel` may take on the
+// current device: the opt-in limit per block less the kernel's static
+// shared memory (227 KB less a few bytes on the H100).
+template <typename Kernel>
+__host__ cudaError_t smem_room(Kernel kernel, size_t* room) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    *room = static_cast<size_t>(optin) - attr.sharedSizeBytes;
+  return err;
 }
 
 }  // namespace stratified

@@ -5,149 +5,51 @@
 // band_attention). Plain PyTorch version: band_attention_plain in
 // stratified_transformer_torch/ops/attention.py.
 //
-// For each 128-row tile of the window-sorted points and each head, every
-// query row t attends to keys [t0 - band, t0 + tile + band) ∩ [seg_start[t],
-// seg_end[t]), both ends valid, with t0 = (t / tile) * tile. The logit adds
-// the cRPE biases q·Tq[bin] and k·Tk[bin] over the 3 axes; the value adds
-// Tv[bin]. Band pairs only reach table rows [bin_lo, bin_lo + nb), which
-// the wrapper slices out. Output: the unnormalised online-softmax triple
-// (acc [N,H,D], m [N,H], den [N,H]); a row with no key gets m = -1e30,
-// den = 0, acc = 0.
+// Every query row t attends to keys [t0 - band, t0 + tile + band) ∩
+// [seg_start[t], seg_end[t]), both ends valid, with t0 = (t / tile) * tile.
+// The logit adds the cRPE biases q·Tq[bin] and k·Tk[bin] over the 3 axes;
+// the value adds Tv[bin]. Band pairs only reach table rows [bin_lo, bin_lo +
+// nb), which the kernel reads from the model's [nb_full][H][D][3] tables.
+// Output: the unnormalised online-softmax triple (acc [N,H,D], m [N,H], den
+// [N,H]); a row with no key gets m = -1e30, den = 0, acc = 0.
 //
-// What bounds it on the H100: computed pair by pair, as here, an unmasked
-// pair costs ~330 fp32 operations per head at D = 16 (q·k, three q·Tq and
-// three k·Tk dot products, v + ΣTv, p·(...), the softmax update) and ~24
-// for the bins, which the heads share. The least work for the function
-// projects each query and key, and each row's bin mass, onto the 3 x nb
-// table rows once, as the TPU kernel does: ~160 operations per pair and
-// head at stage 2 of the S3DIS point (~150 keys per query). The function
-// reads q, k, v and writes acc once, 4 x N·H·D·4 bytes. Its bound is the
-// larger of the least operations over 67 TFLOP/s (CUDA cores, fp32) and
-// those bytes over 3.35 TB/s; chip_smoke.py computes it from the run's data.
-// The design spends nothing on masked pairs: the block first reduces the
-// union of its rows' segments, stages only those keys through shared memory
-// (the TPU kernel's dynamic chunk bounds), and each thread skips keys
-// outside its own segment. wgmma tensor-core tiles, TMA staging and a bf16
-// mode are left for later work.
+// What bounds it on the H100: the fp32 work of the unmasked pairs, q·k, p·v
+// and the softmax (~4d + 5 operations per pair and head) and ~24 for the
+// bins, plus the table terms in the projection form (each query, key and
+// row's bin mass projected once onto the 3·nb table rows, 6·nb·d operations
+// each, then 3 lookups per pair and table), against reading q, k, v and
+// writing acc once. chip_smoke.py::least_ops counts those operations from
+// the run's data; the bound is the larger of them over 67 TFLOP/s (CUDA
+// cores, fp32) and the bytes over 3.35 TB/s: operations at S3DIS's stages
+// 1-3 (~150 keys per query at stage 2), bytes at stage 0.
+// The design (attention_fwd_common.cuh): one block of 256 threads per
+// (64-row slice of a tile, head); the projection form, so that a pair costs
+// a 16-long dot product, six lookups, an exp and a 16-long axpy; Tv through
+// per-row bin masses walked in a fixed order (no atomics); whole pairs per
+// lane, four lanes per row, so a warp no longer waits on its longest row;
+// one softmax rescale per chunk of 32 keys instead of one per key. Keys
+// outside the union of the slice's segments are never staged. Bins are
+// computed per head (a block of several heads would need their per-row
+// projections and masses at once, more shared memory than a block has).
+// The products stay on fp32 FMA; tensor cores, TMA staging and a bf16 mode
+// are left for later work.
 
-#include "attention_common.cuh"
+#include "attention_fwd_common.cuh"
 
 namespace stratified {
 
-template <int D>
-__global__ void band_attention_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ xyz,
-    const int32_t* __restrict__ seg_start, const int32_t* __restrict__ seg_end,
-    const uint8_t* __restrict__ valid, const float* __restrict__ tq,
-    const float* __restrict__ tk, const float* __restrict__ tv,
-    float* __restrict__ acc, float* __restrict__ m_out,
-    float* __restrict__ den_out, int n, int h, int tile, int band, int nb,
-    int bin_lo, int nb_full, float bin_offset, float inv_quant) {
-  extern __shared__ float smem[];
-  const int table_floats = 3 * nb * TableSmem<D>::kStride;
-  float* s_tq = smem;
-  float* s_tk = s_tq + table_floats;
-  float* s_tv = s_tk + table_floats;
-  float* s_k = s_tv + table_floats;            // [kChunk][D]
-  float* s_v = s_k + kChunk * D;               // [kChunk][D]
-  float* s_x = s_v + kChunk * D;               // [kChunk][4]: xyz, valid
-  __shared__ int s_lo, s_hi;
+constexpr int kBandRows = 64;   // rows per block: 2 slices of a tile
 
-  const int head = blockIdx.y;
-  const int t0 = blockIdx.x * tile;
-  const int row = t0 + threadIdx.x;
-
-  if (tq != nullptr) load_table<D>(s_tq, tq, head, nb);
-  if (tk != nullptr) load_table<D>(s_tk, tk, head, nb);
-  if (tv != nullptr) load_table<D>(s_tv, tv, head, nb);
-  if (threadIdx.x == 0) {
-    s_lo = n;
-    s_hi = 0;
-  }
-  __syncthreads();
-
-  const bool row_ok = row < n && valid[row];
-  const int ss = row_ok ? seg_start[row] : 0;
-  const int se = row_ok ? seg_end[row] : 0;
-  if (row_ok && se > ss) {
-    atomicMin(&s_lo, ss);
-    atomicMax(&s_hi, se);
-  }
-  RowState<D> st;
-  float xq0 = 0.f, xq1 = 0.f, xq2 = 0.f;
-  if (row < n) {
-    st.init(q + (static_cast<size_t>(row) * h + head) * D);
-    xq0 = xyz[row * 3 + 0];
-    xq1 = xyz[row * 3 + 1];
-    xq2 = xyz[row * 3 + 2];
-  }
-  __syncthreads();
-  const int lo = max(max(s_lo, t0 - band), 0);
-  const int hi = min(min(s_hi, t0 + tile + band), n);
-
-  const float* ptq = tq != nullptr ? s_tq : nullptr;
-  const float* ptk = tk != nullptr ? s_tk : nullptr;
-  const float* ptv = tv != nullptr ? s_tv : nullptr;
-  for (int c0 = lo; c0 < hi; c0 += kChunk) {
-    const int cn = min(kChunk, hi - c0);
-    for (int i = threadIdx.x; i < cn * D; i += blockDim.x) {
-      const int j = i / D, c = i - j * D;
-      const size_t src = (static_cast<size_t>(c0 + j) * h + head) * D + c;
-      s_k[i] = k[src];
-      s_v[i] = v[src];
-    }
-    for (int j = threadIdx.x; j < cn; j += blockDim.x) {
-      const int p = c0 + j;
-      s_x[j * 4 + 0] = xyz[p * 3 + 0];
-      s_x[j * 4 + 1] = xyz[p * 3 + 1];
-      s_x[j * 4 + 2] = xyz[p * 3 + 2];
-      s_x[j * 4 + 3] = valid[p] ? 1.0f : 0.0f;
-    }
-    __syncthreads();
-    if (row_ok) {
-      const int j0 = max(ss - c0, 0), j1 = min(se - c0, cn);
-      for (int j = j0; j < j1; ++j) {
-        if (s_x[j * 4 + 3] == 0.0f) continue;
-        int bins[3] = {0, 0, 0};
-        if (nb > 0) {
-          bins[0] = rel_bin(__fsub_rn(xq0, s_x[j * 4 + 0]), bin_offset,
-                            inv_quant, nb_full, bin_lo, nb);
-          bins[1] = rel_bin(__fsub_rn(xq1, s_x[j * 4 + 1]), bin_offset,
-                            inv_quant, nb_full, bin_lo, nb);
-          bins[2] = rel_bin(__fsub_rn(xq2, s_x[j * 4 + 2]), bin_offset,
-                            inv_quant, nb_full, bin_lo, nb);
-        }
-        st.add_key(s_k + j * D, s_v + j * D, bins, ptq, ptk, ptv, nb);
-      }
-    }
-    __syncthreads();
-  }
-  if (row < n) {
-    const size_t o = static_cast<size_t>(row) * h + head;
-    st.store(acc + o * D, m_out + o, den_out + o);
-  }
-}
-
-template <int D>
-cudaError_t launch_band(const float* q, const float* k, const float* v,
-                        const float* xyz, const int32_t* seg_start,
-                        const int32_t* seg_end, const uint8_t* valid,
-                        const float* tq, const float* tk, const float* tv,
-                        float* acc, float* m, float* den, int n, int h,
-                        int tile, int band, int nb, int bin_lo, int nb_full,
-                        float bin_offset, float inv_quant,
-                        cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(nb);
-  cudaError_t err = cudaFuncSetAttribute(
-      band_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid(n / tile, h);
-  band_attention_kernel<D><<<grid, tile, smem, stream>>>(
-      q, k, v, xyz, seg_start, seg_end, valid, tq, tk, tv, acc, m, den, n, h,
-      tile, band, nb, bin_lo, nb_full, bin_offset, inv_quant);
-  return cudaGetLastError();
+template <int D, int R>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+band_attention_kernel(FwdQueries Q, FwdKeys K, FwdTables T, FwdOutputs O,
+                      int n, int h, int tile, int band, float scale) {
+  const int slices = tile / R;
+  const int tile_idx = blockIdx.x / slices;
+  const int t0 = tile_idx * tile;
+  attention_fwd_block<D, R, true>(
+      Q, K, T, O, h, t0 + (blockIdx.x - tile_idx * slices) * R,
+      max(t0 - band, 0), min(t0 + tile + band, n), scale);
 }
 
 __global__ void rel_bin_probe_kernel(const float* __restrict__ rel,
@@ -161,7 +63,7 @@ __global__ void rel_bin_probe_kernel(const float* __restrict__ rel,
 
 }  // namespace stratified
 
-// Diagnostic entry point: the bins rel_bin (the device function both
+// Diagnostic entry point: the bins rel_bin (the device function the
 // attention kernels use) gives for n relative coordinates of one axis.
 extern "C" int rel_bin_probe(const float* rel, int32_t* out, int n,
                              float bin_offset, float inv_quant, int nb_full,
@@ -173,22 +75,59 @@ extern "C" int rel_bin_probe(const float* rel, int32_t* out, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// C entry point, bound with ctypes. q is pre-scaled by d^-0.5; q/k/v are
-// [N,H,D] fp32, xyz [N,3] fp32, seg bounds [N] int32, valid [N] bool; the
-// tables are [H,3,nb,D] fp32 slices or null. Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for a head size other than 16).
+// C entry point, bound with ctypes. q/k/v are [N,H,D] fp32 rows of q_rs /
+// k_rs / v_rs floats (head stride D, channel stride 1: the model's views of
+// its qkv projection); q is scaled by `scale` in the kernel. xyz [N,3]
+// fp32, seg bounds [N] int32, valid [N] bool; the tables are the model's
+// [nb_full][H][D][3] fp32 or null, of which rows [bin_lo, bin_lo + nb) are
+// read. Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
+// for a head size other than 16, a tile that is not a multiple of 64, or
+// more table rows per axis than band_attention_limits gives).
 extern "C" int band_attention_fwd(
     const float* q, const float* k, const float* v, const float* xyz,
     const int32_t* seg_start, const int32_t* seg_end, const uint8_t* valid,
     const float* tq, const float* tk, const float* tv, float* acc, float* m,
-    float* den, int n, int h, int d, int tile, int band, int nb, int bin_lo,
-    int nb_full, float bin_offset, float inv_quant, void* stream) {
+    float* den, int n, int h, int d, int q_rs, int k_rs, int v_rs, int tile,
+    int band, int nb, int bin_lo, int nb_full, float bin_offset,
+    float inv_quant, float scale, void* stream) {
+  using namespace stratified;
+  constexpr int R = kBandRows;
+  size_t room = 0;
+  cudaError_t err = smem_room(band_attention_kernel<16, R>, &room);
+  if (err != cudaSuccess) return static_cast<int>(err);
   // Every stage of the ported configurations has D = 16; instantiate more
   // head sizes when a configuration needs them.
-  if (d != 16) return static_cast<int>(cudaErrorInvalidValue);
-  return stratified::launch_band<16>(q, k, v, xyz, seg_start, seg_end, valid,
-                                     tq, tk, tv, acc, m, den, n, h, tile, band,
-                                     nb, bin_lo, nb_full, bin_offset,
-                                     inv_quant,
-                                     static_cast<cudaStream_t>(stream));
+  if (d != 16 || tile <= 0 || tile % R != 0 || n % tile != 0 || nb < 0 ||
+      nb > fwd_max_nb<R, true>(room))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdQueries Q{q, q_rs, nullptr, xyz, valid, seg_start, seg_end,
+                     nullptr};
+  const FwdKeys K{k, k_rs, v, v_rs, nullptr, xyz, valid, nullptr};
+  const FwdTables T{tq, tk, tv, nb, bin_lo, nb_full, bin_offset, inv_quant};
+  const FwdOutputs O{acc, m, den};
+  const size_t smem = FwdSmem<R, true>(nb).bytes();
+  err = cudaFuncSetAttribute(band_attention_kernel<16, R>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(n / R, h);
+  band_attention_kernel<16, R><<<grid, kFwdThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      Q, K, T, O, n, h, tile, band, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Rows per block, and the most table rows per axis whose block fits the
+// current device's shared memory per block (106 on the H100; the band slice
+// of S3DIS's 64-bin tables has 40, of ScanNet's 80-bin tables 48). Returns
+// a cudaError_t.
+extern "C" int band_attention_limits(int* rows, int* max_nb) {
+  using namespace stratified;
+  constexpr int R = kBandRows;
+  size_t room = 0;
+  const cudaError_t err = smem_room(band_attention_kernel<16, R>, &room);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *rows = R;
+  *max_nb = fwd_max_nb<R, true>(room);
+  return 0;
 }

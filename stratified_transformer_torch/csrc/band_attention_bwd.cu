@@ -70,7 +70,7 @@ extern "C" int band_attention_bwd(
   using namespace stratified;
   constexpr int R = kBandBwdRows;
   size_t room = 0;
-  cudaError_t err = bwd_smem_room(band_attention_bwd_kernel<16, R>, &room);
+  cudaError_t err = smem_room(band_attention_bwd_kernel<16, R>, &room);
   if (err != cudaSuccess) return static_cast<int>(err);
   // Every stage of the ported configurations has D = 16; instantiate more
   // head sizes when a configuration needs them.
@@ -102,7 +102,7 @@ extern "C" int band_attention_bwd_limits(int* rows, int* max_nb) {
   constexpr int R = kBandBwdRows;
   size_t room = 0;
   const cudaError_t err =
-      bwd_smem_room(band_attention_bwd_kernel<16, R>, &room);
+      smem_room(band_attention_bwd_kernel<16, R>, &room);
   if (err != cudaSuccess) return static_cast<int>(err);
   *rows = R;
   *max_nb = bwd_max_nb<16, R>(room);

@@ -5,174 +5,120 @@
 // sparse_band_attention). Plain PyTorch version: sparse_band_attention_plain
 // in stratified_transformer_torch/ops/attention.py.
 //
-// Queries arrive in large-window (lw) order; keys are the downsampled
-// members compacted into an aux array sorted by large-window key
-// (ops/plan.py::SparseBandLayout), gathered by the wrapper. Query tile t
-// (128 rows) reads the s_band aux slots from
-// base = (min(sb_start[t * tile], A - s_band) / 16) * 16; row r attends to
-// slots [sb_start[r], sb_end[r]) of that window whose small-window key
-// differs from its own, both ends valid. Bins span the full ±2·window range
-// (no table slice). Output: the unnormalised triple in lw order, which the
-// wrapper un-permutes; a row with no key gets m = -1e30, den = 0, acc = 0.
+// Queries run in large-window (lw) order: row r is point lw_map[r] of the
+// small-window-sorted order, whose q it reads (scaled in the kernel) and to
+// whose row it writes its triple, so the output is in small-window order.
+// Keys are the downsampled members compacted into aux slots sorted by
+// large-window key (ops/plan.py::SparseBandLayout): slot p reads k/v row
+// sb_src[p] where sb_valid[p]. Query tile t (128 rows) reads the s_band aux
+// slots from base = (min(sb_start[t * tile], A - s_band) / 16) * 16; row r
+// attends to slots [sb_start[r], sb_end[r]) of that window whose
+// small-window key differs from its own, both ends valid. Bins span the
+// full ±2·window range (no table slice). A row with no key gets m = -1e30,
+// den = 0, acc = 0. The gathers into lw and aux order and the un-permute,
+// which sit outside the pallas_call in the JAX package, are the kernel's
+// own reads and writes: the wrapper allocates the outputs and launches.
 //
-// What bounds it on the H100: ~330 fp32 operations per unmasked pair and
-// head at D = 16, as for the band kernel (a query has too few far keys for
-// projecting it onto the full 3 x 64 table rows to cost less), against
-// reading q_lw and the aux k/v arrays and writing acc once. A tile's far
-// keys span a few dozen aux slots, so at the S3DIS point the bytes set the
-// bound at most stages; chip_smoke.py computes it from the run's data. The
-// block reduces the union of its rows' segments and visits only those slots
-// of the s_band window; each thread skips keys outside its segment or in its
-// own small window. wgmma tensor-core tiles, TMA staging and a bf16 mode
-// are left for later work.
+// What bounds it on the H100: reading q, k and v, the plan's indices and
+// the tables once and writing the triple once, against the fp32 work of
+// the unmasked pairs (q·k, p·v and the softmax, ~24 operations for the
+// bins, and the table terms). A row has at most sparse_cap far keys (48
+// for S3DIS), fewer than the ~nb rows per axis (64) beyond which projecting
+// it onto the 3·nb table rows costs less than three d-long dot products
+// per pair, so the table terms take the per-pair form (chip_smoke.py::
+// least_ops picks the cheaper form per table, and counts each key's
+// projection once per call; a tile's block sees its keys for too few rows
+// for that). At the S3DIS point the bytes set the bound at most stages.
+// The design (attention_fwd_common.cuh): one block of 256 threads per
+// (64-row slice of a tile, head), two blocks per SM, four lanes per row
+// taking whole pairs, one softmax rescale per chunk of 32 keys; the head's
+// three full tables are staged once per block, a thread per (table, bin)
+// with its twelve float4 reads of the model's layout in flight together;
+// the block visits only the union of its rows' segments in the s_band
+// window. Tensor cores, TMA staging and a bf16 mode are left for later
+// work.
 
-#include "attention_common.cuh"
+#include "attention_fwd_common.cuh"
 
 namespace stratified {
 
-template <int D>
-__global__ void sparse_band_attention_kernel(
-    const float* __restrict__ q_lw, const float* __restrict__ xyz_lw,
-    const uint8_t* __restrict__ valid_lw, const int32_t* __restrict__ skey_lw,
-    const int32_t* __restrict__ sb_start, const int32_t* __restrict__ sb_end,
-    const float* __restrict__ k_aux, const float* __restrict__ v_aux,
-    const float* __restrict__ xyz_aux, const uint8_t* __restrict__ valid_aux,
-    const int32_t* __restrict__ skey_aux, const float* __restrict__ tq,
-    const float* __restrict__ tk, const float* __restrict__ tv,
-    float* __restrict__ acc, float* __restrict__ m_out,
-    float* __restrict__ den_out, int n, int a_sz, int h, int tile, int s_band,
-    int nb, float bin_offset, float inv_quant) {
-  extern __shared__ float smem[];
-  const int table_floats = 3 * nb * TableSmem<D>::kStride;
-  float* s_tq = smem;
-  float* s_tk = s_tq + table_floats;
-  float* s_tv = s_tk + table_floats;
-  float* s_k = s_tv + table_floats;            // [kChunk][D]
-  float* s_v = s_k + kChunk * D;               // [kChunk][D]
-  float* s_x = s_v + kChunk * D;               // [kChunk][4]: xyz, valid
-  int* s_skey = reinterpret_cast<int*>(s_x + kChunk * 4);
-  __shared__ int s_lo, s_hi;
+constexpr int kSparseRows = 64;   // rows per block: 2 slices of a tile
 
-  const int head = blockIdx.y;
-  const int t0 = blockIdx.x * tile;
-  const int row = t0 + threadIdx.x;
-  const int base = (min(sb_start[t0], a_sz - s_band) / 16) * 16;
-
-  if (tq != nullptr) load_table<D>(s_tq, tq, head, nb);
-  if (tk != nullptr) load_table<D>(s_tk, tk, head, nb);
-  if (tv != nullptr) load_table<D>(s_tv, tv, head, nb);
-  if (threadIdx.x == 0) {
-    s_lo = a_sz;
-    s_hi = 0;
-  }
-  __syncthreads();
-
-  const bool row_ok = row < n && valid_lw[row];
-  const int ks = row_ok ? sb_start[row] : 0;
-  const int ke = row_ok ? sb_end[row] : 0;
-  const int skey = row < n ? skey_lw[row] : 0;
-  if (row_ok && ke > ks) {
-    atomicMin(&s_lo, ks);
-    atomicMax(&s_hi, ke);
-  }
-  RowState<D> st;
-  float xq0 = 0.f, xq1 = 0.f, xq2 = 0.f;
-  if (row < n) {
-    st.init(q_lw + (static_cast<size_t>(row) * h + head) * D);
-    xq0 = xyz_lw[row * 3 + 0];
-    xq1 = xyz_lw[row * 3 + 1];
-    xq2 = xyz_lw[row * 3 + 2];
-  }
-  __syncthreads();
-  const int lo = max(s_lo, base);
-  const int hi = min(s_hi, base + s_band);
-
-  const float* ptq = tq != nullptr ? s_tq : nullptr;
-  const float* ptk = tk != nullptr ? s_tk : nullptr;
-  const float* ptv = tv != nullptr ? s_tv : nullptr;
-  for (int c0 = lo; c0 < hi; c0 += kChunk) {
-    const int cn = min(kChunk, hi - c0);
-    for (int i = threadIdx.x; i < cn * D; i += blockDim.x) {
-      const int j = i / D, c = i - j * D;
-      const size_t src = (static_cast<size_t>(c0 + j) * h + head) * D + c;
-      s_k[i] = k_aux[src];
-      s_v[i] = v_aux[src];
-    }
-    for (int j = threadIdx.x; j < cn; j += blockDim.x) {
-      const int p = c0 + j;
-      s_x[j * 4 + 0] = xyz_aux[p * 3 + 0];
-      s_x[j * 4 + 1] = xyz_aux[p * 3 + 1];
-      s_x[j * 4 + 2] = xyz_aux[p * 3 + 2];
-      s_x[j * 4 + 3] = valid_aux[p] ? 1.0f : 0.0f;
-      s_skey[j] = skey_aux[p];
-    }
-    __syncthreads();
-    if (row_ok) {
-      const int j0 = max(ks - c0, 0), j1 = min(ke - c0, cn);
-      for (int j = j0; j < j1; ++j) {
-        if (s_x[j * 4 + 3] == 0.0f || s_skey[j] == skey) continue;
-        int bins[3] = {0, 0, 0};
-        if (nb > 0) {
-          bins[0] = rel_bin(__fsub_rn(xq0, s_x[j * 4 + 0]), bin_offset,
-                            inv_quant, nb, 0, nb);
-          bins[1] = rel_bin(__fsub_rn(xq1, s_x[j * 4 + 1]), bin_offset,
-                            inv_quant, nb, 0, nb);
-          bins[2] = rel_bin(__fsub_rn(xq2, s_x[j * 4 + 2]), bin_offset,
-                            inv_quant, nb, 0, nb);
-        }
-        st.add_key(s_k + j * D, s_v + j * D, bins, ptq, ptk, ptv, nb);
-      }
-    }
-    __syncthreads();
-  }
-  if (row < n) {
-    const size_t o = static_cast<size_t>(row) * h + head;
-    st.store(acc + o * D, m_out + o, den_out + o);
-  }
-}
-
-template <int D>
-cudaError_t launch_sparse(
-    const float* q_lw, const float* xyz_lw, const uint8_t* valid_lw,
-    const int32_t* skey_lw, const int32_t* sb_start, const int32_t* sb_end,
-    const float* k_aux, const float* v_aux, const float* xyz_aux,
-    const uint8_t* valid_aux, const int32_t* skey_aux, const float* tq,
-    const float* tk, const float* tv, float* acc, float* m, float* den, int n,
-    int a_sz, int h, int tile, int s_band, int nb, float bin_offset,
-    float inv_quant, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(nb);
-  cudaError_t err = cudaFuncSetAttribute(
-      sparse_band_attention_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid(n / tile, h);
-  sparse_band_attention_kernel<D><<<grid, tile, smem, stream>>>(
-      q_lw, xyz_lw, valid_lw, skey_lw, sb_start, sb_end, k_aux, v_aux,
-      xyz_aux, valid_aux, skey_aux, tq, tk, tv, acc, m, den, n, a_sz, h, tile,
-      s_band, nb, bin_offset, inv_quant);
-  return cudaGetLastError();
+template <int D, int R>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+sparse_band_attention_kernel(FwdQueries Q, FwdKeys K, FwdTables T,
+                             FwdOutputs O, int a_sz, int h, int tile,
+                             int s_band, float scale) {
+  const int slices = tile / R;
+  const int tile_idx = blockIdx.x / slices;
+  const int t0 = tile_idx * tile;
+  const int base = (min(Q.key_lo[t0], a_sz - s_band) / 16) * 16;
+  attention_fwd_block<D, R, false>(
+      Q, K, T, O, h, t0 + (blockIdx.x - tile_idx * slices) * R, base,
+      base + s_band, scale);
 }
 
 }  // namespace stratified
 
-// C entry point, bound with ctypes. Query arrays are in lw order (q_lw
-// pre-scaled, [N,H,D]); aux arrays have A rows (k_aux/v_aux [A,H,D], zero in
-// empty slots); s_band <= A is the aux window per tile; the tables are
-// [H,3,nb,D] fp32 or null. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a head size other than 16).
+// C entry point, bound with ctypes. q/k/v are [N,H,D] fp32 in
+// small-window-sorted order, rows of q_rs / k_rs / v_rs floats (head stride
+// D, channel stride 1); q is scaled by `scale` in the kernel. The plan's
+// fields: lw_map [N] int32, xyz_lw [N,3], valid_lw [N] bool, skey_lw,
+// sb_start, sb_end [N] int32 in lw order; sb_src [A] int32 (-1 in empty
+// slots), sb_xyz [A,3], sb_valid [A] bool, sb_skey [A] int32; s_band <= A
+// is the aux window per tile; the tables are the model's [nb][H][D][3] fp32
+// or null. acc [N,H,D], m, den [N,H] come out in small-window order.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
+// head size other than 16, a tile that is not a multiple of 64, or more
+// table rows per axis than sparse_band_attention_limits gives).
 extern "C" int sparse_band_attention_fwd(
-    const float* q_lw, const float* xyz_lw, const uint8_t* valid_lw,
-    const int32_t* skey_lw, const int32_t* sb_start, const int32_t* sb_end,
-    const float* k_aux, const float* v_aux, const float* xyz_aux,
-    const uint8_t* valid_aux, const int32_t* skey_aux, const float* tq,
-    const float* tk, const float* tv, float* acc, float* m, float* den, int n,
-    int a_sz, int h, int d, int tile, int s_band, int nb, float bin_offset,
-    float inv_quant, void* stream) {
+    const float* q, const float* k, const float* v, const int32_t* lw_map,
+    const float* xyz_lw, const uint8_t* valid_lw, const int32_t* skey_lw,
+    const int32_t* sb_start, const int32_t* sb_end, const int32_t* sb_src,
+    const float* sb_xyz, const uint8_t* sb_valid, const int32_t* sb_skey,
+    const float* tq, const float* tk, const float* tv, float* acc, float* m,
+    float* den, int n, int a_sz, int h, int d, int q_rs, int k_rs, int v_rs,
+    int tile, int s_band, int nb, float bin_offset, float inv_quant,
+    float scale, void* stream) {
+  using namespace stratified;
+  constexpr int R = kSparseRows;
+  size_t room = 0;
+  cudaError_t err = smem_room(sparse_band_attention_kernel<16, R>, &room);
+  if (err != cudaSuccess) return static_cast<int>(err);
   // Every stage of the ported configurations has D = 16; instantiate more
   // head sizes when a configuration needs them.
-  if (d != 16) return static_cast<int>(cudaErrorInvalidValue);
-  return stratified::launch_sparse<16>(
-      q_lw, xyz_lw, valid_lw, skey_lw, sb_start, sb_end, k_aux, v_aux,
-      xyz_aux, valid_aux, skey_aux, tq, tk, tv, acc, m, den, n, a_sz, h, tile,
-      s_band, nb, bin_offset, inv_quant, static_cast<cudaStream_t>(stream));
+  if (d != 16 || tile <= 0 || tile % R != 0 || n % tile != 0 || nb < 0 ||
+      nb > fwd_max_nb<R, false>(room) || s_band <= 0 || s_band > a_sz)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdQueries Q{q, q_rs, lw_map, xyz_lw, valid_lw, sb_start, sb_end,
+                     skey_lw};
+  const FwdKeys K{k, k_rs, v, v_rs, sb_src, sb_xyz, sb_valid, sb_skey};
+  const FwdTables T{tq, tk, tv, nb, 0, nb, bin_offset, inv_quant};
+  const FwdOutputs O{acc, m, den};
+  const size_t smem = FwdSmem<R, false>(nb).bytes();
+  err = cudaFuncSetAttribute(sparse_band_attention_kernel<16, R>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(n / R, h);
+  sparse_band_attention_kernel<16, R><<<grid, kFwdThreads, smem,
+                                        static_cast<cudaStream_t>(stream)>>>(
+      Q, K, T, O, a_sz, h, tile, s_band, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Rows per block, and the most table rows per axis that the entry point
+// takes on the current device (kFwdMaxNb = 256 on the H100, where the
+// block's shared memory would fit 307; S3DIS's tables have 64, ScanNet's
+// 80). Returns a cudaError_t.
+extern "C" int sparse_band_attention_limits(int* rows, int* max_nb) {
+  using namespace stratified;
+  constexpr int R = kSparseRows;
+  size_t room = 0;
+  const cudaError_t err =
+      smem_room(sparse_band_attention_kernel<16, R>, &room);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *rows = R;
+  *max_nb = fwd_max_nb<R, false>(room);
+  return 0;
 }

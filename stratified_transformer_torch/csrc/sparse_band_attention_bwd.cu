@@ -72,7 +72,7 @@ extern "C" int sparse_band_attention_bwd(
   constexpr int R = kSparseBwdRows;
   size_t room = 0;
   cudaError_t err =
-      bwd_smem_room(sparse_band_attention_bwd_kernel<16, R>, &room);
+      smem_room(sparse_band_attention_bwd_kernel<16, R>, &room);
   if (err != cudaSuccess) return static_cast<int>(err);
   // Every stage of the ported configurations has D = 16; instantiate more
   // head sizes when a configuration needs them.
@@ -104,7 +104,7 @@ extern "C" int sparse_band_attention_bwd_limits(int* rows, int* max_nb) {
   constexpr int R = kSparseBwdRows;
   size_t room = 0;
   const cudaError_t err =
-      bwd_smem_room(sparse_band_attention_bwd_kernel<16, R>, &room);
+      smem_room(sparse_band_attention_bwd_kernel<16, R>, &room);
   if (err != cudaSuccess) return static_cast<int>(err);
   *rows = R;
   *max_nb = bwd_max_nb<16, R>(room);

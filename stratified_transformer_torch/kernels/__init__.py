@@ -61,10 +61,10 @@ def _limits(source, index):
 
 
 def block_limits(source, dev):
-    """``(rows per block, most table rows per axis)`` of the backward kernel
-    of ``csrc/<source>.cu`` on the CUDA device ``dev``, from its C entry
-    point ``<source>_limits``: the second is what the block's shared memory
-    fits on that device."""
+    """``(rows per block, most table rows per axis)`` of the attention
+    kernel of ``csrc/<source>.cu`` on the CUDA device ``dev``, from its C
+    entry point ``<source>_limits``: the second is what the block's shared
+    memory fits on that device."""
     return _limits(source, dev.index if dev.index is not None
                    else torch.cuda.current_device())
 
@@ -95,6 +95,17 @@ def check_cuda_inputs(name, tensors):
                 "autograd Function runs the backward kernels, or run under "
                 "torch.no_grad()")
     return dev
+
+
+def head_rows(t):
+    """``(t, row stride)`` for a ``[rows, h, d]`` tensor read by a forward
+    kernel in place: fp32 with head stride ``d`` and channel stride 1 (the
+    model's views of its qkv projection pass as they are), else a
+    contiguous copy."""
+    t = t.to(torch.float32)
+    if t.stride(2) != 1 or t.stride(1) != t.shape[2]:
+        t = t.contiguous()
+    return t, t.stride(0)
 
 
 def pack_tables(tables, lo, rows):

@@ -5,13 +5,14 @@ from __future__ import annotations
 import torch
 
 from stratified_transformer_torch.kernels import (
-    CudaKernel, F, I, P, check_cuda_inputs, pack_tables, ptr, stream_of)
+    CudaKernel, F, I, P, block_limits, check_cuda_inputs, head_rows, ptr,
+    stream_of)
 from stratified_transformer_torch.ops.attention import (
     band_attention_plain, band_table_slice, bin_constants, num_bins)
 
 KERNEL = CudaKernel(
     "band_attention", "band_attention_fwd",
-    [P] * 13 + [I] * 8 + [F, F, P])
+    [P] * 13 + [I] * 11 + [F, F, F, P])
 BIN_PROBE = CudaKernel(
     "band_attention", "rel_bin_probe", [P, P, I, F, F, I, I, I, P])
 
@@ -22,35 +23,44 @@ HEAD_DIMS = (16,)
 def launch_args(q, k, v, xyz, seg_start, seg_end, valid,
                 table_q=None, table_k=None, table_v=None, *,
                 window_size, quant_size, scale, band, tile=128):
-    """Device buffers and ``KERNEL`` arguments for CUDA inputs: returns
+    """Output buffers and ``KERNEL`` arguments for CUDA inputs: returns
     ``(args, (acc, m, den), inputs)``; ``KERNEL(*args)`` fills the outputs.
-    The argument tuple holds raw pointers, so keep the returned buffers
-    alive while it is used."""
+    The kernel reads q, k, v (the model's strided views pass as they are)
+    and the model's tables in place; ``inputs`` holds what it reads (the
+    tables as their band slices). The argument tuple holds raw pointers, so
+    keep the returned buffers alive while it is used."""
+    tables = (table_q, table_k, table_v)
     dev = check_cuda_inputs(
-        "band_attention", (q, k, v, xyz, seg_start, seg_end, valid, table_q,
-                           table_k, table_v))
+        "band_attention", (q, k, v, xyz, seg_start, seg_end, valid) + tables)
     n, h, d = q.shape
-    if d not in HEAD_DIMS or n % tile or not 0 < tile <= 1024:
-        raise ValueError(
-            f"band_attention: unsupported shape N={n}, d={d}, tile={tile}")
-    nb_full = num_bins(table_q, table_k, table_v)
+    nb_full = num_bins(*tables)
     bin_lo, nb = band_table_slice(nb_full) if nb_full else (0, 0)
-    tables = pack_tables((table_q, table_k, table_v), bin_lo, nb)
+    rows, max_nb = block_limits("band_attention", dev)
+    if d not in HEAD_DIMS or tile <= 0 or n % tile or tile % rows:
+        raise ValueError(
+            f"band_attention: unsupported shape N={n}, d={d}, tile={tile} "
+            f"(a multiple of {rows} rows)")
+    if nb > max_nb:
+        raise ValueError(
+            f"band_attention: a band slice of {nb} table rows per axis (of "
+            f"{nb_full}) does not fit a {rows}-row block's shared memory on "
+            f"{dev}, which holds at most {max_nb}")
     bin_offset, inv_quant = bin_constants(window_size, quant_size)
-    inputs = (
-        (q.to(torch.float32) * scale).contiguous(),
-        k.to(torch.float32).contiguous(),
-        v.to(torch.float32).contiguous(),
-        xyz.to(torch.float32).contiguous(),
-        seg_start.to(torch.int32).contiguous(),
-        seg_end.to(torch.int32).contiguous(),
-        valid.to(torch.bool).contiguous()) + tables
+    (q, q_rs), (k, k_rs), (v, v_rs) = (head_rows(t) for t in (q, k, v))
+    tables = tuple(None if t is None else t.to(torch.float32).contiguous()
+                   for t in tables)
+    geom = (xyz.to(torch.float32).contiguous(),
+            seg_start.to(torch.int32).contiguous(),
+            seg_end.to(torch.int32).contiguous(),
+            valid.to(torch.bool).contiguous())
     outs = (torch.empty((n, h, d), dtype=torch.float32, device=dev),
             torch.empty((n, h), dtype=torch.float32, device=dev),
             torch.empty((n, h), dtype=torch.float32, device=dev))
-    args = tuple(ptr(t) for t in inputs + outs) + (
-        n, h, d, tile, band, nb, bin_lo, nb_full, bin_offset, inv_quant,
-        stream_of(dev))
+    args = tuple(ptr(t) for t in (q, k, v) + geom + tables + outs) + (
+        n, h, d, q_rs, k_rs, v_rs, tile, band, nb, bin_lo, nb_full,
+        bin_offset, inv_quant, float(scale), stream_of(dev))
+    inputs = (q, k, v) + geom + tuple(
+        None if t is None else t[bin_lo:bin_lo + nb] for t in tables)
     return args, outs, inputs
 
 

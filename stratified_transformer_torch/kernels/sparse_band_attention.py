@@ -1,8 +1,11 @@
 """Wrapper of the far-key CUDA kernel (``csrc/sparse_band_attention.cu``).
 
-The gathers into large-window order and aux order, and the un-permutation
-of the result, are plain PyTorch around the kernel, as they sit outside
-the ``pallas_call`` in the JAX package.
+The kernel reads q, k and v in small-window order through the plan's
+indices (``lw_map`` for the queries, ``sb_src`` for the aux slots) and
+writes its triple straight into small-window order: the gathers and the
+un-permutation that sit outside the ``pallas_call`` in the JAX package are
+its own reads and writes, and the wrapper only allocates the outputs and
+launches.
 """
 
 from __future__ import annotations
@@ -10,13 +13,14 @@ from __future__ import annotations
 import torch
 
 from stratified_transformer_torch.kernels import (
-    CudaKernel, F, I, P, check_cuda_inputs, pack_tables, ptr, stream_of)
+    CudaKernel, F, I, P, block_limits, check_cuda_inputs, head_rows, ptr,
+    stream_of)
 from stratified_transformer_torch.ops.attention import (
-    bin_constants, num_bins, sparse_band_attention_plain, sparse_inputs)
+    bin_constants, num_bins, sparse_band_attention_plain)
 
 KERNEL = CudaKernel(
     "sparse_band_attention", "sparse_band_attention_fwd",
-    [P] * 17 + [I] * 7 + [F, F, P])
+    [P] * 19 + [I] * 10 + [F, F, F, P])
 
 # head sizes the kernels are instantiated for (csrc/*.cu)
 HEAD_DIMS = (16,)
@@ -24,40 +28,44 @@ HEAD_DIMS = (16,)
 
 def launch_args(q, k, v, sb, table_q=None, table_k=None, table_v=None, *,
                 window_size, quant_size, scale, s_band=128, tile=128):
-    """Device buffers and ``KERNEL`` arguments for CUDA inputs: returns
-    ``(args, (acc, m, den) in lw order, inputs)``. The argument tuple holds
-    raw pointers, so keep the returned buffers alive while it is used."""
-    dev = check_cuda_inputs(
-        "sparse_band_attention",
-        (q, k, v, table_q, table_k, table_v) + tuple(sb))
+    """Output buffers and ``KERNEL`` arguments for CUDA inputs: returns
+    ``(args, (acc, m, den) in small-window order, inputs)``. ``inputs``
+    holds what the kernel reads in place. The argument tuple holds raw
+    pointers, so keep the returned buffers alive while it is used."""
+    tables = (table_q, table_k, table_v)
+    dev = check_cuda_inputs("sparse_band_attention",
+                            (q, k, v) + tables + tuple(sb))
     n, h, d = q.shape
-    if d not in HEAD_DIMS or n % tile or not 0 < tile <= 1024:
+    nb = num_bins(*tables)
+    rows, max_nb = block_limits("sparse_band_attention", dev)
+    if d not in HEAD_DIMS or tile <= 0 or n % tile or tile % rows:
         raise ValueError(
             f"sparse_band_attention: unsupported shape N={n}, d={d}, "
-            f"tile={tile}")
+            f"tile={tile} (a multiple of {rows} rows)")
+    if nb > max_nb:
+        raise ValueError(
+            f"sparse_band_attention: {nb} table rows per axis exceed the "
+            f"{max_nb} that a {rows}-row block takes on {dev}")
     a_sz = sb.sb_src.shape[0]
-    nb = num_bins(table_q, table_k, table_v)
-    tables = pack_tables((table_q, table_k, table_v), 0, nb)
     bin_offset, inv_quant = bin_constants(window_size, quant_size)
-    q_lw, k_aux, v_aux = sparse_inputs(q, k, v, sb, scale)
-    inputs = (
-        q_lw.contiguous(),
-        sb.xyz_lw.to(torch.float32).contiguous(),
-        sb.valid_lw.to(torch.bool).contiguous(),
-        sb.q_skey_lw.to(torch.int32).contiguous(),
-        sb.sb_start.to(torch.int32).contiguous(),
-        sb.sb_end.to(torch.int32).contiguous(),
-        k_aux.contiguous(),
-        v_aux.contiguous(),
-        sb.sb_xyz.to(torch.float32).contiguous(),
-        sb.sb_valid.to(torch.bool).contiguous(),
-        sb.sb_skey.to(torch.int32).contiguous()) + tables
-    outs = (torch.empty((n, h, d), dtype=torch.float32, device=dev),
-            torch.empty((n, h), dtype=torch.float32, device=dev),
-            torch.empty((n, h), dtype=torch.float32, device=dev))
+    (q, q_rs), (k, k_rs), (v, v_rs) = (head_rows(t) for t in (q, k, v))
+    i32, f32 = torch.int32, torch.float32
+    plan = (sb.lw_map.to(i32).contiguous(), sb.xyz_lw.to(f32).contiguous(),
+            sb.valid_lw.to(torch.bool).contiguous(),
+            sb.q_skey_lw.to(i32).contiguous(), sb.sb_start.to(i32).contiguous(),
+            sb.sb_end.to(i32).contiguous(), sb.sb_src.to(i32).contiguous(),
+            sb.sb_xyz.to(f32).contiguous(),
+            sb.sb_valid.to(torch.bool).contiguous(),
+            sb.sb_skey.to(i32).contiguous())
+    tables = tuple(None if t is None else t.to(f32).contiguous()
+                   for t in tables)
+    outs = (torch.empty((n, h, d), dtype=f32, device=dev),
+            torch.empty((n, h), dtype=f32, device=dev),
+            torch.empty((n, h), dtype=f32, device=dev))
+    inputs = (q, k, v) + plan + tables
     args = tuple(ptr(t) for t in inputs + outs) + (
-        n, a_sz, h, d, tile, min(s_band, a_sz), nb, bin_offset, inv_quant,
-        stream_of(dev))
+        n, a_sz, h, d, q_rs, k_rs, v_rs, tile, min(s_band, a_sz), nb,
+        bin_offset, inv_quant, float(scale), stream_of(dev))
     return args, outs, inputs
 
 
@@ -71,9 +79,8 @@ def sparse_band_attention(q, k, v, sb, table_q=None, table_k=None,
     if q.device.type == "cpu":
         return sparse_band_attention_plain(q, k, v, sb, table_q, table_k,
                                            table_v, **kw)
-    args, (acc, m, den), _inputs = launch_args(
+    args, outs, _inputs = launch_args(
         q, k, v, sb, table_q, table_k, table_v, **kw)
     with torch.cuda.device(q.device):
         KERNEL(*args)
-    u = sb.lw_unmap.long()
-    return acc[u], m[u], den[u]
+    return outs

@@ -375,12 +375,25 @@ def sparse_band_attention_plain(q, k, v, sb, table_q=None, table_k=None,
     segment ``[sb_start, sb_end)`` ∧ not its own small window ∧ valid. Bins
     span the full ±2·window range. Returns the triple in small-sorted order.
     """
-    n, h, d = q.shape
-    if n % tile:
-        raise ValueError(f"N={n} is not a multiple of tile={tile}")
+    if q.shape[0] % tile:
+        raise ValueError(f"N={q.shape[0]} is not a multiple of tile={tile}")
+    acc, m, den = sparse_triple_lw(
+        *sparse_inputs(q, k, v, sb, scale), sb, table_q, table_k, table_v,
+        window_size=window_size, quant_size=quant_size, s_band=s_band,
+        tile=tile)
+    u = sb.lw_unmap.long()
+    return acc[u], m[u], den[u]
+
+
+def sparse_triple_lw(q_lw, k_aux, v_aux, sb, table_q=None, table_k=None,
+                     table_v=None, *, window_size, quant_size, s_band=128,
+                     tile=128):
+    """The far-key triple in large-window order, from the pre-scaled
+    queries ``q_lw [N,h,d]`` in lw order and the keys and values ``k_aux,
+    v_aux [A,h,d]`` in aux order (as `sparse_inputs` gathers them)."""
+    n, h, d = q_lw.shape
     nt = n // tile
-    dev = q.device
-    q_lw, k_aux, v_aux = sparse_inputs(q, k, v, sb, scale)
+    dev = q_lw.device
     s, bases = sparse_window(sb, tile, s_band)
     num_bins_full = num_bins(table_q, table_k, table_v)
     tables = tuple(None if tb is None else tb.to(torch.float32)
@@ -408,8 +421,7 @@ def sparse_band_attention_plain(q, k, v, sb, table_q=None, table_k=None,
         acc[s0 * tile:e0 * tile] = a_.reshape(-1, h, d)
         m[s0 * tile:e0 * tile] = m_.reshape(-1, h)
         den[s0 * tile:e0 * tile] = d_.reshape(-1, h)
-    u = sb.lw_unmap.long()
-    return acc[u], m[u], den[u]
+    return acc, m, den
 
 
 def sparse_bwd_finish(sb, dq_lw, dk_part, dv_part, bases):

@@ -1,5 +1,6 @@
 """CUDA kernels of the PyTorch port (attention forward and backward, the two
-probes) against their plain PyTorch versions.
+probes) against their plain PyTorch versions, and the forward kernels'
+limits, empty rows and determinism.
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for the card
 and is skipped where there is none. Run them on a GPU machine with
@@ -232,6 +233,130 @@ def test_bwd_kernels_match_plain_at_stage2_shape(cuda_device, with_rpe):
     _assert_grads(got_s, want_s)
     assert float(want[1].abs().max()) > 1e-2
     assert float(want_s[1].abs().max()) > 1e-2
+
+
+def _fwd_both(plan, qkv, tables, kw, band, s_band=128):
+    """(kernel, plain) triples of both forward halves."""
+    geom = (plan.xyz_sorted, plan.seg_start, plan.seg_end, plan.valid_sorted)
+    with torch.no_grad():
+        out = [(band_k.band_attention(*qkv, *geom, *tables, **kw, band=band,
+                                      tile=128),
+                plain.band_attention_plain(*qkv, *geom, *tables, **kw,
+                                           band=band, tile=128)),
+               (sparse_k.sparse_band_attention(
+                   *qkv, plan.sparse_band, *tables, **kw, s_band=s_band,
+                   tile=128),
+                plain.sparse_band_attention_plain(
+                    *qkv, plan.sparse_band, *tables, **kw, s_band=s_band,
+                    tile=128))]
+    torch.cuda.synchronize()
+    return out
+
+
+def _strided(qkv):
+    """q, k, v as the model passes them: views of one [N, 3, h, d] tensor."""
+    return torch.stack(qkv, 1).unbind(1)
+
+
+@pytest.mark.cuda
+def test_fwd_kernels_match_plain_at_stage2_shape(cuda_device):
+    """Band 384, 12 heads, 64 bins (band slice 40), q/k/v as strided views
+    of the qkv projection, which the kernels read in place."""
+    plan, qkv, tables, kw = _case(cuda_device, 16, True, seed=7, **STAGE2)
+    assert plain.band_table_slice(tables[0].shape[0])[1] == 40
+    qkv = _strided(qkv)
+    assert not qkv[0].is_contiguous()
+    for got, want in _fwd_both(plan, qkv, tables, kw, 384):
+        _assert_triple(got, want)
+        assert float(want[2].max()) > 0
+
+
+@pytest.mark.cuda
+def test_fwd_kernels_take_scannet_table_sizes(cuda_device):
+    """ScanNet's 80-bin tables (window 5 x 0.02, quant 0.005: here window
+    0.4, quant 0.02): a band slice of 48 rows, 80 for the far keys."""
+    plan, qkv, tables, kw = _case(cuda_device, 16, True, seed=8, ws=0.4,
+                                  quant=0.02)
+    assert tables[0].shape[0] == 80
+    assert plain.band_table_slice(80)[1] == 48
+    for name in ("band_attention", "sparse_band_attention"):
+        from stratified_transformer_torch.kernels import block_limits
+        assert block_limits(name, cuda_device)[1] >= 80
+    for got, want in _fwd_both(plan, qkv, tables, kw, 128, 64):
+        _assert_triple(got, want)
+        assert float(want[2].max()) > 0
+
+
+@pytest.mark.cuda
+def test_fwd_kernels_rows_without_keys(cuda_device):
+    """A tile of padding rows, and every other row with no key, comes out
+    as m = -1e30, den = 0, acc = 0 exactly."""
+    plan, qkv, tables, kw = _case(cuda_device, 16, True, seed=9, n_pad=640,
+                                  n_valid=450)
+    assert not bool(plan.valid_sorted[512:].any())     # tile 4: no row
+    for got, want in _fwd_both(plan, qkv, tables, kw, 128, 64):
+        _assert_triple(got, want)
+        empty = want[1] == plain.NEG_INF
+        assert bool(empty[512:].all()) and bool(empty.any())
+        assert bool((got[1][empty] == plain.NEG_INF).all())
+        assert bool((got[2][empty] == 0).all())
+        assert bool((got[0][empty] == 0).all())
+
+
+@pytest.mark.cuda
+def test_fwd_kernels_are_deterministic(cuda_device):
+    """Two launches on the same inputs give bit-identical triples: every sum
+    of the forward kernels runs in a fixed order."""
+    plan, qkv, tables, kw = _case(cuda_device, 16, True, seed=10, **STAGE2)
+    geom = (plan.xyz_sorted, plan.seg_start, plan.seg_end, plan.valid_sorted)
+    launches = {
+        "band": (band_k, lambda: band_k.launch_args(
+            *qkv, *geom, *tables, **kw, band=384, tile=128)),
+        "sparse": (sparse_k, lambda: sparse_k.launch_args(
+            *qkv, plan.sparse_band, *tables, **kw, s_band=128, tile=128)),
+    }
+    with torch.no_grad():
+        for name, (mod, make) in launches.items():
+            outs = []
+            for _ in range(2):
+                largs, out, _inputs = make()
+                mod.KERNEL(*largs)
+                torch.cuda.synchronize()
+                outs.append(out)
+            for o_name, a, b in zip(("acc", "m", "den"), *outs):
+                assert torch.equal(a, b), (name, o_name)
+
+
+@pytest.mark.cuda
+def test_fwd_kernels_refuse_tables_beyond_their_limits(cuda_device):
+    """Each library reports the most table rows per axis a block takes
+    (``<source>_limits``); beyond it the wrapper raises before any launch."""
+    from stratified_transformer_torch.kernels import block_limits
+    plan, qkv, tables, kw = _case(cuda_device, 16, True, seed=11)
+    band_rows, band_max = block_limits("band_attention", cuda_device)
+    sparse_rows, sparse_max = block_limits("sparse_band_attention",
+                                           cuda_device)
+    assert band_rows == 64 and sparse_rows == 64
+    assert band_max >= 48 and sparse_max >= 80
+    nbf = next(b for b in range(2, 2048, 2)
+               if plain.band_table_slice(b)[1] > band_max)
+    gen = torch.Generator().manual_seed(11)
+
+    def big(rows):
+        return tuple(torch.randn((rows,) + t.shape[1:], generator=gen).to(
+            cuda_device) * 0.05 for t in tables)
+
+    geom = (plan.xyz_sorted, plan.seg_start, plan.seg_end, plan.valid_sorted)
+    before = (band_k.KERNEL.launches, sparse_k.KERNEL.launches)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="shared memory"):
+            band_k.band_attention(*qkv, *geom, *big(nbf), **kw, band=128,
+                                  tile=128)
+        with pytest.raises(ValueError, match="table rows per axis"):
+            sparse_k.sparse_band_attention(
+                *qkv, plan.sparse_band, *big(sparse_max + 2), **kw,
+                s_band=64, tile=128)
+    assert (band_k.KERNEL.launches, sparse_k.KERNEL.launches) == before
 
 
 @pytest.mark.cuda

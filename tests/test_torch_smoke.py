@@ -1,6 +1,6 @@
 """Pieces of ``chip_smoke.py`` that run on the CPU: the weights its
-full-width comparison runs at, and its count of the least operations an
-attention call needs."""
+full-width comparison runs at, its count of the least operations and bytes
+an attention call needs, its pair counts per stage, and its arguments."""
 
 import pytest
 import torch
@@ -119,3 +119,57 @@ def test_chip_smoke_refuses_unknown_arguments_or_a_missing_card(capsys):
     assert rc != 0
     if not torch.cuda.is_available():
         assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv, want", [
+    ([], None),
+    (["--fwd-only"], chip_smoke.FWD_KERNELS),
+    (["--bwd-only"], chip_smoke.BWD_KERNELS),
+])
+def test_parse_args_picks_the_phase_run_alone(argv, want):
+    assert chip_smoke.parse_args(argv) == want
+
+
+@pytest.mark.parametrize("argv", [["--fwd"], ["--fwd-only", "--bwd-only"],
+                                  ["--fwd-only", "x"], ["fwd-only"]])
+def test_parse_args_refuses_anything_else(argv):
+    with pytest.raises(ValueError, match="--fwd-only"):
+        chip_smoke.parse_args(argv)
+
+
+@pytest.mark.parametrize("flag", ["--fwd-only", "--bwd-only"])
+def test_phase_only_runs_need_a_card(flag, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("checks the run without a card")
+    assert chip_smoke.main([flag]) != 0
+    out = capsys.readouterr()
+    assert "no CUDA device" in out.err and out.out == ""
+
+
+def test_log_pairs_counts_every_stage(narrow, capsys):
+    cfg = narrow[0]
+    hb = host_batch(cfg, seed=0)
+    chip_smoke.log_pairs("eval batch 0", cfg, hb, "cpu")
+    line = capsys.readouterr().out.strip()
+    assert line.startswith("[pairs] eval batch 0: stage 0: ")
+    stages = line.split(": ", 1)[1].split("; ")
+    assert len(stages) == cfg.num_layers
+    for i, part in enumerate(stages):
+        words = part.replace(",", "").split()
+        # "stage i: P points band B sparse S"
+        assert words[0:2] == ["stage", f"{i}:"]
+        points, band, far = int(words[2]), int(words[5]), int(words[7])
+        # every valid point is its own band key
+        assert points > 0 and band >= points and far >= 0
+
+
+def test_fwd_bytes_counts_far_keys_at_the_aux_slots():
+    from types import SimpleNamespace
+    n, a, h, d = 256, 64, 2, 16
+    q, k, v = (torch.zeros(n, h, d) for _ in range(3))
+    outs = (torch.zeros(n, h, d), torch.zeros(n, h), torch.zeros(n, h))
+    sb = SimpleNamespace(sb_src=torch.zeros(a, dtype=torch.int32))
+    full = chip_smoke.nbytes((q, k, v) + outs)
+    assert chip_smoke.fwd_bytes("band_attention", (q, k, v), outs, sb) == full
+    assert chip_smoke.fwd_bytes("sparse_band_attention", (q, k, v), outs,
+                                sb) == full - 2 * (n - a) * h * d * 4
