@@ -8,7 +8,8 @@ Run from the repository root with no arguments (needs one CUDA card):
 
 ``python3 chip_smoke.py --fwd-only`` builds the two forward kernels and
 runs phase 4 alone; ``--bwd-only`` builds the two backward kernels and runs
-phase 7 alone. Each prints its times as one JSON line (``--fwd-only`` also
+phase 7 alone; ``--scene-only`` builds the two forward kernels and runs
+phase 10 alone. Each prints its times as one JSON line (``--fwd-only`` also
 per stage and parity). Copied into another checkout (say a parent commit
 unpacked beside the tree) and run from there, it times that checkout's
 kernels and wrappers the same way, so two versions can be compared in
@@ -46,7 +47,19 @@ Phases, each fatal on failure:
      kernel equal to its plain version on the CPU on all 65536 sweep values
      (``[probe]`` line with the probe's counts), and the cache-key probe run
      twice in fresh processes, both reporting the same keys as this process
-     and every library reused; both probe kernels timed.
+     and every library reused; both probe kernels timed;
+ 10. whole-scene evaluation (``test.py``'s protocol, no host pyramid):
+     (a) at phase 2's batch, the on-device stem radius neighbours and
+     geometry pyramid (every sampling, kNN, 3-NN and member mask) and FPS
+     and blocked FPS once, bit-identical between the card and the CPU;
+     (b) one full-width forward without a pyramid through the kernels (12
+     + 12 launches), logits equal to the plain-version forward's; (c) the
+     full protocol (7 TTA passes x vote chunks x sphere crops) on one
+     300000-point synthetic scene at ``n_pad`` 400000 in 5 crops: seconds,
+     forwards, points per second, launches, peak memory, the first TTA
+     pass's accumulated probabilities against the plain-version path's,
+     and one profiled 400000-point forward with the device time of its
+     on-device pyramid and of the attention kernels.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -100,6 +113,16 @@ GRAD_REL_L2, GRAD_FLOOR = 1e-3, 1e-6
 # the 3-step loss trajectories: the same grads through AdamW's sign-like
 # first steps
 LOSS_RTOL = 1e-3
+# whole-scene evaluation (phase 10): test.py's operating point with the
+# S3DIS YAML (batch_size_test 5 x voxel_max 80000 = n_pad 400000) on one
+# synthetic scene of this many points (seed 999, as test.py's)
+SCENE_POINTS = 300000
+# the first TTA pass's accumulated probabilities, kernels vs plain
+# versions: softmaxes of logits within LOGIT_RTOL / LOGIT_ATOL (phase 5
+# sees ~5e-6), summed per point over its vote chunks and normalised, so
+# equal to ~1e-5; 1e-4 per entry leaves an order of magnitude. Labels must
+# agree wherever the plain path's top two differ by more than 2e-4.
+SCENE_PROB_ATOL, SCENE_MARGIN = 1e-4, 2e-4
 TPU_KERNELS = {
     "band_attention": "stratified_transformer_tpu/ops/pallas/"
                       "fused_attention.py:50",
@@ -392,6 +415,7 @@ def profile_call(label, fn):
         f"{sum(r[2] for r in rows)} device kernels")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
         log(f"[profile]   {ms:8.3f} ms  x{count:<5d} {key[:90]}")
+    return wall_ms, busy_ms, by_name
 
 
 def probe_phase(dev, report):
@@ -711,15 +735,280 @@ def bwd_phase(cfg, levels, plans, dev, report):
             f"{r['wrapper_busy_ms']:.3f} ms; bound {r['bound_ms']:.3f} ms)")
 
 
-def phase_only(names):
-    """``--fwd-only`` / ``--bwd-only``: phase 1's build of the named kernels,
-    the host batch and plans of phase 2 (on the card), and phase 4 (the
-    forward kernels) or phase 7 (the backward kernels); prints one JSON
-    line."""
+def tree_leaves(prefix, x):
+    """``(path, tensor)`` of every leaf of nested dicts, tuples and lists."""
+    if isinstance(x, dict):
+        for k in sorted(x):
+            yield from tree_leaves(f"{prefix}.{k}", x[k])
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            yield from tree_leaves(f"{prefix}[{i}]", v)
+    else:
+        yield prefix, x
+
+
+def assert_same_leaves(label, got, want):
+    """Every leaf of ``got`` (on the card) equal to ``want``'s (on the CPU),
+    dtype and bits; returns the number of leaves."""
+    pairs = list(zip(tree_leaves(label, got), tree_leaves(label, want)))
+    for (name, a), (_, b) in pairs:
+        if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+            bad = int((a.cpu() != b).sum()) if a.shape == b.shape else -1
+            raise AssertionError(f"{name} differs between the card and the "
+                                 f"CPU ({bad} entries)")
+    return len(pairs)
+
+
+def geometry_check(cfg, hb, dev):
+    """Phase 10 (a): at the host batch ``hb``, the stem radius neighbours
+    and geometry pyramid the forward computes when it gets none, and FPS
+    and blocked FPS at stage 0, bit-identical between the card and the CPU.
+    Returns the card's seconds per function."""
+    from stratified_transformer_torch.models.stratified import (
+        geometry_pyramid, stem_neighbors)
+    from stratified_transformer_torch.ops import sampling
+    xyz = torch.from_numpy(hb["xyz"])
+    off = torch.from_numpy(np.asarray(hb["offsets"], np.int64))
+    n, scale = len(xyz), cfg.downsample_scale
+    d_off = sampling.counts_to_offsets(sampling.floor_ratio_counts(
+        off - sampling.scene_starts(off), 1.0 / scale))
+    d_pad = n // scale + cfg.num_scenes
+    cases = {
+        "stem_neighbors": lambda x, o, d: stem_neighbors(cfg, x, o),
+        "geometry_pyramid": lambda x, o, d: geometry_pyramid(cfg, x, o),
+        "farthest_point_sampling": lambda x, o, d: (
+            sampling.farthest_point_sampling(x, o, d, d_pad)),
+        "blocked_fps": lambda x, o, d: sampling.blocked_fps(
+            x, o, d, d_pad, cfg.window_sizes()[0] * 4.0),
+    }
+    secs = {}
+    for name, fn in cases.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(xyz.to(dev), off.to(dev), d_off.to(dev))
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = fn(xyz, off, d_off)
+        cpu_s = time.perf_counter() - t0
+        leaves = assert_same_leaves(name, got, want)
+        log(f"[scene] {name}: {leaves} tensors bit-identical between the "
+            f"card and the CPU (N={n}, {cfg.num_scenes} scenes; card "
+            f"{secs[name]:.3f} s, CPU {cpu_s:.3f} s, first call)")
+    return secs
+
+
+def nopyramid_check(model, ref_model, hb, dev, counts, reset):
+    """Phase 10 (b): one forward of the batch ``hb`` without stem neighbours
+    or pyramid through the kernels (one launch of each forward kernel per
+    block, 12 + 12 at full depth; no backward), logits within LOGIT_RTOL /
+    LOGIT_ATOL of the plain-version forward's."""
+    feats, xyz, off = (torch.from_numpy(np.asarray(hb[k])).to(dev)
+                       for k in ("feats", "xyz", "offsets"))
+    off = off.long()
+    with torch.no_grad():
+        reset()
+        logits = model(feats, xyz, off)[0]
+        torch.cuda.synchronize()
+        launches = counts()
+        ref_logits = ref_model(feats, xyz, off)[0]
+    blocks = sum(model.cfg.depths)
+    want = {"band_attention": blocks, "sparse_band_attention": blocks,
+            "band_attention_bwd": 0, "sparse_band_attention_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"no-pyramid forward launches {launches}, "
+                             f"expected {want}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits without a pyramid")
+    assert_close("no-pyramid logits", logits, ref_logits, LOGIT_RTOL,
+                 LOGIT_ATOL)
+    e = max_errors(logits, ref_logits)
+    log(f"[scene] no-pyramid full-width forward (N={len(xyz)}): launches "
+        f"{launches}; logits vs plain-version forward max abs/rel err "
+        f"{e[0]:.2e}/{e[1]:.2e}")
+    return e[0]
+
+
+def scene_protocol(model, ref_model, dev, counts, reset):
+    """Phase 10 (c): `evaluate_scene` over one synthetic scene of
+    SCENE_POINTS points, kernels on the card, at the YAML's whole-scene
+    operating point; then the first TTA pass against the plain-version
+    path, and one profiled forward. Returns the phase's numbers."""
+    from stratified_transformer_torch.data.datasets import SyntheticRooms
+    from stratified_transformer_torch.eval import voting
+    from stratified_transformer_torch.eval.driver import (
+        eval_config, make_predict_probs)
+    from stratified_transformer_torch.models.stratified import (
+        geometry_pyramid, stem_neighbors)
+    from stratified_transformer_torch.utils.config import load_cfg
+    yaml_cfg = load_cfg(CONFIG)
+    cfg = eval_config(yaml_cfg)
+    coord, feat, _ = SyntheticRooms(num_scenes=1, points=SCENE_POINTS,
+                                    seed=999).raw_scene(0)
+    n_scene = len(coord)        # the generator rounds its boxes' share down
+    kw = dict(data_name="s3dis", voxel_size=float(yaml_cfg["voxel_size"]),
+              voxel_max=int(yaml_cfg["voxel_max"]),
+              batch_size_test=cfg.num_scenes, n_pad=cfg.n_pad,
+              num_scenes=cfg.num_scenes, concat_xyz=cfg.concat_xyz)
+    predict = make_predict_probs(model)
+    fwd_s, fwd_points, first = [], [], []
+
+    def timed(feats, xyz, offsets):
+        if not first:
+            first.append((feats, xyz, offsets))
+        t0 = time.perf_counter()
+        probs = predict(feats, xyz, offsets)        # synchronizes (.cpu())
+        fwd_s.append(time.perf_counter() - t0)
+        fwd_points.append(int(offsets[-1]))
+        return probs
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    _, probs_all = voting.evaluate_scene(timed, coord, feat, cfg.num_classes,
+                                         **kw)
+    scene_s = time.perf_counter() - t0
+    launches = counts()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    forwards = len(fwd_s)
+    blocks = sum(cfg.depths)
+    want = {"band_attention": blocks * forwards,
+            "sparse_band_attention": blocks * forwards,
+            "band_attention_bwd": 0, "sparse_band_attention_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"whole-scene launches {launches}, expected "
+                             f"{want} over {forwards} forwards")
+    if not (np.isfinite(probs_all).all() and probs_all.shape
+            == (n_scene, cfg.num_classes)):
+        raise AssertionError("whole-scene probabilities not finite or of "
+                             f"shape {probs_all.shape}")
+    out = {
+        "points": n_scene, "n_pad": cfg.n_pad,
+        "crops_per_forward": cfg.num_scenes, "seconds": scene_s,
+        "forwards": forwards, "scene_points_per_s": n_scene / scene_s,
+        "model_points_per_s": sum(fwd_points) / sum(fwd_s),
+        "forward_s_median": float(np.median(fwd_s)),
+        "forward_s_total": sum(fwd_s), "host_s": scene_s - sum(fwd_s),
+        "valid_points_per_forward_mean": float(np.mean(fwd_points)),
+        "launches": launches, "max_memory_allocated_mib": peak_mib}
+    log(f"[scene] protocol: {n_scene} points, 7 TTA passes, "
+        f"{forwards} forwards of n_pad {cfg.n_pad} in {cfg.num_scenes} crops "
+        f"({out['valid_points_per_forward_mean']:.0f} valid points on "
+        f"average) in {scene_s:.1f} s: {out['scene_points_per_s']:.0f} scene "
+        f"points/s, {out['model_points_per_s']:.0f} model points/s; "
+        f"forwards {sum(fwd_s):.1f} s (median {out['forward_s_median']:.3f} "
+        f"s), host protocol {out['host_s']:.1f} s; launches {launches}; "
+        f"max_memory_allocated {peak_mib:.0f} MiB")
+
+    # the first TTA pass through the kernels and the plain versions
+    one = dict(kw, transforms=[None])
+    pred_k, prob_k = voting.evaluate_scene(predict, coord, feat,
+                                           cfg.num_classes, **one)
+    pred_p, prob_p = voting.evaluate_scene(make_predict_probs(ref_model),
+                                           coord, feat, cfg.num_classes,
+                                           **one)
+    err = float(np.abs(prob_k - prob_p).max())
+    top2 = np.sort(prob_p, -1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > SCENE_MARGIN
+    differ = int((pred_k != pred_p)[clear].sum())
+    out.update(first_pass_max_abs_err=err,
+               first_pass_labels_differ=int((pred_k != pred_p).sum()),
+               first_pass_labels_differ_beyond_margin=differ)
+    log(f"[scene] first TTA pass, kernels vs plain versions: accumulated "
+        f"probabilities max abs err {err:.2e}; labels differ at "
+        f"{out['first_pass_labels_differ']} of {n_scene} points, "
+        f"{differ} of them with a top-two margin above {SCENE_MARGIN}")
+    if err > SCENE_PROB_ATOL or differ:
+        raise AssertionError("first TTA pass: kernels and plain versions "
+                             f"disagree (max abs err {err:.2e}, {differ} "
+                             "clear labels)")
+
+    # one 400000-point forward: memory, and where its device time goes
+    feats, xyz, offsets = first[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    predict(feats, xyz, offsets)
+    out["forward_max_memory_allocated_mib"] = (
+        torch.cuda.max_memory_allocated() / 2 ** 20)
+    wall, busy, by_name = profile_call(
+        f"whole-scene forward (n_pad {cfg.n_pad}, {int(offsets[-1])} valid "
+        f"points in {cfg.num_scenes} crops)",
+        lambda: predict(feats, xyz, offsets))
+    x, o = torch.from_numpy(xyz).to(dev), torch.from_numpy(offsets).to(
+        dev, torch.int64)
+    with torch.inference_mode():
+        parts = {"stem_neighbors": lambda: stem_neighbors(cfg, x, o),
+                 "geometry_pyramid": lambda: geometry_pyramid(cfg, x, o)}
+        busy_of = {k: sum(ms for ms, _ in device_kernels(f)[1].values())
+                   for k, f in parts.items()}
+    if busy <= 0:
+        raise AssertionError("the profiled forward ran nothing on the card")
+    # device ms of each forward kernel in the profiled forward (the far-key
+    # kernel's name contains the band kernel's)
+    kernel_ms = {k: 0.0 for k in FWD_KERNELS}
+    for name, (ms, _) in by_name.items():
+        if "band_attention" in name:
+            kernel_ms["sparse_band_attention" if "sparse_band_attention"
+                      in name else "band_attention"] += ms
+    attn = sum(kernel_ms.values())
+    pyr = sum(busy_of.values())
+    out.update(profiled_wall_ms=wall, profiled_busy_ms=busy,
+               attention_kernels_ms=attn, kernel_ms_per_forward=kernel_ms,
+               on_device_pyramid_ms=pyr,
+               stem_neighbors_ms=busy_of["stem_neighbors"])
+    log(f"[scene] profiled forward: device busy {busy:.1f} ms of a "
+        f"{wall:.1f} ms wall; on-device pyramid {pyr:.1f} ms "
+        f"({100 * pyr / busy:.1f}%; stem radius neighbours "
+        f"{busy_of['stem_neighbors']:.1f} ms, the rest "
+        f"{busy_of['geometry_pyramid']:.1f} ms, each profiled alone), "
+        f"attention kernels {attn:.1f} ms ({100 * attn / busy:.1f}%: "
+        f"{json.dumps(kernel_ms)}), the rest {busy - pyr - attn:.1f} ms; "
+        f"forward peak memory "
+        f"{out['forward_max_memory_allocated_mib']:.0f} MiB")
+    return out
+
+
+def scene_phase(cfg, hb, model, ref_model, dev, kernel_mods):
+    """Phase 10: (a) `geometry_check`, (b) `nopyramid_check` with the
+    phase-5 models, (c) `scene_protocol` with their weights in the
+    whole-scene configuration. Returns the numbers of (c) with the seconds
+    of (a) and the error of (b)."""
+    from stratified_transformer_torch.eval.driver import eval_config
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.utils.config import load_cfg
+
+    def counts():
+        return {k: m_.KERNEL.launches for k, m_ in kernel_mods.items()}
+
+    def reset():
+        for m_ in kernel_mods.values():
+            m_.KERNEL.launches = 0
+
+    geo_s = geometry_check(cfg, hb, dev)
+    err = nopyramid_check(model, ref_model, hb, dev, counts, reset)
+    scfg = eval_config(load_cfg(CONFIG))
+    scene_models = []
+    for impl, src in (("fused", model), ("reference", ref_model)):
+        m_ = build_model(dataclasses.replace(scfg, attn_impl=impl), "cuda")
+        m_.load_state_dict(src.state_dict())
+        scene_models.append(m_)
+    out = scene_protocol(*scene_models, dev, counts, reset)
+    out.update(geometry_card_s=geo_s, nopyramid_logits_max_abs_err=err)
+    return out
+
+
+def phase_only(flag):
+    """``--fwd-only`` / ``--bwd-only`` / ``--scene-only``: phase 1's build of
+    the kernels the phase runs, the host batch of phase 2, and phase 4 (the
+    forward kernels, with phase 2's plans on the card), phase 7 (the
+    backward kernels, likewise) or phase 10 (whole-scene evaluation, with
+    phase 5's full-width models); prints one JSON line."""
     sys.path.insert(0, REPO)
     from stratified_transformer_torch.config import load_config
     from stratified_transformer_torch.data.loader import host_batch
     from stratified_transformer_torch.kernels import build
+    names = PHASE_ONLY[flag]
     dev = torch.device("cuda")
     build.build_all(list(names))
     ptxas = [f"{name}: {line.strip()}"
@@ -727,12 +1016,31 @@ def phase_only(names):
              for line in text.splitlines()
              if "registers" in line or "spill" in line]
     cfg = load_config(CONFIG, n_pad=N_PAD, num_scenes=SCENES)
-    levels = stage_levels(cfg, host_batch(cfg, seed=0))
+    hb = host_batch(cfg, seed=0)
+    out = {"card": card_line(), "repo": REPO}
+    if flag == "--scene-only":
+        from stratified_transformer_torch.kernels import (
+            band_attention, band_attention_bwd, sparse_band_attention,
+            sparse_band_attention_bwd)
+        from stratified_transformer_torch.models.stratified import (
+            build_model)
+        model = build_model(cfg, "cuda", seed=0)
+        o1_weights(model, seed=0)
+        ref_model = build_model(
+            dataclasses.replace(cfg, attn_impl="reference"), "cuda")
+        ref_model.load_state_dict(model.state_dict())
+        mods = {"band_attention": band_attention,
+                "sparse_band_attention": sparse_band_attention,
+                "band_attention_bwd": band_attention_bwd,
+                "sparse_band_attention_bwd": sparse_band_attention_bwd}
+        out["scene"] = scene_phase(cfg, hb, model, ref_model, dev, mods)
+        print(json.dumps(out))
+        return 0
+    levels = stage_levels(cfg, hb)
     plans = {(i, shifted): build_plan(cfg, i, levels[i], shifted, dev)
              for i in range(cfg.num_layers) for shifted in (False, True)}
     report = new_report(names)
-    out = {"card": card_line(), "repo": REPO}
-    if names == FWD_KERNELS:
+    if flag == "--fwd-only":
         out["stages"] = fwd_phase(cfg, levels, plans, dev, report)
         out["ms_per_eval_forward"] = report
     else:
@@ -743,19 +1051,21 @@ def phase_only(names):
     return 0
 
 
-PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS}
+# the kernels each phase run alone builds
+PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS,
+              "--scene-only": FWD_KERNELS}
 
 
 def parse_args(argv):
-    """The kernels one phase runs alone for (``--fwd-only``,
-    ``--bwd-only``), None for the whole run; raises ValueError on anything
-    else."""
+    """The flag of the phase to run alone (``--fwd-only``, ``--bwd-only``,
+    ``--scene-only``), None for the whole run; raises ValueError on
+    anything else."""
     if not argv:
         return None
     if len(argv) == 1 and argv[0] in PHASE_ONLY:
-        return PHASE_ONLY[argv[0]]
-    raise ValueError(f"unknown arguments {argv}; give none, --fwd-only or "
-                     "--bwd-only")
+        return argv[0]
+    raise ValueError(f"unknown arguments {argv}; give none, --fwd-only, "
+                     "--bwd-only or --scene-only")
 
 
 def main(argv):
@@ -1037,6 +1347,10 @@ def main(argv):
 
     # ---- 9. the probes -----------------------------------------------------
     probe_launches = probe_phase(dev, report)
+
+    # ---- 10. whole-scene evaluation --------------------------------------
+    del model_k, opt_k, train_batches
+    scene = scene_phase(cfg, hb, model, ref_model, dev, kernel_mods)
     log(f"[run] total {time.time() - t_start:.0f} s")
 
     kernels = []
@@ -1047,6 +1361,9 @@ def main(argv):
             "source": f"stratified_transformer_torch/csrc/{name}.cu",
             "replaces": path, "launches": train_launches.get(name, 0),
             "eval_launches": launches.get(name, 0),
+            "scene_launches": scene["launches"].get(name, 0),
+            "scene_ms_per_forward": scene["kernel_ms_per_forward"].get(
+                name, 0.0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["bound_by"], key=r["bound_by"].get),
@@ -1069,7 +1386,9 @@ def main(argv):
         "train_step_ms": train_ms,
         "train_max_memory_allocated_mib": train_peak_mb,
         "eval_forward_ms": fwd_ms,
-        "eval_max_memory_allocated_mib": peak_mb}))
+        "eval_max_memory_allocated_mib": peak_mb,
+        "scene_launches_over_forwards": scene["forwards"],
+        "scene": scene}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

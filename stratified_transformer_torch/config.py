@@ -50,6 +50,18 @@ class StratifiedConfig:
     tile: int = 128                           # attention query tile
     sparse_cap: int = 48                      # sparse keys per large window
     s_band: int = 128                         # sparse aux window per tile
+    # on-device sampling and neighbour search (a batch without the host
+    # pyramid, as whole-scene evaluation runs it): the stratified members'
+    # and TransitionDown's sampler ("grid" | "fps" | "blocked_fps"), the
+    # grid sampler's count policy ("scene": floor(n * ratio) + 1 per scene;
+    # "cells": every occupied cell), and the neighbour search ("grid" cell
+    # list | "brute") with its per-cell capacity and query chunks
+    sampler: str = "grid"
+    down_quota: str = "scene"
+    knn_chunk: int = 1024
+    neighbor_method: str = "grid"
+    neighbor_cap: int = 32
+    grid_knn_chunk: Optional[int] = 4096
     # "fused": the CUDA kernels on the card (their plain versions on the
     # CPU); "reference": the plain PyTorch versions on any device.
     attn_impl: str = "fused"
@@ -64,9 +76,13 @@ class StratifiedConfig:
     pallas_interpret: bool = False
 
     def __post_init__(self):
-        if self.attn_impl not in ("fused", "reference"):
-            raise ValueError(f"attn_impl {self.attn_impl!r}: expected "
-                             "'fused' or 'reference'")
+        for name, allowed in (("attn_impl", ("fused", "reference")),
+                              ("sampler", ("grid", "fps", "blocked_fps")),
+                              ("down_quota", ("scene", "cells")),
+                              ("neighbor_method", ("grid", "brute"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} {getattr(self, name)!r}: expected "
+                                 f"one of {allowed}")
 
     # -------- derived (reference train.py:110-113) --------
     @property
@@ -96,11 +112,10 @@ class StratifiedConfig:
 
 
 # The port runs the S3DIS-style model only (KPConv stem into a transformer
-# stem, stratified keys, grid pooling with per-scene quotas, no offset head):
-# each of these YAML keys may hold only the value given here.
+# stem, stratified keys, no offset head): each of these YAML keys may hold
+# only the value given here. The other families are ROADMAP queue item 4.
 ONLY_SUPPORTED = {"arch": "stratified_transformer", "stem_transformer": True,
-                  "use_stratified": True, "sampler": "grid",
-                  "with_regressor": False, "down_quota": "scene"}
+                  "use_stratified": True, "with_regressor": False}
 
 
 def from_cfg(cfg: CfgNode) -> StratifiedConfig:
@@ -112,7 +127,9 @@ def from_cfg(cfg: CfgNode) -> StratifiedConfig:
                    if cfg.get(key, only) != only]
     if unsupported:
         raise ValueError("not supported by the PyTorch port yet: "
-                         + ", ".join(unsupported))
+                         + ", ".join(unsupported)
+                         + " (the ScanNet, DCF and Swin3D families, ROADMAP "
+                         "queue item 4)")
     tile = int(cfg.get("tile", 128))
     n_pad = int(cfg.get("max_batch_points", 140000))
     n_pad = max((n_pad + tile - 1) // tile * tile, tile)
@@ -149,6 +166,12 @@ def from_cfg(cfg: CfgNode) -> StratifiedConfig:
         tile=tile,
         sparse_cap=int(cfg.get("sparse_cap", 48)),
         s_band=int(cfg.get("s_band", 128)),
+        sampler=str(cfg.get("sampler", "grid")),
+        down_quota=str(cfg.get("down_quota", "scene")),
+        knn_chunk=int(cfg.get("knn_chunk", 1024)),
+        neighbor_method=str(cfg.get("neighbor_method", "grid")),
+        neighbor_cap=int(cfg.get("neighbor_cap", 32)),
+        grid_knn_chunk=int(cfg.get("grid_knn_chunk", 4096)),
         attn_impl=str(cfg.get("attn_impl", "fused")),
         fused_stages=int(cfg.get("fused_stages", 3)),
         head_group=int(cfg.get("head_group", 6)),

@@ -1,18 +1,94 @@
-"""Synthetic room-like scenes (the JAX package's ``SyntheticRooms``).
+"""Datasets (the JAX package's ``data/datasets.py``): the S3DIS reader,
+the whole-scene listing of S3DIS rooms, and synthetic room-like scenes.
 
-Floor, two walls and a few boxes at configurable density, with
-geometry-correlated labels and color cues. Used by the tests and the chip
-smoke run so that the port runs without the license-gated datasets.
+S3DIS rooms are ``.npy`` arrays of xyz, rgb (0-255) and label columns, one
+room per file, named ``Area_<n>_<room>.npy`` (reference ``util/s3dis.py``).
+The synthetic scenes (floor, two walls and a few boxes at configurable
+density, with geometry-correlated labels and color cues) let the tests and
+the chip smoke run work without the license-gated datasets.
 """
 
 from __future__ import annotations
+
+import os
+import threading
 
 import numpy as np
 
 from stratified_transformer_torch.data.prepare import data_prepare
 
 
+class _VisitRng:
+    """Deterministic per-(item, visit-count) generators
+    (``datasets.py:25-48``): each ``__getitem__`` gets a fresh generator
+    seeded by ``(seed, idx, earlier visits of idx)``, so any number of
+    loader threads gives the same samples in any interleaving. The visit
+    counter is the only shared state and is lock-guarded."""
+
+    def __init__(self, seed):
+        self.seed = int(seed)
+        self._visits = {}
+        self._lock = threading.Lock()
+
+    def for_item(self, idx):
+        idx = int(idx)
+        with self._lock:
+            v = self._visits.get(idx, 0)
+            self._visits[idx] = v + 1
+        return np.random.default_rng((self.seed, idx, v))
+
+
+class S3DIS:
+    """Training / validation samples of S3DIS rooms (reference
+    ``util/s3dis.py:14-46``; ``datasets.py:51-83``): the rooms of every
+    area but ``test_area`` for ``split="train"``, of ``test_area``
+    otherwise, each voxelized, cropped and scaled by `data_prepare`."""
+
+    def __init__(self, split="train", data_root="trainval", test_area=5,
+                 voxel_size=0.04, voxel_max=None, transform=None,
+                 shuffle_index=False, loop=1, seed=0):
+        self.split = split
+        self.voxel_size = voxel_size
+        self.voxel_max = voxel_max
+        self.transform = transform
+        self.shuffle_index = shuffle_index
+        self.loop = loop
+        self.data_root = data_root
+        tag = f"Area_{test_area}"
+        items = [i[:-4] for i in sorted(os.listdir(data_root)) if "Area_" in i]
+        self.data_list = [i for i in items
+                          if (tag not in i) == (split == "train")]
+        self._rng = _VisitRng(seed)
+
+    def __len__(self):
+        return len(self.data_list) * self.loop
+
+    def __getitem__(self, idx):
+        item = self.data_list[idx % len(self.data_list)]
+        data = np.load(os.path.join(self.data_root, item + ".npy"))
+        rng = self._rng.for_item(idx)
+        return data_prepare(
+            data[:, 0:3], data[:, 3:6], data[:, 6], self.split,
+            self.voxel_size, self.voxel_max, feat_scale=255.0, rng=rng,
+            transform=self.transform, transform_rng=rng,
+            shuffle_index=self.shuffle_index)
+
+
+def s3dis_scenes(data_root, test_area=5):
+    """Whole rooms of ``test_area`` for whole-scene evaluation
+    (``test.py:161-167``): ``(name, xyz, rgb 0-255, int64 labels)`` per
+    room, in name order."""
+    scenes = []
+    for item in sorted(i[:-4] for i in os.listdir(data_root)
+                       if f"Area_{test_area}" in i):
+        d = np.load(os.path.join(data_root, item + ".npy"))
+        scenes.append((item, d[:, :3], d[:, 3:6], d[:, 6].astype(np.int64)))
+    return scenes
+
+
 class SyntheticRooms:
+    """Fabricated room-like scenes (``datasets.py:180-260``)."""
+
     def __init__(self, num_scenes=16, points=60_000, extent=6.0,
                  num_classes=13, voxel_size=0.04, voxel_max=None,
                  seed=0, split="train", transform=None, transform_rng=None):

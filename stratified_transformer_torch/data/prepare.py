@@ -3,7 +3,8 @@
 The JAX package's ``data/prepare.py`` (reference ``util/data_util.py:154-255``):
 transform (training augmentation) -> voxelize (random point per voxel) ->
 sphere-crop to ``voxel_max`` around a random (train) / central (val) seed
--> shift coords to their min corner -> feature scaling.
+-> optional index shuffle -> shift coords to their min corner -> feature
+scaling.
 """
 
 from __future__ import annotations
@@ -37,11 +38,13 @@ def data_prepare(
     rng: Optional[np.random.Generator] = None,
     transform=None,
     transform_rng: Optional[np.random.Generator] = None,
+    shuffle_index: bool = False,
 ):
     """Returns a scene dict ``{xyz, feats, labels}`` for `collate_scenes`.
 
     ``transform`` (e.g. `data.transforms.train_transform`) augments the raw
-    points first, as the JAX package does, drawing from ``transform_rng``."""
+    points first, as the JAX package does, drawing from ``transform_rng``;
+    ``shuffle_index`` permutes the cropped points with ``rng``."""
     if rng is None:
         raise ValueError("data_prepare needs an explicit numpy Generator")
     coord = np.asarray(coord, np.float32).copy()
@@ -56,6 +59,9 @@ def data_prepare(
         coord, feat, label = coord[uniq], feat[uniq], label[uniq]
     crop = sphere_crop(coord, voxel_max, split, rng)
     coord, feat, label = coord[crop], feat[crop], label[crop]
+    if shuffle_index:
+        sh = rng.permutation(coord.shape[0])
+        coord, feat, label = coord[sh], feat[sh], label[sh]
 
     coord -= coord.min(0)
     return {

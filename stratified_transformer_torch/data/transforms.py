@@ -1,10 +1,10 @@
-"""The training augmentations of the S3DIS loader (numpy, host-side).
+"""The S3DIS augmentations (numpy, host-side).
 
 Copied from the JAX package's ``data/transforms.py`` (reference
 ``util/transform.py``): the four transforms ``train.py::build_dataset``
-composes for ``aug: True`` (``train.py:113-122``). Each maps ``(points,
-color, rng) -> (points, color)``; randomness comes from an explicit
-``np.random.Generator``.
+composes for ``aug: True`` (``train.py:113-122``), and the fixed shift of
+the whole-scene TTA ensemble. Each maps ``(points, color, rng) -> (points,
+color)``; randomness comes from an explicit ``np.random.Generator``.
 """
 
 from __future__ import annotations
@@ -49,6 +49,19 @@ class RandomScale:
     def __call__(self, points, color, rng):
         points = points.copy()
         points[:, 0:3] *= rng.uniform(self.scale_low, self.scale_high)
+        return points, color
+
+
+class FixedShift:
+    """Deterministic shift of the S3DIS TTA ensemble (reference
+    ``RandomShift_test`` :6-18, ``test_backup.py:112-143``)."""
+
+    def __init__(self, shift_range=0.1):
+        self.shift_range = shift_range
+
+    def __call__(self, points, color, rng=None):
+        points = points.copy()
+        points[:, 0:3] += np.ones(3) * self.shift_range
         return points, color
 
 

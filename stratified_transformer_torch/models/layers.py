@@ -12,6 +12,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from stratified_transformer_torch.ops.neighbors import (
+    gather_group, interpolate_from_idx)
+
 
 def layer_norm(dim):
     """LayerNorm with the reference's epsilon (torch default 1e-5)."""
@@ -79,28 +82,10 @@ def drop_path(x, rate, generator):
                        torch.zeros_like(x))
 
 
-def gather_group(feats, idx, mask, fill=0.0):
-    """``feats[idx] -> [M, k, C]`` with masked slots set to ``fill``
-    (``pointops.grouping``)."""
-    g = feats[idx]
-    return torch.where(mask[..., None], g, torch.full_like(g, fill))
-
-
-def interpolate_from_idx(query_xyz, support_xyz, support_feats, idx, mask):
-    """Inverse-distance 3-NN interpolation from precomputed indices
-    (``pointops.interpolation``); distances are recomputed from the
-    gathered coordinates."""
-    qx = query_xyz.to(torch.float32)
-    sx = support_xyz.to(torch.float32)
-    d = torch.sqrt(((qx[:, None, :] - sx[idx]) ** 2).sum(-1))
-    recip = torch.where(mask, 1.0 / (d + 1e-8), torch.zeros_like(d))
-    denom = recip.sum(-1, keepdim=True)
-    w = recip / denom.clamp_min(1e-12)
-    return (support_feats[idx] * w[..., None].to(support_feats.dtype)).sum(1)
-
-
 class TransitionDown(nn.Module):
-    """Host-pooled downsample + kNN max-pool (reference :87-111).
+    """Downsample + kNN max-pool (reference :87-111) over one ``down`` level
+    of a geometry pyramid, from the host or `models.stratified.
+    geometry_pyramid`.
 
     LayerNorm and Linear act per row, so all support points are normalised
     and projected once and gathered afterwards.
@@ -112,7 +97,7 @@ class TransitionDown(nn.Module):
         self.linear = nn.Linear(in_channels, out_channels, bias=False)
 
     def forward(self, feats, xyz, precomp):
-        """``precomp``: one ``down`` level of the host pyramid. Returns
+        """``precomp``: one ``down`` level of the pyramid. Returns
         ``(pooled feats, pooled xyz, new offsets)``."""
         idx = precomp["idx"]
         out_valid = precomp["valid"]

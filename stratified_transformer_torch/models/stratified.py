@@ -5,11 +5,14 @@
 KPConv stem, U-Net encoder of `BasicLayer` stages with stratified window
 attention, ``TransitionDown``/``Upsample`` pyramid, classifier head. Flat
 ``[N_pad]`` arrays + cumulative ``offsets``; per-stage attention plans are
-built once per shift parity and shared across the stage's blocks. The
-forward runs from a host-computed batch: stem radius neighbours and
-geometry pyramid arrive with the batch (``data/loader.py::host_batch``).
-In training mode the BatchNorms use batch statistics and the blocks
-drop-path with the rates of ``StratifiedConfig.drop_path_schedule``.
+built once per shift parity and shared across the stage's blocks. The stem
+radius neighbours and the geometry pyramid (sample indices, kNN graphs,
+3-NN upsample indices, stratified member masks) arrive with a host batch
+(``data/loader.py::host_batch``) or, when absent, are computed on the
+device from the coordinates alone (`stem_neighbors`, `geometry_pyramid`),
+as whole-scene evaluation runs the model. In training mode the BatchNorms
+use batch statistics and the blocks drop-path with the rates of
+``StratifiedConfig.drop_path_schedule``.
 """
 
 from __future__ import annotations
@@ -26,12 +29,134 @@ from stratified_transformer_torch.models.attention import Block
 from stratified_transformer_torch.models.kpconv import KPConv, KPConvSimpleBlock
 from stratified_transformer_torch.models.layers import (
     MaskedBatchNorm, TransitionDown, Upsample)
-from stratified_transformer_torch.ops import sampling
+from stratified_transformer_torch.ops import neighbors, sampling
 from stratified_transformer_torch.ops.plan import build_attention_plan
 
 
 def _round_up(n, m):
     return ((n + m - 1) // m) * m
+
+
+def stem_neighbors(cfg: StratifiedConfig, xyz, offsets):
+    """The KPConv stem's radius neighbours on the device
+    (``models/stratified.py:302-307`` of the JAX package): up to
+    ``max_num_neighbors`` within ``2.5 grid_size sigma``. Returns ``(idx
+    [N, K] int64, mask [N, K])``."""
+    n = xyz.shape[0]
+    batch = sampling.offsets_to_batch(offsets, n)
+    idx, mask = neighbors.radius_neighbors(
+        xyz, batch, xyz, batch, sampling.offsets_to_valid(offsets, n),
+        2.5 * cfg.grid_size * cfg.sigma, cfg.max_num_neighbors,
+        chunk=cfg.knn_chunk, method=cfg.neighbor_method,
+        cap=cfg.neighbor_cap, grid_chunk=cfg.grid_knn_chunk)
+    return idx.long(), mask
+
+
+def _stage_members(cfg, stage, xyz, offsets):
+    """The stratified members (far keys) of one stage, as a mask over its
+    points (``models/stratified.py:196-218``). A slot of the sampler that
+    is not valid sets nothing, as in the host pyramid: the JAX package
+    scatters the padding slots' False too, and where such a slot aliases a
+    scene's first point that point can lose its membership."""
+    n = xyz.shape[0]
+    counts = offsets - sampling.scene_starts(offsets)
+    d_offsets = sampling.counts_to_offsets(sampling.floor_ratio_counts(
+        counts, 1.0 / cfg.downsample_scale))
+    d_pad = n // cfg.downsample_scale + cfg.num_scenes
+    if cfg.sampler == "grid":
+        cell = cfg.grid_sizes()[stage] * float(cfg.downsample_scale) ** 0.5
+        if cfg.down_quota == "cells":
+            d_idx, d_valid, _ = sampling.grid_pool_sampling_all(
+                xyz, offsets, d_pad, cell)
+        else:
+            d_idx, d_valid = sampling.grid_pool_sampling(
+                xyz, offsets, d_offsets, d_pad, cell)
+    elif cfg.sampler == "blocked_fps":
+        d_idx, d_valid = sampling.blocked_fps(
+            xyz, offsets, d_offsets, d_pad, cfg.window_sizes()[stage] * 4.0)
+    else:
+        d_idx, d_valid = sampling.farthest_point_sampling(
+            xyz, offsets, d_offsets, d_pad)
+    is_down = torch.zeros(n + 1, dtype=torch.bool, device=xyz.device)
+    is_down[torch.where(d_valid, d_idx.long(), n)] = True
+    return is_down[:n]
+
+
+def _down_level(cfg, stage, xyz, offsets):
+    """One ``TransitionDown`` level (``models/layers.py:163-208``): sample
+    indices, their offsets and the kNN graph of the samples against the
+    level's points."""
+    n = xyz.shape[0]
+    out_pad = _round_up(int(n * cfg.ratio) + cfg.num_scenes, cfg.tile)
+    grid_cell = cfg.grid_sizes()[stage] * 2.0
+    counts = offsets - sampling.scene_starts(offsets)
+    new_offsets = sampling.counts_to_offsets(
+        sampling.floor_ratio_counts(counts, cfg.ratio))
+    if cfg.sampler == "grid" and cfg.down_quota == "cells":
+        idx, valid, new_offsets = sampling.grid_pool_sampling_all(
+            xyz, offsets, out_pad, grid_cell)
+    elif cfg.sampler == "grid":
+        idx, valid = sampling.grid_pool_sampling(
+            xyz, offsets, new_offsets, out_pad, grid_cell)
+    elif cfg.sampler == "blocked_fps":
+        idx, valid = sampling.blocked_fps(
+            xyz, offsets, new_offsets, out_pad, max(grid_cell * 8.0, 1e-3))
+    else:
+        idx, valid = sampling.farthest_point_sampling(
+            xyz, offsets, new_offsets, out_pad)
+    idx = idx.long()
+    args = (xyz[idx], sampling.offsets_to_batch(new_offsets, out_pad), xyz,
+            sampling.offsets_to_batch(offsets, n),
+            sampling.offsets_to_valid(offsets, n), cfg.k)
+    if cfg.neighbor_method == "grid":
+        knn_idx, _, knn_mask = neighbors.grid_knn(
+            *args, cell=cfg.grid_sizes()[stage] * 3.0, cap=cfg.neighbor_cap,
+            query_valid=valid, chunk=cfg.grid_knn_chunk)
+    else:
+        knn_idx, _, knn_mask = neighbors.knn(*args, query_valid=valid)
+    return {"idx": idx, "valid": valid, "offsets": new_offsets,
+            "knn_idx": knn_idx.long(), "knn_mask": knn_mask}
+
+
+def _up_level(cfg, fine_stage, fine_xyz, fine_offsets, xyz, offsets):
+    """One ``Upsample`` level's 3-NN of the fine points among the coarse
+    ones (``models/layers.py:237-247``)."""
+    n, n_fine = xyz.shape[0], fine_xyz.shape[0]
+    args = (fine_xyz, sampling.offsets_to_batch(fine_offsets, n_fine), xyz,
+            sampling.offsets_to_batch(offsets, n),
+            sampling.offsets_to_valid(offsets, n), 3)
+    fine_valid = sampling.offsets_to_valid(fine_offsets, n_fine)
+    if cfg.neighbor_method == "grid":
+        idx, _, mask = neighbors.grid_knn(
+            *args, cell=cfg.grid_sizes()[fine_stage] * 6.0,
+            cap=cfg.neighbor_cap, query_valid=fine_valid,
+            chunk=cfg.grid_knn_chunk)
+    else:
+        idx, _, mask = neighbors.knn(*args, query_valid=fine_valid)
+    return {"idx": idx.long(), "mask": mask}
+
+
+def geometry_pyramid(cfg: StratifiedConfig, xyz, offsets):
+    """The geometry pyramid computed on ``xyz``'s device, in the host
+    pyramid's layout (``data/pyramid.py::build_geometry_pyramid``): the
+    samplers and neighbour searches that the JAX package's model runs
+    inside ``BasicLayer``, ``TransitionDown`` and ``Upsample`` when it gets
+    no pyramid. They read the coordinates and offsets alone, so they run
+    before the first layer."""
+    levels = [(xyz, offsets)]
+    down, stage_down = [], []
+    for i in range(cfg.num_layers):
+        cur_xyz, cur_off = levels[-1]
+        stage_down.append({"is_down": _stage_members(cfg, i, cur_xyz,
+                                                     cur_off)})
+        if i < cfg.num_layers - 1:
+            level = _down_level(cfg, i, cur_xyz, cur_off)
+            down.append(level)
+            levels.append((cur_xyz[level["idx"]], level["offsets"]))
+    up = [_up_level(cfg, j - 1, *levels[j - 1], *levels[j])
+          for j in range(cfg.num_layers - 1, 0, -1)]
+    return {"down": tuple(down), "up": tuple(up),
+            "stage_down": tuple(stage_down)}
 
 
 class BasicLayer(nn.Module):
@@ -90,18 +215,23 @@ class Stratified(nn.Module):
         self.cls_bn = MaskedBatchNorm(c[0])
         self.cls_fc2 = nn.Linear(c[0], cfg.num_classes)
 
-    def forward(self, feats, xyz, offsets, *, stem_nidx, stem_nmask,
-                pyramid, generator=None):
+    def forward(self, feats, xyz, offsets, *, stem_nidx=None,
+                stem_nmask=None, pyramid=None, generator=None):
         """feats ``[N_pad, C_in]``, xyz ``[N_pad, 3]``, offsets ``[B]``;
-        stem_nidx/stem_nmask ``[N_pad, K]`` host radius neighbours; pyramid
-        the host geometry pyramid; ``generator`` (a ``torch.Generator`` on
-        the model's device) draws the drop-path masks in training mode.
-        Returns ``(logits [N_pad, classes], None)`` (the offset head is not
-        ported yet)."""
+        stem_nidx/stem_nmask ``[N_pad, K]`` the stem's radius neighbours and
+        pyramid the geometry pyramid, from the host, or computed on the
+        device when None (`stem_neighbors`, `geometry_pyramid`);
+        ``generator`` (a ``torch.Generator`` on the model's device) draws
+        the drop-path masks in training mode. Returns ``(logits [N_pad,
+        classes], None)`` (the offset head is not ported yet)."""
         cfg = self.cfg
         n = xyz.shape[0]
         if n % cfg.tile:
             raise ValueError(f"n_pad {n} must be a multiple of tile {cfg.tile}")
+        if stem_nidx is None:
+            stem_nidx, stem_nmask = stem_neighbors(cfg, xyz, offsets)
+        if pyramid is None:
+            pyramid = geometry_pyramid(cfg, xyz, offsets)
         valid = sampling.offsets_to_valid(offsets, n)
         feats = self.stem_0(feats, xyz, stem_nidx, stem_nmask, valid)
 

@@ -25,12 +25,13 @@ def window_cells(xyz, window_size, *, start, shift=0.0):
     return cells.to(torch.int32)
 
 
-def window_keys(cells, batch, valid):
+def window_keys(cells, batch, valid, *, cells_hi=None):
     """Fuse (batch, cell) into one sortable int32 key; the multipliers are
-    the per-axis cell maxima of the batch, so the packing is collision-free.
-    Invalid points get ``INVALID_KEY``."""
+    the per-axis cell bounds ``cells_hi`` (default: the maxima of the valid
+    cells, plus one), so the packing is collision-free. Invalid points get
+    ``INVALID_KEY``."""
     c = torch.where(valid[:, None], cells, torch.zeros_like(cells))
-    hi = c.max(0).values + 1
+    hi = c.max(0).values + 1 if cells_hi is None else cells_hi.to(torch.int32)
     key = batch.to(torch.int32)
     for a in range(3):
         key = key * hi[a] + c[:, a]

@@ -58,17 +58,6 @@ class AttentionPlan(NamedTuple):
     grid_start: Optional[torch.Tensor] = None
 
 
-def _scatter_drop(size, fill, slot, values):
-    """``full(size, fill).at[slot].set(values, mode="drop")``: slots outside
-    ``[0, size)`` are dropped, as JAX drops them (a torch scatter would
-    raise)."""
-    out = torch.full((size,) + tuple(values.shape[1:]), fill,
-                     dtype=values.dtype, device=values.device)
-    ok = (slot >= 0) & (slot < size)
-    out[slot[ok].long()] = values[ok]
-    return out
-
-
 def build_attention_plan(xyz, batch, valid, window_size, *, shifted,
                          is_down=None, sparse_cap=64, aux_pad=None):
     """Attention layout for one shift parity.
@@ -126,10 +115,10 @@ def build_attention_plan(xyz, batch, valid, window_size, *, shifted,
         keep_i = keep.to(torch.int32)
         kept_cum = torch.cumsum(keep_i, 0, dtype=torch.int32)  # inclusive
         slot = torch.where(keep, kept_cum - 1, aux_pad)
-        sb_src = _scatter_drop(aux_pad, -1, slot, lw_map)
-        sb_skey = _scatter_drop(aux_pad, hashing.INVALID_KEY, slot,
+        sb_src = win.scatter_drop(aux_pad, -1, slot, lw_map)
+        sb_skey = win.scatter_drop(aux_pad, hashing.INVALID_KEY, slot,
                                 key_small[lw_order])
-        sb_xyz = _scatter_drop(aux_pad, 0.0, slot, xyz[lw_order])
+        sb_xyz = win.scatter_drop(aux_pad, 0.0, slot, xyz[lw_order])
 
         # per-query aux segment bounds: kept-member counts before/through
         # the query's window (empty when the window has no members)

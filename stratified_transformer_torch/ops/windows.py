@@ -1,7 +1,9 @@
 """Static-shape window partitioning (the JAX package's ``ops/windows.py``).
 
 Points are sorted by window key; every window becomes a contiguous segment
-of the sorted order, described by per-point ``[seg_start, seg_end)``.
+of the sorted order, described by per-point ``[seg_start, seg_end)``. A
+window's members can also be collected into a fixed-capacity row of a
+table (`sparse_key_table`).
 """
 
 from __future__ import annotations
@@ -44,6 +46,27 @@ def reverse_cummin(x):
     return torch.flip(torch.cummin(torch.flip(x, (0,)), 0).values, (0,))
 
 
+def put_drop(out, slot, values):
+    """``out.at[slot].set(values, mode="drop")``: rows whose slot lies
+    outside ``[0, len(out))`` are dropped, as JAX drops them (a torch
+    scatter would raise). They land in a spare last row that is cut off, so
+    the device never waits for a mask's count. The kept slots must be
+    distinct. Returns a new tensor."""
+    size = out.shape[0]
+    full = torch.cat([out, out.new_empty((1,) + tuple(out.shape[1:]))])
+    slot = slot.long()
+    full[torch.where((slot >= 0) & (slot < size), slot, size)] = (
+        values.to(out.dtype))
+    return full[:size]
+
+
+def scatter_drop(size, fill, slot, values):
+    """``full(size, fill).at[slot].set(values, mode="drop")``."""
+    return put_drop(torch.full((size,) + tuple(values.shape[1:]), fill,
+                               dtype=values.dtype, device=values.device),
+                    slot, values)
+
+
 def inverse_permutation(order):
     inv = torch.empty_like(order)
     inv[order.long()] = torch.arange(
@@ -69,3 +92,37 @@ def partition_windows(key, valid) -> WindowPartition:
         seg_end=seg_end.to(torch.int32),
         valid_sorted=valid_sorted,
     )
+
+
+def sparse_key_table(key, is_member, capacity):
+    """Fixed-capacity member table per window (``windows.py:96-144``).
+
+    Returns ``table [N, capacity]`` int32 of original point indices (-1
+    empty), whose row ``r`` holds the members of the ``r``-th distinct
+    member key in ascending key order (members beyond ``capacity`` are
+    dropped), and ``table_keys [N]`` int32, the key of each row
+    (``INVALID_KEY`` for unused rows, which follow the used ones).
+    """
+    n = key.shape[0]
+    dev = key.device
+    mkey = torch.where(is_member, key, torch.full_like(key, INVALID_KEY))
+    order = torch.argsort(mkey, stable=True).to(torch.int32)
+    mkey_sorted = mkey[order.long()]
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    head = head_flags(mkey_sorted)
+    row = torch.cumsum(head, 0) - 1
+    rank = idx - cummax(torch.where(head, idx, 0))
+    ok = (mkey_sorted != INVALID_KEY) & (rank < capacity)
+    flat = torch.where(ok, row * capacity + rank, n * capacity)
+    table = scatter_drop(n * capacity, -1, flat, order).view(n, capacity)
+    table_keys = scatter_drop(n, INVALID_KEY, torch.where(ok & head, row, n),
+                              mkey_sorted)
+    return table, table_keys
+
+
+def lookup_rows(table_keys, query_key):
+    """Row of each query key in a `sparse_key_table` (-1 if absent)."""
+    pos = torch.searchsorted(table_keys, query_key).clamp(
+        0, table_keys.shape[0] - 1)
+    hit = (table_keys[pos] == query_key) & (query_key != INVALID_KEY)
+    return torch.where(hit, pos, -1).to(torch.int32)

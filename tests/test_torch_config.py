@@ -44,3 +44,28 @@ def test_unknown_attention_impl_is_refused():
     with pytest.raises(ValueError, match="attn_impl"):
         dataclasses.replace(load_config(
             os.path.join(CONFIGS, "s3dis_stratified.yaml")), attn_impl="jnp")
+
+
+@pytest.mark.parametrize("key, value", [
+    ("stem_transformer", False), ("with_regressor", True),
+    ("use_stratified", False), ("arch", "swin3d_transformer")])
+def test_refusals_name_their_roadmap_item(key, value):
+    cfg = torch_load(os.path.join(CONFIGS, "s3dis_stratified.yaml"))
+    cfg[key] = value
+    with pytest.raises(ValueError,
+                       match=f"{key}: {value} .*ROADMAP queue item 4"):
+        from_cfg(cfg)
+
+
+def test_on_device_sampling_keys_are_read_as_the_jax_driver_reads_them():
+    cfg = torch_load(os.path.join(CONFIGS, "s3dis_stratified.yaml"))
+    cfg.update(sampler="blocked_fps", down_quota="cells", knn_chunk=256,
+               neighbor_method="brute", neighbor_cap=16, grid_knn_chunk=512)
+    ours, theirs = from_cfg(cfg), build_model_config(cfg, 1)
+    for name in ("sampler", "down_quota", "knn_chunk", "neighbor_method",
+                 "neighbor_cap", "grid_knn_chunk"):
+        assert getattr(ours, name) == getattr(theirs, name), name
+    for name, bad in (("sampler", "poisson"), ("down_quota", "batch"),
+                      ("neighbor_method", "kdtree")):
+        with pytest.raises(ValueError, match=name):
+            dataclasses.replace(ours, **{name: bad})

@@ -443,3 +443,66 @@ def test_cache_key_probe_kernel_doubles(cuda_device):
     torch.cuda.synchronize()
     assert cache_key_probe.KERNEL.launches == before + 1
     assert torch.equal(got.cpu(), cache_key_probe.times_two_plain(x))
+
+
+def _narrow_cfg(**kw):
+    from stratified_transformer_torch.config import StratifiedConfig
+    return StratifiedConfig(channels=(16, 32, 64, 128), num_heads=(1, 2, 4, 8),
+                            depths=(1, 1, 2, 1), n_pad=4096, num_scenes=2,
+                            band_per_stage=(128, 128, 384, 192), **kw)
+
+
+@pytest.mark.cuda
+def test_on_device_geometry_equals_the_cpu(cuda_device):
+    from stratified_transformer_torch.data.loader import example_batch
+    from stratified_transformer_torch.models.stratified import (
+        geometry_pyramid, stem_neighbors)
+    from stratified_transformer_torch.ops import sampling
+    cfg = _narrow_cfg()
+    b = example_batch(cfg.n_pad, cfg.num_scenes, seed=1)
+    xyz = torch.from_numpy(b.xyz)
+    off = torch.from_numpy(b.offsets.astype(np.int64))
+    d_off = sampling.counts_to_offsets(sampling.floor_ratio_counts(
+        off - sampling.scene_starts(off), 0.125))
+
+    def run(dev):
+        x, o, d = xyz.to(dev), off.to(dev), d_off.to(dev)
+        return [stem_neighbors(cfg, x, o), geometry_pyramid(cfg, x, o),
+                sampling.farthest_point_sampling(x, o, d, 520),
+                sampling.blocked_fps(x, o, d, 520, 0.64)]
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [v for k in sorted(tree) for v in leaves(tree[k])]
+        if isinstance(tree, (tuple, list)):
+            return [v for t in tree for v in leaves(t)]
+        return [tree]
+
+    got, want = leaves(run(cuda_device)), leaves(run("cpu"))
+    assert len(got) == len(want) == 31
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_forward_without_pyramid_launches_the_kernels(cuda_device):
+    import dataclasses
+
+    from stratified_transformer_torch.data.loader import example_batch
+    from stratified_transformer_torch.models.stratified import build_model
+    cfg = _narrow_cfg()
+    b = example_batch(cfg.n_pad, cfg.num_scenes, seed=2)
+    args = (torch.from_numpy(b.feats).to(cuda_device),
+            torch.from_numpy(b.xyz).to(cuda_device),
+            torch.from_numpy(b.offsets.astype(np.int64)).to(cuda_device))
+    model = build_model(cfg, cuda_device, seed=0)
+    ref = build_model(dataclasses.replace(cfg, attn_impl="reference"),
+                      cuda_device, seed=0)
+    before = (band_k.KERNEL.launches, sparse_k.KERNEL.launches)
+    with torch.no_grad():
+        got = model(*args)[0]
+        launched = (band_k.KERNEL.launches - before[0],
+                    sparse_k.KERNEL.launches - before[1])
+        want = ref(*args)[0]
+    assert launched == (sum(cfg.depths),) * 2
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)

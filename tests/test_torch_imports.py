@@ -39,3 +39,10 @@ def test_no_jax_imports(rel):
 def test_forbidden_import_is_detected():
     src = "import numpy\nfrom jax import numpy as jnp\n"
     assert "jax" in list(imported_modules(src))
+
+
+def test_the_whole_scene_modules_are_checked():
+    assert {"stratified_transformer_torch/ops/neighbors.py",
+            "stratified_transformer_torch/ops/sampling.py",
+            "stratified_transformer_torch/eval/voting.py",
+            "stratified_transformer_torch/eval/driver.py"} <= set(FILES)

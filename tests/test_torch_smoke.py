@@ -123,11 +123,17 @@ def test_chip_smoke_refuses_unknown_arguments_or_a_missing_card(capsys):
 
 @pytest.mark.parametrize("argv, want", [
     ([], None),
-    (["--fwd-only"], chip_smoke.FWD_KERNELS),
-    (["--bwd-only"], chip_smoke.BWD_KERNELS),
+    (["--fwd-only"], "--fwd-only"),
+    (["--bwd-only"], "--bwd-only"),
+    (["--scene-only"], "--scene-only"),
 ])
 def test_parse_args_picks_the_phase_run_alone(argv, want):
     assert chip_smoke.parse_args(argv) == want
+    if want is not None:
+        # the kernels it builds: the forward pair for phases 4 and 10
+        assert chip_smoke.PHASE_ONLY[want] == (
+            chip_smoke.BWD_KERNELS if want == "--bwd-only"
+            else chip_smoke.FWD_KERNELS)
 
 
 @pytest.mark.parametrize("argv", [["--fwd"], ["--fwd-only", "--bwd-only"],
@@ -137,7 +143,8 @@ def test_parse_args_refuses_anything_else(argv):
         chip_smoke.parse_args(argv)
 
 
-@pytest.mark.parametrize("flag", ["--fwd-only", "--bwd-only"])
+@pytest.mark.parametrize("flag", ["--fwd-only", "--bwd-only",
+                                  "--scene-only"])
 def test_phase_only_runs_need_a_card(flag, capsys):
     if torch.cuda.is_available():
         pytest.skip("checks the run without a card")
