@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's evaluation forward and training step, and its
-two probes, on an NVIDIA GPU.
+"""Drive the PyTorch port's evaluation forward, training step, whole-scene
+evaluation and training loop, and its two probes, on an NVIDIA GPU.
 
 Run from the repository root with no arguments (needs one CUDA card):
 
@@ -9,8 +9,10 @@ Run from the repository root with no arguments (needs one CUDA card):
 ``python3 chip_smoke.py --fwd-only`` builds the two forward kernels and
 runs phase 4 alone; ``--bwd-only`` builds the two backward kernels and runs
 phase 7 alone; ``--scene-only`` builds the two forward kernels and runs
-phase 10 alone. Each prints its times as one JSON line (``--fwd-only`` also
-per stage and parity). Copied into another checkout (say a parent commit
+phase 10 alone; ``--loop-only`` builds the four attention kernels and runs
+phase 11 alone; ``--iou-only`` builds the two forward kernels and times
+the train and eval steps' IoU counters (`iou_phase`). Each prints its times
+as one JSON line (``--fwd-only`` also per stage and parity). Copied into another checkout (say a parent commit
 unpacked beside the tree) and run from there, it times that checkout's
 kernels and wrappers the same way, so two versions can be compared in
 turns on one card.
@@ -59,7 +61,18 @@ Phases, each fatal on failure:
      forwards, points per second, launches, peak memory, the first TTA
      pass's accumulated probabilities against the plain-version path's,
      and one profiled 400000-point forward with the device time of its
-     on-device pyramid and of the attention kernels.
+     on-device pyramid and of the attention kernels;
+ 11. the training driver's epoch loop (``train/driver.py::run``) at full
+     width on the YAML's own batch shape (140000 points in 8 scene slots),
+     fed by the ordered prefetch loader from synthetic rooms: 2 epochs of 4
+     steps with validation and the truncation audit; 12 launches of each
+     attention kernel per step and 12 forward, 0 backward per validation
+     forward, finite losses; step walls, load-wait / upload / step-block
+     seconds, points per second, points and scenes per batch, the audit's
+     drop fractions, validation time, peak memory; the same loop with the
+     batches built inline; the first loader batch's gradients against the
+     plain-version step; the last checkpoint restored into a fresh model
+     giving bit-identical logits; one profiled loader-fed step.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -123,6 +136,20 @@ SCENE_POINTS = 300000
 # equal to ~1e-5; 1e-4 per entry leaves an order of magnitude. Labels must
 # agree wherever the plain path's top two differ by more than 2e-4.
 SCENE_PROB_ATOL, SCENE_MARGIN = 1e-4, 2e-4
+# phase 11: the training driver's epoch loop (train.py::main) on the YAML's
+# own batch shape (max_batch_points 140000 in batch_size 8 scene slots,
+# voxel_max 80000) over synthetic rooms of 60000 raw points in 6 m (about
+# 40000-46000 after the 0.04 m voxels, so 3 scenes and ~125000 valid points
+# fit a batch): 32 rooms are 4 iterations per epoch, 2 epochs, validation
+# after each (4 forwards), the audit on each epoch's first iteration
+LOOP_OVERRIDES = [
+    "data_name", "synthetic", "max_batch_points", "140000", "batch_size", "8",
+    "voxel_max", "80000", "synthetic_points", "60000", "synthetic_scenes",
+    "32", "epochs", "2", "evaluate", "True", "print_freq", "1",
+    "use_tensorboard", "False", "n_devices", "1"]
+# the same loop with the batches built inline, for one epoch
+LOOP_SYNC_OVERRIDES = ["prefetch", "False", "epochs", "1", "evaluate",
+                       "False"]
 TPU_KERNELS = {
     "band_attention": "stratified_transformer_tpu/ops/pallas/"
                       "fused_attention.py:50",
@@ -341,6 +368,25 @@ def grads_close(name, got, want):
             f"{name}: {int(bad.sum())} of {bad.numel()} entries outside "
             f"rtol {BWD_RTOL} / floor {floor:.3e}; max abs err {err:.3e}")
     return err
+
+
+def check_grads(label, grads_k, grads_p):
+    """Every parameter's gradient through the kernels within GRAD_REL_L2
+    relative L2 (+ GRAD_FLOOR per entry) of the plain versions'; returns
+    the largest relative L2 among the gradients above the floor."""
+    worst = (0.0, "")
+    for name, gp in grads_p.items():
+        gk = grads_k[name]
+        err = float((gk - gp).norm())
+        bound = (GRAD_REL_L2 * float(gp.norm())
+                 + GRAD_FLOOR * gp.numel() ** 0.5)
+        if not err <= bound:
+            raise AssertionError(f"{label} grad {name}: |kernel - plain| "
+                                 f"{err:.3e} > {bound:.3e} (|plain| "
+                                 f"{float(gp.norm()):.3e})")
+        if float(gp.norm()) > 1e3 * GRAD_FLOOR * gp.numel() ** 0.5:
+            worst = max(worst, (err / float(gp.norm()), name))
+    return worst
 
 
 def o1_weights(model, seed):
@@ -998,12 +1044,357 @@ def scene_phase(cfg, hb, model, ref_model, dev, kernel_mods):
     return out
 
 
+def attention_kernel_modules():
+    """The four attention kernels' wrapper modules by kernel name."""
+    from stratified_transformer_torch.kernels import (
+        band_attention, band_attention_bwd, sparse_band_attention,
+        sparse_band_attention_bwd)
+    return {"band_attention": band_attention,
+            "sparse_band_attention": sparse_band_attention,
+            "band_attention_bwd": band_attention_bwd,
+            "sparse_band_attention_bwd": sparse_band_attention_bwd}
+
+
+def launch_deltas(marks, kernel_mods, blocks):
+    """Per-step and per-validation launches from the counts read at each
+    logged iteration (``step``) and validation (``val``) line, in order;
+    raises unless every train step launched 12 of each attention kernel and
+    every validation pass 12 forward launches per forward and no
+    backward (``blocks`` = 12 attention blocks)."""
+    prev = {k: 0 for k in kernel_mods}
+    steps = vals = 0
+    for kind, now, forwards in marks:
+        delta = {k: now[k] - prev[k] for k in now}
+        prev = now
+        if kind == "step":
+            want = {k: blocks for k in kernel_mods}
+            steps += 1
+        else:
+            want = {k: blocks * forwards if k in FWD_KERNELS else 0
+                    for k in kernel_mods}
+            vals += forwards
+        if delta != want:
+            raise AssertionError(f"loop {kind} after {steps} steps: "
+                                 f"launches {delta}, expected {want}")
+    return steps, vals
+
+
+def loop_phase(dev, kernel_mods):
+    """Phase 11: the training driver's epoch loop (``train/driver.py::run``,
+    the function its CLI runs) on ``configs/s3dis_stratified.yaml`` at full
+    width with LOOP_OVERRIDES, fed by the ordered prefetch loader (2
+    workers): 12 launches of each attention kernel per train step, 12
+    forward and no backward launches per validation forward, finite losses;
+    the step walls, load-wait / upload / step-block seconds, points per
+    second, valid points and scenes per batch, the audit's drop fractions,
+    validation seconds and peak memory. Then the same loop for one epoch
+    with the batches built inline (``prefetch: false``); the first loader
+    batch's train step through the kernels against the plain versions
+    (gradients within GRAD_REL_L2 / GRAD_FLOOR, at `o1_weights`); the last
+    checkpoint restored into a fresh model giving bit-identical logits on a
+    validation batch; and one profiled loader-fed step. Returns the phase's
+    numbers."""
+    import tempfile
+
+    from stratified_transformer_torch.config import from_cfg
+    from stratified_transformer_torch.data.loader import (
+        BatchLoader, build_dataset, to_device)
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.train import audit, checkpoint, driver
+    from stratified_transformer_torch.train.metrics import memory_use
+    from stratified_transformer_torch.train.step import (
+        make_eval_step, make_train_step, pack_stats)
+    from stratified_transformer_torch.utils.config import (
+        load_cfg, merge_cfg_from_list)
+
+    def counts():
+        return {k: m_.KERNEL.launches for k, m_ in kernel_mods.items()}
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml_cfg = merge_cfg_from_list(load_cfg(CONFIG), LOOP_OVERRIDES + [
+            "save_path", os.path.join(tmp, "run")])
+        cfg = from_cfg(yaml_cfg)
+        seed = int(yaml_cfg["manual_seed"])
+        marks = []
+
+        def loop_log(msg):
+            log(f"[loop] {msg[:400]}")
+            if msg.startswith("Epoch ["):
+                marks.append(("step", counts(), 0))
+            elif msg.startswith("Val epoch"):
+                marks.append(("val", counts(), None))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for m_ in kernel_mods.values():
+            m_.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        model, summary = driver.run(yaml_cfg, "cuda", log=loop_log)
+        torch.cuda.synchronize()
+        out["loop_s"] = time.perf_counter() - t0
+        out["launches"] = counts()
+        out["peak_gib"] = memory_use()["cuda:0"]["peak_bytes_gb"]
+        val_forwards = iter(t["val_forwards"] for t in summary["timing"])
+        marks = [(kind, now, next(val_forwards) if kind == "val" else 0)
+                 for kind, now, _ in marks]
+        steps, vals = launch_deltas(marks, kernel_mods, sum(cfg.depths))
+        if (steps, vals) != (summary["steps"], summary["val_forwards"]):
+            raise AssertionError(f"logged {steps} steps and {vals} validation"
+                                 f" forwards, the loop took {summary['steps']}"
+                                 f" and {summary['val_forwards']}")
+        losses = [r["loss"] for r in summary["iters"]]
+        if not (np.isfinite(losses).all() and all(
+                np.isfinite(v) for r in summary["records"]
+                for v in r.values())):
+            raise AssertionError(f"non-finite loop losses {losses} or records"
+                                 f" {summary['records']}")
+        walls = [1e3 * r["wall_s"] for r in summary["iters"]]
+        points = [r["points"] for r in summary["iters"]]
+        scenes = [r["scenes"] for r in summary["iters"]]
+        train_wall = sum(t["wall_s"] for t in summary["timing"])
+        audited = [r["audit"] for r in summary["iters"] if "audit" in r]
+        out.update(
+            steps=steps, val_forwards=vals, step_wall_ms=walls,
+            step_wall_ms_median=float(np.median(walls)),
+            step_wall_ms_median_after_first=float(np.median(walls[1:])),
+            timing=summary["timing"], records=summary["records"],
+            points_per_s=sum(points) / train_wall,
+            valid_points=points, scenes=scenes, audit=audited[-1],
+            val_s_per_forward=sum(t["val_s"] for t in summary["timing"])
+            / vals)
+        log(f"[loop] launches over {steps} train steps and {vals} validation "
+            f"forwards: {out['launches']} (12 of each kernel per step, 12 "
+            f"forward and 0 backward per validation forward)")
+        log(f"[loop] step wall median {out['step_wall_ms_median']:.1f} ms "
+            f"over {steps} loader-fed steps "
+            f"({out['step_wall_ms_median_after_first']:.1f} ms without the "
+            "first); walls " + ", ".join(f"{w:.0f}" for w in walls) + " ms")
+        for t in summary["timing"]:
+            log(f"[loop] epoch {t['epoch']}: wall {t['wall_s']:.2f} s, "
+                f"load-wait {t['load_wait_s']:.2f} s, upload "
+                f"{t['upload_s']:.2f} s, step-block {t['step_block_s']:.2f} s"
+                f", {t['points']} points; validation {t.get('val_s', 0):.2f} "
+                f"s for {t.get('val_forwards', 0)} forwards")
+        log(f"[loop] points/s {out['points_per_s']:.0f} over the train "
+            f"epochs' wall; valid points per batch {points}; scenes per "
+            f"batch {scenes}")
+        log(f"[loop] audit (last): {audit.format_truncation(audited[-1])}")
+        log(f"[loop] peak memory {out['peak_gib']:.2f} GiB "
+            f"(max_memory_allocated)")
+
+        # the same loop with the batches built inline
+        t0 = time.perf_counter()
+        sync_cfg = merge_cfg_from_list(yaml_cfg, LOOP_SYNC_OVERRIDES + [
+            "save_path", os.path.join(tmp, "sync")])
+        _, sync = driver.run(sync_cfg, "cuda", log=lambda msg: None)
+        sync_walls = [1e3 * r["wall_s"] for r in sync["iters"]]
+        out["sync"] = {"loop_s": time.perf_counter() - t0,
+                       "step_wall_ms": sync_walls,
+                       "step_wall_ms_median": float(np.median(sync_walls)),
+                       "timing": sync["timing"]}
+        t = sync["timing"][0]
+        log(f"[loop] prefetch false: step wall median "
+            f"{out['sync']['step_wall_ms_median']:.1f} ms (walls "
+            + ", ".join(f"{w:.0f}" for w in sync_walls) + f" ms); epoch wall "
+            f"{t['wall_s']:.2f} s, load-wait {t['load_wait_s']:.2f} s, upload "
+            f"{t['upload_s']:.2f} s, step-block {t['step_block_s']:.2f} s")
+
+        # the first loader batch's step, kernels against plain versions
+        train_loader = BatchLoader(build_dataset(yaml_cfg, "train"), cfg,
+                                   yaml_cfg, shuffle=True, seed=seed)
+        itr = iter(train_loader)
+        batch = to_device(next(itr), dev)
+        itr.close()
+        o1 = build_model(cfg, "cuda", seed=0)
+        o1_weights(o1, seed=0)
+        init_state = o1.state_dict()
+        train_step = make_train_step(255, cfg.num_classes)
+
+        def first_step(impl):
+            m_ = build_model(dataclasses.replace(cfg, attn_impl=impl), "cuda",
+                             seed=0, train=True)
+            m_.load_state_dict(init_state)
+            opt = driver.build_optimizer(m_, yaml_cfg,
+                                         train_loader.batches_per_epoch)
+            stats = train_step(m_, opt, batch,
+                               driver.drop_path_generator(dev, seed, 0))
+            return ({n_: p_.grad.clone() for n_, p_ in m_.named_parameters()},
+                    float(stats["loss"]))
+
+        grads_k, loss_k = first_step("fused")
+        grads_p, loss_p = first_step("reference")
+        worst = check_grads("first loader-fed step", grads_k, grads_p)
+        out.update(grad_worst_rel_l2=worst[0], grad_worst=worst[1],
+                   first_step_loss=(loss_k, loss_p),
+                   grad_check_points=int(batch["offsets"][-1]))
+        log(f"[loop] first loader batch ({out['grad_check_points']} valid "
+            f"points, n_pad {cfg.n_pad}): step-1 grads of all "
+            f"{len(grads_p)} parameters within {GRAD_REL_L2} relative L2 "
+            f"(+{GRAD_FLOOR}/entry) of the plain-version step; largest "
+            f"{worst[0]:.2e} ({worst[1]}); loss {loss_k:.5f} vs {loss_p:.5f}")
+        del grads_k, grads_p, o1, batch
+
+        # the last checkpoint into a fresh model: the same logits
+        val_loader = BatchLoader(build_dataset(yaml_cfg, "val"), cfg,
+                                 yaml_cfg, shuffle=False, seed=0)
+        itr = iter(val_loader)
+        vbatch = to_device(next(itr), dev)
+        itr.close()
+        eval_step = make_eval_step(255, cfg.num_classes)
+        model.eval()
+        logits = eval_step(model, vbatch)[0]
+        fresh = build_model(cfg, "cuda", seed=1)
+        _, epoch, _ = checkpoint.restore(os.path.join(tmp, "run", "ckpt"),
+                                         fresh)
+        if epoch != 2 or not torch.equal(eval_step(fresh, vbatch)[0], logits):
+            raise AssertionError(f"the restored epoch-{epoch} checkpoint "
+                                 "gives other logits than the trained model")
+        fwd = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eval_step(model, vbatch)
+            torch.cuda.synchronize()
+            fwd.append(1e3 * (time.perf_counter() - t0))
+        out["val_forward_ms"] = float(np.median(fwd))
+        log(f"[loop] checkpoint of epoch {epoch} restored into a fresh model:"
+            f" logits bit-identical on a validation batch "
+            f"({int(vbatch['offsets'][-1])} valid points); validation forward"
+            f" {out['val_forward_ms']:.1f} ms (median of 3, synchronized)")
+        del fresh, vbatch, logits
+
+        # one profiled loader-fed step: dispatch, next host batch, stats
+        # read, upload
+        model.train()
+        opt = driver.build_optimizer(model, yaml_cfg,
+                                     train_loader.batches_per_epoch)
+        itr = iter(BatchLoader(build_dataset(yaml_cfg, "train"), cfg,
+                               yaml_cfg, shuffle=True, seed=seed))
+        cur = [to_device(next(itr), dev)]
+
+        def fed_step():
+            packed = pack_stats(train_step(model, opt, cur[0],
+                                           driver.drop_path_generator(
+                                               dev, seed, 0)))
+            host = next(itr)
+            packed.cpu()
+            cur[0] = to_device(host, dev)
+
+        fed_step()                  # AdamW's state and the first backward
+        wall, busy, _ = profile_call("loader-fed train step (N "
+                                     f"{cfg.n_pad}, 8 slots)", fed_step)
+        itr.close()
+        out.update(profiled_wall_ms=wall, profiled_busy_ms=busy,
+                   profiled_busy_share=busy / wall)
+    return out
+
+
+def bincount_iou(pred, target, num_classes, ignore_label, valid=None):
+    """`metrics.intersection_and_union` with ``torch.bincount`` histograms,
+    its form before the training loop: on the card ``bincount`` reads its
+    input's maximum on the host, so each call waits for the device."""
+    mask = target != ignore_label
+    if valid is not None:
+        mask = mask & valid
+    pred = torch.where(mask, pred, num_classes)
+    target = torch.where(mask, target, num_classes)
+    inter = torch.where(pred == target, pred, num_classes)
+
+    def hist(x):
+        return torch.bincount(x.long(), minlength=num_classes + 1)[
+            :num_classes]
+
+    area_inter, area_pred, area_target = hist(inter), hist(pred), hist(target)
+    return area_inter, area_pred + area_target - area_inter, area_target
+
+
+def iou_phase(cfg, hb, dev, reps=50, rounds=6):
+    """``--iou-only``: the IoU counters of the train and eval steps,
+    `metrics.intersection_and_union` (scatter-add histograms, no host sync)
+    against `bincount_iou`, on random predictions and labels (10% ignored,
+    the last 15% of rows padding) at phase 2's N and at phase 11's: equal
+    counts, the synchronized host wall per call (median of ``reps``) and the
+    device time per call (`device_busy_ms`). Then phase 5's eval forward
+    (phase 2's batch, full width) with each form, in turns over ``rounds``
+    rounds, synchronized host wall per forward."""
+    from stratified_transformer_torch.config import from_cfg
+    from stratified_transformer_torch.data.loader import to_device
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.train import metrics
+    from stratified_transformer_torch.train.step import make_eval_step
+    from stratified_transformer_torch.utils.config import (
+        load_cfg, merge_cfg_from_list)
+
+    forms = {"scatter_add": metrics.intersection_and_union,
+             "bincount": bincount_iou}
+    loop_n = from_cfg(merge_cfg_from_list(load_cfg(CONFIG),
+                                          LOOP_OVERRIDES)).n_pad
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"counters": {}}
+    for n in (cfg.n_pad, loop_n):
+        target = torch.randint(0, cfg.num_classes, (n,), generator=gen,
+                               device=dev)
+        target[torch.rand(n, generator=gen, device=dev) < 0.1] = 255
+        pred = torch.where(
+            torch.rand(n, generator=gen, device=dev) < 0.6, target.clamp_max(
+                cfg.num_classes - 1), torch.randint(
+                0, cfg.num_classes, (n,), generator=gen, device=dev))
+        valid = torch.arange(n, device=dev) < int(0.85 * n)
+        args = (pred, target, cfg.num_classes, 255, valid)
+        want = [t.cpu() for t in bincount_iou(*args)]
+        row = {}
+        for name, fn in forms.items():
+            got = [t.cpu() for t in fn(*args)]
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"N {n}: {name} counts differ")
+            walls = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(*args)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            row[name] = {"host_ms": float(np.median(walls)),
+                         "device_ms": device_busy_ms(lambda: fn(*args), 20)}
+        out["counters"][str(n)] = row
+        log(f"[iou] N {n}: " + "; ".join(
+            f"{k} host {v['host_ms']:.3f} ms, device {v['device_ms']:.4f} ms"
+            for k, v in row.items()) + " per call (counts equal)")
+
+    model = build_model(cfg, "cuda", seed=0)
+    eval_step = make_eval_step(255, cfg.num_classes)
+    batch = to_device(hb, dev)
+    fwd = {name: [] for name in forms}
+    try:
+        for name in forms:              # first calls: lazy set-up
+            metrics.intersection_and_union = forms[name]
+            eval_step(model, batch)
+        for _ in range(rounds):
+            for name, fn in forms.items():
+                metrics.intersection_and_union = fn
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eval_step(model, batch)
+                torch.cuda.synchronize()
+                fwd[name].append(1e3 * (time.perf_counter() - t0))
+    finally:
+        metrics.intersection_and_union = forms["scatter_add"]
+    out["eval_forward_ms"] = fwd
+    log("[iou] eval forward (N " f"{cfg.n_pad}, synchronized, in turns): " +
+        "; ".join(f"{k} median {float(np.median(v)):.1f} ms (" +
+                  ", ".join(f"{w:.1f}" for w in v) + ")"
+                  for k, v in fwd.items()))
+    return out
+
+
 def phase_only(flag):
-    """``--fwd-only`` / ``--bwd-only`` / ``--scene-only``: phase 1's build of
-    the kernels the phase runs, the host batch of phase 2, and phase 4 (the
-    forward kernels, with phase 2's plans on the card), phase 7 (the
-    backward kernels, likewise) or phase 10 (whole-scene evaluation, with
-    phase 5's full-width models); prints one JSON line."""
+    """``--fwd-only`` / ``--bwd-only`` / ``--scene-only`` / ``--loop-only``
+    / ``--iou-only``: phase 1's build of the kernels the phase runs, and
+    phase 4 (the forward kernels, with phase 2's host batch and plans on the
+    card), phase 7 (the backward kernels, likewise), phase 10 (whole-scene
+    evaluation, with phase 5's full-width models), phase 11 (the training
+    loop) or `iou_phase`; prints one JSON line."""
     sys.path.insert(0, REPO)
     from stratified_transformer_torch.config import load_config
     from stratified_transformer_torch.data.loader import host_batch
@@ -1015,13 +1406,19 @@ def phase_only(flag):
              for name, text in build.build_logs.items()
              for line in text.splitlines()
              if "registers" in line or "spill" in line]
+    if flag == "--loop-only":
+        out = {"card": card_line(), "repo": REPO,
+               "loop": loop_phase(dev, attention_kernel_modules())}
+        print(json.dumps(out))
+        return 0
     cfg = load_config(CONFIG, n_pad=N_PAD, num_scenes=SCENES)
     hb = host_batch(cfg, seed=0)
     out = {"card": card_line(), "repo": REPO}
+    if flag == "--iou-only":
+        out["iou"] = iou_phase(cfg, hb, dev)
+        print(json.dumps(out))
+        return 0
     if flag == "--scene-only":
-        from stratified_transformer_torch.kernels import (
-            band_attention, band_attention_bwd, sparse_band_attention,
-            sparse_band_attention_bwd)
         from stratified_transformer_torch.models.stratified import (
             build_model)
         model = build_model(cfg, "cuda", seed=0)
@@ -1029,11 +1426,8 @@ def phase_only(flag):
         ref_model = build_model(
             dataclasses.replace(cfg, attn_impl="reference"), "cuda")
         ref_model.load_state_dict(model.state_dict())
-        mods = {"band_attention": band_attention,
-                "sparse_band_attention": sparse_band_attention,
-                "band_attention_bwd": band_attention_bwd,
-                "sparse_band_attention_bwd": sparse_band_attention_bwd}
-        out["scene"] = scene_phase(cfg, hb, model, ref_model, dev, mods)
+        out["scene"] = scene_phase(cfg, hb, model, ref_model, dev,
+                                   attention_kernel_modules())
         print(json.dumps(out))
         return 0
     levels = stage_levels(cfg, hb)
@@ -1053,19 +1447,21 @@ def phase_only(flag):
 
 # the kernels each phase run alone builds
 PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS,
-              "--scene-only": FWD_KERNELS}
+              "--scene-only": FWD_KERNELS,
+              "--loop-only": FWD_KERNELS + BWD_KERNELS,
+              "--iou-only": FWD_KERNELS}
 
 
 def parse_args(argv):
     """The flag of the phase to run alone (``--fwd-only``, ``--bwd-only``,
-    ``--scene-only``), None for the whole run; raises ValueError on
-    anything else."""
+    ``--scene-only``, ``--loop-only``, ``--iou-only``), None for the whole
+    run; raises ValueError on anything else."""
     if not argv:
         return None
     if len(argv) == 1 and argv[0] in PHASE_ONLY:
         return argv[0]
     raise ValueError(f"unknown arguments {argv}; give none, --fwd-only, "
-                     "--bwd-only or --scene-only")
+                     "--bwd-only, --scene-only, --loop-only or --iou-only")
 
 
 def main(argv):
@@ -1318,18 +1714,7 @@ def main(argv):
 
     model_p, opt_p = trainer("reference")
     losses_p, times_p, grads_p = run_steps(model_p, opt_p, False)
-    worst = (0.0, "")
-    for name, gp in grads_p.items():
-        gk = grads_k[name]
-        err = float((gk - gp).norm())
-        bound = (GRAD_REL_L2 * float(gp.norm())
-                 + GRAD_FLOOR * gp.numel() ** 0.5)
-        if not err <= bound:
-            raise AssertionError(f"grad {name}: |kernel - plain| {err:.3e} "
-                                 f"> {bound:.3e} (|plain| "
-                                 f"{float(gp.norm()):.3e})")
-        if float(gp.norm()) > 1e3 * GRAD_FLOOR * gp.numel() ** 0.5:
-            worst = max(worst, (err / float(gp.norm()), name))
+    worst = check_grads("train step 1", grads_k, grads_p)
     log(f"[train] step-1 grads of all {len(grads_p)} parameters within "
         f"{GRAD_REL_L2} relative L2 (+{GRAD_FLOOR}/entry) of the plain-version"
         f" step; largest relative L2 {worst[0]:.2e} ({worst[1]})")
@@ -1351,6 +1736,10 @@ def main(argv):
     # ---- 10. whole-scene evaluation --------------------------------------
     del model_k, opt_k, train_batches
     scene = scene_phase(cfg, hb, model, ref_model, dev, kernel_mods)
+
+    # ---- 11. the training loop, fed by the loader -------------------------
+    del model, ref_model
+    loop = loop_phase(dev, kernel_mods)
     log(f"[run] total {time.time() - t_start:.0f} s")
 
     kernels = []
@@ -1362,6 +1751,7 @@ def main(argv):
             "replaces": path, "launches": train_launches.get(name, 0),
             "eval_launches": launches.get(name, 0),
             "scene_launches": scene["launches"].get(name, 0),
+            "loop_launches": loop["launches"].get(name, 0),
             "scene_ms_per_forward": scene["kernel_ms_per_forward"].get(
                 name, 0.0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1388,7 +1778,10 @@ def main(argv):
         "eval_forward_ms": fwd_ms,
         "eval_max_memory_allocated_mib": peak_mb,
         "scene_launches_over_forwards": scene["forwards"],
-        "scene": scene}))
+        "scene": scene,
+        "loop_launches_over": {"train_steps": loop["steps"],
+                               "val_forwards": loop["val_forwards"]},
+        "loop": loop}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,21 @@ class PaddedBatch(NamedTuple):
     stem_nmask: Optional[np.ndarray] = None
 
 
+def mix3d_pairs(scenes):
+    """Mix3D scene mixing (``data/collate.py:36-60``; reference
+    ``collate_fn_mix3d``, ``util/data_util.py:17-58``): consecutive pairs of
+    scenes merge into one, points, features and labels concatenated and
+    coordinates kept; an odd last scene passes through."""
+    out = []
+    for i in range(0, len(scenes) - 1, 2):
+        a, b = scenes[i], scenes[i + 1]
+        out.append({key: np.concatenate([a[key], b[key]])
+                    for key in ("xyz", "feats", "labels")})
+    if len(scenes) % 2:
+        out.append(scenes[-1])
+    return out
+
+
 def collate_scenes(
     scenes: Sequence[dict],
     n_pad: int,

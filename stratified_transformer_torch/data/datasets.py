@@ -87,7 +87,11 @@ def s3dis_scenes(data_root, test_area=5):
 
 
 class SyntheticRooms:
-    """Fabricated room-like scenes (``datasets.py:180-260``)."""
+    """Fabricated room-like scenes (``datasets.py:180-260``). Item ``idx``
+    draws its augmentation, voxel choice and crop from one generator seeded
+    ``seed + 7919 (idx + 1)``, as the JAX package's does; a given
+    ``transform_rng`` draws the augmentation instead (`loader.example_batch`
+    only)."""
 
     def __init__(self, num_scenes=16, points=60_000, extent=6.0,
                  num_classes=13, voxel_size=0.04, voxel_max=None,
@@ -100,7 +104,6 @@ class SyntheticRooms:
         self.voxel_max = voxel_max
         self.seed = seed
         self.split = split
-        # training augmentation and the generator it draws from
         self.transform = transform
         self.transform_rng = transform_rng
 
@@ -157,4 +160,5 @@ class SyntheticRooms:
         return data_prepare(
             coord, feat, label, self.split, self.voxel_size, self.voxel_max,
             feat_scale=255.0, rng=rng, transform=self.transform,
-            transform_rng=self.transform_rng)
+            transform_rng=(rng if self.transform_rng is None
+                           else self.transform_rng))

@@ -1,4 +1,6 @@
-"""Segmentation counters (reference ``util/common_util.py:45-72``)."""
+"""Segmentation counters (reference ``util/common_util.py:45-72``) and the
+host-side meters of the training loop (``train/metrics.py:51-84`` of the JAX
+package)."""
 
 from __future__ import annotations
 
@@ -8,7 +10,9 @@ import torch
 
 def intersection_and_union(pred, target, num_classes, ignore_label,
                            valid=None):
-    """Returns ``(intersection, union, target)`` counts per class."""
+    """Returns ``(intersection, union, target)`` int64 counts per class,
+    computed on the tensors' device without a host synchronisation (unlike
+    ``torch.bincount``, which reads its input's maximum on the host)."""
     mask = target != ignore_label
     if valid is not None:
         mask = mask & valid
@@ -17,8 +21,10 @@ def intersection_and_union(pred, target, num_classes, ignore_label,
     inter = torch.where(pred == target, pred, num_classes)
 
     def hist(x):
-        return torch.bincount(x.long(), minlength=num_classes + 1)[
-            :num_classes]
+        x = x.long()
+        counts = torch.zeros(num_classes + 1, dtype=torch.int64,
+                             device=x.device)
+        return counts.scatter_add_(0, x, torch.ones_like(x))[:num_classes]
 
     area_inter = hist(inter)
     area_pred = hist(pred)
@@ -41,3 +47,36 @@ def iou_from_counts(inter, union, target):
         "macc": float(acc.mean()),
         "all_acc": float(inter.sum() / max(target.sum(), 1e-10)),
     }
+
+
+class AverageMeter:
+    """Running average (reference ``util/common_util.py:13-28``)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n=1):
+        self.val = float(val)
+        self.sum += float(val) * n
+        self.count += n
+
+    @property
+    def avg(self):
+        return self.sum / max(self.count, 1)
+
+
+def memory_use():
+    """Device memory in GiB per CUDA device, in use and at its peak
+    (``torch.cuda.memory_allocated`` / ``max_memory_allocated``; reference
+    ``util/common_util.py:170-177``); empty without a card."""
+    if not torch.cuda.is_available():
+        return {}
+    return {f"cuda:{i}": {
+        "bytes_in_use_gb": torch.cuda.memory_allocated(i) / 2 ** 30,
+        "peak_bytes_gb": torch.cuda.max_memory_allocated(i) / 2 ** 30}
+        for i in range(torch.cuda.device_count())}

@@ -15,7 +15,9 @@ def make_train_step(ignore_label, num_classes):
     forward in training mode (batch statistics, drop-path masks from
     ``generator``), masked CE, backward through the attention kernels, one
     scheduled optimizer update (`train.state.optimizer_step`), IoU counters.
-    The stats keys are the JAX step's (``train/step.py:68-72``).
+    The stats keys are the JAX step's (``train/step.py:68-72``); they are
+    device tensors, and the step reads none of them on the host, so the
+    caller can prepare the next batch while the device runs this one.
 
     ``batch`` holds device tensors as for `make_eval_step`.
     """
@@ -28,7 +30,7 @@ def make_train_step(ignore_label, num_classes):
         logits, _ = model(
             batch["feats"], batch["xyz"], batch["offsets"],
             stem_nidx=batch["stem_nidx"], stem_nmask=batch["stem_nmask"],
-            pyramid=batch["pyramid"], generator=generator)
+            pyramid=batch.get("pyramid"), generator=generator)
         loss = losses.cross_entropy(logits, batch["labels"], ignore_label,
                                     valid)
         optimizer.zero_grad(set_to_none=True)
@@ -51,7 +53,8 @@ def make_eval_step(ignore_label, num_classes):
     """Returns ``eval_step(model, batch) -> (logits, shift, stats)``.
 
     ``batch`` holds device tensors ``feats/xyz/offsets/labels``,
-    ``stem_nidx/stem_nmask`` and ``pyramid`` (``data/loader.py``).
+    ``stem_nidx/stem_nmask`` and, optionally, ``pyramid``
+    (``data/loader.py``); without it the model builds it on the device.
     """
 
     @torch.no_grad()
@@ -63,7 +66,7 @@ def make_eval_step(ignore_label, num_classes):
         logits, shift = model(
             batch["feats"], batch["xyz"], batch["offsets"],
             stem_nidx=batch["stem_nidx"], stem_nmask=batch["stem_nmask"],
-            pyramid=batch["pyramid"])
+            pyramid=batch.get("pyramid"))
         loss = losses.cross_entropy(logits, batch["labels"], ignore_label,
                                     valid)
         pred = logits.argmax(-1)
@@ -74,3 +77,15 @@ def make_eval_step(ignore_label, num_classes):
         return logits, shift, stats
 
     return eval_step
+
+
+def pack_stats(stats):
+    """A step's stats as ONE float32 tensor on its device, read by the
+    training loop in one transfer (``train.py:463-470``): ``[loss,
+    loss_seg, loss_offset, points, intersection[C], union[C],
+    target[C]]``."""
+    head = torch.stack([stats["loss"], stats["loss_seg"],
+                        stats["loss_offset"],
+                        stats["points"].to(torch.float32)])
+    return torch.cat([head] + [stats[k].to(torch.float32)
+                               for k in ("intersection", "union", "target")])

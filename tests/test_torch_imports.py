@@ -46,3 +46,13 @@ def test_the_whole_scene_modules_are_checked():
             "stratified_transformer_torch/ops/sampling.py",
             "stratified_transformer_torch/eval/voting.py",
             "stratified_transformer_torch/eval/driver.py"} <= set(FILES)
+
+
+def test_the_training_loop_modules_are_checked():
+    """``tools/orbax_to_torch.py`` imports the JAX package on purpose (it
+    reads its checkpoints) and is outside the port."""
+    assert {"stratified_transformer_torch/train/audit.py",
+            "stratified_transformer_torch/utils/logger.py",
+            "stratified_transformer_torch/data/loader.py",
+            "stratified_transformer_torch/train/driver.py"} <= set(FILES)
+    assert "tools/orbax_to_torch.py" not in FILES

@@ -126,14 +126,35 @@ def test_chip_smoke_refuses_unknown_arguments_or_a_missing_card(capsys):
     (["--fwd-only"], "--fwd-only"),
     (["--bwd-only"], "--bwd-only"),
     (["--scene-only"], "--scene-only"),
+    (["--loop-only"], "--loop-only"),
+    (["--iou-only"], "--iou-only"),
 ])
 def test_parse_args_picks_the_phase_run_alone(argv, want):
     assert chip_smoke.parse_args(argv) == want
     if want is not None:
-        # the kernels it builds: the forward pair for phases 4 and 10
-        assert chip_smoke.PHASE_ONLY[want] == (
-            chip_smoke.BWD_KERNELS if want == "--bwd-only"
-            else chip_smoke.FWD_KERNELS)
+        # the kernels it builds: the forward pair for phases 4 and 10 and
+        # the IoU timing, all four attention kernels for phase 11
+        assert chip_smoke.PHASE_ONLY[want] == {
+            "--bwd-only": chip_smoke.BWD_KERNELS,
+            "--loop-only": chip_smoke.FWD_KERNELS + chip_smoke.BWD_KERNELS,
+        }.get(want, chip_smoke.FWD_KERNELS)
+
+
+def test_bincount_iou_equals_the_port_counters():
+    """The ``--iou-only`` comparison form counts what the port's
+    scatter-add counters count."""
+    from stratified_transformer_torch.train import metrics
+    g = torch.Generator().manual_seed(0)
+    target = torch.randint(0, 13, (4096,), generator=g)
+    target[torch.rand(4096, generator=g) < 0.1] = 255
+    pred = torch.randint(0, 13, (4096,), generator=g)
+    pred[:2000] = target[:2000].clamp_max(12)
+    valid = torch.arange(4096) < 3500
+    got = chip_smoke.bincount_iou(pred, target, 13, 255, valid)
+    want = metrics.intersection_and_union(pred, target, 13, 255, valid)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(want[0].sum()) > 0
 
 
 @pytest.mark.parametrize("argv", [["--fwd"], ["--fwd-only", "--bwd-only"],
@@ -144,7 +165,8 @@ def test_parse_args_refuses_anything_else(argv):
 
 
 @pytest.mark.parametrize("flag", ["--fwd-only", "--bwd-only",
-                                  "--scene-only"])
+                                  "--scene-only", "--loop-only",
+                                  "--iou-only"])
 def test_phase_only_runs_need_a_card(flag, capsys):
     if torch.cuda.is_available():
         pytest.skip("checks the run without a card")

@@ -4,6 +4,7 @@ drop-path off) on the same weights and host batch — per-parameter grads,
 parameters after the AdamW step, BatchNorm statistics, then a 5-step loss
 trajectory; the schedules, drop-path, the augmentations and checkpoints."""
 
+import json
 import pathlib
 
 import jax
@@ -30,7 +31,8 @@ from stratified_transformer_torch.models.stratified import (
     Stratified, build_model)
 from stratified_transformer_torch.train import checkpoint
 from stratified_transformer_torch.train import schedulers as torch_sched
-from stratified_transformer_torch.train.state import make_optimizer
+from stratified_transformer_torch.train.state import (
+    make_optimizer, optimizer_step)
 from stratified_transformer_torch.train.step import make_train_step
 
 torch.set_num_threads(1)
@@ -276,20 +278,23 @@ def test_checkpoint_round_trip(tmp_path):
     opt = make_optimizer(model, torch_sched.from_config(SCHEDULE_CFG, 2)[0])
     batch = loader.to_device(loader.host_batch(cfg, seed=0), "cpu")
     make_train_step(255, 13)(model, opt, batch, None)
-    path = tmp_path / "ckpt" / "model.pt"
-    checkpoint.save(str(path), model, opt, step=1, epoch=0, best_iou=0.25)
+    path = checkpoint.save(str(tmp_path / "ckpt"), model, opt, step=1,
+                           epoch=3, best_iou=0.25)
+    assert path == str(tmp_path / "ckpt" / "3.pt")
 
-    model2 = build_model(cfg, "cpu", seed=1, train=True)
-    opt2 = make_optimizer(model2, torch_sched.from_config(SCHEDULE_CFG, 2)[0])
-    assert checkpoint.restore(str(path), model2, opt2) == (1, 0, 0.25)
-    for (name, a), b in zip(model.state_dict().items(),
-                            model2.state_dict().values()):
-        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
-    assert opt2.param_groups[0]["t"] == 1
-    s1, s2 = opt.state_dict()["state"], opt2.state_dict()["state"]
-    for i in s1:
-        torch.testing.assert_close(s1[i]["exp_avg"], s2[i]["exp_avg"],
-                                   rtol=0, atol=0)
+    for source in (path, str(tmp_path / "ckpt")):   # the file, the latest
+        model2 = build_model(cfg, "cpu", seed=1, train=True)
+        opt2 = make_optimizer(model2,
+                              torch_sched.from_config(SCHEDULE_CFG, 2)[0])
+        assert checkpoint.restore(source, model2, opt2) == (1, 3, 0.25)
+        for (name, a), b in zip(model.state_dict().items(),
+                                model2.state_dict().values()):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+        assert opt2.param_groups[0]["t"] == 1
+        s1, s2 = opt.state_dict()["state"], opt2.state_dict()["state"]
+        for i in s1:
+            torch.testing.assert_close(s1[i]["exp_avg"], s2[i]["exp_avg"],
+                                       rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
@@ -335,16 +340,72 @@ def test_masked_batchnorm_training_matches_jax():
 
 
 def test_driver_trains_and_saves(tmp_path):
-    """The training entry point on the CPU at a narrow width: two augmented
-    steps from the S3DIS YAML with overrides, then a checkpoint."""
+    """The training entry point on the CPU at a narrow width: one epoch of
+    two augmented synthetic batches from the S3DIS YAML with overrides,
+    validation, metrics.jsonl and the epoch's checkpoint."""
     from stratified_transformer_torch.train import driver
-    out = tmp_path / "model_last.pt"
+    save = tmp_path / "run"
     assert driver.main([
-        "--config", str(CONFIG), "--steps", "2",
-        "--device", "cpu", "--out", str(out), "max_batch_points", "2048",
-        "batch_size", "2", "channels", "[16,32,64,128]", "num_heads",
-        "[1,2,4,8]", "depths", "[1,1,2,1]"]) == 0
+        "--config", str(CONFIG), "--device", "cpu", "data_name",
+        "synthetic", "synthetic_scenes", "4", "synthetic_points", "1500",
+        "voxel_max", "900", "max_batch_points", "2048", "batch_size", "2",
+        "channels", "[16,32,64,128]", "num_heads", "[1,2,4,8]", "depths",
+        "[1,1,2,1]", "epochs", "1", "use_tensorboard", "False",
+        "save_path", str(save)]) == 0
+    [record] = [json.loads(line) for line in
+                (save / "metrics.jsonl").read_text().splitlines()]
+    assert record["epoch"] == 1 and np.isfinite(record["val_loss"])
+    assert "Train epoch [1/1]: mIoU" in (save / "log.txt").read_text()
     model = build_model(StratifiedConfig(**dict(NARROW, drop_path_rate=0.3)),
                         "cpu", seed=5, train=True)
-    step, epoch, _ = checkpoint.restore(str(out), model)
-    assert (step, epoch) == (2, 0)
+    step, epoch, _ = checkpoint.restore(str(save / "ckpt"), model)
+    assert (step, epoch) == (2, 1)
+
+
+@pytest.mark.parametrize("clips", [True, False])
+def test_grad_clip_matches_optax(runs, clips):
+    """Two AdamW steps under ``max_grad_norm`` against the JAX package's
+    optax chain on random parameters and gradients of the narrow model's
+    shapes: the clipped gradients within 1e-6 relative L2, the parameters
+    after each step within PARAM_REL_L2. The first gradients' norm is above
+    the limit when ``clips``; the second's is below it, so the second Adam
+    update sees the first's scale."""
+    cfg = StratifiedConfig(**NARROW)
+    shapes = runs[0][0].params
+    rng = np.random.default_rng(21)
+    params = _random_variables(shapes, rng)
+    grads = [jax.tree.map(lambda x, s=s: (s * rng.normal(size=x.shape)
+                                          ).astype(np.float32), shapes)
+             for s in (1.0, 0.01)]
+    norm = float(np.sqrt(sum(np.sum(np.square(g))
+                             for g in jax.tree.leaves(grads[0]))))
+    max_norm = 0.5 * norm if clips else 2.0 * norm
+    schedule, _ = jax_sched.from_config(SCHEDULE_CFG, 2)
+    tx = jax_make_optimizer(params, schedule, 0.01, 0.1, grad_clip=max_norm)
+    clip = optax.clip_by_global_norm(max_norm)
+
+    model = Stratified(cfg)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(from_flax(params)[name])
+    opt = make_optimizer(model, torch_sched.from_config(SCHEDULE_CFG, 2)[0],
+                         max_grad_norm=max_norm)
+    state, jparams = tx.init(params), params
+    for step, g in enumerate(grads):
+        want_g = from_flax(jax.jit(clip.update)(g, clip.init(params))[0])
+        updates, state = jax.jit(tx.update)(g, state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        got_g = from_flax(g)
+        for name, p in model.named_parameters():
+            p.grad = got_g[name].clone()
+        optimizer_step(opt)
+        want_p = from_flax(jparams)
+        for name, p in model.named_parameters():
+            assert _rel_l2(p.grad.numpy(), want_g[name].numpy()) < 1e-6, name
+            assert _rel_l2(p.detach().numpy(), want_p[name].numpy()) < \
+                PARAM_REL_L2, name
+        if step == 0:       # the clipped gradients' norm is the limit
+            got = float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                       for p in model.parameters())))
+            np.testing.assert_allclose(got, max_norm if clips else norm,
+                                       rtol=1e-5)

@@ -383,16 +383,28 @@ def test_driver_reads_s3dis_rooms_and_a_checkpoint(tmp_path):
         NARROW_ARGS + ["data_root", str(root)])
     model = build_model(driver.eval_config(yaml_cfg), "cpu", seed=3)
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
-    checkpoint.save(str(tmp_path / "model.pt"), model, opt, 5, 2)
-    yaml_cfg["model_path"] = str(tmp_path / "model.pt")
+    path = checkpoint.save(str(tmp_path / "ckpt"), model, opt, 5, 2)
+    yaml_cfg["model_path"] = path
     lines = []
     m = driver.run(yaml_cfg, "cpu", log=lines.append)
-    assert lines[0] == f"loaded checkpoint from {tmp_path / 'model.pt'} " \
-                       "(epoch 2)"
+    assert lines[0] == f"loaded checkpoint from {path} (epoch 2)"
     assert [s["name"] for s in m["scenes"]] == [
         "Area_5_hallway_1", "Area_5_office_10", "Area_5_office_2"]
     assert 0.0 <= m["miou"] <= 1.0 and 0.0 <= m["all_acc"] <= 1.0
     assert lines[-1].startswith("Val result: mIoU/mAcc/allAcc ")
+
+
+def test_driver_refuses_a_missing_checkpoint(tmp_path):
+    """A mistyped ``model_path`` raises instead of evaluating random
+    weights."""
+    yaml_cfg = merge_cfg_from_list(
+        load_cfg(os.path.join(CONFIGS, "s3dis_stratified.yaml")),
+        NARROW_ARGS + ["data_name", "synthetic", "model_path",
+                       str(tmp_path / "ckpt")])
+    lines = []
+    with pytest.raises(FileNotFoundError, match="ckpt"):
+        driver.run(yaml_cfg, "cpu", log=lines.append)
+    assert lines == []
 
 
 def test_driver_refuses_what_the_port_does_not_run(monkeypatch):
