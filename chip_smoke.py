@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's evaluation forward, training step, whole-scene
-evaluation and training loop, and its two probes, on an NVIDIA GPU.
+evaluation and training loop, for the S3DIS and ScanNet families, and its
+two probes, on an NVIDIA GPU.
 
 Run from the repository root with no arguments (needs one CUDA card):
 
@@ -10,9 +11,10 @@ Run from the repository root with no arguments (needs one CUDA card):
 runs phase 4 alone; ``--bwd-only`` builds the two backward kernels and runs
 phase 7 alone; ``--scene-only`` builds the two forward kernels and runs
 phase 10 alone; ``--loop-only`` builds the four attention kernels and runs
-phase 11 alone; ``--iou-only`` builds the two forward kernels and times
-the train and eval steps' IoU counters (`iou_phase`). Each prints its times
-as one JSON line (``--fwd-only`` also per stage and parity). Copied into another checkout (say a parent commit
+phase 11 alone; ``--scannet-only`` builds the four attention kernels and
+runs phase 12 alone; ``--iou-only`` builds the two forward kernels and
+times the train and eval steps' IoU counters (`iou_phase`). Each prints its
+times as one JSON line (``--fwd-only`` also per stage and parity). Copied into another checkout (say a parent commit
 unpacked beside the tree) and run from there, it times that checkout's
 kernels and wrappers the same way, so two versions can be compared in
 turns on one card.
@@ -72,7 +74,25 @@ Phases, each fatal on failure:
      drop fractions, validation time, peak memory; the same loop with the
      batches built inline; the first loader batch's gradients against the
      plain-version step; the last checkpoint restored into a fresh model
-     giving bit-identical logits; one profiled loader-fed step.
+     giving bit-identical logits; one profiled loader-fed step;
+ 12. the ScanNet family (``configs/scannetv2_stratified.yaml``: the
+     KPConvRes stem and ``stem_down`` level, transformer stages 1-4 with
+     depths 3/9/3/3, 80 cRPE table rows per axis, ignore label -100) at
+     full width on the YAML's batch shape (n_pad 250112, 2 scene slots,
+     synthetic rooms voxelized at 0.02 m and cropped to ``voxel_max``
+     120000): (a) the four attention kernels against their plain versions
+     at every transformer stage's real plans, with times and bounds; (b)
+     three eval forwards, 18 + 18 launches each, logits against the
+     plain-version forward, one profiled; (c) three training steps after a
+     warm-up (the YAML's AdamW groups and warm-up schedule, drop-path 0.3),
+     18 launches of each kernel per step, step-1 gradients and the loss
+     trajectory against the plain versions, one profiled; (d) the training
+     driver's loop for 1 epoch of 2 steps with validation and the audit of
+     stages 1-4; (e) the on-device pyramid at (a)'s batch bit-identical to
+     the CPU's, then ``test.py``'s protocol at its ScanNet operating point
+     (``n_pad`` 600000 in 5 crops, 5 TTA passes, colours in [-1, 1]) on one
+     200000-point synthetic room of 5 m, the stem search's largest cell key
+     held below ``DENSE_KEYS``, the first pass against the plain path.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -93,6 +113,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "s3dis_stratified.yaml")
+SCANNET_CONFIG = os.path.join(REPO, "configs", "scannetv2_stratified.yaml")
 N_PAD, SCENES = 40960, 2
 EVAL_BATCHES = 3
 TRAIN_STEPS = 3
@@ -150,6 +171,24 @@ LOOP_OVERRIDES = [
 # the same loop with the batches built inline, for one epoch
 LOOP_SYNC_OVERRIDES = ["prefetch", "False", "epochs", "1", "evaluate",
                        "False"]
+# phase 12: ScanNet's host batches at the YAML's shape (max_batch_points
+# 250000 -> n_pad 250112, batch_size 2): synthetic rooms of 200000 raw
+# points in 4 m voxelized at 0.02 m (about 142000-144000 voxels) and
+# cropped to voxel_max 120000, so ~240000 valid points per batch
+SCANNET_ROOMS = dict(voxel_size=0.02, extent=4.0, points=200000,
+                     voxel_max=120000, ignore_label=-100)
+# (d): the training driver's loop on the ScanNet YAML, 2 steps of 2 rooms
+# of 160000 raw points in 6 m (the synthetic set's room size; ~140000
+# voxels, cropped to 120000), validation over 2 rooms of seed 10000
+SCANNET_LOOP_OVERRIDES = [
+    "data_name", "synthetic", "synthetic_points", "160000",
+    "synthetic_scenes", "4", "epochs", "1", "evaluate", "True",
+    "print_freq", "1", "use_tensorboard", "False", "n_devices", "1"]
+# (e): test.py's ScanNet operating point (batch_size_test 5 x voxel_max
+# 120000 = n_pad 600000) on one room of this many points in 5 m (seed 999):
+# a 5 m room's crops keep the stem search's cell keys (0.05 m cells, 5
+# slots) below DENSE_KEYS, a 6 m room's would not
+SCANNET_SCENE = dict(points=200000, extent=5.0)
 TPU_KERNELS = {
     "band_attention": "stratified_transformer_tpu/ops/pallas/"
                       "fused_attention.py:50",
@@ -216,15 +255,29 @@ def assert_close(name, got, want, rtol, atol):
 
 
 def stage_levels(cfg, hb):
-    """(xyz, offsets, is_down) entering each stage, from the host pyramid."""
+    """(xyz, offsets, is_down) of each level, from the host pyramid; a
+    level without a transformer stage (the ScanNet family's stem level) has
+    no member mask (None)."""
     pyr = hb["pyramid"]
     xyz, off = hb["xyz"], hb["offsets"]
     out = []
     for i in range(cfg.num_layers):
-        out.append((xyz, off, pyr["stage_down"][i]["is_down"]))
+        out.append((xyz, off, pyr["stage_down"][i - cfg.layer_start][
+            "is_down"] if i >= cfg.layer_start else None))
         if i < cfg.num_layers - 1:
             xyz, off = xyz[pyr["down"][i]["idx"]], pyr["down"][i]["offsets"]
     return out
+
+
+def stages(cfg):
+    """The transformer stages."""
+    return range(cfg.layer_start, cfg.num_layers)
+
+
+def attention_blocks(cfg):
+    """Attention blocks of a forward: one launch of each forward kernel
+    per block (12 for S3DIS, 18 for ScanNet, whose stage 0 has none)."""
+    return sum(cfg.depths[cfg.layer_start:])
 
 
 def build_plan(cfg, stage, level, shifted, device):
@@ -288,7 +341,7 @@ def log_pairs(label, cfg, hb, dev):
     the plans a forward builds from it."""
     levels = stage_levels(cfg, hb)
     parts = []
-    for i in range(cfg.num_layers):
+    for i in stages(cfg):
         band = far = 0
         for shifted in (False, True):
             blocks = (cfg.depths[i] + (0 if shifted else 1)) // 2
@@ -579,7 +632,7 @@ def fwd_phase(cfg, levels, plans, dev, report):
     for name in FWD_KERNELS:
         report[name]["wrapper_busy_ms"] = 0.0
     rows_out = []
-    for i in range(cfg.num_layers):
+    for i in stages(cfg):
         h, d = cfg.num_heads[i], cfg.channels[i] // cfg.num_heads[i]
         ws, qs = cfg.window_sizes()[i], cfg.quant_sizes()[i]
         nbf = 2 * int((2 * ws + 1e-4) // qs)
@@ -690,7 +743,7 @@ def bwd_phase(cfg, levels, plans, dev, report):
     grad_names = ("dq", "dk", "dv", "dtq", "dtk", "dtv")
     for name in BWD_KERNELS:
         report[name]["wrapper_ms"] = report[name]["wrapper_busy_ms"] = 0.0
-    for i in range(cfg.num_layers):
+    for i in stages(cfg):
         h, d = cfg.num_heads[i], cfg.channels[i] // cfg.num_heads[i]
         ws, qs = cfg.window_sizes()[i], cfg.quant_sizes()[i]
         nbf = 2 * int((2 * ws + 1e-4) // qs)
@@ -739,7 +792,7 @@ def bwd_phase(cfg, levels, plans, dev, report):
                             q, k, v, sb, *res, *tables, **skw),
                         s_pairs, s_q, s_k, nbf),
                 }
-                for name, (mod, (args, _outs, inputs), wrapper, plain_fn,
+                for name, (mod, (args, outs, inputs), wrapper, plain_fn,
                            pairs, nq, nk, rows) in runs.items():
                     got = wrapper()
                     want = plain_fn()
@@ -765,7 +818,8 @@ def bwd_phase(cfg, levels, plans, dev, report):
                         f"ops/pair/head={t_ops / pairs / h:.1f}: {ms:.4f} ms "
                         f"(wrapper {wrapper_ms:.4f} ms, device busy "
                         f"{busy_ms:.4f} ms; plain {plain_ms:.3f} ms, bound "
-                        f"{bound:.4f} ms by {by}); max abs err "
+                        f"{bound:.4f} ms by {by}); dk/dv partials "
+                        f"{nbytes(outs[1:3]) / 2 ** 20:.0f} MiB; max abs err "
                         + " ".join(f"{gn} {e:.2e}"
                                    for gn, e in zip(grad_names, errs))
                         + " (of max |grad| "
@@ -805,11 +859,12 @@ def assert_same_leaves(label, got, want):
     return len(pairs)
 
 
-def geometry_check(cfg, hb, dev):
-    """Phase 10 (a): at the host batch ``hb``, the stem radius neighbours
-    and geometry pyramid the forward computes when it gets none, and FPS
-    and blocked FPS at stage 0, bit-identical between the card and the CPU.
-    Returns the card's seconds per function."""
+def geometry_check(cfg, hb, dev, names=None):
+    """Phase 10 (a), 12 (e): at the host batch ``hb``, the stem radius
+    neighbours and geometry pyramid the forward computes when it gets none,
+    and FPS and blocked FPS at stage 0 (``names``: a subset, default all
+    four), bit-identical between the card and the CPU. Returns the card's
+    seconds per function."""
     from stratified_transformer_torch.models.stratified import (
         geometry_pyramid, stem_neighbors)
     from stratified_transformer_torch.ops import sampling
@@ -828,7 +883,8 @@ def geometry_check(cfg, hb, dev):
             x, o, d, d_pad, cfg.window_sizes()[0] * 4.0),
     }
     secs = {}
-    for name, fn in cases.items():
+    for name in names or cases:
+        fn = cases[name]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = fn(xyz.to(dev), off.to(dev), d_off.to(dev))
@@ -858,7 +914,7 @@ def nopyramid_check(model, ref_model, hb, dev, counts, reset):
         torch.cuda.synchronize()
         launches = counts()
         ref_logits = ref_model(feats, xyz, off)[0]
-    blocks = sum(model.cfg.depths)
+    blocks = attention_blocks(model.cfg)
     want = {"band_attention": blocks, "sparse_band_attention": blocks,
             "band_attention_bwd": 0, "sparse_band_attention_bwd": 0}
     if launches != want:
@@ -875,33 +931,64 @@ def nopyramid_check(model, ref_model, hb, dev, counts, reset):
     return e[0]
 
 
-def scene_protocol(model, ref_model, dev, counts, reset):
-    """Phase 10 (c): `evaluate_scene` over one synthetic scene of
-    SCENE_POINTS points, kernels on the card, at the YAML's whole-scene
-    operating point; then the first TTA pass against the plain-version
-    path, and one profiled forward. Returns the phase's numbers."""
+def stem_key_bound(cfg, xyz, offsets):
+    """The largest cell key the stem's radius search (``ops/neighbors.py::
+    grid_knn`` with 2.5 grid cells) can form on a batch: slots x the cells
+    of the batch's bounding box, less one. A key at or beyond
+    ``DENSE_KEYS`` finds no row of the dense key map, silently, in the JAX
+    package and the port alike."""
+    from stratified_transformer_torch.ops import hashing, sampling
+    n = xyz.shape[0]
+    valid = sampling.offsets_to_valid(offsets, n)
+    x = xyz[valid]
+    # cells are monotonic in the coordinate: the largest is the maximum's
+    hi = hashing.window_cells(x.max(0).values[None],
+                              2.5 * cfg.grid_size * cfg.sigma,
+                              start=x.min(0).values)[0] + 1
+    slots = int(sampling.offsets_to_batch(offsets, n)[valid].max()) + 1
+    return slots * int(hi.long().prod()) - 1
+
+
+def scene_protocol(model, ref_model, dev, counts, reset, yaml_path=CONFIG,
+                   room=None):
+    """Phase 10 (c), 12 (e): `evaluate_scene` over one synthetic scene
+    (``room``: SyntheticRooms' ``points`` and ``extent``, default
+    SCENE_POINTS in 6 m), kernels on the card, at the whole-scene operating
+    point of the YAML ``yaml_path``, as the eval driver passes its
+    ``data_name`` (ScanNet's: 5 TTA passes, colours in [-1, 1], here the
+    room's mapped so); the stem search's largest cell key of every forward
+    held below ``DENSE_KEYS``; then the first TTA pass against the
+    plain-version path, and one profiled forward. Returns the phase's
+    numbers."""
     from stratified_transformer_torch.data.datasets import SyntheticRooms
     from stratified_transformer_torch.eval import voting
     from stratified_transformer_torch.eval.driver import (
         eval_config, make_predict_probs)
     from stratified_transformer_torch.models.stratified import (
         geometry_pyramid, stem_neighbors)
+    from stratified_transformer_torch.ops.neighbors import DENSE_KEYS
     from stratified_transformer_torch.utils.config import load_cfg
-    yaml_cfg = load_cfg(CONFIG)
+    yaml_cfg = load_cfg(yaml_path)
     cfg = eval_config(yaml_cfg)
-    coord, feat, _ = SyntheticRooms(num_scenes=1, points=SCENE_POINTS,
-                                    seed=999).raw_scene(0)
+    data_name = yaml_cfg["data_name"]
+    coord, feat, _ = SyntheticRooms(num_scenes=1, seed=999, **(
+        room or {"points": SCENE_POINTS})).raw_scene(0)
+    if data_name == "scannetv2":
+        feat = feat / np.float32(127.5) - np.float32(1.0)
     n_scene = len(coord)        # the generator rounds its boxes' share down
-    kw = dict(data_name="s3dis", voxel_size=float(yaml_cfg["voxel_size"]),
+    passes = len(voting.tta_transforms(data_name))
+    kw = dict(data_name=data_name, voxel_size=float(yaml_cfg["voxel_size"]),
               voxel_max=int(yaml_cfg["voxel_max"]),
               batch_size_test=cfg.num_scenes, n_pad=cfg.n_pad,
               num_scenes=cfg.num_scenes, concat_xyz=cfg.concat_xyz)
     predict = make_predict_probs(model)
-    fwd_s, fwd_points, first = [], [], []
+    fwd_s, fwd_points, first, keys = [], [], [], []
 
     def timed(feats, xyz, offsets):
         if not first:
             first.append((feats, xyz, offsets))
+        keys.append(stem_key_bound(cfg, torch.from_numpy(xyz),
+                                   torch.from_numpy(offsets).long()))
         t0 = time.perf_counter()
         probs = predict(feats, xyz, offsets)        # synchronizes (.cpu())
         fwd_s.append(time.perf_counter() - t0)
@@ -918,7 +1005,7 @@ def scene_protocol(model, ref_model, dev, counts, reset):
     launches = counts()
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     forwards = len(fwd_s)
-    blocks = sum(cfg.depths)
+    blocks = attention_blocks(cfg)
     want = {"band_attention": blocks * forwards,
             "sparse_band_attention": blocks * forwards,
             "band_attention_bwd": 0, "sparse_band_attention_bwd": 0}
@@ -937,8 +1024,14 @@ def scene_protocol(model, ref_model, dev, counts, reset):
         "forward_s_median": float(np.median(fwd_s)),
         "forward_s_total": sum(fwd_s), "host_s": scene_s - sum(fwd_s),
         "valid_points_per_forward_mean": float(np.mean(fwd_points)),
-        "launches": launches, "max_memory_allocated_mib": peak_mib}
-    log(f"[scene] protocol: {n_scene} points, 7 TTA passes, "
+        "launches": launches, "max_memory_allocated_mib": peak_mib,
+        "stem_key_max": max(keys), "dense_keys": DENSE_KEYS}
+    log(f"[scene] stem search: largest cell key of any forward {max(keys)} "
+        f"of DENSE_KEYS {DENSE_KEYS} ({100 * max(keys) / DENSE_KEYS:.1f}%)")
+    if max(keys) >= DENSE_KEYS:
+        raise AssertionError(f"stem cell keys up to {max(keys)} reach "
+                             f"DENSE_KEYS {DENSE_KEYS}: neighbours are lost")
+    log(f"[scene] protocol: {n_scene} points, {passes} TTA passes, "
         f"{forwards} forwards of n_pad {cfg.n_pad} in {cfg.num_scenes} crops "
         f"({out['valid_points_per_forward_mean']:.0f} valid points on "
         f"average) in {scene_s:.1f} s: {out['scene_points_per_s']:.0f} scene "
@@ -1015,11 +1108,13 @@ def scene_protocol(model, ref_model, dev, counts, reset):
     return out
 
 
-def scene_phase(cfg, hb, model, ref_model, dev, kernel_mods):
-    """Phase 10: (a) `geometry_check`, (b) `nopyramid_check` with the
-    phase-5 models, (c) `scene_protocol` with their weights in the
-    whole-scene configuration. Returns the numbers of (c) with the seconds
-    of (a) and the error of (b)."""
+def scene_phase(cfg, hb, model, ref_model, dev, kernel_mods,
+                yaml_path=CONFIG, room=None, geometry=None):
+    """Phase 10: (a) `geometry_check` (of the functions ``geometry``), (b)
+    `nopyramid_check` with the phase-5 models, (c) `scene_protocol` with
+    their weights in the whole-scene configuration of ``yaml_path`` on
+    ``room``. Phase 12 (e) runs it on ScanNet's. Returns the numbers of (c)
+    with the seconds of (a) and the error of (b)."""
     from stratified_transformer_torch.eval.driver import eval_config
     from stratified_transformer_torch.models.stratified import build_model
     from stratified_transformer_torch.utils.config import load_cfg
@@ -1031,16 +1126,301 @@ def scene_phase(cfg, hb, model, ref_model, dev, kernel_mods):
         for m_ in kernel_mods.values():
             m_.KERNEL.launches = 0
 
-    geo_s = geometry_check(cfg, hb, dev)
+    geo_s = geometry_check(cfg, hb, dev, geometry)
     err = nopyramid_check(model, ref_model, hb, dev, counts, reset)
-    scfg = eval_config(load_cfg(CONFIG))
+    scfg = eval_config(load_cfg(yaml_path))
     scene_models = []
     for impl, src in (("fused", model), ("reference", ref_model)):
         m_ = build_model(dataclasses.replace(scfg, attn_impl=impl), "cuda")
         m_.load_state_dict(src.state_dict())
         scene_models.append(m_)
-    out = scene_protocol(*scene_models, dev, counts, reset)
+    out = scene_protocol(*scene_models, dev, counts, reset, yaml_path, room)
     out.update(geometry_card_s=geo_s, nopyramid_logits_max_abs_err=err)
+    return out
+
+
+def train_phase(tag, cfg, yaml_cfg, init_state, batches, kernel_mods):
+    """Phases 8 and 12 (c): training steps over ``batches`` from the
+    weights ``init_state``, AdamW with the YAML's groups, weight decay and
+    schedule, drop-path from a generator seeded per step, the YAML's ignore
+    label. One step of a throwaway copy first; then the steps through the
+    kernels (one launch of each of the four per attention block and step),
+    and through the plain versions: every step-1 gradient within
+    GRAD_REL_L2 / GRAD_FLOOR, the loss trajectories within LOSS_RTOL; one
+    profiled step. Logs with ``tag``; returns the numbers."""
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.train import schedulers
+    from stratified_transformer_torch.train.state import make_optimizer
+    from stratified_transformer_torch.train.step import make_train_step
+    schedule = schedulers.from_config(yaml_cfg, TRAIN_ITERS_PER_EPOCH)[0]
+    train_step = make_train_step(int(yaml_cfg["ignore_label"]),
+                                 cfg.num_classes)
+    blocks = attention_blocks(cfg)
+
+    def counts():
+        return {k: m_.KERNEL.launches for k, m_ in kernel_mods.items()}
+
+    def trainer(impl):
+        m_ = build_model(dataclasses.replace(cfg, attn_impl=impl), "cuda",
+                         seed=0, train=True)
+        m_.load_state_dict(init_state)
+        opt = make_optimizer(
+            m_, schedule, weight_decay=float(yaml_cfg["weight_decay"]),
+            transformer_lr_scale=float(yaml_cfg["transformer_lr_scale"]))
+        return m_, opt
+
+    def run_steps(m_, opt, via_kernels):
+        losses, times, grads = [], [], None
+        for step, b in enumerate(batches):
+            gen_s = torch.Generator(device="cuda").manual_seed(1000 + step)
+            before = counts()
+            t0 = time.perf_counter()
+            stats = train_step(m_, opt, b, gen_s)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_step = {k_: counts()[k_] - before[k_] for k_ in before}
+            want_n = blocks if via_kernels else 0
+            if any(c != want_n for c in per_step.values()):
+                raise AssertionError(f"kernel launches in train step {step}: "
+                                     f"{per_step}, expected {want_n} each")
+            if not bool(torch.isfinite(stats["loss"])):
+                raise AssertionError(f"non-finite loss at train step {step}")
+            losses.append(float(stats["loss"]))
+            if step == 0:
+                grads = {n_: p_.grad.clone()
+                         for n_, p_ in m_.named_parameters()}
+        return losses, times, grads
+
+    # one step of a throwaway copy pays the backward's one-time set-up
+    # (cuBLAS, autograd, AdamW state) outside the timed steps
+    model_w, opt_w = trainer("fused")
+    train_step(model_w, opt_w, batches[0],
+               torch.Generator(device="cuda").manual_seed(999))
+    torch.cuda.synchronize()
+    del model_w, opt_w
+    model_k, opt_k = trainer("fused")
+    for m_ in kernel_mods.values():
+        m_.KERNEL.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses_k, times_k, grads_k = run_steps(model_k, opt_k, True)
+    launches = counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    for step in range(len(batches)):
+        log(f"{tag} step {step}: loss {losses_k[step]:.5f}, "
+            f"{times_k[step]:.1f} ms (host clock, synchronized)")
+    log(f"{tag} launches over {len(batches)} steps: {launches}; "
+        f"max_memory_allocated {peak_mb:.0f} MiB")
+
+    model_p, opt_p = trainer("reference")
+    losses_p, times_p, grads_p = run_steps(model_p, opt_p, False)
+    worst = check_grads("train step 1", grads_k, grads_p)
+    log(f"{tag} step-1 grads of all {len(grads_p)} parameters within "
+        f"{GRAD_REL_L2} relative L2 (+{GRAD_FLOOR}/entry) of the plain-version"
+        f" step; largest relative L2 {worst[0]:.2e} ({worst[1]})")
+    np.testing.assert_allclose(losses_k, losses_p, rtol=LOSS_RTOL,
+                               err_msg="loss trajectory")
+    log(f"{tag} loss trajectory kernels {losses_k} vs plain {losses_p}; "
+        f"plain-version step median {float(np.median(times_p)):.1f} ms")
+    step_ms = float(np.median(times_k))
+    log(f"{tag} full-width train step median {step_ms:.1f} ms over "
+        f"{len(batches)} steps")
+    del model_p, opt_p, grads_p, grads_k
+    wall, busy, by_name = profile_call(f"{tag[1:-1]} step", lambda: (
+        train_step(model_k, opt_k, batches[0],
+                   torch.Generator(device="cuda").manual_seed(2000))))
+    return {"step_ms": step_ms, "step_ms_all": times_k, "losses": losses_k,
+            "plain_losses": losses_p, "launches": launches,
+            "max_memory_allocated_mib": peak_mb,
+            "grad_worst_rel_l2": worst[0], "grad_worst": worst[1],
+            "profiled_wall_ms": wall, "profiled_busy_ms": busy,
+            "profiled_kernels": by_name}
+
+
+def scannet_loop(dev, kernel_mods, blocks):
+    """Phase 12 (d): the training driver's loop (``train/driver.py::run``)
+    on the ScanNet YAML with SCANNET_LOOP_OVERRIDES: one launch of each
+    attention kernel per block and train step, of each forward kernel per
+    block and validation forward, finite losses, the audit of stages 1-4.
+    Returns the loop's numbers."""
+    import tempfile
+
+    from stratified_transformer_torch.train import audit, driver
+    from stratified_transformer_torch.utils.config import (
+        load_cfg, merge_cfg_from_list)
+    marks = []
+
+    def counts():
+        return {k: m_.KERNEL.launches for k, m_ in kernel_mods.items()}
+
+    def loop_log(msg):
+        log(f"[scannet] loop: {msg[:400]}")
+        if msg.startswith("Epoch ["):
+            marks.append(("step", counts(), 0))
+        elif msg.startswith("Val epoch"):
+            marks.append(("val", counts(), None))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml_cfg = merge_cfg_from_list(
+            load_cfg(SCANNET_CONFIG),
+            SCANNET_LOOP_OVERRIDES + ["save_path", os.path.join(tmp, "run")])
+        for m_ in kernel_mods.values():
+            m_.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        _, summary = driver.run(yaml_cfg, "cuda", log=loop_log)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    val_forwards = iter(t["val_forwards"] for t in summary["timing"])
+    marks = [(kind, now, next(val_forwards) if kind == "val" else 0)
+             for kind, now, _ in marks]
+    steps, vals = launch_deltas(marks, kernel_mods, blocks)
+    if (steps, vals) != (summary["steps"], summary["val_forwards"]) or not (
+            steps and vals):
+        raise AssertionError(f"logged {steps} steps and {vals} validation "
+                             f"forwards, the loop took {summary['steps']} "
+                             f"and {summary['val_forwards']}")
+    losses = [r["loss"] for r in summary["iters"]]
+    audited = [r["audit"] for r in summary["iters"] if "audit" in r]
+    if not (np.isfinite(losses).all() and all(
+            np.isfinite(v) for r in summary["records"] for v in r.values())):
+        raise AssertionError(f"non-finite loop losses {losses} or records "
+                             f"{summary['records']}")
+    if not audited or sorted(audited[-1]) != [
+            f"stage_{i}" for i in range(1, 5)]:
+        raise AssertionError(f"the audit did not cover stages 1-4: {audited}")
+    out = {"loop_s": loop_s, "steps": steps, "val_forwards": vals,
+           "launches": counts(), "losses": losses,
+           "step_wall_ms": [1e3 * r["wall_s"] for r in summary["iters"]],
+           "valid_points": [r["points"] for r in summary["iters"]],
+           "timing": summary["timing"], "audit": audited[-1]}
+    log(f"[scannet] loop: {steps} steps and {vals} validation forwards in "
+        f"{loop_s:.1f} s, launches {out['launches']} ({blocks} of each "
+        f"kernel per step, {blocks} forward and 0 backward per validation "
+        f"forward); losses {losses}; valid points {out['valid_points']}; "
+        f"{audit.format_truncation(audited[-1])}")
+    return out
+
+
+def scannet_phase(dev, kernel_mods):
+    """Phase 12: the ScanNet family at full width on its YAML's batch shape
+    (module docstring). Returns the numbers of (a)-(e) and each attention
+    kernel's report of (a) under ``report``."""
+    from stratified_transformer_torch.config import load_config
+    from stratified_transformer_torch.data.loader import host_batch, to_device
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.train.step import make_eval_step
+    from stratified_transformer_torch.utils.config import load_cfg
+    t_phase = time.time()
+    yaml_cfg = load_cfg(SCANNET_CONFIG)
+    cfg = load_config(SCANNET_CONFIG)
+    blocks = attention_blocks(cfg)
+
+    def counts():
+        return {k: m_.KERNEL.launches for k, m_ in kernel_mods.items()}
+
+    t0 = time.time()
+    hbs = [host_batch(cfg, seed=s, **SCANNET_ROOMS)
+           for s in range(EVAL_BATCHES)]
+    out = {"n_pad": cfg.n_pad, "blocks": blocks,
+           "host_batch_s": (time.time() - t0) / len(hbs),
+           "valid_points": [int(hb["offsets"][-1]) for hb in hbs]}
+    log(f"[scannet] {len(hbs)} host batches (n_pad {cfg.n_pad}, "
+        f"{cfg.num_scenes} slots, rooms {json.dumps(SCANNET_ROOMS)}): valid "
+        f"points {out['valid_points']}, {out['host_batch_s']:.2f} s each")
+
+    # (a) the four attention kernels at every stage's real plans
+    levels = stage_levels(cfg, hbs[0])
+    plans = {(i, sh): build_plan(cfg, i, levels[i], sh, dev)
+             for i in stages(cfg) for sh in (False, True)}
+    log_pairs("scannet batch 0", cfg, hbs[0], dev)
+    report = new_report(FWD_KERNELS + BWD_KERNELS)
+    fwd_phase(cfg, levels, plans, dev, report)
+    bwd_phase(cfg, levels, plans, dev, report)
+    out["report"] = report
+    del plans
+
+    # (b) three eval forwards
+    model = build_model(cfg, "cuda", seed=0)
+    o1_weights(model, seed=0)
+    ref_model = build_model(dataclasses.replace(cfg, attn_impl="reference"),
+                            "cuda")
+    ref_model.load_state_dict(model.state_dict())
+    eval_step = make_eval_step(int(yaml_cfg["ignore_label"]),
+                               cfg.num_classes)
+    batches = [to_device(hb, dev) for hb in hbs]
+    eval_step(model, batches[0])                # first call: lazy set-up
+    torch.cuda.synchronize()
+    for m_ in kernel_mods.values():
+        m_.KERNEL.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, logits_k = [], []
+    for j, b in enumerate(batches):
+        before = counts()
+        t0 = time.perf_counter()
+        logits, _, stats = eval_step(model, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per = {k: counts()[k] - before[k] for k in before}
+        want = {k: blocks if k in FWD_KERNELS else 0 for k in before}
+        if per != want:
+            raise AssertionError(f"scannet forward {j} launches {per}, "
+                                 f"expected {want}")
+        if not (bool(torch.isfinite(logits).all())
+                and bool(torch.isfinite(stats["loss"]))):
+            raise AssertionError("non-finite scannet logits or loss")
+        logits_k.append(logits)
+    eval_launches = counts()
+    eval_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    errs = []
+    for j, b in enumerate(batches):
+        want = eval_step(ref_model, b)[0]
+        assert_close(f"scannet logits batch {j}", logits_k[j], want,
+                     LOGIT_RTOL, LOGIT_ATOL)
+        errs.append(max_errors(logits_k[j], want)[0])
+    del logits_k
+    _, busy, _ = profile_call("scannet forward",
+                              lambda: eval_step(model, batches[0]))
+    out["eval"] = {"forward_ms": times,
+                   "forward_ms_median": float(np.median(times)),
+                   "launches": eval_launches,
+                   "max_memory_allocated_mib": eval_peak,
+                   "profiled_busy_ms": busy, "logits_max_abs_err": errs}
+    log(f"[scannet] eval forward median {out['eval']['forward_ms_median']:.1f}"
+        f" ms ({', '.join(f'{t:.1f}' for t in times)}; host clock, "
+        f"synchronized); launches over {len(batches)} forwards "
+        f"{eval_launches}; logits vs plain-version forward max abs err "
+        f"{max(errs):.2e}; max_memory_allocated {eval_peak:.0f} MiB; "
+        f"profiled device busy {busy:.2f} ms")
+
+    # (c) training steps: the YAML has aug False, so the eval batches
+    log(f"[scannet] train: drop-path {cfg.drop_path_rate}, base_lr "
+        f"{yaml_cfg['base_lr']} ({yaml_cfg['scheduler']}, warm-up "
+        f"{yaml_cfg['warmup_iters']} steps), weight decay "
+        f"{yaml_cfg['weight_decay']}, x{yaml_cfg['transformer_lr_scale']} on "
+        f"blocks, ignore label {yaml_cfg['ignore_label']}")
+    init_state = {k_: v_.clone() for k_, v_ in model.state_dict().items()}
+    train = train_phase("[scannet]", cfg, yaml_cfg, init_state, batches,
+                        kernel_mods)
+    by_name = train.pop("profiled_kernels")
+    gather_ms = sum(ms for name, (ms, _) in by_name.items()
+                    if "indexing_backward" in name)
+    train["indexing_backward_ms"] = gather_ms
+    log(f"[scannet] profiled step: indexing_backward_kernel {gather_ms:.2f} "
+        f"ms of {train['profiled_busy_ms']:.2f} ms device busy "
+        f"({100 * gather_ms / train['profiled_busy_ms']:.1f}%; "
+        f"{cfg.n_pad - out['valid_points'][0]} pad rows)")
+    out["train"] = train
+    del init_state, batches
+
+    # (d) the training loop
+    out["loop"] = scannet_loop(dev, kernel_mods, blocks)
+
+    # (e) the on-device pyramid and whole-scene evaluation
+    out["scene"] = scene_phase(cfg, hbs[0], model, ref_model, dev,
+                               kernel_mods, yaml_path=SCANNET_CONFIG,
+                               room=SCANNET_SCENE,
+                               geometry=("geometry_pyramid",))
+    out["seconds"] = time.time() - t_phase
+    log(f"[scannet] phase 12 in {out['seconds']:.0f} s")
     return out
 
 
@@ -1138,7 +1518,8 @@ def loop_phase(dev, kernel_mods):
         val_forwards = iter(t["val_forwards"] for t in summary["timing"])
         marks = [(kind, now, next(val_forwards) if kind == "val" else 0)
                  for kind, now, _ in marks]
-        steps, vals = launch_deltas(marks, kernel_mods, sum(cfg.depths))
+        steps, vals = launch_deltas(marks, kernel_mods,
+                                    attention_blocks(cfg))
         if (steps, vals) != (summary["steps"], summary["val_forwards"]):
             raise AssertionError(f"logged {steps} steps and {vals} validation"
                                  f" forwards, the loop took {summary['steps']}"
@@ -1209,7 +1590,8 @@ def loop_phase(dev, kernel_mods):
         o1 = build_model(cfg, "cuda", seed=0)
         o1_weights(o1, seed=0)
         init_state = o1.state_dict()
-        train_step = make_train_step(255, cfg.num_classes)
+        train_step = make_train_step(int(yaml_cfg["ignore_label"]),
+                                     cfg.num_classes)
 
         def first_step(impl):
             m_ = build_model(dataclasses.replace(cfg, attn_impl=impl), "cuda",
@@ -1241,7 +1623,8 @@ def loop_phase(dev, kernel_mods):
         itr = iter(val_loader)
         vbatch = to_device(next(itr), dev)
         itr.close()
-        eval_step = make_eval_step(255, cfg.num_classes)
+        eval_step = make_eval_step(int(yaml_cfg["ignore_label"]),
+                                   cfg.num_classes)
         model.eval()
         logits = eval_step(model, vbatch)[0]
         fresh = build_model(cfg, "cuda", seed=1)
@@ -1390,11 +1773,12 @@ def iou_phase(cfg, hb, dev, reps=50, rounds=6):
 
 def phase_only(flag):
     """``--fwd-only`` / ``--bwd-only`` / ``--scene-only`` / ``--loop-only``
-    / ``--iou-only``: phase 1's build of the kernels the phase runs, and
-    phase 4 (the forward kernels, with phase 2's host batch and plans on the
-    card), phase 7 (the backward kernels, likewise), phase 10 (whole-scene
-    evaluation, with phase 5's full-width models), phase 11 (the training
-    loop) or `iou_phase`; prints one JSON line."""
+    / ``--scannet-only`` / ``--iou-only``: phase 1's build of the kernels
+    the phase runs, and phase 4 (the forward kernels, with phase 2's host
+    batch and plans on the card), phase 7 (the backward kernels, likewise),
+    phase 10 (whole-scene evaluation, with phase 5's full-width models),
+    phase 11 (the training loop), phase 12 (ScanNet) or `iou_phase`; prints
+    one JSON line."""
     sys.path.insert(0, REPO)
     from stratified_transformer_torch.config import load_config
     from stratified_transformer_torch.data.loader import host_batch
@@ -1406,9 +1790,11 @@ def phase_only(flag):
              for name, text in build.build_logs.items()
              for line in text.splitlines()
              if "registers" in line or "spill" in line]
-    if flag == "--loop-only":
+    if flag in ("--loop-only", "--scannet-only"):
+        phase = loop_phase if flag == "--loop-only" else scannet_phase
         out = {"card": card_line(), "repo": REPO,
-               "loop": loop_phase(dev, attention_kernel_modules())}
+               flag[2:-5]: phase(dev, attention_kernel_modules()),
+               "ptxas": ptxas}
         print(json.dumps(out))
         return 0
     cfg = load_config(CONFIG, n_pad=N_PAD, num_scenes=SCENES)
@@ -1449,19 +1835,19 @@ def phase_only(flag):
 PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS,
               "--scene-only": FWD_KERNELS,
               "--loop-only": FWD_KERNELS + BWD_KERNELS,
+              "--scannet-only": FWD_KERNELS + BWD_KERNELS,
               "--iou-only": FWD_KERNELS}
 
 
 def parse_args(argv):
-    """The flag of the phase to run alone (``--fwd-only``, ``--bwd-only``,
-    ``--scene-only``, ``--loop-only``, ``--iou-only``), None for the whole
-    run; raises ValueError on anything else."""
+    """The flag of the phase to run alone (a key of ``PHASE_ONLY``), None
+    for the whole run; raises ValueError on anything else."""
     if not argv:
         return None
     if len(argv) == 1 and argv[0] in PHASE_ONLY:
         return argv[0]
-    raise ValueError(f"unknown arguments {argv}; give none, --fwd-only, "
-                     "--bwd-only, --scene-only, --loop-only or --iou-only")
+    raise ValueError(f"unknown arguments {argv}; give none or one of "
+                     + ", ".join(PHASE_ONLY))
 
 
 def main(argv):
@@ -1491,6 +1877,7 @@ def main(argv):
     from stratified_transformer_torch.models.stratified import build_model
     from stratified_transformer_torch.ops import attention as plain
     from stratified_transformer_torch.train.step import make_eval_step
+    from stratified_transformer_torch.utils.config import load_cfg
 
     dev = torch.device("cuda")
     card = card_line()
@@ -1567,7 +1954,8 @@ def main(argv):
     # ---- 5. full-width eval step ------------------------------------------
     model = build_model(cfg, "cuda", seed=0)
     o1_weights(model, seed=0)
-    eval_step = make_eval_step(255, cfg.num_classes)
+    eval_step = make_eval_step(int(load_cfg(CONFIG)["ignore_label"]),
+                               cfg.num_classes)
     eval_hbs = [host_batch(cfg, seed=s) for s in range(EVAL_BATCHES)]
     batches = [to_device(hb, dev) for hb in eval_hbs]
     for j, hb in enumerate(eval_hbs):
@@ -1640,13 +2028,7 @@ def main(argv):
     bwd_phase(cfg, levels, plans, dev, report)
 
     # ---- 8. full-width training steps -------------------------------------
-    from stratified_transformer_torch.train import schedulers
-    from stratified_transformer_torch.train.state import make_optimizer
-    from stratified_transformer_torch.train.step import make_train_step
-    from stratified_transformer_torch.utils.config import load_cfg
     yaml_cfg = load_cfg(CONFIG)
-    schedule = schedulers.from_config(yaml_cfg, TRAIN_ITERS_PER_EPOCH)[0]
-    train_step = make_train_step(255, cfg.num_classes)
     t0 = time.time()
     train_hbs = [host_batch(cfg, seed=10 + s, train=True,
                             rng=np.random.default_rng(100 + s), aug=yaml_cfg)
@@ -1660,86 +2042,25 @@ def main(argv):
     for j, hb in enumerate(train_hbs):
         log_pairs(f"train batch {j}", cfg, hb, dev)
     init_state = {k_: v_.clone() for k_, v_ in model.state_dict().items()}
-
-    def trainer(impl):
-        m_ = build_model(dataclasses.replace(cfg, attn_impl=impl), "cuda",
-                         seed=0, train=True)
-        m_.load_state_dict(init_state)
-        opt = make_optimizer(
-            m_, schedule, weight_decay=float(yaml_cfg["weight_decay"]),
-            transformer_lr_scale=float(yaml_cfg["transformer_lr_scale"]))
-        return m_, opt
-
-    def run_steps(m_, opt, via_kernels):
-        losses, times, grads = [], [], None
-        for step, b in enumerate(train_batches):
-            gen_s = torch.Generator(device="cuda").manual_seed(1000 + step)
-            before = counts()
-            t0 = time.perf_counter()
-            stats = train_step(m_, opt, b, gen_s)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            per_step = {k_: counts()[k_] - before[k_] for k_ in before}
-            want_n = 12 if via_kernels else 0
-            if any(c != want_n for c in per_step.values()):
-                raise AssertionError(f"kernel launches in train step {step}: "
-                                     f"{per_step}, expected {want_n} each")
-            if not bool(torch.isfinite(stats["loss"])):
-                raise AssertionError(f"non-finite loss at train step {step}")
-            losses.append(float(stats["loss"]))
-            if step == 0:
-                grads = {n_: p_.grad.clone()
-                         for n_, p_ in m_.named_parameters()}
-        return losses, times, grads
-
-    # one step of a throwaway copy pays the backward's one-time set-up
-    # (cuBLAS, autograd, AdamW state) outside the timed steps
-    model_w, opt_w = trainer("fused")
-    train_step(model_w, opt_w, train_batches[0],
-               torch.Generator(device="cuda").manual_seed(999))
-    torch.cuda.synchronize()
-    del model_w, opt_w
-    model_k, opt_k = trainer("fused")
-    for m_ in kernel_mods.values():
-        m_.KERNEL.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    losses_k, times_k, grads_k = run_steps(model_k, opt_k, True)
-    train_launches = counts()
-    train_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    for step in range(TRAIN_STEPS):
-        log(f"[train] step {step}: loss {losses_k[step]:.5f}, "
-            f"{times_k[step]:.1f} ms (host clock, synchronized)")
-    log(f"[train] launches over {TRAIN_STEPS} steps: {train_launches}; "
-        f"max_memory_allocated {train_peak_mb:.0f} MiB")
-
-    model_p, opt_p = trainer("reference")
-    losses_p, times_p, grads_p = run_steps(model_p, opt_p, False)
-    worst = check_grads("train step 1", grads_k, grads_p)
-    log(f"[train] step-1 grads of all {len(grads_p)} parameters within "
-        f"{GRAD_REL_L2} relative L2 (+{GRAD_FLOOR}/entry) of the plain-version"
-        f" step; largest relative L2 {worst[0]:.2e} ({worst[1]})")
-    np.testing.assert_allclose(losses_k, losses_p, rtol=LOSS_RTOL,
-                               err_msg="loss trajectory")
-    log(f"[train] loss trajectory kernels {losses_k} vs plain {losses_p}; "
-        f"plain-version step median {float(np.median(times_p)):.1f} ms")
-    train_ms = float(np.median(times_k))
-    log(f"[train] full-width train step median {train_ms:.1f} ms over "
-        f"{TRAIN_STEPS} steps")
-    del model_p, opt_p, grads_p
-    profile_call("train step", lambda: train_step(
-        model_k, opt_k, train_batches[0],
-        torch.Generator(device="cuda").manual_seed(2000)))
+    train = train_phase("[train]", cfg, yaml_cfg, init_state, train_batches,
+                        kernel_mods)
+    train_ms, train_launches = train["step_ms"], train["launches"]
+    train_peak_mb = train["max_memory_allocated_mib"]
+    del init_state
 
     # ---- 9. the probes -----------------------------------------------------
     probe_launches = probe_phase(dev, report)
 
     # ---- 10. whole-scene evaluation --------------------------------------
-    del model_k, opt_k, train_batches
+    del train_batches
     scene = scene_phase(cfg, hb, model, ref_model, dev, kernel_mods)
 
     # ---- 11. the training loop, fed by the loader -------------------------
     del model, ref_model
     loop = loop_phase(dev, kernel_mods)
+
+    # ---- 12. the ScanNet family -------------------------------------------
+    scannet = scannet_phase(dev, kernel_mods)
     log(f"[run] total {time.time() - t_start:.0f} s")
 
     kernels = []
@@ -1761,6 +2082,14 @@ def main(argv):
         for key in ("wrapper_ms", "wrapper_busy_ms"):
             if key in r:
                 entry[key] = r[key]
+        if name in scannet["report"]:
+            sr = scannet["report"][name]
+            entry.update(
+                scannet_launches=scannet["train"]["launches"][name],
+                scannet_eval_launches=scannet["eval"]["launches"][name],
+                scannet_ms=sr["ms"], scannet_plain_ms=sr["plain_ms"],
+                scannet_bound_ms=sr["bound_ms"],
+                scannet_max_abs_err=sr["max_abs_err"])
         if name in PROBE_KERNELS:
             entry["probe_launches"] = probe_launches[name]
             entry["times_per"] = "one launch of the probe"
@@ -1781,7 +2110,12 @@ def main(argv):
         "scene": scene,
         "loop_launches_over": {"train_steps": loop["steps"],
                                "val_forwards": loop["val_forwards"]},
-        "loop": loop}))
+        "loop": loop,
+        "scannet_times_per": "one ScanNet training step (18 launches of "
+                             "each attention kernel at phase 12 (a)'s "
+                             "plans); scannet_launches over its "
+                             f"{TRAIN_STEPS} steps",
+        "scannet": {k: v for k, v in scannet.items() if k != "report"}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,10 @@ class StratifiedConfig:
     rel_value: bool = True
     drop_path_rate: float = 0.3
     concat_xyz: bool = True
+    # True: the KPConv stem feeds transformer stage 0 (S3DIS); False: a
+    # second, residual KPConv block and a TransitionDown follow the stem,
+    # its level is only a skip, and the stages run from 1 (ScanNet)
+    stem_transformer: bool = True
     up_k: int = 3
     ratio: float = 0.25
     k: int = 16
@@ -99,6 +103,20 @@ class StratifiedConfig:
     def quant_sizes(self):
         return [self.quant_size * 2 ** i for i in range(self.num_layers)]
 
+    @property
+    def layer_start(self) -> int:
+        """The first transformer stage."""
+        return 0 if self.stem_transformer else 1
+
+    def stage_caps(self):
+        """Static point capacity of each level 0..num_layers-1: the input,
+        then ``int(n * ratio) + num_scenes`` per TransitionDown
+        (``models/stratified.py:153-163`` of the JAX package)."""
+        caps = [self.n_pad]
+        for _ in range(1, self.num_layers):
+            caps.append(int(caps[-1] * self.ratio) + self.num_scenes)
+        return caps
+
     def drop_path_schedule(self):
         """Drop-path rate of each block in global order,
         ``linspace(0, rate, sum(depths))`` (``models/stratified.py:165-168``);
@@ -111,25 +129,23 @@ class StratifiedConfig:
                 else self.band)
 
 
-# The port runs the S3DIS-style model only (KPConv stem into a transformer
-# stem, stratified keys, no offset head): each of these YAML keys may hold
-# only the value given here. The other families are ROADMAP queue item 4.
-ONLY_SUPPORTED = {"arch": "stratified_transformer", "stem_transformer": True,
-                  "use_stratified": True, "with_regressor": False}
+# The port runs the S3DIS- and ScanNet-style models (stratified keys, no
+# offset head): each of these YAML keys may hold only the value given here,
+# and the value names the ROADMAP queue 1 item that ports the family.
+ONLY_SUPPORTED = {"arch": ("stratified_transformer", 5),
+                  "use_stratified": (True, 5), "with_regressor": (False, 3)}
 
 
 def from_cfg(cfg: CfgNode) -> StratifiedConfig:
     """`StratifiedConfig` from a flattened YAML config (same keys and
     defaults as ``train.py::build_model_config`` of the JAX package, on one
     device). Raises ValueError for a model family the port does not run."""
-    unsupported = [f"{key}: {cfg.get(key)}"
-                   for key, only in ONLY_SUPPORTED.items()
+    unsupported = [f"{key}: {cfg.get(key)} (ROADMAP queue 1 item {item})"
+                   for key, (only, item) in ONLY_SUPPORTED.items()
                    if cfg.get(key, only) != only]
     if unsupported:
         raise ValueError("not supported by the PyTorch port yet: "
-                         + ", ".join(unsupported)
-                         + " (the ScanNet, DCF and Swin3D families, ROADMAP "
-                         "queue item 4)")
+                         + ", ".join(unsupported))
     tile = int(cfg.get("tile", 128))
     n_pad = int(cfg.get("max_batch_points", 140000))
     n_pad = max((n_pad + tile - 1) // tile * tile, tile)
@@ -152,6 +168,7 @@ def from_cfg(cfg: CfgNode) -> StratifiedConfig:
         rel_value=bool(cfg.get("rel_value", True)),
         drop_path_rate=float(cfg.get("drop_path_rate", 0.3)),
         concat_xyz=concat_xyz,
+        stem_transformer=bool(cfg.get("stem_transformer", True)),
         up_k=int(cfg.get("up_k", 3)),
         ratio=float(cfg.get("ratio", 0.25)),
         k=int(cfg.get("k", 16)),

@@ -1,7 +1,8 @@
 """Weight conversion from the JAX package's flax variables.
 
 Module paths are identical in both packages (``layer_0.blocks_1.attn.qkv``,
-``cls_fc1``...), so the conversion walks the flax trees and renames leaves:
+``cls_fc1``, the ScanNet family's ``stem_1.unary1`` and ``stem_down``...),
+so the conversion walks the flax trees and renames leaves:
 a Dense ``kernel [in, out]`` becomes a Linear ``weight [out, in]``;
 LayerNorm / BatchNorm ``scale`` becomes ``weight``; ``bias``, the cRPE
 tables ``[L, h, d, 3]`` and the KPConv ``kernel_weights [P, C, out]`` are

@@ -59,7 +59,13 @@ namespace stratified {
 
 constexpr int kBwdChunk = 32;     // keys per round
 constexpr int kBwdThreads = 256;  // 8 warps per block
-constexpr int kBwdMaxNb = 64;     // table rows per axis (smem, registers)
+
+// Table rows per axis that a block of R rows is instantiated for: they size
+// each thread's table-grad units (NU below). The 64- and 32-row blocks keep
+// 64 (S3DIS's tables); the 16-row block, which ScanNet's 80-row tables need,
+// takes up to 128 (its shared memory fits 116 on the H100).
+template <int R>
+__host__ __device__ constexpr int bwd_nb_cap() { return R >= 32 ? 64 : 128; }
 // floats per staged q/g/k/v row and per table row: 16-byte rows whose
 // float4 reads by 8 neighbouring rows fall on distinct banks
 constexpr int kBwdRowStride = 20;
@@ -144,14 +150,29 @@ struct BwdSmem {
   __host__ size_t bytes() const { return sizeof(float) * static_cast<size_t>(total); }
 };
 
-// The most table rows per axis (at most kBwdMaxNb) for which a block of R
-// rows fits in `room` bytes. On the H100: 45 for 64-row blocks, 64 (all)
-// for 32-row blocks.
+// The most table rows per axis (at most bwd_nb_cap<R>) for which a block of
+// R rows fits in `room` bytes. On the H100: 45 for 64-row blocks, 64 (the
+// cap; 78 would fit) for 32-row blocks, 116 for 16-row blocks.
 template <int D, int R>
 __host__ int bwd_max_nb(size_t room) {
-  int nb = kBwdMaxNb;
+  int nb = bwd_nb_cap<R>();
   while (nb > 0 && BwdSmem<D, R>(nb).bytes() > room) --nb;
   return nb;
+}
+
+// Rows per block for a table of nb rows per axis: the first of the offered
+// block heights (in the kernel's order of preference) whose block takes nb,
+// or 0 if none does; max_nb, the most any of them takes. max_nb_of[i] is
+// bwd_max_nb of rows_of[i] on the current device.
+__host__ inline void bwd_pick_rows(int nb, const int* rows_of,
+                                   const int* max_nb_of, int count,
+                                   int* rows, int* max_nb) {
+  *rows = 0;
+  *max_nb = 0;
+  for (int i = 0; i < count; ++i) {
+    if (*rows == 0 && nb <= max_nb_of[i]) *rows = rows_of[i];
+    *max_nb = max_nb_of[i] > *max_nb ? max_nb_of[i] : *max_nb;
+  }
 }
 
 // The backward of rows [row0, row0 + R), for the head blockIdx.y, over keys
@@ -171,8 +192,9 @@ __device__ void attention_bwd_block(const BwdQueries& Q, const BwdKeys& K,
   constexpr int LPR = NT / R;           // lanes per row in the pair phase
   constexpr int RPW = 32 / LPR;         // rows per warp
   // (bin row, 4 channels) units of a table grad owned by each thread
-  constexpr int NU = (3 * kBwdMaxNb * (D / 4) + NT - 1) / NT;
+  constexpr int NU = (3 * bwd_nb_cap<R>() * (D / 4) + NT - 1) / NT;
   static_assert(LPR >= 4 && LPR <= 32, "R in [8, 64]");
+  static_assert(bwd_nb_cap<R>() <= 255, "bins are packed 8 bits per axis");
 
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_lo, s_hi;

@@ -11,8 +11,9 @@
 // base = (min(sb_start[t * tile], A - s_band) / 16) * 16; a row attends to
 // slots [sb_start, sb_end) of that window whose small-window key differs
 // from its own, both ends valid. Bins span the full table (nb = 64 in the
-// S3DIS configuration), so a block takes 32 rows of the tile, which keeps
-// its per-row masses and projections within shared memory. The block runs
+// S3DIS configuration, 80 in ScanNet's), so a block takes 32 rows of the
+// tile, or 16 for tables over 64 rows, which keeps its per-row masses and
+// projections within shared memory. The block runs
 // attention_bwd_block (attention_bwd_common.cuh: formulas, the projection
 // form, and how sums are ordered) over the window. Outputs: dq in lw order
 // (times scale); dk and dv per slot of the tile's window, [tiles * slices]
@@ -32,7 +33,11 @@
 
 namespace stratified {
 
-constexpr int kSparseBwdRows = 32;   // rows per block: 4 slices of a tile
+// Block heights the launcher offers, in order of preference: 32 rows (4
+// slices of a tile) for up to 64 table rows per axis (S3DIS's tables), 16
+// rows beyond that (ScanNet's 80).
+constexpr int kSparseBwdRows[] = {32, 16};
+constexpr int kSparseBwdShapes = 2;
 
 template <int D, int R>
 __global__ void __launch_bounds__(kBwdThreads, 1)
@@ -48,16 +53,54 @@ sparse_band_attention_bwd_kernel(BwdQueries Q, BwdKeys K, BwdTables T,
                             base + s_band, base, s_band, scale);
 }
 
+template <int R>
+cudaError_t sparse_bwd_max_nb(int* max_nb) {
+  size_t room = 0;
+  const cudaError_t err =
+      smem_room(sparse_band_attention_bwd_kernel<16, R>, &room);
+  if (err == cudaSuccess) *max_nb = bwd_max_nb<16, R>(room);
+  return err;
+}
+
+// Rows per block for nb table rows per axis (0 if no block takes them) and
+// the most rows per axis that any block takes on the current device.
+inline cudaError_t sparse_bwd_rows(int nb, int* rows, int* max_nb) {
+  int fit[kSparseBwdShapes];
+  cudaError_t err = sparse_bwd_max_nb<32>(&fit[0]);
+  if (err == cudaSuccess) err = sparse_bwd_max_nb<16>(&fit[1]);
+  if (err == cudaSuccess)
+    bwd_pick_rows(nb, kSparseBwdRows, fit, kSparseBwdShapes, rows, max_nb);
+  return err;
+}
+
+template <int R>
+cudaError_t sparse_bwd_launch(const BwdQueries& Q, const BwdKeys& K,
+                              const BwdTables& T, const BwdOutputs& O,
+                              int n, int a_sz, int h, int tile, int s_band,
+                              float scale, cudaStream_t stream) {
+  const size_t smem = BwdSmem<16, R>(T.nb).bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      sparse_band_attention_bwd_kernel<16, R>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(n / R, h);
+  sparse_band_attention_bwd_kernel<16, R><<<grid, kBwdThreads, smem,
+                                            stream>>>(
+      Q, K, T, O, a_sz, h, tile, s_band, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace stratified
 
 // C entry point, bound with ctypes. Query arrays are in lw order (q_lw
 // pre-scaled, g/o [N,H,D], m/den [N,H] merged over both halves); aux arrays
 // have A rows (k_aux/v_aux [A,H,D], zero in empty slots); s_band <= A; the
-// tables are [H,3,nb,D] fp32 or null. dk_part/dv_part ([N / 32][s_band]
-// [H][D]) must be zeroed by the caller; dt_part is [N / 32][H][3][3][nb]
-// [D]. Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
-// for a head size other than 16, a tile that is not a multiple of 32, or
-// more table rows per axis than sparse_band_attention_bwd_limits gives).
+// tables are [H,3,nb,D] fp32 or null. With R the rows per block that
+// sparse_band_attention_bwd_limits gives for nb, dk_part/dv_part ([N / R]
+// [s_band][H][D]) must be zeroed by the caller; dt_part is [N / R][H][3][3]
+// [nb][D]. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a head size other than 16, a tile that is not
+// a multiple of R, or more table rows per axis than any block takes).
 extern "C" int sparse_band_attention_bwd(
     const float* q_lw, const float* g_lw, const float* o_lw,
     const float* m_lw, const float* den_lw, const float* xyz_lw,
@@ -69,44 +112,33 @@ extern "C" int sparse_band_attention_bwd(
     int d, int tile, int s_band, int nb, float bin_offset, float inv_quant,
     float scale, void* stream) {
   using namespace stratified;
-  constexpr int R = kSparseBwdRows;
-  size_t room = 0;
-  cudaError_t err =
-      smem_room(sparse_band_attention_bwd_kernel<16, R>, &room);
+  int rows = 0, max_nb = 0;
+  const cudaError_t err = sparse_bwd_rows(nb, &rows, &max_nb);
   if (err != cudaSuccess) return static_cast<int>(err);
   // Every stage of the ported configurations has D = 16; instantiate more
   // head sizes when a configuration needs them.
-  if (d != 16 || tile <= 0 || tile % R != 0 || n % tile != 0 || nb < 0 ||
-      nb > bwd_max_nb<16, R>(room))
+  if (d != 16 || rows == 0 || tile <= 0 || tile % rows != 0 ||
+      n % tile != 0 || nb < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdQueries Q{q_lw, g_lw, o_lw, m_lw, den_lw, xyz_lw, valid_lw,
                      sb_start, sb_end, skey_lw};
   const BwdKeys K{k_aux, v_aux, xyz_aux, valid_aux, skey_aux};
   const BwdTables T{tq, tk, tv, nb, 0, nb, bin_offset, inv_quant};
   const BwdOutputs O{dq_lw, dk_part, dv_part, dt_part};
-  const size_t smem = BwdSmem<16, R>(nb).bytes();
-  err = cudaFuncSetAttribute(
-      sparse_band_attention_bwd_kernel<16, R>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(n / R, h);
-  sparse_band_attention_bwd_kernel<16, R><<<
-      grid, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      Q, K, T, O, a_sz, h, tile, s_band, scale);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows == 32)
+    return static_cast<int>(sparse_bwd_launch<32>(
+        Q, K, T, O, n, a_sz, h, tile, s_band, scale, st));
+  return static_cast<int>(sparse_bwd_launch<16>(
+      Q, K, T, O, n, a_sz, h, tile, s_band, scale, st));
 }
 
-// Rows per block, and the most table rows per axis that the entry point
-// takes on the current device: kBwdMaxNb = 64 on the H100, where the
-// block's shared memory would fit 78. Returns a cudaError_t.
-extern "C" int sparse_band_attention_bwd_limits(int* rows, int* max_nb) {
-  using namespace stratified;
-  constexpr int R = kSparseBwdRows;
-  size_t room = 0;
-  const cudaError_t err =
-      smem_room(sparse_band_attention_bwd_kernel<16, R>, &room);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *rows = R;
-  *max_nb = bwd_max_nb<16, R>(room);
-  return 0;
+// The rows per block that sparse_band_attention_bwd takes for nb table rows
+// per axis (0 if none), and the most table rows per axis that any of its
+// blocks takes on the current device: on the H100, 32 rows up to 64 (the
+// cap of that block; S3DIS's tables have 64), 16 rows up to 116 (ScanNet's
+// 80). Returns a cudaError_t.
+extern "C" int sparse_band_attention_bwd_limits(int nb, int* rows,
+                                                int* max_nb) {
+  return static_cast<int>(stratified::sparse_bwd_rows(nb, rows, max_nb));
 }

@@ -1,8 +1,12 @@
-"""Datasets (the JAX package's ``data/datasets.py``): the S3DIS reader,
-the whole-scene listing of S3DIS rooms, and synthetic room-like scenes.
+"""Datasets (the JAX package's ``data/datasets.py``): the S3DIS and
+ScanNetv2 readers, the whole-scene listings of their scenes, and synthetic
+room-like scenes.
 
 S3DIS rooms are ``.npy`` arrays of xyz, rgb (0-255) and label columns, one
 room per file, named ``Area_<n>_<room>.npy`` (reference ``util/s3dis.py``).
+ScanNetv2 scenes are ``.pth`` tuples ``(coords, colors in [-1, 1],
+labels)``, one scene per file under ``<data_root>/<split>/`` (reference
+``util/scannet_v2.py``).
 The synthetic scenes (floor, two walls and a few boxes at configurable
 density, with geometry-correlated labels and color cues) let the tests and
 the chip smoke run work without the license-gated datasets.
@@ -10,6 +14,7 @@ the chip smoke run work without the license-gated datasets.
 
 from __future__ import annotations
 
+import glob
 import os
 import threading
 
@@ -83,6 +88,65 @@ def s3dis_scenes(data_root, test_area=5):
                        if f"Area_{test_area}" in i):
         d = np.load(os.path.join(data_root, item + ".npy"))
         scenes.append((item, d[:, :3], d[:, 3:6], d[:, 6].astype(np.int64)))
+    return scenes
+
+
+class Scannetv2:
+    """Training / validation samples of ScanNetv2 scenes (reference
+    ``util/scannet_v2.py:13-52``; ``datasets.py:86-123``): the ``.pth``
+    files of ``<data_root>/<split>`` (``trainval``: train and val), in name
+    order, each voxelized, cropped and prepared by `data_prepare` with its
+    colours as they are (``feat_scale`` 1)."""
+
+    def __init__(self, split="train", data_root="scannetv2", voxel_size=0.02,
+                 voxel_max=None, transform=None, shuffle_index=False, loop=1,
+                 seed=0):
+        self.split = split
+        self.voxel_size = voxel_size
+        self.voxel_max = voxel_max
+        self.transform = transform
+        self.shuffle_index = shuffle_index
+        self.loop = loop
+        if split in ("train", "val", "test"):
+            dirs = [os.path.join(data_root, split)]
+        elif split == "trainval":
+            dirs = [os.path.join(data_root, "train"),
+                    os.path.join(data_root, "val")]
+        else:
+            raise ValueError(split)
+        self.files = sorted(
+            f for d in dirs for f in glob.glob(os.path.join(d, "*.pth")))
+        self._rng = _VisitRng(seed)
+
+    def __len__(self):
+        return len(self.files) * self.loop
+
+    def __getitem__(self, idx):
+        import torch
+
+        coord, feat, label = torch.load(self.files[idx % len(self.files)],
+                                        weights_only=False)[:3]
+        rng = self._rng.for_item(idx)
+        return data_prepare(
+            np.asarray(coord), np.asarray(feat), np.asarray(label),
+            self.split, self.voxel_size, self.voxel_max, feat_scale=1.0,
+            rng=rng, transform=self.transform, transform_rng=rng,
+            shuffle_index=self.shuffle_index)
+
+
+def scannet_scenes(data_root):
+    """Whole validation scenes for whole-scene evaluation (``test.py:
+    168-176``): ``(name, xyz, colors in [-1, 1], int64 labels)`` per
+    ``.pth`` file of ``<data_root>/val``, in name order."""
+    import torch
+
+    root = os.path.join(data_root, "val")
+    scenes = []
+    for f in sorted(os.listdir(root)):
+        if f.endswith(".pth"):
+            d = torch.load(os.path.join(root, f), weights_only=False)
+            scenes.append((f[:-4], np.asarray(d[0]), np.asarray(d[1]),
+                           np.asarray(d[2]).astype(np.int64)))
     return scenes
 
 

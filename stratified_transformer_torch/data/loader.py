@@ -1,10 +1,11 @@
 """Batches: datasets -> host batches -> device tensors.
 
 `build_dataset` and `BatchLoader` are the JAX training driver's
-(``train.py:113-302``): a map-style dataset (S3DIS rooms or synthetic
-rooms) read in batches of ``batch_size`` scenes, each batch the collated
-scenes, the KPConv stem's radius neighbours and the host geometry pyramid,
-built ahead of the training step by an ordered pool of threads.
+(``train.py:113-302``): a map-style dataset (S3DIS rooms, ScanNetv2 scenes
+or synthetic rooms) read in batches of ``batch_size`` scenes, each batch
+the collated scenes, the KPConv stem's radius neighbours and the host
+geometry pyramid, built ahead of the training step by an ordered pool of
+threads.
 `host_batch` builds one such batch from synthetic rooms directly; with
 ``train=True`` each scene is first augmented by the train loader's four
 transforms. `to_device` moves a batch onto the card as int64/float32/bool
@@ -21,7 +22,8 @@ import torch
 
 from stratified_transformer_torch.data.collate import (
     collate_scenes, mix3d_pairs, with_stem_neighbors)
-from stratified_transformer_torch.data.datasets import S3DIS, SyntheticRooms
+from stratified_transformer_torch.data.datasets import (
+    S3DIS, Scannetv2, SyntheticRooms)
 from stratified_transformer_torch.data.prepare import with_xyz_concat
 from stratified_transformer_torch.data.pyramid import build_geometry_pyramid
 from stratified_transformer_torch.data.transforms import train_transform
@@ -31,22 +33,32 @@ from stratified_transformer_torch.device import resolve_device
 def build_dataset(cfg, split):
     """The ``split`` ("train" or "val") dataset of the flattened YAML
     ``cfg`` (``train.py:113-161``): ``data_name`` s3dis (the ``.npy`` rooms
-    under ``data_root``, points shuffled, ``loop`` passes for training) or
-    synthetic (``synthetic_scenes`` rooms of ``synthetic_points`` points,
-    seed 0 for training and 10000 for validation); training items are
-    augmented when ``aug`` is set."""
+    under ``data_root``, points shuffled, ``loop`` passes for training),
+    scannetv2 (the ``.pth`` scenes of ``data_root``'s ``train`` directory
+    for training, of ``val`` otherwise; points shuffled, ``loop`` passes for
+    training) or synthetic (``synthetic_scenes`` rooms of
+    ``synthetic_points`` points, seed 0 for training and 10000 for
+    validation); training items are augmented when ``aug`` is set."""
     name = cfg.get("data_name", "synthetic")
     voxel_max = cfg.get("voxel_max")
     tfm = (train_transform(cfg)
            if bool(cfg.get("aug", False)) and split == "train" else None)
+    if name in ("s3dis", "scannetv2") and not cfg.get("data_root"):
+        raise ValueError(f"data_name {name} needs data_root, the directory "
+                         + ("of the .npy rooms" if name == "s3dis" else
+                            "holding train/ and val/ .pth scenes"))
     if name == "s3dis":
-        if not cfg.get("data_root"):
-            raise ValueError("data_name s3dis needs data_root, the directory "
-                             "of the .npy rooms")
         return S3DIS(
             split=split, data_root=cfg["data_root"],
             test_area=cfg.get("test_area", 5),
             voxel_size=cfg.get("voxel_size", 0.04), voxel_max=voxel_max,
+            transform=tfm, shuffle_index=True,
+            loop=cfg.get("loop", 1) if split == "train" else 1)
+    if name == "scannetv2":
+        return Scannetv2(
+            split="train" if split == "train" else "val",
+            data_root=cfg["data_root"],
+            voxel_size=cfg.get("voxel_size", 0.02), voxel_max=voxel_max,
             transform=tfm, shuffle_index=True,
             loop=cfg.get("loop", 1) if split == "train" else 1)
     if name == "synthetic":
@@ -56,10 +68,9 @@ def build_dataset(cfg, split):
             voxel_size=cfg.get("voxel_size", 0.04), voxel_max=voxel_max,
             num_classes=int(cfg.get("classes", 13)), transform=tfm,
             seed=0 if split == "train" else 10_000, split=split)
-    if name in ("scannetv2", "dcf"):
-        raise ValueError(f"data_name {name!r} is not ported yet (ROADMAP "
-                         "queue 1 item "
-                         f"{2 if name == 'scannetv2' else 3})")
+    if name == "dcf":
+        raise ValueError("data_name 'dcf' is not ported yet (ROADMAP queue 1 "
+                         "item 3)")
     raise ValueError(name)
 
 
@@ -173,24 +184,31 @@ def finish_batch(b, cfg, pyramid=True):
 
 
 def example_batch(n_pad, num_scenes, seed=0, transform=None,
-                  transform_rng=None):
+                  transform_rng=None, *, ignore_label=255, voxel_size=0.04,
+                  extent=4.0, points=None, voxel_max=None):
     """The JAX package's ``__graft_entry__._example_batch``: synthetic rooms
-    over-sampled ~28% so that after voxel dedup each scene still fills its
-    ``n_pad // num_scenes`` quota; ``transform`` augments each scene,
-    drawing from ``transform_rng``."""
+    of ``extent`` metres over-sampled ~28% so that after voxel dedup at
+    ``voxel_size`` each scene still fills its ``n_pad // num_scenes`` quota
+    (or ``points`` per room, cropped to ``voxel_max``); ``transform``
+    augments each scene, drawing from ``transform_rng``; pad rows take
+    ``ignore_label``."""
     ds = SyntheticRooms(
         num_scenes=num_scenes,
-        points=max(int(n_pad // num_scenes * 1.28), 512),
-        extent=4.0, voxel_size=0.04, voxel_max=n_pad // num_scenes,
+        points=points or max(int(n_pad // num_scenes * 1.28), 512),
+        extent=extent, voxel_size=voxel_size,
+        voxel_max=voxel_max or n_pad // num_scenes,
         seed=seed, transform=transform, transform_rng=transform_rng)
     scenes = [with_xyz_concat(ds[i]) for i in range(num_scenes)]
-    return collate_scenes(scenes, n_pad, num_scenes, ignore_label=255)
+    return collate_scenes(scenes, n_pad, num_scenes,
+                          ignore_label=ignore_label)
 
 
 def host_batch(cfg, seed=0, ignore_label=255, *, train=False, rng=None,
-               aug=None):
+               aug=None, voxel_size=0.04, extent=4.0, points=None,
+               voxel_max=None):
     """Numpy batch for `cfg`: ``feats/xyz/offsets/labels``, the stem
-    neighbours ``stem_nidx/stem_nmask`` and the ``pyramid``.
+    neighbours ``stem_nidx/stem_nmask`` and the ``pyramid``; the rooms and
+    the pad label as `example_batch` makes them.
 
     ``train=True`` augments every scene with `train_transform(aug)` (``aug``:
     the flattened YAML, for its ``jitter_sigma``... keys), drawing from the
@@ -203,9 +221,10 @@ def host_batch(cfg, seed=0, ignore_label=255, *, train=False, rng=None,
         if rng is None:
             raise ValueError("host_batch(train=True) needs a numpy Generator")
         transform = train_transform(aug)
-    return finish_batch(example_batch(cfg.n_pad, cfg.num_scenes, seed=seed,
-                                      transform=transform,
-                                      transform_rng=rng), cfg)
+    return finish_batch(example_batch(
+        cfg.n_pad, cfg.num_scenes, seed=seed, transform=transform,
+        transform_rng=rng, ignore_label=ignore_label, voxel_size=voxel_size,
+        extent=extent, points=points, voxel_max=voxel_max), cfg)
 
 
 def to_device(tree, device="cuda"):

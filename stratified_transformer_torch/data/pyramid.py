@@ -84,8 +84,8 @@ def build_geometry_pyramid(xyz, offsets, cfg):
              "knn_idx", "knn_mask"} (kNN of pooled points vs their level).
       up:    per Upsample (decoder order) — {"idx", "mask"} 3-NN of fine
              points vs coarse points.
-      stage_down: per transformer stage — {"is_down"} stratified member
-             mask at that stage's level.
+      stage_down: per transformer stage (``layer_start`` on) — {"is_down"}
+             stratified member mask at that stage's level.
     All shapes are static given cfg; padding is gather-safe.
     """
     xyz = np.asarray(xyz, np.float32)
@@ -126,9 +126,12 @@ def build_geometry_pyramid(xyz, offsets, cfg):
         up.append({"idx": np.where(up_mask, up_idx, 0).astype(np.int32),
                    "mask": up_mask})
 
-    # stratified member masks per transformer stage
+    # stratified member masks per transformer stage, from layer_start: with
+    # stem_transformer False, level 0 is the skip level and the stem_down
+    # TransitionDown (the first down level, at grid_sizes[0] * 2) leads to
+    # stage 1 (the JAX package's data/pyramid.py:133-139,179-201)
     stage_down = []
-    for i in range(cfg.num_layers):
+    for i in range(cfg.layer_start, cfg.num_layers):
         cur_xyz, cur_off, n_lvl = levels[i]
         cnts = np.diff(np.concatenate([[0], cur_off]))
         d_pad = n_lvl // cfg.downsample_scale + cfg.num_scenes

@@ -13,8 +13,10 @@ one), and runs every scene through `voting.evaluate_scene`: the TTA
 ensemble x vote chunks x sphere crops, each batch of crops one eval-mode
 forward without a host pyramid, so sampling and neighbour search run on the
 device. Logs each scene's accuracy, the per-class IoU table and
-``mIoU/mAcc/allAcc``. Scenes: ``data_name: synthetic`` (seed 999) or
-``s3dis`` (the ``.npy`` rooms of ``test_area`` under ``data_root``). Runs on
+``mIoU/mAcc/allAcc``. Scenes: ``data_name: synthetic`` (seed 999),
+``s3dis`` (the ``.npy`` rooms of ``test_area`` under ``data_root``) or
+``scannetv2`` (the ``.pth`` scenes of ``data_root``'s ``val`` directory,
+colours in [-1, 1]: five TTA passes, features not divided by 255). Runs on
 the card unless ``--device cpu`` is given.
 """
 
@@ -29,7 +31,7 @@ import torch
 
 from stratified_transformer_torch.config import from_cfg
 from stratified_transformer_torch.data.datasets import (
-    SyntheticRooms, s3dis_scenes)
+    SyntheticRooms, s3dis_scenes, scannet_scenes)
 from stratified_transformer_torch.device import resolve_device
 from stratified_transformer_torch.eval import voting
 from stratified_transformer_torch.models.stratified import build_model
@@ -70,19 +72,24 @@ def make_predict_probs(model):
 
 
 def scenes_of(yaml_cfg, num_classes):
-    """``(name, xyz, rgb 0-255, labels)`` of every scene to evaluate
-    (``test.py:159-185``)."""
+    """``(name, xyz, colours, labels)`` of every scene to evaluate
+    (``test.py:159-185``): rgb 0-255 for s3dis and synthetic scenes, [-1,
+    1] for scannetv2."""
     data_name = yaml_cfg.get("data_name", "synthetic")
+    if data_name in ("s3dis", "scannetv2") and not yaml_cfg.get("data_root"):
+        raise ValueError(f"data_name {data_name} needs data_root, the "
+                         "directory " + ("of the .npy rooms"
+                                         if data_name == "s3dis" else
+                                         "holding val/ .pth scenes"))
     if data_name == "s3dis":
-        if not yaml_cfg.get("data_root"):
-            raise ValueError("data_name s3dis needs data_root, the directory "
-                             "of the .npy rooms")
         return s3dis_scenes(yaml_cfg["data_root"],
                             yaml_cfg.get("test_area", 5))
+    if data_name == "scannetv2":
+        return scannet_scenes(yaml_cfg["data_root"])
     if data_name != "synthetic":
-        raise ValueError(f"data_name {data_name!r}: the port reads 's3dis' "
-                         "and 'synthetic' scenes (ScanNet is ROADMAP queue "
-                         "item 4)")
+        raise ValueError(f"data_name {data_name!r}: the port reads 's3dis', "
+                         "'scannetv2' and 'synthetic' scenes (DCF is ROADMAP "
+                         "queue 1 item 3)")
     ds = SyntheticRooms(
         num_scenes=int(yaml_cfg.get("synthetic_eval_scenes", 2)),
         points=int(yaml_cfg.get("synthetic_points", 20000)),
@@ -96,7 +103,7 @@ def run(yaml_cfg, device="cuda", log=print):
     per-scene ``scenes`` records (name, acc, seconds)."""
     if yaml_cfg.get("sharded", False):
         raise ValueError("sharded whole-scene inference (spatial blocks with "
-                         "halo exchange) is ROADMAP queue item 5; the port "
+                         "halo exchange) is ROADMAP queue 1 item 6; the port "
                          "runs the sphere-crop protocol (sharded: False)")
     dev = resolve_device(device)
     cfg = eval_config(yaml_cfg)
@@ -111,13 +118,17 @@ def run(yaml_cfg, device="cuda", log=print):
     predict_probs = make_predict_probs(model)
     voxel_max = yaml_cfg.get("voxel_max", 80000)
     ignore = int(yaml_cfg.get("ignore_label", 255))
+    # colours of s3dis and synthetic scenes are rgb 0-255: the protocol
+    # divides them by 255 and adds the two shifted passes (test.py:187)
+    data_name = yaml_cfg.get("data_name", "synthetic")
+    vote_name = "s3dis" if data_name in ("s3dis", "synthetic") else data_name
     inter_sum, union_sum, target_sum = (np.zeros(ncls) for _ in range(3))
     records = []
     scenes = scenes_of(yaml_cfg, ncls)
     for si, (name, coord, feat, label) in enumerate(scenes):
         t0 = time.time()
         pred, _ = voting.evaluate_scene(
-            predict_probs, coord, feat, ncls, data_name="s3dis",
+            predict_probs, coord, feat, ncls, data_name=vote_name,
             voxel_size=yaml_cfg.get("voxel_size", 0.04), voxel_max=voxel_max,
             batch_size_test=cfg.num_scenes, n_pad=cfg.n_pad,
             num_scenes=cfg.num_scenes, concat_xyz=cfg.concat_xyz)

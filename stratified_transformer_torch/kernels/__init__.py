@@ -48,25 +48,32 @@ class CudaKernel:
 
 
 @functools.lru_cache(maxsize=None)
-def _limits(source, index):
+def _limits(source, index, nb):
     fn = getattr(build.load(source), f"{source}_limits")
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-    fn.restype = ctypes.c_int
     rows, max_nb = ctypes.c_int(), ctypes.c_int()
+    out = (ctypes.byref(rows), ctypes.byref(max_nb))
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    if nb is not None:
+        fn.argtypes = [ctypes.c_int] + fn.argtypes
+        out = (nb,) + out
+    fn.restype = ctypes.c_int
     with torch.cuda.device(index):
-        rc = fn(ctypes.byref(rows), ctypes.byref(max_nb))
+        rc = fn(*out)
     if rc != 0:
         raise RuntimeError(f"{source}_limits failed: cudaError_t {rc}")
     return rows.value, max_nb.value
 
 
-def block_limits(source, dev):
+def block_limits(source, dev, nb=None):
     """``(rows per block, most table rows per axis)`` of the attention
     kernel of ``csrc/<source>.cu`` on the CUDA device ``dev``, from its C
-    entry point ``<source>_limits``: the second is what the block's shared
-    memory fits on that device."""
+    entry point ``<source>_limits``: the second is the most that the
+    kernel's blocks fit in that device's shared memory. The backward
+    kernels offer several block heights and pick one by the table size:
+    give them ``nb``, the table rows per axis, and the first value is the
+    rows they launch with for it (0 beyond the limit)."""
     return _limits(source, dev.index if dev.index is not None
-                   else torch.cuda.current_device())
+                   else torch.cuda.current_device(), nb)
 
 
 def ptr(t):

@@ -41,16 +41,16 @@ def launch_args(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
     n, h, d = q.shape
     nb_full = num_bins(*tables)
     bin_lo, nb = band_table_slice(nb_full) if nb_full else (0, 0)
-    rows, max_nb = block_limits("band_attention_bwd", dev)
+    rows, max_nb = block_limits("band_attention_bwd", dev, nb)
+    if nb > max_nb:
+        raise ValueError(
+            f"band_attention_bwd: a band slice of {nb} table rows per axis "
+            f"(of {nb_full}) does not fit any block's shared memory on "
+            f"{dev}, which holds at most {max_nb}")
     if d not in HEAD_DIMS or tile <= 0 or n % tile or tile % rows:
         raise ValueError(
             f"band_attention_bwd: unsupported shape N={n}, d={d}, "
             f"tile={tile} (a multiple of {rows} rows)")
-    if nb > max_nb:
-        raise ValueError(
-            f"band_attention_bwd: a band slice of {nb} table rows per axis "
-            f"(of {nb_full}) does not fit a {rows}-row block's shared memory "
-            f"on {dev}, which holds at most {max_nb}")
     bin_offset, inv_quant = bin_constants(window_size, quant_size)
     f32 = torch.float32
     inputs = (

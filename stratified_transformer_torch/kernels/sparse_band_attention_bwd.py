@@ -40,15 +40,15 @@ def launch_args(q, k, v, sb, g, o, m, den, table_q=None, table_k=None,
         + tuple(sb))
     n, h, d = q.shape
     nb = num_bins(*tables)
-    rows, max_nb = block_limits("sparse_band_attention_bwd", dev)
+    rows, max_nb = block_limits("sparse_band_attention_bwd", dev, nb)
+    if nb > max_nb:
+        raise ValueError(
+            f"sparse_band_attention_bwd: {nb} table rows per axis exceed the "
+            f"{max_nb} that its blocks take on {dev}")
     if d not in HEAD_DIMS or tile <= 0 or n % tile or tile % rows:
         raise ValueError(
             f"sparse_band_attention_bwd: unsupported shape N={n}, d={d}, "
             f"tile={tile} (a multiple of {rows} rows)")
-    if nb > max_nb:
-        raise ValueError(
-            f"sparse_band_attention_bwd: {nb} table rows per axis exceed the "
-            f"{max_nb} that a {rows}-row block takes on {dev}")
     a_sz = sb.sb_src.shape[0]
     s = min(s_band, a_sz)
     bin_offset, inv_quant = bin_constants(window_size, quant_size)

@@ -3,7 +3,8 @@
 15 kernel points in a ball of radius ``1.5 * point_influence``, linear
 influence ``max(0, 1 - |x_n - x_q - k_p| / point_influence)``, "sum"
 aggregation, one ``(in, out)`` weight matrix per kernel point (reference
-stem ``model/stratified_transformer.py:344-392``).
+stem ``model/stratified_transformer.py:344-392``): `KPConvSimpleBlock`, and
+the residual `KPConvResBlock` that the ScanNet family adds after it.
 """
 
 from __future__ import annotations
@@ -87,3 +88,36 @@ class KPConvSimpleBlock(nn.Module):
     def forward(self, feats, xyz, neighbor_idx, neighbor_mask, valid):
         x = self.kpconv(feats, xyz, neighbor_idx, neighbor_mask)
         return F.leaky_relu(self.bn(x, valid), self.negative_slope)
+
+
+class KPConvResBlock(nn.Module):
+    """Bottleneck residual KPConv (reference :362-392; the JAX package's
+    ``models/kpconv.py:115-147``): ``unary1`` to ``out / 4`` channels -> BN
+    -> LeakyReLU -> KPConv -> ``unary2`` -> BN -> LeakyReLU, plus the input,
+    or its ``shortcut`` projection and BN where the channels differ. The
+    unaries are bias-free; every BN has momentum 0.02."""
+
+    def __init__(self, in_channels, out_channels, point_influence,
+                 negative_slope=0.2):
+        super().__init__()
+        d2 = out_channels // 4
+        self.negative_slope = negative_slope
+        self.unary1 = nn.Linear(in_channels, d2, bias=False)
+        self.bn1 = MaskedBatchNorm(d2, momentum=0.02)
+        self.kpconv = KPConv(d2, d2, point_influence)
+        self.unary2 = nn.Linear(d2, out_channels, bias=False)
+        self.bn2 = MaskedBatchNorm(out_channels, momentum=0.02)
+        if in_channels != out_channels:
+            self.shortcut = nn.Linear(in_channels, out_channels, bias=False)
+            self.bn_sc = MaskedBatchNorm(out_channels, momentum=0.02)
+
+    def forward(self, feats, xyz, neighbor_idx, neighbor_mask, valid):
+        def act(t):
+            return F.leaky_relu(t, self.negative_slope)
+
+        x = act(self.bn1(self.unary1(feats), valid))
+        x = self.kpconv(x, xyz, neighbor_idx, neighbor_mask)
+        x = act(self.bn2(self.unary2(x), valid))
+        if hasattr(self, "shortcut"):
+            return x + self.bn_sc(self.shortcut(feats), valid)
+        return x + feats

@@ -3,7 +3,11 @@
 398-502``).
 
 KPConv stem, U-Net encoder of `BasicLayer` stages with stratified window
-attention, ``TransitionDown``/``Upsample`` pyramid, classifier head. Flat
+attention, ``TransitionDown``/``Upsample`` pyramid, classifier head. With
+``stem_transformer`` False (the ScanNet family) a residual KPConv block
+follows the stem, the stem's level is a skip level only, and the
+``stem_down`` TransitionDown leads to the first transformer stage, stage 1
+(``models/stratified.py:312-351`` of the JAX package). Flat
 ``[N_pad]`` arrays + cumulative ``offsets``; per-stage attention plans are
 built once per shift parity and shared across the stage's blocks. The stem
 radius neighbours and the geometry pyramid (sample indices, kNN graphs,
@@ -26,7 +30,8 @@ from torch.nn import functional as F
 from stratified_transformer_torch.config import StratifiedConfig
 from stratified_transformer_torch.device import resolve_device
 from stratified_transformer_torch.models.attention import Block
-from stratified_transformer_torch.models.kpconv import KPConv, KPConvSimpleBlock
+from stratified_transformer_torch.models.kpconv import (
+    KPConv, KPConvResBlock, KPConvSimpleBlock)
 from stratified_transformer_torch.models.layers import (
     MaskedBatchNorm, TransitionDown, Upsample)
 from stratified_transformer_torch.ops import neighbors, sampling
@@ -140,15 +145,17 @@ def geometry_pyramid(cfg: StratifiedConfig, xyz, offsets):
     """The geometry pyramid computed on ``xyz``'s device, in the host
     pyramid's layout (``data/pyramid.py::build_geometry_pyramid``): the
     samplers and neighbour searches that the JAX package's model runs
-    inside ``BasicLayer``, ``TransitionDown`` and ``Upsample`` when it gets
-    no pyramid. They read the coordinates and offsets alone, so they run
+    inside ``BasicLayer``, ``TransitionDown`` (``stem_down`` included) and
+    ``Upsample`` when it gets no pyramid; member masks for the transformer
+    stages only. They read the coordinates and offsets alone, so they run
     before the first layer."""
     levels = [(xyz, offsets)]
     down, stage_down = [], []
     for i in range(cfg.num_layers):
         cur_xyz, cur_off = levels[-1]
-        stage_down.append({"is_down": _stage_members(cfg, i, cur_xyz,
-                                                     cur_off)})
+        if i >= cfg.layer_start:
+            stage_down.append({"is_down": _stage_members(cfg, i, cur_xyz,
+                                                         cur_off)})
         if i < cfg.num_layers - 1:
             level = _down_level(cfg, i, cur_xyz, cur_off)
             down.append(level)
@@ -197,6 +204,12 @@ class BasicLayer(nn.Module):
         return feats
 
 
+def down_name(cfg: StratifiedConfig, i):
+    """The module name of the TransitionDown out of level ``i``: the flax
+    names, ``stem_down`` out of the skip level, else ``down_<i>``."""
+    return "stem_down" if i < cfg.layer_start else f"down_{i}"
+
+
 class Stratified(nn.Module):
     def __init__(self, cfg: StratifiedConfig):
         super().__init__()
@@ -204,10 +217,15 @@ class Stratified(nn.Module):
         c = cfg.channels
         self.stem_0 = KPConvSimpleBlock(cfg.in_channels, c[0],
                                         cfg.grid_size * cfg.sigma)
+        if not cfg.stem_transformer:
+            self.stem_1 = KPConvResBlock(c[0], c[0],
+                                         cfg.grid_size * cfg.sigma)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", BasicLayer(cfg, i))
+            if i >= cfg.layer_start:
+                self.add_module(f"layer_{i}", BasicLayer(cfg, i))
             if i < cfg.num_layers - 1:
-                self.add_module(f"down_{i}", TransitionDown(c[i], c[i + 1]))
+                self.add_module(down_name(cfg, i),
+                                TransitionDown(c[i], c[i + 1]))
         for j in range(cfg.num_layers - 1):
             fine = cfg.num_layers - 2 - j
             self.add_module(f"up_{j}", Upsample(c[fine + 1], c[fine]))
@@ -234,15 +252,19 @@ class Stratified(nn.Module):
             pyramid = geometry_pyramid(cfg, xyz, offsets)
         valid = sampling.offsets_to_valid(offsets, n)
         feats = self.stem_0(feats, xyz, stem_nidx, stem_nmask, valid)
+        if not cfg.stem_transformer:
+            feats = self.stem_1(feats, xyz, stem_nidx, stem_nmask, valid)
 
         stack = []
         for i in range(cfg.num_layers):
-            feats = getattr(self, f"layer_{i}")(
-                feats, xyz, offsets, pyramid["stage_down"][i]["is_down"],
-                generator)
+            if i >= cfg.layer_start:
+                feats = getattr(self, f"layer_{i}")(
+                    feats, xyz, offsets,
+                    pyramid["stage_down"][i - cfg.layer_start]["is_down"],
+                    generator)
             stack.append((feats, xyz, offsets))
             if i < cfg.num_layers - 1:
-                feats, xyz, offsets = getattr(self, f"down_{i}")(
+                feats, xyz, offsets = getattr(self, down_name(cfg, i))(
                     feats, xyz, pyramid["down"][i])
 
         feats, xyz, offsets = stack.pop()

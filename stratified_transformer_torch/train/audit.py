@@ -80,20 +80,21 @@ def _stage_stats(xyz, offsets, is_down, *, ws, band, tile, s_band,
 
 @torch.no_grad()
 def audit_truncation_packed(cfg, batch):
-    """The counters of every stage of one batch with a host pyramid
-    (``xyz``, ``offsets``, ``pyramid`` on one device) as ONE int64 tensor
-    ``[num_layers, 6]`` on that device: row ``i`` is stage ``i``, columns in
-    `FIELDS` order. One tensor, one transfer when the loop reads it."""
+    """The counters of every transformer stage of one batch with a host
+    pyramid (``xyz``, ``offsets``, ``pyramid`` on one device) as ONE int64
+    tensor ``[num_layers - layer_start, 6]`` on that device: row ``r`` is
+    stage ``layer_start + r`` at pyramid level ``layer_start + r``, columns
+    in `FIELDS` order. One tensor, one transfer when the loop reads it."""
     pyramid = batch["pyramid"]
     levels = [(batch["xyz"], batch["offsets"])]
     for lvl in pyramid["down"]:
         levels.append((levels[-1][0][lvl["idx"].long()], lvl["offsets"]))
     rows = []
-    for i in range(cfg.num_layers):
+    for r, i in enumerate(range(cfg.layer_start, cfg.num_layers)):
         lx, loff = levels[i]
         d_pad = lx.shape[0] // cfg.downsample_scale + cfg.num_scenes
         rows.append(_stage_stats(
-            lx, loff.long(), pyramid["stage_down"][i]["is_down"],
+            lx, loff.long(), pyramid["stage_down"][r]["is_down"],
             ws=cfg.window_sizes()[i], band=cfg.stage_band(i), tile=cfg.tile,
             s_band=cfg.s_band, sparse_cap=cfg.sparse_cap,
             aux_pad=((d_pad + 127) // 128) * 128))
@@ -101,9 +102,10 @@ def audit_truncation_packed(cfg, batch):
 
 
 def unpack_truncation(cfg, arr):
-    """numpy ``[num_layers, 6]`` -> ``{stage_i: {field: int}}``, the JAX
-    package's ``audit_truncation`` dict."""
-    keys = [f"stage_{i}" for i in range(cfg.num_layers)]
+    """numpy ``[stages, 6]`` -> ``{stage_i: {field: int}}`` for the stages
+    ``layer_start..num_layers-1``, the JAX package's ``audit_truncation``
+    dict."""
+    keys = [f"stage_{i}" for i in range(cfg.layer_start, cfg.num_layers)]
     return {k: {f: int(arr[si, fi]) for fi, f in enumerate(FIELDS)}
             for si, k in enumerate(sorted(keys))}
 

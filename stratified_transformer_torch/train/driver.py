@@ -6,12 +6,12 @@ loop (``train.py:355-675``) on one device.
 
 Reads the YAML (``key value`` pairs override it, as for ``train.py``),
 builds the model from ``config.from_cfg`` in training mode, the train and
-(with ``evaluate``) validation loaders over ``data_name`` s3dis or
-synthetic rooms, AdamW with the x0.1 ``blocks`` LR, the YAML's schedule and
-``max_grad_norm``, and trains ``epochs`` epochs from ``start_epoch`` or
-from the checkpoint ``resume`` (a ``.pt`` file or a ``ckpt`` directory,
-whose latest epoch is read). Each iteration dispatches the step, takes the
-next host batch from the loader while the device runs, reads the step's
+(with ``evaluate``) validation loaders over ``data_name`` s3dis,
+scannetv2 or synthetic rooms, AdamW with the x0.1 ``blocks`` LR, the
+YAML's schedule and ``max_grad_norm``, and trains ``epochs`` epochs from
+``start_epoch`` or from the checkpoint ``resume`` (a ``.pt`` file or a
+``ckpt`` directory, whose latest epoch is read). Each iteration
+dispatches the step, takes the next host batch from the loader while the device runs, reads the step's
 statistics in one transfer and uploads the next batch. Logs ``train.py``'s
 lines (per-iteration loss, points per second and, every ``print_freq x
 audit_freq`` iterations, the truncation audit; per epoch the train mIoU,

@@ -40,7 +40,7 @@ RTOL, ATOL = 5e-4, 5e-5
 NAMES = ("q", "k", "v", "tq", "tk", "tv")
 
 
-def _case(seed, with_rpe, n_valid=100, n_pad=128, ws=0.5):
+def _case(seed, with_rpe, n_valid=100, n_pad=128, ws=0.5, quant=QUANT):
     rng = np.random.default_rng(seed)
     xyz = rng.uniform(0, 2, (n_pad, 3)).astype(np.float32)
     batch = np.sort(rng.integers(0, 2, n_valid)).astype(np.int32)
@@ -49,7 +49,7 @@ def _case(seed, with_rpe, n_valid=100, n_pad=128, ws=0.5):
     q, k, v, g = (rng.normal(size=(n_pad, H, D)).astype(np.float32)
                   for _ in range(4))
     is_down = (rng.uniform(size=n_pad) < 0.4) & valid
-    nbins = 2 * int((2 * ws + 1e-4) // QUANT)
+    nbins = 2 * int((2 * ws + 1e-4) // quant)
     tables = tuple(
         (rng.normal(size=(nbins, H, D, 3)) * 0.05).astype(np.float32)
         if with_rpe else None for _ in range(3))
@@ -145,6 +145,42 @@ def test_sparse_bwd_plain_matches_pallas(with_rpe):
                                     **kw, s_band=S_BAND, tile=TILE)
     _assert_grads(got, want)
     assert float(got[1].abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("half", ["band", "sparse"])
+def test_bwd_plain_matches_pallas_at_scannet_table_rows(half):
+    """ScanNet's table size, 80 rows per axis (window 5 x 0.02 m, quant
+    0.005; here window 0.5, quant 0.025, the same count), so a band slice of
+    48 rows: both plain backward versions against the Pallas kernels."""
+    quant = 0.025
+    jp, tp, qkv, tables, g = _case(6, True, quant=quant)
+    assert tables[0].shape[0] == 80
+    assert torch_attn.band_table_slice(80)[1] == 48
+    kw = dict(window_size=0.5, quant_size=quant, scale=SCALE)
+    out, m, den = _residuals(tp, qkv, tables, kw, BAND)
+    res = (g, out.numpy(), m.numpy(), den.numpy())
+    if half == "band":
+        want = jax_band_bwd(*map(_jnp, qkv), jp.xyz_sorted, jp.seg_start,
+                            jp.seg_end, jp.valid_sorted, *map(_jnp, res),
+                            *map(_jnp, tables), **kw, band=BAND, tile=TILE,
+                            w_chunk=WCHUNK, interpret=True)
+        got = band_attention_bwd(*map(_torch, qkv), tp.xyz_sorted,
+                                 tp.seg_start, tp.seg_end, tp.valid_sorted,
+                                 *map(_torch, res), *map(_torch, tables),
+                                 **kw, band=BAND, tile=TILE)
+    else:
+        want = jax_sparse_bwd(*map(_jnp, qkv), jp.sparse_band,
+                              *map(_jnp, res), *map(_jnp, tables), **kw,
+                              s_band=S_BAND, tile=TILE, w_chunk=WCHUNK,
+                              interpret=True)
+        got = sparse_band_attention_bwd(*map(_torch, qkv), tp.sparse_band,
+                                        *map(_torch, res),
+                                        *map(_torch, tables), **kw,
+                                        s_band=S_BAND, tile=TILE)
+    _assert_grads(got, want)
+    assert float(got[1].abs().max()) > 1e-2
+    # the table grads reach rows of the whole table
+    assert float(got[4].abs().max()) > 0
 
 
 def _function_grads(tp, qkv, tables, g, kw, plain=False):

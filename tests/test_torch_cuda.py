@@ -1,6 +1,6 @@
 """CUDA kernels of the PyTorch port (attention forward and backward, the two
-probes) against their plain PyTorch versions, and the forward kernels'
-limits, empty rows and determinism.
+probes) against their plain PyTorch versions, and the kernels' limits,
+empty rows and determinism.
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for the card
 and is skipped where there is none. Run them on a GPU machine with
@@ -392,31 +392,114 @@ def test_bwd_kernels_are_deterministic(cuda_device):
         assert torch.equal(a, b)
 
 
+# ScanNet's 80-bin tables (grid 0.02, window 5 x 0.02, quant 0.005; here
+# window 0.4, quant 0.02, the same bins): a band slice of 48 rows per axis
+# and 80 for the far keys
+SCANNET_TABLES = dict(ws=0.4, quant=0.02)
+
+
 @pytest.mark.cuda
-def test_bwd_kernels_refuse_tables_beyond_shared_memory(cuda_device):
-    """A block's shared memory bounds the table rows per axis: the band
-    slice of S3DIS's 64-bin tables (40 rows) fits a 64-row block, the
-    sparse half's full 64 rows a 32-row block. ScanNet's 80-bin tables
-    (grid 0.02, window 5 x 0.02, quant 0.005; band slice 48) fit neither,
-    and the wrappers refuse them before any launch."""
+def test_bwd_kernels_pick_block_rows_by_table_size(cuda_device):
+    """``<source>_limits`` gives the rows a launch takes for a table size:
+    S3DIS's band slice (40) keeps 64-row blocks and its 64 far-key rows
+    32-row blocks; ScanNet's band slice (48) takes 32-row blocks and its 80
+    far-key rows 16-row blocks."""
     from stratified_transformer_torch.kernels import block_limits
-    rows, max_nb = block_limits("band_attention_bwd", cuda_device)
-    assert rows == 64 and 40 <= max_nb < 48
-    assert block_limits("sparse_band_attention_bwd", cuda_device) == (32, 64)
+    assert plain.band_table_slice(64)[1] == 40
     assert plain.band_table_slice(80)[1] == 48
+    assert block_limits("band_attention_bwd", cuda_device, 40)[0] == 64
+    assert block_limits("band_attention_bwd", cuda_device, 48)[0] == 32
+    assert block_limits("sparse_band_attention_bwd", cuda_device, 64)[0] == 32
+    assert block_limits("sparse_band_attention_bwd", cuda_device, 80)[0] == 16
+    for name in ("band_attention_bwd", "sparse_band_attention_bwd"):
+        assert block_limits(name, cuda_device, 0)[1] >= 80
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_rpe", [False, True])
+def test_bwd_kernels_match_plain_at_scannet_table_sizes(cuda_device,
+                                                        with_rpe):
+    plan, qkv, tables, kw, res = _bwd_case(cuda_device, with_rpe, 256, 12,
+                                           **SCANNET_TABLES)
+    if with_rpe:
+        assert tables[0].shape[0] == 80
+    args = _band_bwd_args(plan, qkv, tables, res)
+    before = (band_bwd_k.KERNEL.launches, sparse_bwd_k.KERNEL.launches)
+    with torch.no_grad():
+        got = band_bwd_k.band_attention_bwd(*args, **kw, band=256, tile=128)
+        want = plain.band_attention_bwd_plain(*args, **kw, band=256,
+                                              tile=128)
+        got_s = sparse_bwd_k.sparse_band_attention_bwd(
+            *qkv, plan.sparse_band, *res, *tables, **kw, s_band=64,
+            tile=128)
+        want_s = plain.sparse_band_attention_bwd_plain(
+            *qkv, plan.sparse_band, *res, *tables, **kw, s_band=64,
+            tile=128)
+    torch.cuda.synchronize()
+    assert (band_bwd_k.KERNEL.launches,
+            sparse_bwd_k.KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    _assert_grads(got, want)
+    _assert_grads(got_s, want_s)
+    assert float(want[1].abs().max()) > 1e-2
+    assert float(want_s[1].abs().max()) > 1e-2
+
+
+@pytest.mark.cuda
+def test_bwd_kernels_are_deterministic_at_scannet_table_sizes(cuda_device):
+    """As `test_bwd_kernels_are_deterministic`, with 80-row tables: the
+    32-row band and 16-row sparse blocks sum in a fixed order too."""
+    plan, qkv, tables, kw, res = _bwd_case(cuda_device, True, 256, 13,
+                                           **SCANNET_TABLES)
+    args = _band_bwd_args(plan, qkv, tables, res)
+    launches = {
+        "band": (band_bwd_k, lambda: band_bwd_k.launch_args(
+            *args, **kw, band=256, tile=128)),
+        "sparse": (sparse_bwd_k, lambda: sparse_bwd_k.launch_args(
+            *qkv, plan.sparse_band, *res, *tables, **kw, s_band=64,
+            tile=128)),
+    }
+    with torch.no_grad():
+        for name, (mod, make) in launches.items():
+            outs = []
+            for _ in range(2):
+                largs, out, _inputs = make()
+                mod.KERNEL(*largs)
+                torch.cuda.synchronize()
+                outs.append(out)
+            for o_name, a, b in zip(("dq", "dk_part", "dv_part", "dt_part"),
+                                    *outs):
+                assert torch.equal(a, b), (name, o_name)
+
+
+@pytest.mark.cuda
+def test_bwd_kernels_refuse_tables_beyond_their_limits(cuda_device):
+    """Beyond the most table rows per axis that any block takes
+    (``<source>_limits``), the wrappers raise before any launch."""
+    from stratified_transformer_torch.kernels import block_limits
+    band_max = block_limits("band_attention_bwd", cuda_device, 0)[1]
+    sparse_max = block_limits("sparse_band_attention_bwd", cuda_device, 0)[1]
+    assert block_limits("band_attention_bwd", cuda_device,
+                        band_max + 1)[0] == 0
+    nbf = next(b for b in range(2, 4096, 2)
+               if plain.band_table_slice(b)[1] > band_max)
     plan, qkv, tables, kw, res = _bwd_case(cuda_device, True, 128, 6)
     gen = torch.Generator().manual_seed(6)
-    big = tuple(torch.randn((80,) + t.shape[1:], generator=gen).to(
-        cuda_device) * 0.05 for t in tables)
+
+    def big(rows):
+        return tuple(torch.randn((rows,) + t.shape[1:], generator=gen).to(
+            cuda_device) * 0.05 for t in tables)
+
     before = (band_bwd_k.KERNEL.launches, sparse_bwd_k.KERNEL.launches)
     with torch.no_grad():
         with pytest.raises(ValueError, match="shared memory"):
-            band_bwd_k.band_attention_bwd(*_band_bwd_args(plan, qkv, big, res),
-                                          **kw, band=128, tile=128)
-        with pytest.raises(ValueError, match="80 table rows"):
-            sparse_bwd_k.sparse_band_attention_bwd(
-                *qkv, plan.sparse_band, *res, *big, **kw, s_band=64,
+            band_bwd_k.band_attention_bwd(
+                *_band_bwd_args(plan, qkv, big(nbf), res), **kw, band=128,
                 tile=128)
+        with pytest.raises(ValueError,
+                           match=f"{sparse_max + 2} table rows"):
+            sparse_bwd_k.sparse_band_attention_bwd(
+                *qkv, plan.sparse_band, *res, *big(sparse_max + 2), **kw,
+                s_band=64, tile=128)
     assert (band_bwd_k.KERNEL.launches,
             sparse_bwd_k.KERNEL.launches) == before
 

@@ -128,15 +128,17 @@ def test_chip_smoke_refuses_unknown_arguments_or_a_missing_card(capsys):
     (["--scene-only"], "--scene-only"),
     (["--loop-only"], "--loop-only"),
     (["--iou-only"], "--iou-only"),
+    (["--scannet-only"], "--scannet-only"),
 ])
 def test_parse_args_picks_the_phase_run_alone(argv, want):
     assert chip_smoke.parse_args(argv) == want
     if want is not None:
         # the kernels it builds: the forward pair for phases 4 and 10 and
-        # the IoU timing, all four attention kernels for phase 11
+        # the IoU timing, all four attention kernels for phases 11 and 12
+        both = chip_smoke.FWD_KERNELS + chip_smoke.BWD_KERNELS
         assert chip_smoke.PHASE_ONLY[want] == {
-            "--bwd-only": chip_smoke.BWD_KERNELS,
-            "--loop-only": chip_smoke.FWD_KERNELS + chip_smoke.BWD_KERNELS,
+            "--bwd-only": chip_smoke.BWD_KERNELS, "--loop-only": both,
+            "--scannet-only": both,
         }.get(want, chip_smoke.FWD_KERNELS)
 
 
@@ -166,7 +168,7 @@ def test_parse_args_refuses_anything_else(argv):
 
 @pytest.mark.parametrize("flag", ["--fwd-only", "--bwd-only",
                                   "--scene-only", "--loop-only",
-                                  "--iou-only"])
+                                  "--iou-only", "--scannet-only"])
 def test_phase_only_runs_need_a_card(flag, capsys):
     if torch.cuda.is_available():
         pytest.skip("checks the run without a card")
@@ -202,3 +204,44 @@ def test_fwd_bytes_counts_far_keys_at_the_aux_slots():
     assert chip_smoke.fwd_bytes("band_attention", (q, k, v), outs, sb) == full
     assert chip_smoke.fwd_bytes("sparse_band_attention", (q, k, v), outs,
                                 sb) == full - 2 * (n - a) * h * d * 4
+
+
+SCANNET_NARROW = dict(channels=(16, 16, 32, 64, 64), num_heads=(1, 1, 2, 4, 4),
+                      depths=(3, 1, 1, 2, 1), n_pad=2048, num_scenes=2)
+
+
+def test_log_pairs_counts_the_scannet_stages(capsys):
+    """Phase 12's ScanNet configuration: transformer stages 1-4 over the
+    host pyramid's levels 1-4 (level 0 is the stem's skip level), and one
+    launch of each kernel per block of stages 1-4 only."""
+    cfg = load_config(chip_smoke.SCANNET_CONFIG, **SCANNET_NARROW)
+    assert cfg.layer_start == 1 and chip_smoke.attention_blocks(cfg) == 5
+    hb = host_batch(cfg, seed=0, **dict(chip_smoke.SCANNET_ROOMS,
+                                        points=1300, voxel_max=1000))
+    levels = chip_smoke.stage_levels(cfg, hb)
+    assert levels[0][2] is None
+    assert [len(lv[2]) for lv in levels[1:]] == [len(lv[0])
+                                                 for lv in levels[1:]]
+    chip_smoke.log_pairs("scannet batch 0", cfg, hb, "cpu")
+    parts = capsys.readouterr().out.strip().split(": ", 1)[1].split("; ")
+    assert [p.split(":")[0] for p in parts] == [
+        f"stage {i}" for i in range(1, 5)]
+
+
+def test_stem_key_bound_covers_the_cell_keys():
+    """The bound is slots x the batch's cells (2.5-grid cells) less one, at
+    or above every key the stem's cell list gives a point."""
+    from stratified_transformer_torch.ops import hashing, sampling
+    cfg = load_config(chip_smoke.SCANNET_CONFIG, **SCANNET_NARROW)
+    g = torch.Generator().manual_seed(0)
+    xyz = torch.rand(2048, 3, generator=g) * torch.tensor([1.0, 2.0, 0.5])
+    offsets = torch.tensor([900, 1700])
+    bound = chip_smoke.stem_key_bound(cfg, xyz, offsets)
+    valid = sampling.offsets_to_valid(offsets, 2048)
+    cells = hashing.window_cells(xyz, 0.05, start=hashing.masked_min(
+        xyz, valid))
+    keys = hashing.window_keys(cells, sampling.offsets_to_batch(offsets, 2048),
+                               valid)
+    hi = cells[:1700].max(0).values + 1
+    assert bound == 2 * int(hi.prod()) - 1
+    assert int(keys[valid].max()) <= bound

@@ -150,7 +150,9 @@ def jax_members_lost(cfg, pyramid, xyz, offsets):
 def jax_pyramid(jcfg, xyz, offsets):
     """The JAX package's on-device stem neighbours and geometry pyramid
     (``models/stratified.py:298-307``, ``models/layers.py:163-208, 237-
-    247`` with the model's knobs), but with the host pyramid's member rule
+    247`` with the model's knobs; member masks from ``layer_start``, as the
+    ScanNet family's stem level has none), but with the host pyramid's
+    member rule
     (``is_down[d_idx[d_valid]] = True``) in place of the scatter that drops
     members (``models/stratified.py:218``)."""
     n = xyz.shape[0]
@@ -170,8 +172,9 @@ def jax_pyramid(jcfg, xyz, offsets):
         d_idx, d_valid = jax_sampling.grid_pool_sampling(
             x, off, d_off, m // jcfg.downsample_scale + jcfg.num_scenes,
             jcfg.grid_sizes()[i] * float(jcfg.downsample_scale) ** 0.5)
-        stage_down.append({"is_down": jnp.zeros((m + 1,), bool).at[
-            jnp.where(d_valid, d_idx, m)].set(True)[:m]})
+        if i >= jcfg.layer_start:
+            stage_down.append({"is_down": jnp.zeros((m + 1,), bool).at[
+                jnp.where(d_valid, d_idx, m)].set(True)[:m]})
         if i == jcfg.num_layers - 1:
             break
         out_pad = -(-(int(m * jcfg.ratio) + jcfg.num_scenes) // jcfg.tile
@@ -409,15 +412,16 @@ def test_driver_refuses_a_missing_checkpoint(tmp_path):
 
 def test_driver_refuses_what_the_port_does_not_run(monkeypatch):
     yaml_cfg = load_cfg(os.path.join(CONFIGS, "s3dis_stratified.yaml"))
-    with pytest.raises(ValueError, match="ROADMAP queue item 5"):
+    with pytest.raises(ValueError, match="ROADMAP queue 1 item 6"):
         driver.run(dict(yaml_cfg, sharded=True), "cpu")
-    with pytest.raises(ValueError, match="ROADMAP queue item 4"):
+    with pytest.raises(ValueError, match="ROADMAP queue 1 item 3"):
         driver.eval_config(load_cfg(os.path.join(
-            CONFIGS, "scannetv2_stratified.yaml")))
-    with pytest.raises(ValueError, match="ROADMAP queue item 4"):
-        driver.scenes_of(dict(yaml_cfg, data_name="scannetv2"), 13)
-    with pytest.raises(ValueError, match="data_root"):
-        driver.scenes_of(yaml_cfg, 13)
+            CONFIGS, "dcf_stratified.yaml")))
+    with pytest.raises(ValueError, match="ROADMAP queue 1 item 3"):
+        driver.scenes_of(dict(yaml_cfg, data_name="dcf"), 13)
+    for name in ("s3dis", "scannetv2"):
+        with pytest.raises(ValueError, match=f"{name} needs data_root"):
+            driver.scenes_of(dict(yaml_cfg, data_name=name), 13)
     # without --device cpu it needs the card: no fallback to the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
