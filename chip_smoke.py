@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's evaluation forward, training step, whole-scene
-evaluation and training loop, for the S3DIS and ScanNet families, and its
-two probes, on an NVIDIA GPU.
+evaluation and training loop, for the S3DIS, ScanNet and DCF families, the
+DCF family's box-mAP and layout-removal drivers, and its two probes, on an
+NVIDIA GPU.
 
 Run from the repository root with no arguments (needs one CUDA card):
 
@@ -12,7 +13,8 @@ runs phase 4 alone; ``--bwd-only`` builds the two backward kernels and runs
 phase 7 alone; ``--scene-only`` builds the two forward kernels and runs
 phase 10 alone; ``--loop-only`` builds the four attention kernels and runs
 phase 11 alone; ``--scannet-only`` builds the four attention kernels and
-runs phase 12 alone; ``--iou-only`` builds the two forward kernels and
+runs phase 12 alone; ``--dcf-only`` builds the four attention kernels and
+runs phase 13 alone; ``--iou-only`` builds the two forward kernels and
 times the train and eval steps' IoU counters (`iou_phase`). Each prints its
 times as one JSON line (``--fwd-only`` also per stage and parity). Copied into another checkout (say a parent commit
 unpacked beside the tree) and run from there, it times that checkout's
@@ -92,7 +94,25 @@ Phases, each fatal on failure:
      the CPU's, then ``test.py``'s protocol at its ScanNet operating point
      (``n_pad`` 600000 in 5 crops, 5 TTA passes, colours in [-1, 1]) on one
      200000-point synthetic room of 5 m, the stem search's largest cell key
-     held below ``DENSE_KEYS``, the first pass against the plain path.
+     held below ``DENSE_KEYS``, the first pass against the plain path;
+ 13. the DCF family (``configs/dcf_stratified.yaml``: the S3DIS backbone
+     with the offset head, 18 classes) at full width on fabricated cube
+     scenes (the fork's cube files are not in the repository), read by the
+     port's ``DCF`` reader through the loader at the YAML's batch shape
+     (n_pad 140032, 8 slots): (a) three eval forwards, 12 + 12 launches
+     each, logits and offsets against the plain-version forward, one
+     profiled; three training steps with the L1 offset loss, 12 launches of
+     each kernel per step, step-1 gradients (the head's included), the
+     loss and offset-loss trajectories against the plain versions, one
+     profiled; (b) the training driver's loop for 1 epoch with validation,
+     ``loss_offset`` in ``metrics.jsonl``, the checkpoint restored giving
+     bit-identical logits and offsets; (c) ``test_iou.py``'s protocol
+     (``eval/iou_driver.py``) on one 200000-point scene at n_pad 320000 in 4
+     slots: launches, seconds of forwards and of host post-processing,
+     crops, objects before and after the merge, TP/FP/FN and peak memory;
+     the first crop batch against the plain versions; the protocol again
+     giving identical boxes; the host steps on stand-in offsets; (d) the
+     layout-removal driver's two ``.ply`` files read back.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -147,6 +167,10 @@ GRAD_REL_L2, GRAD_FLOOR = 1e-3, 1e-6
 # the 3-step loss trajectories: the same grads through AdamW's sign-like
 # first steps
 LOSS_RTOL = 1e-3
+# the DCF step's L1 offset loss before any update: the mean over ~3e5
+# terms |shift - target| of two fp32 forwards within LOGIT_RTOL of each
+# other, so equal to ~1e-5
+OFFSET_LOSS_RTOL = 1e-4
 # whole-scene evaluation (phase 10): test.py's operating point with the
 # S3DIS YAML (batch_size_test 5 x voxel_max 80000 = n_pad 400000) on one
 # synthetic scene of this many points (seed 999, as test.py's)
@@ -189,6 +213,20 @@ SCANNET_LOOP_OVERRIDES = [
 # a 5 m room's crops keep the stem search's cell keys (0.05 m cells, 5
 # slots) below DENSE_KEYS, a 6 m room's would not
 SCANNET_SCENE = dict(points=200000, extent=5.0)
+# phase 13: the DCF family (configs/dcf_stratified.yaml) on fabricated cube
+# scenes, since the fork's cube files are not in the repository: files of 12
+# cuboids of 5000 samples in a 6 m room (about 60000 points); 8 files per
+# loader batch of the YAML's shape (n_pad 140032, 8 slots), of which the
+# scenes that fit are kept; 24 train files give (a)'s 3 batches and (b)'s 3
+# steps, 2 test files its validation
+DCF_CONFIG = os.path.join(REPO, "configs", "dcf_stratified.yaml")
+DCF_SCENE = dict(cubes=12, points_per_cube=5000, extent=6.0)
+DCF_TRAIN_FILES, DCF_TEST_FILES = 24, 2
+DCF_LOOP_OVERRIDES = ["epochs", "1", "evaluate", "True", "print_freq", "1",
+                      "use_tensorboard", "False", "n_devices", "1"]
+# (c): test_iou.py's operating point (batch_size_test 4 x voxel_max 80000 =
+# n_pad 320000) on one scene of 40 cuboids in 6 m (about 200000 points)
+DCF_IOU_SCENE = dict(cubes=40, points_per_cube=5000, extent=6.0)
 TPU_KERNELS = {
     "band_attention": "stratified_transformer_tpu/ops/pallas/"
                       "fused_attention.py:50",
@@ -208,6 +246,68 @@ PROBE_KERNELS = ("bin_math_probe", "cache_key_probe")
 
 def log(msg):
     print(msg, flush=True)
+
+
+# the six faces of a cuboid as (axis, side), in the DCF face-label order:
+# opposite faces 0/5, 1/4 and 2/3, as ``LOOKUP_FACE``'s edges imply
+CUBE_FACES = ((2, -1), (0, -1), (1, -1), (1, 1), (0, 1), (2, 1))
+
+
+def cube_scene(rng, cubes, points_per_cube, extent):
+    """A DCF scene file's cube dicts (the format the ``DCF`` reader and
+    ``tests/test_driver_smokes.py::_make_dcf`` use): ``cubes`` random
+    cuboids (sides 0.3-1.2 m) in a room of ``extent`` (at least 1.4) metres,
+    each sampled
+    on its six faces (labels 0-5, 80% of the points) and twelve edges
+    (labels 6-17, ``instantiation.LOOKUP_FACE``'s pairs), each sample's
+    offset target pointing to the centre of its face or edge. A stand-in
+    for the fork's cube files, which are not in the repository."""
+    from stratified_transformer_torch.eval.instantiation import LOOKUP_FACE
+    n_face = max(int(0.8 * points_per_cube / 6), 1)
+    n_edge = max(int(0.2 * points_per_cube / 12), 1)
+    items = []
+    for _ in range(cubes):
+        size = rng.uniform(0.3, 1.2, 3)
+        centre = np.concatenate([rng.uniform(size[:2] / 2 + 0.1,
+                                             extent - size[:2] / 2 - 0.1),
+                                 [size[2] / 2 + rng.uniform(0.0, 1.0)]])
+        lo, hi = centre - size / 2, centre + size / 2
+
+        def samples(n, fixed):
+            """``n`` points uniform over the cube with the (axis, side)
+            pairs of ``fixed`` held on the cube's surface, and the offsets
+            to their centre."""
+            pts = rng.uniform(lo, hi, (n, 3))
+            mid = centre.copy()
+            for axis, side in fixed:
+                pts[:, axis] = mid[axis] = centre[axis] + side * size[axis] / 2
+            return pts, mid - pts
+
+        faces = [samples(n_face, [f]) for f in CUBE_FACES]
+        edges = [samples(n_edge, [CUBE_FACES[a], CUBE_FACES[b]])
+                 for a, b in LOOKUP_FACE]
+        items.append(dict(
+            f_samples=np.concatenate([p for p, _ in faces]),
+            e_samples=np.concatenate([p for p, _ in edges]),
+            f_labels=np.repeat(np.arange(6), n_face),
+            e_labels=np.repeat(np.arange(6, 18), n_edge),
+            f_offsets=np.concatenate([o for _, o in faces]),
+            e_offsets=np.concatenate([o for _, o in edges]),
+            centroid=centre, lengths=size))
+    return np.asarray(items, dtype=object)
+
+
+def write_cube_files(root, split, scenes, seed, **kw):
+    """``scenes`` files ``<root>/<split>/cube_<i>.npy`` of `cube_scene`
+    (``kw``), drawn from one generator seeded ``seed``; returns their
+    paths."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, split), exist_ok=True)
+    paths = []
+    for i in range(scenes):
+        paths.append(os.path.join(root, split, f"cube_{i:03d}.npy"))
+        np.save(paths[-1], cube_scene(rng, **kw), allow_pickle=True)
+    return paths
 
 
 def card_line():
@@ -971,7 +1071,7 @@ def scene_protocol(model, ref_model, dev, counts, reset, yaml_path=CONFIG,
     yaml_cfg = load_cfg(yaml_path)
     cfg = eval_config(yaml_cfg)
     data_name = yaml_cfg["data_name"]
-    coord, feat, _ = SyntheticRooms(num_scenes=1, seed=999, **(
+    coord, feat, _, _ = SyntheticRooms(num_scenes=1, seed=999, **(
         room or {"points": SCENE_POINTS})).raw_scene(0)
     if data_name == "scannetv2":
         feat = feat / np.float32(127.5) - np.float32(1.0)
@@ -1154,7 +1254,8 @@ def train_phase(tag, cfg, yaml_cfg, init_state, batches, kernel_mods):
     from stratified_transformer_torch.train.step import make_train_step
     schedule = schedulers.from_config(yaml_cfg, TRAIN_ITERS_PER_EPOCH)[0]
     train_step = make_train_step(int(yaml_cfg["ignore_label"]),
-                                 cfg.num_classes)
+                                 cfg.num_classes,
+                                 float(yaml_cfg.get("offset_weight", 1.0)))
     blocks = attention_blocks(cfg)
 
     def counts():
@@ -1170,7 +1271,7 @@ def train_phase(tag, cfg, yaml_cfg, init_state, batches, kernel_mods):
         return m_, opt
 
     def run_steps(m_, opt, via_kernels):
-        losses, times, grads = [], [], None
+        losses, offset_losses, times, grads = [], [], [], None
         for step, b in enumerate(batches):
             gen_s = torch.Generator(device="cuda").manual_seed(1000 + step)
             before = counts()
@@ -1183,13 +1284,15 @@ def train_phase(tag, cfg, yaml_cfg, init_state, batches, kernel_mods):
             if any(c != want_n for c in per_step.values()):
                 raise AssertionError(f"kernel launches in train step {step}: "
                                      f"{per_step}, expected {want_n} each")
-            if not bool(torch.isfinite(stats["loss"])):
+            if not (bool(torch.isfinite(stats["loss"]))
+                    and bool(torch.isfinite(stats["loss_offset"]))):
                 raise AssertionError(f"non-finite loss at train step {step}")
             losses.append(float(stats["loss"]))
+            offset_losses.append(float(stats["loss_offset"]))
             if step == 0:
                 grads = {n_: p_.grad.clone()
                          for n_, p_ in m_.named_parameters()}
-        return losses, times, grads
+        return losses, offset_losses, times, grads
 
     # one step of a throwaway copy pays the backward's one-time set-up
     # (cuBLAS, autograd, AdamW state) outside the timed steps
@@ -1202,7 +1305,7 @@ def train_phase(tag, cfg, yaml_cfg, init_state, batches, kernel_mods):
     for m_ in kernel_mods.values():
         m_.KERNEL.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    losses_k, times_k, grads_k = run_steps(model_k, opt_k, True)
+    losses_k, offsets_k, times_k, grads_k = run_steps(model_k, opt_k, True)
     launches = counts()
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     for step in range(len(batches)):
@@ -1212,14 +1315,22 @@ def train_phase(tag, cfg, yaml_cfg, init_state, batches, kernel_mods):
         f"max_memory_allocated {peak_mb:.0f} MiB")
 
     model_p, opt_p = trainer("reference")
-    losses_p, times_p, grads_p = run_steps(model_p, opt_p, False)
+    losses_p, offsets_p, times_p, grads_p = run_steps(model_p, opt_p, False)
     worst = check_grads("train step 1", grads_k, grads_p)
     log(f"{tag} step-1 grads of all {len(grads_p)} parameters within "
         f"{GRAD_REL_L2} relative L2 (+{GRAD_FLOOR}/entry) of the plain-version"
         f" step; largest relative L2 {worst[0]:.2e} ({worst[1]})")
     np.testing.assert_allclose(losses_k, losses_p, rtol=LOSS_RTOL,
                                err_msg="loss trajectory")
+    # the offset loss (0 without the offset head): step 1's within
+    # OFFSET_LOSS_RTOL, the trajectory as the loss's
+    np.testing.assert_allclose(offsets_k[0], offsets_p[0],
+                               rtol=OFFSET_LOSS_RTOL,
+                               err_msg="step-1 offset loss")
+    np.testing.assert_allclose(offsets_k, offsets_p, rtol=LOSS_RTOL,
+                               err_msg="offset loss trajectory")
     log(f"{tag} loss trajectory kernels {losses_k} vs plain {losses_p}; "
+        f"offset loss {offsets_k} vs {offsets_p}; "
         f"plain-version step median {float(np.median(times_p)):.1f} ms")
     step_ms = float(np.median(times_k))
     log(f"{tag} full-width train step median {step_ms:.1f} ms over "
@@ -1229,11 +1340,53 @@ def train_phase(tag, cfg, yaml_cfg, init_state, batches, kernel_mods):
         train_step(model_k, opt_k, batches[0],
                    torch.Generator(device="cuda").manual_seed(2000))))
     return {"step_ms": step_ms, "step_ms_all": times_k, "losses": losses_k,
-            "plain_losses": losses_p, "launches": launches,
+            "plain_losses": losses_p, "offset_losses": offsets_k,
+            "plain_offset_losses": offsets_p, "launches": launches,
             "max_memory_allocated_mib": peak_mb,
             "grad_worst_rel_l2": worst[0], "grad_worst": worst[1],
             "profiled_wall_ms": wall, "profiled_busy_ms": busy,
             "profiled_kernels": by_name}
+
+
+def run_loop(tag, loop_cfg, kernel_mods, blocks):
+    """The training driver's loop (``train/driver.py::run``, the function
+    its CLI runs) on the flattened YAML ``loop_cfg`` on the card, its lines
+    logged with ``tag``; the kernels' launches read at each logged
+    iteration and validation line must be one of each attention kernel per
+    block and train step and one of each forward kernel per block and
+    validation forward, none backward (`launch_deltas`), over at least one
+    of each. Returns ``(model, summary, seconds)``."""
+    from stratified_transformer_torch.train import driver
+    marks = []
+
+    def counts():
+        return {k: m_.KERNEL.launches for k, m_ in kernel_mods.items()}
+
+    def loop_log(msg):
+        log(f"{tag} {msg[:400]}")
+        if msg.startswith("Epoch ["):
+            marks.append(("step", counts(), 0))
+        elif msg.startswith("Val epoch"):
+            marks.append(("val", counts(), None))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m_ in kernel_mods.values():
+        m_.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    model, summary = driver.run(loop_cfg, "cuda", log=loop_log)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    val_forwards = iter(t["val_forwards"] for t in summary["timing"])
+    marks = [(kind, now, next(val_forwards) if kind == "val" else 0)
+             for kind, now, _ in marks]
+    steps, vals = launch_deltas(marks, kernel_mods, blocks)
+    if (steps, vals) != (summary["steps"], summary["val_forwards"]) or not (
+            steps and vals):
+        raise AssertionError(f"logged {steps} steps and {vals} validation "
+                             f"forwards, the loop took {summary['steps']} "
+                             f"and {summary['val_forwards']}")
+    return model, summary, seconds
 
 
 def scannet_loop(dev, kernel_mods, blocks):
@@ -1244,40 +1397,16 @@ def scannet_loop(dev, kernel_mods, blocks):
     Returns the loop's numbers."""
     import tempfile
 
-    from stratified_transformer_torch.train import audit, driver
+    from stratified_transformer_torch.train import audit
     from stratified_transformer_torch.utils.config import (
         load_cfg, merge_cfg_from_list)
-    marks = []
-
-    def counts():
-        return {k: m_.KERNEL.launches for k, m_ in kernel_mods.items()}
-
-    def loop_log(msg):
-        log(f"[scannet] loop: {msg[:400]}")
-        if msg.startswith("Epoch ["):
-            marks.append(("step", counts(), 0))
-        elif msg.startswith("Val epoch"):
-            marks.append(("val", counts(), None))
-
     with tempfile.TemporaryDirectory() as tmp:
         yaml_cfg = merge_cfg_from_list(
             load_cfg(SCANNET_CONFIG),
             SCANNET_LOOP_OVERRIDES + ["save_path", os.path.join(tmp, "run")])
-        for m_ in kernel_mods.values():
-            m_.KERNEL.launches = 0
-        t0 = time.perf_counter()
-        _, summary = driver.run(yaml_cfg, "cuda", log=loop_log)
-        torch.cuda.synchronize()
-        loop_s = time.perf_counter() - t0
-    val_forwards = iter(t["val_forwards"] for t in summary["timing"])
-    marks = [(kind, now, next(val_forwards) if kind == "val" else 0)
-             for kind, now, _ in marks]
-    steps, vals = launch_deltas(marks, kernel_mods, blocks)
-    if (steps, vals) != (summary["steps"], summary["val_forwards"]) or not (
-            steps and vals):
-        raise AssertionError(f"logged {steps} steps and {vals} validation "
-                             f"forwards, the loop took {summary['steps']} "
-                             f"and {summary['val_forwards']}")
+        _, summary, loop_s = run_loop("[scannet] loop:", yaml_cfg,
+                                      kernel_mods, blocks)
+    steps, vals = summary["steps"], summary["val_forwards"]
     losses = [r["loss"] for r in summary["iters"]]
     audited = [r["audit"] for r in summary["iters"] if "audit" in r]
     if not (np.isfinite(losses).all() and all(
@@ -1288,7 +1417,8 @@ def scannet_loop(dev, kernel_mods, blocks):
             f"stage_{i}" for i in range(1, 5)]:
         raise AssertionError(f"the audit did not cover stages 1-4: {audited}")
     out = {"loop_s": loop_s, "steps": steps, "val_forwards": vals,
-           "launches": counts(), "losses": losses,
+           "launches": {k: m_.KERNEL.launches
+                        for k, m_ in kernel_mods.items()}, "losses": losses,
            "step_wall_ms": [1e3 * r["wall_s"] for r in summary["iters"]],
            "valid_points": [r["points"] for r in summary["iters"]],
            "timing": summary["timing"], "audit": audited[-1]}
@@ -1424,6 +1554,337 @@ def scannet_phase(dev, kernel_mods):
     return out
 
 
+def dcf_batches(yaml_cfg, cfg, count):
+    """The first ``count`` loader batches of the DCF train files (dataset
+    order)."""
+    from stratified_transformer_torch.data.loader import (
+        BatchLoader, build_dataset)
+    itr = iter(BatchLoader(build_dataset(yaml_cfg, "train"), cfg, yaml_cfg,
+                           shuffle=False))
+    hbs = [next(itr) for _ in range(count)]
+    itr.close()
+    return hbs
+
+
+def dcf_eval(cfg, yaml_cfg, hbs, model, ref_model, dev, kernel_mods):
+    """Phase 13 (a), the forward: eval forwards of the batches ``hbs``
+    through the kernels (one launch of each forward kernel per block, no
+    backward), logits and offsets within LOGIT_RTOL / LOGIT_ATOL of the
+    plain-version forward's; one profiled. Returns the numbers."""
+    from stratified_transformer_torch.data.loader import to_device
+    from stratified_transformer_torch.train.step import make_eval_step
+    blocks = attention_blocks(cfg)
+    eval_step = make_eval_step(int(yaml_cfg["ignore_label"]),
+                               cfg.num_classes)
+    batches = [to_device(hb, dev) for hb in hbs]
+    eval_step(model, batches[0])                # first call: lazy set-up
+    torch.cuda.synchronize()
+    for m_ in kernel_mods.values():
+        m_.KERNEL.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, outs = [], []
+    for j, b in enumerate(batches):
+        before = {k: m_.KERNEL.launches for k, m_ in kernel_mods.items()}
+        t0 = time.perf_counter()
+        logits, shift, stats = eval_step(model, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per = {k: m_.KERNEL.launches - before[k]
+               for k, m_ in kernel_mods.items()}
+        want = {k: blocks if k in FWD_KERNELS else 0 for k in per}
+        if per != want:
+            raise AssertionError(f"dcf forward {j} launches {per}, expected "
+                                 f"{want}")
+        if not (shift is not None and shift.shape == (cfg.n_pad, 3)
+                and bool(torch.isfinite(logits).all())
+                and bool(torch.isfinite(shift).all())
+                and bool(torch.isfinite(stats["loss"]))):
+            raise AssertionError("dcf forward: no offsets, or non-finite "
+                                 "logits, offsets or loss")
+        outs.append((logits, shift))
+    launches = {k: m_.KERNEL.launches for k, m_ in kernel_mods.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    errs = []
+    for j, b in enumerate(batches):
+        logits_p, shift_p, _ = eval_step(ref_model, b)
+        assert_close(f"dcf logits batch {j}", outs[j][0], logits_p,
+                     LOGIT_RTOL, LOGIT_ATOL)
+        assert_close(f"dcf offsets batch {j}", outs[j][1], shift_p,
+                     LOGIT_RTOL, LOGIT_ATOL)
+        errs.append((max_errors(outs[j][0], logits_p)[0],
+                     max_errors(outs[j][1], shift_p)[0]))
+    _, busy, _ = profile_call("dcf forward",
+                              lambda: eval_step(model, batches[0]))
+    out = {"forward_ms": times, "forward_ms_median": float(np.median(times)),
+           "launches": launches, "max_memory_allocated_mib": peak,
+           "profiled_busy_ms": busy,
+           "logits_max_abs_err": [e[0] for e in errs],
+           "shift_max_abs_err": [e[1] for e in errs]}
+    log(f"[dcf] eval forward median {out['forward_ms_median']:.1f} ms "
+        f"({', '.join(f'{t:.1f}' for t in times)}; host clock, "
+        f"synchronized); launches over {len(batches)} forwards {launches}; "
+        f"vs plain-version forward max abs err logits "
+        f"{max(out['logits_max_abs_err']):.2e}, offsets "
+        f"{max(out['shift_max_abs_err']):.2e}; max_memory_allocated "
+        f"{peak:.0f} MiB; profiled device busy {busy:.2f} ms")
+    return out
+
+
+def dcf_loop(yaml_cfg, tmp, dev, kernel_mods, blocks):
+    """Phase 13 (b): the training driver's loop on the cube files for one
+    epoch with validation (one launch of each kernel per block and step, of
+    each forward kernel per block and validation forward), ``loss_offset``
+    finite in every iteration and in ``metrics.jsonl``; then the epoch's
+    checkpoint restored into a fresh model gives bit-identical logits and
+    offsets on a validation batch. Returns the loop's numbers."""
+    from stratified_transformer_torch.config import from_cfg
+    from stratified_transformer_torch.data.loader import (
+        BatchLoader, build_dataset, to_device)
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.train import checkpoint
+    from stratified_transformer_torch.train.step import make_eval_step
+    from stratified_transformer_torch.utils.config import merge_cfg_from_list
+    save = os.path.join(tmp, "run")
+    loop_cfg = merge_cfg_from_list(yaml_cfg, DCF_LOOP_OVERRIDES + [
+        "save_path", save])
+    model, summary, loop_s = run_loop("[dcf] loop:", loop_cfg, kernel_mods,
+                                      blocks)
+    launches = {k: m_.KERNEL.launches for k, m_ in kernel_mods.items()}
+    steps, vals = summary["steps"], summary["val_forwards"]
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    offsets = [r["loss_offset"] for r in summary["iters"]]
+    if not (records and all("loss_offset" in r for r in records)
+            and np.isfinite(offsets).all() and all(
+                np.isfinite(v) for r in records for v in r.values())):
+        raise AssertionError(f"loss_offset missing or non-finite: iterations"
+                             f" {offsets}, metrics.jsonl {records}")
+    cfg = from_cfg(loop_cfg)
+    itr = iter(BatchLoader(build_dataset(loop_cfg, "val"), cfg, loop_cfg,
+                           shuffle=False))
+    vbatch = to_device(next(itr), dev)
+    itr.close()
+    eval_step = make_eval_step(int(loop_cfg["ignore_label"]), cfg.num_classes)
+    model.eval()
+    logits, shift, _ = eval_step(model, vbatch)
+    fresh = build_model(cfg, "cuda", seed=1)
+    _, epoch, _ = checkpoint.restore(os.path.join(save, "ckpt"), fresh)
+    logits_r, shift_r, _ = eval_step(fresh, vbatch)
+    if epoch != 1 or not (torch.equal(logits_r, logits)
+                          and torch.equal(shift_r, shift)):
+        raise AssertionError(f"the restored epoch-{epoch} checkpoint gives "
+                             "other logits or offsets than the trained model")
+    out = {"loop_s": loop_s, "steps": steps, "val_forwards": vals,
+           "launches": launches,
+           "losses": [r["loss"] for r in summary["iters"]],
+           "loss_offset": offsets, "records": records,
+           "step_wall_ms": [1e3 * r["wall_s"] for r in summary["iters"]],
+           "valid_points": [r["points"] for r in summary["iters"]],
+           "scenes": [r["scenes"] for r in summary["iters"]],
+           "timing": summary["timing"]}
+    log(f"[dcf] loop: {steps} steps and {vals} validation forwards in "
+        f"{loop_s:.1f} s, launches {out['launches']}; losses "
+        f"{out['losses']}, offset losses {offsets}; valid points "
+        f"{out['valid_points']} in {out['scenes']} scenes; metrics.jsonl "
+        f"{records}; the restored checkpoint's logits and offsets "
+        "bit-identical")
+    return out
+
+
+def dcf_iou(model, dev, kernel_mods, tmp):
+    """Phase 13 (c): ``test_iou.py``'s protocol (`iou_driver.score_scene`:
+    sphere crops, forwards without a host pyramid, per-point means,
+    instantiation, merge, box mAP) on one fabricated DCF_IOU_SCENE file at
+    n_pad 320000 in 4 slots, with ``model``'s weights: one launch of each
+    forward kernel per block and forward; the first crop batch's logits and
+    offsets within LOGIT_RTOL / LOGIT_ATOL of the plain-version forward's;
+    the protocol again giving identical boxes and TP/FP/FN; then the host
+    steps alone on the scene's stand-in offsets (half the targets plus 5 mm
+    noise, the true labels), where cuboids form. Returns the numbers."""
+    from stratified_transformer_torch.data.datasets import DCF
+    from stratified_transformer_torch.eval import (
+        box_map, instantiation, iou_driver)
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.utils.config import (
+        load_cfg, merge_cfg_from_list)
+    root = os.path.join(tmp, "iou")
+    write_cube_files(root, "test", 1, 31, **DCF_IOU_SCENE)
+    yaml_cfg = merge_cfg_from_list(load_cfg(DCF_CONFIG), [
+        "data_root", str([root])])
+    cfg = iou_driver.offset_config(yaml_cfg)
+    voxel_max = int(yaml_cfg["voxel_max"])
+    models = []
+    for impl in ("fused", "reference"):
+        m_ = build_model(dataclasses.replace(cfg, attn_impl=impl), "cuda")
+        m_.load_state_dict(model.state_dict())
+        models.append(m_)
+    [(path, coord, feat, gt)] = list(iou_driver.iou_scenes(yaml_cfg))
+    predict = iou_driver.make_predict(models[0])
+    fwd_s, first, crops = [], [], []
+
+    def timed(feats, xyz, offsets):
+        if not first:
+            first.append((feats.copy(), xyz.copy(), offsets.copy()))
+        crops.append(int(np.count_nonzero(np.diff(np.concatenate(
+            [[0], offsets])))))
+        t0 = time.perf_counter()
+        out = predict(feats, xyz, offsets)      # synchronizes (.cpu())
+        fwd_s.append(time.perf_counter() - t0)
+        return out
+
+    for m_ in kernel_mods.values():
+        m_.KERNEL.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [iou_driver.score_scene(timed, coord, feat, gt,
+                                   box_map.DetectionMAP(0.5), cfg, voxel_max)]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches = {k: m_.KERNEL.launches for k, m_ in kernel_mods.items()}
+    forwards = len(fwd_s)
+    blocks = attention_blocks(cfg)
+    want = {k: blocks * forwards if k in FWD_KERNELS else 0
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"test_iou launches {launches}, expected {want} "
+                             f"over {forwards} forwards")
+    runs.append(iou_driver.score_scene(predict, coord, feat, gt,
+                                       box_map.DetectionMAP(0.5), cfg,
+                                       voxel_max))
+    a, b = runs
+    if not (np.array_equal(a["boxes"], b["boxes"]) and
+            (a["tp"], a["fp"], a["fn"]) == (b["tp"], b["fp"], b["fn"])):
+        raise AssertionError(f"test_iou protocol twice: boxes or TP/FP/FN "
+                             f"differ ({a['tp']}/{a['fp']}/{a['fn']} vs "
+                             f"{b['tp']}/{b['fp']}/{b['fn']})")
+    got = [torch.from_numpy(t) for t in predict(*first[0])]
+    want_t = [torch.from_numpy(t) for t in
+              iou_driver.make_predict(models[1])(*first[0])]
+    for name, g, w in zip(("logits", "offsets"), got, want_t):
+        assert_close(f"test_iou first batch {name}", g, w, LOGIT_RTOL,
+                     LOGIT_ATOL)
+    errs = [max_errors(g, w)[0] for g, w in zip(got, want_t)]
+    _, labels, target, _, _ = DCF.load_item(path)
+    stand_in = 0.5 * target + np.random.default_rng(32).normal(
+        0, 0.005, target.shape)
+    t0 = time.perf_counter()
+    objs = instantiation.instantiate(coord, stand_in, labels)
+    merged = instantiation.merge_instances(objs)
+    det = box_map.DetectionMAP(0.5)
+    tp, fp, fn = det.evaluate(np.asarray([instantiation.support_to_box(o)
+                                          for o in merged]).reshape(-1, 6),
+                              gt)
+    host_s = time.perf_counter() - t0
+    if not tp:
+        raise AssertionError("no box found from the stand-in offsets")
+    out = {"points": len(coord), "n_pad": cfg.n_pad,
+           "slots": cfg.num_scenes, "cubes": len(gt),
+           "seconds": a["seconds"], "forward_s": sum(fwd_s),
+           "host_s": a["seconds"] - sum(fwd_s), "forwards": forwards,
+           "crops": sum(crops), "raw_objects": a["raw_objects"],
+           "objects": a["objects"],
+           "tp_fp_fn": (a["tp"], a["fp"], a["fn"]),
+           "launches": launches, "max_memory_allocated_mib": peak,
+           "first_batch_max_abs_err": errs,
+           "stand_in": {"seconds": host_s, "raw_objects": len(objs),
+                        "objects": len(merged), "tp_fp_fn": (tp, fp, fn),
+                        "summary": det.summary()}}
+    log(f"[dcf] test_iou: {len(coord)} points, {sum(crops)} crops in "
+        f"{forwards} forwards of n_pad {cfg.n_pad} ({cfg.num_scenes} slots);"
+        f" {a['seconds']:.2f} s, of it forwards {sum(fwd_s):.2f} s and host "
+        f"{out['host_s']:.2f} s; objects {a['raw_objects']} -> "
+        f"{a['objects']} after merge; TP/FP/FN {a['tp']}/{a['fp']}/{a['fn']}"
+        f" of {len(gt)} boxes (random weights), the same in a second run; "
+        f"launches {launches}; first batch vs plain versions max abs err "
+        f"logits {errs[0]:.2e}, offsets {errs[1]:.2e}; max_memory_allocated "
+        f"{peak:.0f} MiB")
+    log(f"[dcf] test_iou host steps on stand-in offsets: {len(objs)} -> "
+        f"{len(merged)} objects, TP/FP/FN {tp}/{fp}/{fn} of {len(gt)} in "
+        f"{host_s:.2f} s; {det.summary()}")
+    return out
+
+
+def dcf_layout_removal(tmp):
+    """Phase 13 (d): the layout-removal driver on its smoke scene (random
+    weights): both ``.ply`` files read back with the prepared scene's point
+    count."""
+    from stratified_transformer_torch.data.ply import read_ply
+    from stratified_transformer_torch.eval import layoutrm_driver
+    from stratified_transformer_torch.utils.config import (
+        load_cfg, merge_cfg_from_list)
+    yaml_cfg = merge_cfg_from_list(load_cfg(DCF_CONFIG), [
+        "result_path", os.path.join(tmp, "layoutrm")])
+    t0 = time.perf_counter()
+    [rec] = layoutrm_driver.run(yaml_cfg, "cuda",
+                                log=lambda m: log(f"[dcf] layoutrm: {m}"))
+    secs = time.perf_counter() - t0
+    for key in ("sem", "shift"):
+        n = len(read_ply(rec[key])["vertex"])
+        if n != rec["points"]:
+            raise AssertionError(f"{rec[key]} holds {n} points, the scene "
+                                 f"{rec['points']}")
+    log(f"[dcf] layoutrm: both clouds read back with {rec['points']} points "
+        f"({secs:.1f} s with the model's build)")
+    return {"points": rec["points"], "non_face": rec["non_face"],
+            "seconds": secs}
+
+
+def dcf_phase(dev, kernel_mods):
+    """Phase 13: the DCF family at full width (module docstring). Returns
+    the numbers of (a)-(d)."""
+    import tempfile
+
+    from stratified_transformer_torch.config import from_cfg
+    from stratified_transformer_torch.data.loader import to_device
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.utils.config import (
+        load_cfg, merge_cfg_from_list)
+    t_phase = time.time()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "cubes")
+        t0 = time.time()
+        write_cube_files(root, "train", DCF_TRAIN_FILES, 21, **DCF_SCENE)
+        write_cube_files(root, "test", DCF_TEST_FILES, 22, **DCF_SCENE)
+        yaml_cfg = merge_cfg_from_list(load_cfg(DCF_CONFIG), [
+            "data_root", str([root]), "n_devices", "1"])
+        cfg = from_cfg(yaml_cfg)
+        blocks = attention_blocks(cfg)
+        hbs = dcf_batches(yaml_cfg, cfg, EVAL_BATCHES)
+        out.update(n_pad=cfg.n_pad, blocks=blocks,
+                   setup_s=time.time() - t0,
+                   valid_points=[int(hb["offsets"][-1]) for hb in hbs],
+                   scenes=[int(np.count_nonzero(np.diff(np.concatenate(
+                       [[0], hb["offsets"]])))) for hb in hbs])
+        log(f"[dcf] {DCF_TRAIN_FILES} + {DCF_TEST_FILES} cube files "
+            f"({json.dumps(DCF_SCENE)}) and {len(hbs)} loader batches (n_pad "
+            f"{cfg.n_pad}, {cfg.num_scenes} slots): valid points "
+            f"{out['valid_points']} in {out['scenes']} scenes, "
+            f"{out['setup_s']:.1f} s")
+
+        # (a) eval forwards and train steps
+        model = build_model(cfg, "cuda", seed=0)
+        o1_weights(model, seed=0)
+        ref_model = build_model(
+            dataclasses.replace(cfg, attn_impl="reference"), "cuda")
+        ref_model.load_state_dict(model.state_dict())
+        out["eval"] = dcf_eval(cfg, yaml_cfg, hbs, model, ref_model, dev,
+                               kernel_mods)
+        init_state = {k: v.clone() for k, v in model.state_dict().items()}
+        train = train_phase("[dcf]", cfg, yaml_cfg, init_state,
+                            [to_device(hb, dev) for hb in hbs], kernel_mods)
+        train.pop("profiled_kernels")
+        out["train"] = train
+        del init_state, ref_model, hbs
+
+        # (b) the training loop; (c) test_iou; (d) layout removal
+        out["loop"] = dcf_loop(yaml_cfg, tmp, dev, kernel_mods, blocks)
+        out["iou"] = dcf_iou(model, dev, kernel_mods, tmp)
+        out["layoutrm"] = dcf_layout_removal(tmp)
+    out["seconds"] = time.time() - t_phase
+    log(f"[dcf] phase 13 in {out['seconds']:.0f} s")
+    return out
+
+
 def attention_kernel_modules():
     """The four attention kernels' wrapper modules by kernel name."""
     from stratified_transformer_torch.kernels import (
@@ -1496,34 +1957,11 @@ def loop_phase(dev, kernel_mods):
             "save_path", os.path.join(tmp, "run")])
         cfg = from_cfg(yaml_cfg)
         seed = int(yaml_cfg["manual_seed"])
-        marks = []
-
-        def loop_log(msg):
-            log(f"[loop] {msg[:400]}")
-            if msg.startswith("Epoch ["):
-                marks.append(("step", counts(), 0))
-            elif msg.startswith("Val epoch"):
-                marks.append(("val", counts(), None))
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for m_ in kernel_mods.values():
-            m_.KERNEL.launches = 0
-        t0 = time.perf_counter()
-        model, summary = driver.run(yaml_cfg, "cuda", log=loop_log)
-        torch.cuda.synchronize()
-        out["loop_s"] = time.perf_counter() - t0
+        model, summary, out["loop_s"] = run_loop(
+            "[loop]", yaml_cfg, kernel_mods, attention_blocks(cfg))
         out["launches"] = counts()
         out["peak_gib"] = memory_use()["cuda:0"]["peak_bytes_gb"]
-        val_forwards = iter(t["val_forwards"] for t in summary["timing"])
-        marks = [(kind, now, next(val_forwards) if kind == "val" else 0)
-                 for kind, now, _ in marks]
-        steps, vals = launch_deltas(marks, kernel_mods,
-                                    attention_blocks(cfg))
-        if (steps, vals) != (summary["steps"], summary["val_forwards"]):
-            raise AssertionError(f"logged {steps} steps and {vals} validation"
-                                 f" forwards, the loop took {summary['steps']}"
-                                 f" and {summary['val_forwards']}")
+        steps, vals = summary["steps"], summary["val_forwards"]
         losses = [r["loss"] for r in summary["iters"]]
         if not (np.isfinite(losses).all() and all(
                 np.isfinite(v) for r in summary["records"]
@@ -1790,8 +2228,9 @@ def phase_only(flag):
              for name, text in build.build_logs.items()
              for line in text.splitlines()
              if "registers" in line or "spill" in line]
-    if flag in ("--loop-only", "--scannet-only"):
-        phase = loop_phase if flag == "--loop-only" else scannet_phase
+    if flag in ("--loop-only", "--scannet-only", "--dcf-only"):
+        phase = {"--loop-only": loop_phase, "--scannet-only": scannet_phase,
+                 "--dcf-only": dcf_phase}[flag]
         out = {"card": card_line(), "repo": REPO,
                flag[2:-5]: phase(dev, attention_kernel_modules()),
                "ptxas": ptxas}
@@ -1836,6 +2275,7 @@ PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS,
               "--scene-only": FWD_KERNELS,
               "--loop-only": FWD_KERNELS + BWD_KERNELS,
               "--scannet-only": FWD_KERNELS + BWD_KERNELS,
+              "--dcf-only": FWD_KERNELS + BWD_KERNELS,
               "--iou-only": FWD_KERNELS}
 
 
@@ -2061,6 +2501,9 @@ def main(argv):
 
     # ---- 12. the ScanNet family -------------------------------------------
     scannet = scannet_phase(dev, kernel_mods)
+
+    # ---- 13. the DCF family -----------------------------------------------
+    dcf = dcf_phase(dev, kernel_mods)
     log(f"[run] total {time.time() - t_start:.0f} s")
 
     kernels = []
@@ -2090,6 +2533,12 @@ def main(argv):
                 scannet_ms=sr["ms"], scannet_plain_ms=sr["plain_ms"],
                 scannet_bound_ms=sr["bound_ms"],
                 scannet_max_abs_err=sr["max_abs_err"])
+        if name in dcf["train"]["launches"]:
+            entry.update(
+                dcf_launches=dcf["train"]["launches"][name],
+                dcf_eval_launches=dcf["eval"]["launches"][name],
+                dcf_loop_launches=dcf["loop"]["launches"][name],
+                dcf_iou_launches=dcf["iou"]["launches"][name])
         if name in PROBE_KERNELS:
             entry["probe_launches"] = probe_launches[name]
             entry["times_per"] = "one launch of the probe"
@@ -2115,7 +2564,12 @@ def main(argv):
                              "each attention kernel at phase 12 (a)'s "
                              "plans); scannet_launches over its "
                              f"{TRAIN_STEPS} steps",
-        "scannet": {k: v for k, v in scannet.items() if k != "report"}}))
+        "scannet": {k: v for k, v in scannet.items() if k != "report"},
+        "dcf_times_per": "dcf_launches over phase 13 (a)'s "
+                         f"{TRAIN_STEPS} training steps, dcf_eval_launches "
+                         f"over its {EVAL_BATCHES} forwards, "
+                         "dcf_iou_launches over (c)'s first protocol run",
+        "dcf": dcf}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,6 +45,10 @@ class StratifiedConfig:
     sigma: float = 1.0
     max_num_neighbors: int = 34
     mlp_ratio: float = 4.0
+    # the DCF family's per-point offset head (3-vector regression) and its
+    # activation, "Relu" or "Tanh"
+    with_regressor: bool = False
+    activation: str = "Relu"
 
     # static layout
     n_pad: int = 140_000                      # flat point capacity
@@ -83,7 +87,8 @@ class StratifiedConfig:
         for name, allowed in (("attn_impl", ("fused", "reference")),
                               ("sampler", ("grid", "fps", "blocked_fps")),
                               ("down_quota", ("scene", "cells")),
-                              ("neighbor_method", ("grid", "brute"))):
+                              ("neighbor_method", ("grid", "brute")),
+                              ("activation", ("Relu", "Tanh"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name} {getattr(self, name)!r}: expected "
                                  f"one of {allowed}")
@@ -129,11 +134,11 @@ class StratifiedConfig:
                 else self.band)
 
 
-# The port runs the S3DIS- and ScanNet-style models (stratified keys, no
-# offset head): each of these YAML keys may hold only the value given here,
-# and the value names the ROADMAP queue 1 item that ports the family.
+# The port runs the S3DIS-, ScanNet- and DCF-style models (stratified
+# keys): each of these YAML keys may hold only the value given here, and the
+# value names the ROADMAP queue 1 item that ports the family.
 ONLY_SUPPORTED = {"arch": ("stratified_transformer", 5),
-                  "use_stratified": (True, 5), "with_regressor": (False, 3)}
+                  "use_stratified": (True, 5)}
 
 
 def from_cfg(cfg: CfgNode) -> StratifiedConfig:
@@ -175,6 +180,8 @@ def from_cfg(cfg: CfgNode) -> StratifiedConfig:
         sigma=float(cfg.get("sigma", 1.0)),
         max_num_neighbors=int(cfg.get("max_num_neighbors", 34)),
         mlp_ratio=float(cfg.get("mlp_ratio", 4.0)),
+        with_regressor=bool(cfg.get("with_regressor", False)),
+        activation=str(cfg.get("activation", "Relu")),
         n_pad=n_pad,
         num_scenes=max(int(cfg.get("batch_size", 8)), 1),
         band=int(cfg.get("band", 128)),

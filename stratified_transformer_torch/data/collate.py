@@ -19,12 +19,15 @@ class PaddedBatch(NamedTuple):
     """xyz ``[n_pad, 3]`` float32; feats ``[n_pad, C]`` float32; labels
     ``[n_pad]`` int32 (ignore_label on padding); offsets ``[num_scenes]``
     int32 cumulative scene sizes (padding scenes repeat the last offset);
-    stem_nidx / stem_nmask ``[n_pad, K]`` host radius neighbours."""
+    target_shift ``[n_pad, 3]`` float32, zero on padding, when the scenes
+    carry the DCF family's offset targets; stem_nidx / stem_nmask ``[n_pad,
+    K]`` host radius neighbours."""
 
     xyz: np.ndarray
     feats: np.ndarray
     labels: np.ndarray
     offsets: np.ndarray
+    target_shift: Optional[np.ndarray] = None
     stem_nidx: Optional[np.ndarray] = None
     stem_nmask: Optional[np.ndarray] = None
 
@@ -32,13 +35,16 @@ class PaddedBatch(NamedTuple):
 def mix3d_pairs(scenes):
     """Mix3D scene mixing (``data/collate.py:36-60``; reference
     ``collate_fn_mix3d``, ``util/data_util.py:17-58``): consecutive pairs of
-    scenes merge into one, points, features and labels concatenated and
-    coordinates kept; an odd last scene passes through."""
+    scenes merge into one, points, features and labels (and offset targets,
+    where both scenes carry them) concatenated and coordinates kept; an odd
+    last scene passes through."""
     out = []
     for i in range(0, len(scenes) - 1, 2):
         a, b = scenes[i], scenes[i + 1]
-        out.append({key: np.concatenate([a[key], b[key]])
-                    for key in ("xyz", "feats", "labels")})
+        keys = ["xyz", "feats", "labels"]
+        if "target_shift" in a and "target_shift" in b:
+            keys.append("target_shift")
+        out.append({key: np.concatenate([a[key], b[key]]) for key in keys})
     if len(scenes) % 2:
         out.append(scenes[-1])
     return out
@@ -51,8 +57,10 @@ def collate_scenes(
     ignore_label: int = 255,
     max_batch_points: Optional[int] = None,
 ):
-    """Collate per-scene dicts ``{xyz, feats, labels}`` in order while the
-    running point total fits ``max_batch_points`` and ``n_pad``."""
+    """Collate per-scene dicts ``{xyz, feats, labels[, target_shift]}`` in
+    order while the running point total fits ``max_batch_points`` and
+    ``n_pad``; the first kept scene decides whether the batch carries
+    ``target_shift``."""
     limit = n_pad if max_batch_points is None else min(n_pad, max_batch_points)
     kept = []
     total = 0
@@ -69,6 +77,8 @@ def collate_scenes(
     xyz = np.zeros((n_pad, 3), np.float32)
     feats = np.zeros((n_pad, c), np.float32)
     labels = np.full((n_pad,), ignore_label, np.int32)
+    shift = (np.zeros((n_pad, 3), np.float32) if "target_shift" in kept[0]
+             else None)
     offsets = np.zeros((num_scenes,), np.int32)
     pos = 0
     for i in range(num_scenes):
@@ -78,9 +88,12 @@ def collate_scenes(
             xyz[pos:pos + n] = s["xyz"]
             feats[pos:pos + n] = s["feats"]
             labels[pos:pos + n] = s["labels"]
+            if shift is not None:
+                shift[pos:pos + n] = s["target_shift"]
             pos += n
         offsets[i] = pos
-    return PaddedBatch(xyz=xyz, feats=feats, labels=labels, offsets=offsets)
+    return PaddedBatch(xyz=xyz, feats=feats, labels=labels, offsets=offsets,
+                       target_shift=shift)
 
 
 def with_stem_neighbors(batch: PaddedBatch, radius: float, k: int):

@@ -1,12 +1,15 @@
-"""Datasets (the JAX package's ``data/datasets.py``): the S3DIS and
-ScanNetv2 readers, the whole-scene listings of their scenes, and synthetic
+"""Datasets (the JAX package's ``data/datasets.py``): the S3DIS, ScanNetv2
+and DCF readers, the whole-scene listings of their scenes, and synthetic
 room-like scenes.
 
 S3DIS rooms are ``.npy`` arrays of xyz, rgb (0-255) and label columns, one
 room per file, named ``Area_<n>_<room>.npy`` (reference ``util/s3dis.py``).
 ScanNetv2 scenes are ``.pth`` tuples ``(coords, colors in [-1, 1],
 labels)``, one scene per file under ``<data_root>/<split>/`` (reference
-``util/scannet_v2.py``).
+``util/scannet_v2.py``). DCF scenes are ``.npy`` object arrays of cube
+dicts (face and edge samples, their labels and offset targets, each cube's
+centroid and lengths), the files of ``<root>/train`` or ``<root>/test``
+whose names hold ``cube`` (reference ``util/dcf.py``).
 The synthetic scenes (floor, two walls and a few boxes at configurable
 density, with geometry-correlated labels and color cues) let the tests and
 the chip smoke run work without the license-gated datasets.
@@ -150,16 +153,72 @@ def scannet_scenes(data_root):
     return scenes
 
 
+class DCF:
+    """Training / test samples of cuboid-decomposition scenes (reference
+    ``util/dcf.py:14-90``; ``datasets.py:126-177``): the ``cube`` files of
+    ``<root>/train`` (``split="train"``) or ``<root>/test`` (otherwise) of
+    every root in ``data_root``, in name order. An item's points get
+    Gaussian noise of ``sigma`` and one random translation (sigma 0.1),
+    then `data_prepare` with its offset targets; the three draw from one
+    generator per visit of the item."""
+
+    def __init__(self, split="train", data_root=(), voxel_size=0.04,
+                 sigma=0.02, voxel_max=None, shuffle_index=False, seed=0):
+        self.split = split
+        self.voxel_size = voxel_size
+        self.voxel_max = voxel_max
+        self.sigma = sigma
+        self.shuffle_index = shuffle_index
+        flag = "train" if split == "train" else "test"
+        self.files = sorted(
+            f for root in data_root
+            for f in glob.glob(os.path.join(root, flag, "*")) if "cube" in f)
+        self._rng = _VisitRng(seed)
+
+    def __len__(self):
+        return len(self.files)
+
+    @staticmethod
+    def load_item(path):
+        """``(coord, labels, offsets, feat, params)`` of one scene file: the
+        cubes' face then edge samples, in cube order, as float64; ``feat``
+        ones; ``params`` one ``(centroid, lengths)`` row per cube."""
+        cubes = np.load(path, allow_pickle=True)
+        coord = np.concatenate([np.vstack((c["f_samples"], c["e_samples"]))
+                                for c in cubes])
+        labels = np.concatenate([np.concatenate((c["f_labels"],
+                                                 c["e_labels"]))
+                                 for c in cubes])
+        offsets = np.concatenate([np.vstack((c["f_offsets"], c["e_offsets"]))
+                                  for c in cubes])
+        params = np.asarray([np.hstack((c["centroid"], c["lengths"]))
+                             for c in cubes])
+        return coord, labels, offsets, np.ones_like(coord), params
+
+    def __getitem__(self, idx):
+        coord, label, t_shift, feat, _ = self.load_item(
+            self.files[idx % len(self.files)])
+        rng = self._rng.for_item(idx)
+        coord = coord + rng.normal(scale=self.sigma, size=coord.shape)
+        coord = coord + rng.normal(scale=0.1, size=(1, 3))
+        return data_prepare(
+            coord, feat, label, self.split, self.voxel_size, self.voxel_max,
+            feat_scale=1.0, rng=rng, shuffle_index=self.shuffle_index,
+            target_shift=t_shift)
+
+
 class SyntheticRooms:
     """Fabricated room-like scenes (``datasets.py:180-260``). Item ``idx``
     draws its augmentation, voxel choice and crop from one generator seeded
     ``seed + 7919 (idx + 1)``, as the JAX package's does; a given
     ``transform_rng`` draws the augmentation instead (`loader.example_batch`
-    only)."""
+    only). With ``with_shift`` each point also gets a random offset target
+    (normal, sigma 0.1), drawn after the colour noise."""
 
     def __init__(self, num_scenes=16, points=60_000, extent=6.0,
                  num_classes=13, voxel_size=0.04, voxel_max=None,
-                 seed=0, split="train", transform=None, transform_rng=None):
+                 seed=0, split="train", transform=None, transform_rng=None,
+                 with_shift=False):
         self.num_scenes = num_scenes
         self.points = points
         self.extent = extent
@@ -170,11 +229,15 @@ class SyntheticRooms:
         self.split = split
         self.transform = transform
         self.transform_rng = transform_rng
+        self.with_shift = with_shift
 
     def __len__(self):
         return self.num_scenes
 
     def raw_scene(self, idx):
+        """``(coord, feat, label, shift)`` of scene ``idx``: float32 points,
+        rgb 0-255, int32 labels and, with ``with_shift``, float32 offset
+        targets (else None)."""
         rng = np.random.default_rng(self.seed + idx)
         n = self.points
         ex = self.extent
@@ -216,13 +279,15 @@ class SyntheticRooms:
         feat = np.clip(
             feat + rng.normal(0, 25, feat.shape), 0, 255).astype(np.float32)
         label = (label % self.num_classes).astype(np.int32)
-        return coord, feat, label
+        shift = (rng.normal(0, 0.1, (len(coord), 3)).astype(np.float32)
+                 if self.with_shift else None)
+        return coord, feat, label, shift
 
     def __getitem__(self, idx):
-        coord, feat, label = self.raw_scene(idx)
+        coord, feat, label, shift = self.raw_scene(idx)
         rng = np.random.default_rng(self.seed + 7919 * (idx + 1))
         return data_prepare(
             coord, feat, label, self.split, self.voxel_size, self.voxel_max,
             feat_scale=255.0, rng=rng, transform=self.transform,
             transform_rng=(rng if self.transform_rng is None
-                           else self.transform_rng))
+                           else self.transform_rng), target_shift=shift)

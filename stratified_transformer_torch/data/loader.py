@@ -1,8 +1,8 @@
 """Batches: datasets -> host batches -> device tensors.
 
 `build_dataset` and `BatchLoader` are the JAX training driver's
-(``train.py:113-302``): a map-style dataset (S3DIS rooms, ScanNetv2 scenes
-or synthetic rooms) read in batches of ``batch_size`` scenes, each batch
+(``train.py:113-302``): a map-style dataset (S3DIS rooms, ScanNetv2 scenes,
+DCF cube scenes or synthetic rooms) read in batches of ``batch_size`` scenes, each batch
 the collated scenes, the KPConv stem's radius neighbours and the host
 geometry pyramid, built ahead of the training step by an ordered pool of
 threads.
@@ -23,7 +23,7 @@ import torch
 from stratified_transformer_torch.data.collate import (
     collate_scenes, mix3d_pairs, with_stem_neighbors)
 from stratified_transformer_torch.data.datasets import (
-    S3DIS, Scannetv2, SyntheticRooms)
+    DCF, S3DIS, Scannetv2, SyntheticRooms)
 from stratified_transformer_torch.data.prepare import with_xyz_concat
 from stratified_transformer_torch.data.pyramid import build_geometry_pyramid
 from stratified_transformer_torch.data.transforms import train_transform
@@ -36,17 +36,23 @@ def build_dataset(cfg, split):
     under ``data_root``, points shuffled, ``loop`` passes for training),
     scannetv2 (the ``.pth`` scenes of ``data_root``'s ``train`` directory
     for training, of ``val`` otherwise; points shuffled, ``loop`` passes for
-    training) or synthetic (``synthetic_scenes`` rooms of
-    ``synthetic_points`` points, seed 0 for training and 10000 for
-    validation); training items are augmented when ``aug`` is set."""
+    training), dcf (the cube files of the ``train`` directory of each
+    ``data_root``, a str or a list, for training, of ``test`` otherwise;
+    points shuffled, Gaussian noise of ``noise_sigma``, offset targets) or
+    synthetic (``synthetic_scenes`` rooms of ``synthetic_points`` points,
+    seed 0 for training and 10000 for validation, with offset targets when
+    ``with_regressor`` is set); training items are augmented when ``aug``
+    is set (not DCF's, as in the JAX driver)."""
     name = cfg.get("data_name", "synthetic")
     voxel_max = cfg.get("voxel_max")
     tfm = (train_transform(cfg)
            if bool(cfg.get("aug", False)) and split == "train" else None)
-    if name in ("s3dis", "scannetv2") and not cfg.get("data_root"):
-        raise ValueError(f"data_name {name} needs data_root, the directory "
-                         + ("of the .npy rooms" if name == "s3dis" else
-                            "holding train/ and val/ .pth scenes"))
+    if name in ("s3dis", "scannetv2", "dcf") and not cfg.get("data_root"):
+        raise ValueError(f"data_name {name} needs data_root, " + {
+            "s3dis": "the directory of the .npy rooms",
+            "scannetv2": "the directory holding train/ and val/ .pth scenes",
+            "dcf": "the directories (a str or a list) holding train/ and "
+                   "test/ cube files"}[name])
     if name == "s3dis":
         return S3DIS(
             split=split, data_root=cfg["data_root"],
@@ -61,16 +67,22 @@ def build_dataset(cfg, split):
             voxel_size=cfg.get("voxel_size", 0.02), voxel_max=voxel_max,
             transform=tfm, shuffle_index=True,
             loop=cfg.get("loop", 1) if split == "train" else 1)
+    if name == "dcf":
+        roots = cfg["data_root"]
+        return DCF(
+            split=split,
+            data_root=[roots] if isinstance(roots, str) else roots,
+            voxel_size=cfg.get("voxel_size", 0.04),
+            sigma=cfg.get("noise_sigma", 0.02), voxel_max=voxel_max,
+            shuffle_index=True)
     if name == "synthetic":
         return SyntheticRooms(
             num_scenes=int(cfg.get("synthetic_scenes", 32)),
             points=int(cfg.get("synthetic_points", 40000)),
             voxel_size=cfg.get("voxel_size", 0.04), voxel_max=voxel_max,
             num_classes=int(cfg.get("classes", 13)), transform=tfm,
-            seed=0 if split == "train" else 10_000, split=split)
-    if name == "dcf":
-        raise ValueError("data_name 'dcf' is not ported yet (ROADMAP queue 1 "
-                         "item 3)")
+            seed=0 if split == "train" else 10_000, split=split,
+            with_shift=bool(cfg.get("with_regressor", False)))
     raise ValueError(name)
 
 
@@ -170,9 +182,9 @@ class BatchLoader:
 
 def finish_batch(b, cfg, pyramid=True):
     """The host batch of the collated `PaddedBatch` ``b``: its
-    ``feats/xyz/offsets/labels``, the KPConv stem's radius neighbours
-    ``stem_nidx/stem_nmask`` and, with ``pyramid``, the geometry
-    ``pyramid``."""
+    ``feats/xyz/offsets/labels`` (and ``target_shift`` where ``b`` has
+    one), the KPConv stem's radius neighbours ``stem_nidx/stem_nmask`` and,
+    with ``pyramid``, the geometry ``pyramid``."""
     b = with_stem_neighbors(b, radius=2.5 * cfg.grid_size * cfg.sigma,
                             k=cfg.max_num_neighbors)
     batch = {"feats": b.feats, "xyz": b.xyz, "offsets": b.offsets,
@@ -180,6 +192,8 @@ def finish_batch(b, cfg, pyramid=True):
              "stem_nmask": b.stem_nmask}
     if pyramid:
         batch["pyramid"] = build_geometry_pyramid(b.xyz, b.offsets, cfg)
+    if b.target_shift is not None:
+        batch["target_shift"] = b.target_shift
     return batch
 
 

@@ -39,8 +39,12 @@ def data_prepare(
     transform=None,
     transform_rng: Optional[np.random.Generator] = None,
     shuffle_index: bool = False,
+    target_shift=None,
 ):
-    """Returns a scene dict ``{xyz, feats, labels}`` for `collate_scenes`.
+    """Returns a scene dict ``{xyz, feats, labels}`` for `collate_scenes`,
+    with ``target_shift`` (float32) when one is given: the DCF family's
+    per-point offset targets, taken through the same voxel choice, crop and
+    shuffle as the points (``data/prepare.py:60-83``).
 
     ``transform`` (e.g. `data.transforms.train_transform`) augments the raw
     points first, as the JAX package does, drawing from ``transform_rng``;
@@ -57,18 +61,27 @@ def data_prepare(
         coord -= coord.min(0)
         uniq = voxelize(coord, voxel_size, rng)
         coord, feat, label = coord[uniq], feat[uniq], label[uniq]
+        if target_shift is not None:
+            target_shift = target_shift[uniq]
     crop = sphere_crop(coord, voxel_max, split, rng)
     coord, feat, label = coord[crop], feat[crop], label[crop]
+    if target_shift is not None:
+        target_shift = target_shift[crop]
     if shuffle_index:
         sh = rng.permutation(coord.shape[0])
         coord, feat, label = coord[sh], feat[sh], label[sh]
+        if target_shift is not None:
+            target_shift = target_shift[sh]
 
     coord -= coord.min(0)
-    return {
+    out = {
         "xyz": coord.astype(np.float32),
         "feats": (feat / feat_scale).astype(np.float32),
         "labels": label.astype(np.int32),
     }
+    if target_shift is not None:
+        out["target_shift"] = np.asarray(target_shift).astype(np.float32)
+    return out
 
 
 def with_xyz_concat(scene):

@@ -13,11 +13,13 @@ one), and runs every scene through `voting.evaluate_scene`: the TTA
 ensemble x vote chunks x sphere crops, each batch of crops one eval-mode
 forward without a host pyramid, so sampling and neighbour search run on the
 device. Logs each scene's accuracy, the per-class IoU table and
-``mIoU/mAcc/allAcc``. Scenes: ``data_name: synthetic`` (seed 999),
-``s3dis`` (the ``.npy`` rooms of ``test_area`` under ``data_root``) or
-``scannetv2`` (the ``.pth`` scenes of ``data_root``'s ``val`` directory,
-colours in [-1, 1]: five TTA passes, features not divided by 255). Runs on
-the card unless ``--device cpu`` is given.
+``mIoU/mAcc/allAcc``. Scenes: ``data_name: s3dis`` (the ``.npy`` rooms of
+``test_area`` under ``data_root``), ``scannetv2`` (the ``.pth`` scenes of
+``data_root``'s ``val`` directory, colours in [-1, 1]: five TTA passes,
+features not divided by 255) or, for any other name, synthetic rooms (seed
+999), as ``test.py:177-187`` reads them: rgb 0-255 divided by 255 under
+``synthetic``, five passes and no division under any other name (``dcf``).
+Runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -73,8 +75,9 @@ def make_predict_probs(model):
 
 def scenes_of(yaml_cfg, num_classes):
     """``(name, xyz, colours, labels)`` of every scene to evaluate
-    (``test.py:159-185``): rgb 0-255 for s3dis and synthetic scenes, [-1,
-    1] for scannetv2."""
+    (``test.py:159-185``): rgb 0-255 for s3dis rooms, [-1, 1] for
+    scannetv2 scenes; any other ``data_name`` (synthetic, dcf) reads
+    synthetic rooms, rgb 0-255."""
     data_name = yaml_cfg.get("data_name", "synthetic")
     if data_name in ("s3dis", "scannetv2") and not yaml_cfg.get("data_root"):
         raise ValueError(f"data_name {data_name} needs data_root, the "
@@ -86,16 +89,13 @@ def scenes_of(yaml_cfg, num_classes):
                             yaml_cfg.get("test_area", 5))
     if data_name == "scannetv2":
         return scannet_scenes(yaml_cfg["data_root"])
-    if data_name != "synthetic":
-        raise ValueError(f"data_name {data_name!r}: the port reads 's3dis', "
-                         "'scannetv2' and 'synthetic' scenes (DCF is ROADMAP "
-                         "queue 1 item 3)")
     ds = SyntheticRooms(
         num_scenes=int(yaml_cfg.get("synthetic_eval_scenes", 2)),
         points=int(yaml_cfg.get("synthetic_points", 20000)),
         num_classes=num_classes, seed=999)
     return [(f"synthetic_{i}", c, f, l.astype(np.int64))
-            for i, (c, f, l) in enumerate(map(ds.raw_scene, range(len(ds))))]
+            for i, (c, f, l, _) in enumerate(map(ds.raw_scene,
+                                                  range(len(ds))))]
 
 
 def run(yaml_cfg, device="cuda", log=print):
@@ -118,8 +118,9 @@ def run(yaml_cfg, device="cuda", log=print):
     predict_probs = make_predict_probs(model)
     voxel_max = yaml_cfg.get("voxel_max", 80000)
     ignore = int(yaml_cfg.get("ignore_label", 255))
-    # colours of s3dis and synthetic scenes are rgb 0-255: the protocol
-    # divides them by 255 and adds the two shifted passes (test.py:187)
+    # test.py:187 divides the colours by 255 and adds the two shifted
+    # passes for s3dis and synthetic scenes only: under any other name
+    # (dcf) its synthetic rooms keep rgb 0-255 in five passes
     data_name = yaml_cfg.get("data_name", "synthetic")
     vote_name = "s3dis" if data_name in ("s3dis", "synthetic") else data_name
     inter_sum, union_sum, target_sum = (np.zeros(ncls) for _ in range(3))

@@ -14,7 +14,9 @@ radius neighbours and the geometry pyramid (sample indices, kNN graphs,
 3-NN upsample indices, stratified member masks) arrive with a host batch
 (``data/loader.py::host_batch``) or, when absent, are computed on the
 device from the coordinates alone (`stem_neighbors`, `geometry_pyramid`),
-as whole-scene evaluation runs the model. In training mode the BatchNorms
+as whole-scene evaluation runs the model. With ``with_regressor`` (the DCF
+family) an offset head beside the classifier regresses a 3-vector per
+point (``models/stratified.py:410-416``). In training mode the BatchNorms
 use batch statistics and the blocks drop-path with the rates of
 ``StratifiedConfig.drop_path_schedule``.
 """
@@ -232,6 +234,10 @@ class Stratified(nn.Module):
         self.cls_fc1 = nn.Linear(c[0], c[0])
         self.cls_bn = MaskedBatchNorm(c[0])
         self.cls_fc2 = nn.Linear(c[0], cfg.num_classes)
+        if cfg.with_regressor:
+            self.reg_fc1 = nn.Linear(c[0], c[0])
+            self.reg_bn = MaskedBatchNorm(c[0])
+            self.reg_fc2 = nn.Linear(c[0], 3)
 
     def forward(self, feats, xyz, offsets, *, stem_nidx=None,
                 stem_nmask=None, pyramid=None, generator=None):
@@ -241,7 +247,8 @@ class Stratified(nn.Module):
         device when None (`stem_neighbors`, `geometry_pyramid`);
         ``generator`` (a ``torch.Generator`` on the model's device) draws
         the drop-path masks in training mode. Returns ``(logits [N_pad,
-        classes], None)`` (the offset head is not ported yet)."""
+        classes], shift)``: ``shift [N_pad, 3]`` from the offset head with
+        ``with_regressor``, else None."""
         cfg = self.cfg
         n = xyz.shape[0]
         if n % cfg.tile:
@@ -276,7 +283,12 @@ class Stratified(nn.Module):
 
         valid0 = sampling.offsets_to_valid(offsets, xyz.shape[0])
         h = F.relu(self.cls_bn(self.cls_fc1(feats), valid0))
-        return self.cls_fc2(h), None
+        shift = None
+        if cfg.with_regressor:
+            g = self.reg_bn(self.reg_fc1(feats), valid0)
+            g = torch.tanh(g) if cfg.activation == "Tanh" else F.relu(g)
+            shift = self.reg_fc2(g)
+        return self.cls_fc2(h), shift
 
 
 def _trunc_normal_(t, std, gen):

@@ -5,12 +5,13 @@ loop (``train.py:355-675``) on one device.
         --config configs/s3dis_stratified.yaml [--device cpu] [key value ...]
 
 Reads the YAML (``key value`` pairs override it, as for ``train.py``),
-builds the model from ``config.from_cfg`` in training mode, the train and
-(with ``evaluate``) validation loaders over ``data_name`` s3dis,
-scannetv2 or synthetic rooms, AdamW with the x0.1 ``blocks`` LR, the
-YAML's schedule and ``max_grad_norm``, and trains ``epochs`` epochs from
-``start_epoch`` or from the checkpoint ``resume`` (a ``.pt`` file or a
-``ckpt`` directory, whose latest epoch is read). Each iteration
+builds the model from ``config.from_cfg`` in training mode (with the
+offset head under ``with_regressor``), the train and (with ``evaluate``)
+validation loaders over ``data_name`` s3dis, scannetv2, dcf or synthetic
+rooms, the offset loss at ``offset_weight``, AdamW with the x0.1
+``blocks`` LR, the YAML's schedule and ``max_grad_norm``, and trains
+``epochs`` epochs from ``start_epoch`` or from the checkpoint ``resume`` (a
+``.pt`` file or a ``ckpt`` directory, whose latest epoch is read). Each iteration
 dispatches the step, takes the next host batch from the loader while the device runs, reads the step's
 statistics in one transfer and uploads the next batch. Logs ``train.py``'s
 lines (per-iteration loss, points per second and, every ``print_freq x
@@ -161,7 +162,8 @@ def run(yaml_cfg, device="cuda", log=None):
 
     ignore = int(yaml_cfg.get("ignore_label", 255))
     ncls = cfg.num_classes
-    train_step = make_train_step(ignore, ncls)
+    train_step = make_train_step(ignore, ncls,
+                                 float(yaml_cfg.get("offset_weight", 1.0)))
     eval_step = make_eval_step(ignore, ncls)
     epochs = int(yaml_cfg.get("epochs", 100))
     log_every = int(yaml_cfg.get("print_freq", 1))
@@ -185,7 +187,7 @@ def run(yaml_cfg, device="cuda", log=None):
         for epoch in range(start_epoch, epochs):
             t_epoch = time.time()
             counts = np.zeros((3, ncls))
-            loss_meter = AverageMeter()
+            loss_meter, offset_meter = AverageMeter(), AverageMeter()
             points_total = 0
             # dispatch the step on the current device batch; while the device
             # runs, take the next host batch from the loader; read the step's
@@ -223,12 +225,15 @@ def run(yaml_cfg, device="cuda", log=None):
                     t_put += time.time() - t0
                 loss = float(sarr[0])
                 loss_meter.update(loss)
+                offset_meter.update(float(sarr[2]))
                 it_points = int(sarr[3])
                 counts += sarr[4:].reshape(3, ncls)
                 points_total += it_points
                 rec = {"epoch": epoch + 1, "iter": it + 1, "loss": loss,
                        "points": it_points,
                        "scenes": scenes_in(host["offsets"])}
+                if cfg.with_regressor:
+                    rec["loss_offset"] = float(sarr[2])
                 if log_now:
                     trunc = ""
                     if audit_stats is not None:
@@ -254,6 +259,9 @@ def run(yaml_cfg, device="cuda", log=None):
                 f"step-block {t_blk:.1f}s)")
             record = {"epoch": epoch + 1, "loss": loss_meter.avg,
                       **{k: m[k] for k in ("miou", "macc", "all_acc")}}
+            if cfg.with_regressor:
+                # the epoch's mean offset loss (the JAX driver logs none)
+                record["loss_offset"] = offset_meter.avg
             timing = {"epoch": epoch + 1, "wall_s": t_wall_ep,
                       "load_wait_s": t_load, "upload_s": t_put,
                       "step_block_s": t_blk, "points": points_total}

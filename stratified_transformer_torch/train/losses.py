@@ -1,6 +1,7 @@
 """Masked cross-entropy with an ignore label (reference
 ``nn.CrossEntropyLoss(ignore_index=ignore_label)``, ``train.py:123-124``;
-label smoothing as ``util/common_util.py:180-185``)."""
+label smoothing as ``util/common_util.py:180-185``) and the L1 offset loss
+of the DCF family (reference ``L1Loss``, ``train.py:341-345``)."""
 
 from __future__ import annotations
 
@@ -25,3 +26,12 @@ def cross_entropy(logits, labels, ignore_label, valid=None, smoothing=0.0):
         nll = -logp.gather(1, safe[:, None])[:, 0]
     nll = torch.where(mask, nll, torch.zeros_like(nll))
     return nll.sum() / mask.sum().clamp_min(1)
+
+
+def l1_offset(pred_shift, target_shift, valid):
+    """Mean absolute error over the valid points' three components
+    (``train/losses.py:32-37`` of the JAX package)."""
+    err = (pred_shift.to(torch.float32)
+           - target_shift.to(torch.float32)).abs()
+    err = torch.where(valid[:, None], err, torch.zeros_like(err))
+    return err.sum() / (valid.sum() * 3).clamp_min(1)

@@ -10,10 +10,12 @@ from stratified_transformer_torch.train import losses, metrics
 from stratified_transformer_torch.train.state import optimizer_step
 
 
-def make_train_step(ignore_label, num_classes):
+def make_train_step(ignore_label, num_classes, offset_weight=1.0):
     """Returns ``train_step(model, optimizer, batch, generator) -> stats``:
     forward in training mode (batch statistics, drop-path masks from
-    ``generator``), masked CE, backward through the attention kernels, one
+    ``generator``), masked CE plus, when the model returns a shift and the
+    batch carries ``target_shift``, ``offset_weight`` times the L1 offset
+    loss (``train/step.py:52-55``), backward through the attention kernels, one
     scheduled optimizer update (`train.state.optimizer_step`), IoU counters.
     The stats keys are the JAX step's (``train/step.py:68-72``); they are
     device tensors, and the step reads none of them on the host, so the
@@ -27,12 +29,17 @@ def make_train_step(ignore_label, num_classes):
             raise ValueError("train_step expects a model in training mode")
         n = batch["xyz"].shape[0]
         valid = sampling.offsets_to_valid(batch["offsets"], n)
-        logits, _ = model(
+        logits, shift = model(
             batch["feats"], batch["xyz"], batch["offsets"],
             stem_nidx=batch["stem_nidx"], stem_nmask=batch["stem_nmask"],
             pyramid=batch.get("pyramid"), generator=generator)
-        loss = losses.cross_entropy(logits, batch["labels"], ignore_label,
-                                    valid)
+        loss_seg = losses.cross_entropy(logits, batch["labels"], ignore_label,
+                                        valid)
+        loss = loss_seg
+        loss_off = torch.zeros((), dtype=torch.float32, device=logits.device)
+        if shift is not None and batch.get("target_shift") is not None:
+            loss_off = losses.l1_offset(shift, batch["target_shift"], valid)
+            loss = loss + offset_weight * loss_off
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer_step(optimizer)
@@ -40,9 +47,8 @@ def make_train_step(ignore_label, num_classes):
             pred = logits.argmax(-1)
             inter, union, target = metrics.intersection_and_union(
                 pred, batch["labels"], num_classes, ignore_label, valid)
-        loss = loss.detach()
-        return {"loss": loss, "loss_seg": loss,
-                "loss_offset": torch.zeros_like(loss),
+        return {"loss": loss.detach(), "loss_seg": loss_seg.detach(),
+                "loss_offset": loss_off.detach(),
                 "intersection": inter, "union": union, "target": target,
                 "points": valid.sum()}
 

@@ -1,7 +1,7 @@
 """PyTorch port, configuration: the YAML reader against the JAX driver's
 ``build_model_config`` on one device (the ScanNet YAML's in
 ``test_torch_scannet.py``), and the model families the port does not run
-yet refused by name."""
+yet refused by name; the DCF family's offset-head keys."""
 
 import dataclasses
 import os
@@ -32,12 +32,19 @@ def test_s3dis_config_matches_jax_driver():
 
 
 @pytest.mark.parametrize("name, refused", [
-    ("dcf_stratified.yaml", "with_regressor: True"),
     ("s3dis_swin3d.yaml", "arch: swin3d_transformer"),
 ])
 def test_unported_families_are_refused(name, refused):
     with pytest.raises(ValueError, match=refused):
         from_cfg(torch_load(os.path.join(CONFIGS, name)))
+
+
+def test_dcf_family_is_accepted():
+    """The DCF YAML reads into the S3DIS backbone with the offset head (its
+    equality with the JAX driver's config: ``test_torch_dcf.py``)."""
+    cfg = from_cfg(torch_load(os.path.join(CONFIGS, "dcf_stratified.yaml")))
+    assert cfg.with_regressor and cfg.activation == "Relu"
+    assert cfg.num_classes == 18
 
 
 def test_unknown_attention_impl_is_refused():
@@ -46,14 +53,12 @@ def test_unknown_attention_impl_is_refused():
             os.path.join(CONFIGS, "s3dis_stratified.yaml")), attn_impl="jnp")
 
 
-# the ROADMAP queue 1 item that ports each refused family: DCF's offset
-# head is item 3, Swin3D item 5
-ROADMAP_ITEM = {"with_regressor": 3, "use_stratified": 5, "arch": 5}
+# the ROADMAP queue 1 item that ports each refused family: Swin3D is item 5
+ROADMAP_ITEM = {"use_stratified": 5, "arch": 5}
 
 
 @pytest.mark.parametrize("key, value", [
-    ("with_regressor", True), ("use_stratified", False),
-    ("arch", "swin3d_transformer")])
+    ("use_stratified", False), ("arch", "swin3d_transformer")])
 def test_refusals_name_their_roadmap_item(key, value):
     cfg = torch_load(os.path.join(CONFIGS, "s3dis_stratified.yaml"))
     cfg[key] = value
@@ -74,3 +79,18 @@ def test_on_device_sampling_keys_are_read_as_the_jax_driver_reads_them():
                       ("neighbor_method", "kdtree")):
         with pytest.raises(ValueError, match=name):
             dataclasses.replace(ours, **{name: bad})
+
+
+@pytest.mark.parametrize("value", ["Relu", "Tanh"])
+def test_activation_is_read_as_the_jax_driver_reads_it(value):
+    cfg = torch_load(os.path.join(CONFIGS, "dcf_stratified.yaml"))
+    cfg["activation"] = value
+    assert from_cfg(cfg).activation == build_model_config(cfg, 1).activation
+    assert from_cfg(cfg).activation == value
+
+
+def test_unknown_activation_in_the_yaml_is_refused():
+    cfg = torch_load(os.path.join(CONFIGS, "dcf_stratified.yaml"))
+    cfg["activation"] = "LeakyRelu"
+    with pytest.raises(ValueError, match="activation 'LeakyRelu'"):
+        from_cfg(cfg)

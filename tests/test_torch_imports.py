@@ -1,5 +1,6 @@
 """The PyTorch port and its chip smoke script import nothing of JAX, flax
-or the JAX package, not even its numpy-only modules."""
+or the JAX package, not even its numpy-only modules, and no scikit-learn,
+which the card machine does not have."""
 
 import ast
 import pathlib
@@ -12,7 +13,7 @@ FILES = sorted(
     for p in (ROOT / "stratified_transformer_torch").rglob("*.py")
     if "_build" not in p.parts) + ["chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
-             "stratified_transformer_tpu")
+             "stratified_transformer_tpu", "sklearn")
 
 
 def imported_modules(source):
@@ -39,6 +40,17 @@ def test_no_jax_imports(rel):
 def test_forbidden_import_is_detected():
     src = "import numpy\nfrom jax import numpy as jnp\n"
     assert "jax" in list(imported_modules(src))
+
+
+def test_sklearn_import_is_detected():
+    """The DCF evaluation clusters with the port's own DBSCAN."""
+    src = "def f():\n    from sklearn.cluster import DBSCAN\n"
+    assert [m.split(".")[0] for m in imported_modules(src)
+            if m.split(".")[0] in FORBIDDEN] == ["sklearn"]
+    assert {"stratified_transformer_torch/eval/dbscan.py",
+            "stratified_transformer_torch/eval/instantiation.py",
+            "stratified_transformer_torch/eval/scene_prep.py",
+            "stratified_transformer_torch/eval/iou_driver.py"} <= set(FILES)
 
 
 def test_the_whole_scene_modules_are_checked():

@@ -194,10 +194,28 @@ def test_stopping_early_stops_the_workers():
     assert not loader_threads()
 
 
-@pytest.mark.parametrize("name,item", [("dcf", "3")])
-def test_build_dataset_names_the_roadmap_item(name, item):
-    with pytest.raises(ValueError, match=f"queue 1 item {item}"):
-        loader.build_dataset(yaml_cfg(data_name=name), "train")
+@pytest.mark.parametrize("as_list", [True, False])
+def test_build_dataset_names_the_roadmap_item(as_list, tmp_path):
+    """``dcf``, once refused naming ROADMAP queue 1 item 3, is read as
+    ``train.py:144-152`` reads it: ``data_root`` a list of roots or one
+    root, ``noise_sigma``, the ``train`` or ``test`` cube files."""
+    import chip_smoke
+    root = str(tmp_path)
+    for split in ("train", "test"):
+        chip_smoke.write_cube_files(root, split, 2, 0, cubes=1,
+                                    points_per_cube=200, extent=1.5)
+    cfg = yaml_cfg(data_name="dcf", data_root=[root] if as_list else root,
+                   noise_sigma=0.05)
+    for split, flag in (("train", "train"), ("val", "test")):
+        ds = loader.build_dataset(cfg, split)
+        assert isinstance(ds, datasets.DCF) and ds.sigma == 0.05
+        assert ds.files == sorted(
+            os.path.join(root, flag, f) for f in os.listdir(
+                os.path.join(root, flag)))
+        assert "target_shift" in ds[0]
+    with pytest.raises(ValueError, match="dcf needs data_root"):
+        loader.build_dataset(yaml_cfg(data_name="dcf", data_root=[]),
+                             "train")
 
 
 def test_audit_counters_equal_jax():

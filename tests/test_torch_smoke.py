@@ -2,6 +2,7 @@
 full-width comparison runs at, its count of the least operations and bytes
 an attention call needs, its pair counts per stage, and its arguments."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -129,16 +130,17 @@ def test_chip_smoke_refuses_unknown_arguments_or_a_missing_card(capsys):
     (["--loop-only"], "--loop-only"),
     (["--iou-only"], "--iou-only"),
     (["--scannet-only"], "--scannet-only"),
+    (["--dcf-only"], "--dcf-only"),
 ])
 def test_parse_args_picks_the_phase_run_alone(argv, want):
     assert chip_smoke.parse_args(argv) == want
     if want is not None:
         # the kernels it builds: the forward pair for phases 4 and 10 and
-        # the IoU timing, all four attention kernels for phases 11 and 12
+        # the IoU timing, all four attention kernels for phases 11-13
         both = chip_smoke.FWD_KERNELS + chip_smoke.BWD_KERNELS
         assert chip_smoke.PHASE_ONLY[want] == {
             "--bwd-only": chip_smoke.BWD_KERNELS, "--loop-only": both,
-            "--scannet-only": both,
+            "--scannet-only": both, "--dcf-only": both,
         }.get(want, chip_smoke.FWD_KERNELS)
 
 
@@ -168,7 +170,8 @@ def test_parse_args_refuses_anything_else(argv):
 
 @pytest.mark.parametrize("flag", ["--fwd-only", "--bwd-only",
                                   "--scene-only", "--loop-only",
-                                  "--iou-only", "--scannet-only"])
+                                  "--iou-only", "--scannet-only",
+                                  "--dcf-only"])
 def test_phase_only_runs_need_a_card(flag, capsys):
     if torch.cuda.is_available():
         pytest.skip("checks the run without a card")
@@ -245,3 +248,36 @@ def test_stem_key_bound_covers_the_cell_keys():
     hi = cells[:1700].max(0).values + 1
     assert bound == 2 * int(hi.prod()) - 1
     assert int(keys[valid].max()) <= bound
+
+
+def test_cube_scene_is_a_dcf_file(tmp_path):
+    """Phase 13's fabricated scenes read through the port's ``DCF`` reader:
+    faces labelled 0-5, edges 6-17, each offset pointing to the centre of
+    its face or edge (the sample plus its offset lies on the cube's
+    surface, at the face's centre on the face's axis)."""
+    from stratified_transformer_torch.data.datasets import DCF
+    from stratified_transformer_torch.eval.instantiation import LOOKUP_FACE
+    [path] = chip_smoke.write_cube_files(str(tmp_path), "test", 1, 0,
+                                         cubes=3, points_per_cube=600,
+                                         extent=2.0)
+    coord, labels, offsets, feat, params = DCF.load_item(path)
+    assert len(coord) == 3 * (6 * 80 + 12 * 10) and params.shape == (3, 6)
+    assert sorted(set(labels.tolist())) == list(range(18))
+    centre = coord + offsets
+    per_cube = len(coord) // 3
+    for c in range(3):
+        mid, size = params[c, :3], params[c, 3:]
+        rows = slice(c * per_cube, (c + 1) * per_cube)
+        for f, (axis, side) in enumerate(chip_smoke.CUBE_FACES):
+            at = centre[rows][labels[rows] == f]
+            np.testing.assert_allclose(at, np.tile(mid + np.eye(3)[axis]
+                                                   * side * size / 2,
+                                                   (len(at), 1)), atol=1e-12)
+        for e, (a, b) in enumerate(LOOKUP_FACE):
+            (ia, sa), (ib, sb) = (chip_smoke.CUBE_FACES[a],
+                                  chip_smoke.CUBE_FACES[b])
+            assert ia != ib
+            want = mid + (np.eye(3)[ia] * sa + np.eye(3)[ib] * sb) * size / 2
+            at = centre[rows][labels[rows] == 6 + e]
+            np.testing.assert_allclose(at, np.tile(want, (len(at), 1)),
+                                       atol=1e-12)

@@ -56,8 +56,9 @@ TTA = (0, 2, 6)
 
 
 def _scene():
+    """(coord, feat, label) of the scene; it has no offset targets."""
     return datasets.SyntheticRooms(num_scenes=1, seed=999,
-                                   **SCENE).raw_scene(0)
+                                   **SCENE).raw_scene(0)[:3]
 
 
 # ---- the host protocol -------------------------------------------------
@@ -411,14 +412,26 @@ def test_driver_refuses_a_missing_checkpoint(tmp_path):
 
 
 def test_driver_refuses_what_the_port_does_not_run(monkeypatch):
+    """Sharded inference and a missing data_root are refused; DCF, once
+    refused, is taken as ``test.py`` takes it: its YAML's model (with the
+    offset head) and, for any data_name but s3dis and scannetv2, synthetic
+    rooms of seed 999."""
     yaml_cfg = load_cfg(os.path.join(CONFIGS, "s3dis_stratified.yaml"))
     with pytest.raises(ValueError, match="ROADMAP queue 1 item 6"):
         driver.run(dict(yaml_cfg, sharded=True), "cpu")
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 3"):
-        driver.eval_config(load_cfg(os.path.join(
-            CONFIGS, "dcf_stratified.yaml")))
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 3"):
-        driver.scenes_of(dict(yaml_cfg, data_name="dcf"), 13)
+    dcf = driver.eval_config(load_cfg(os.path.join(
+        CONFIGS, "dcf_stratified.yaml")))
+    assert dcf.with_regressor and dcf.n_pad == 400000 and dcf.num_scenes == 5
+    scenes = driver.scenes_of(dict(yaml_cfg, data_name="dcf",
+                                   synthetic_points=500), 18)
+    want = jax_datasets.SyntheticRooms(num_scenes=2, points=500,
+                                       num_classes=18, seed=999)
+    assert [s[0] for s in scenes] == ["synthetic_0", "synthetic_1"]
+    for (_, c, f, l), i in zip(scenes, range(2)):
+        wc, wf, wl, _ = want.raw_scene(i)
+        np.testing.assert_array_equal(c, wc)
+        np.testing.assert_array_equal(f, wf)
+        np.testing.assert_array_equal(l, wl.astype(np.int64))
     for name in ("s3dis", "scannetv2"):
         with pytest.raises(ValueError, match=f"{name} needs data_root"):
             driver.scenes_of(dict(yaml_cfg, data_name=name), 13)
