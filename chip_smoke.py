@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's evaluation forward, training step, whole-scene
 evaluation and training loop, for the S3DIS, ScanNet and DCF families, the
-DCF family's box-mAP and layout-removal drivers, and its two probes, on an
-NVIDIA GPU.
+DCF family's box-mAP and layout-removal drivers, its two probes, and the
+shipped YAMLs' bf16 fast mode, on an NVIDIA GPU.
 
 Run from the repository root with no arguments (needs one CUDA card):
 
@@ -14,12 +14,18 @@ phase 7 alone; ``--scene-only`` builds the two forward kernels and runs
 phase 10 alone; ``--loop-only`` builds the four attention kernels and runs
 phase 11 alone; ``--scannet-only`` builds the four attention kernels and
 runs phase 12 alone; ``--dcf-only`` builds the four attention kernels and
-runs phase 13 alone; ``--iou-only`` builds the two forward kernels and
-times the train and eval steps' IoU counters (`iou_phase`). Each prints its
+runs phase 13 alone; ``--fast-only`` builds the four attention kernels
+(their sources hold the fp32 and the fast forms) and runs phase 14 alone;
+``--iou-only`` builds the two forward kernels and times the train and eval
+steps' IoU counters (`iou_phase`). Each prints its
 times as one JSON line (``--fwd-only`` also per stage and parity). Copied into another checkout (say a parent commit
 unpacked beside the tree) and run from there, it times that checkout's
 kernels and wrappers the same way, so two versions can be compared in
 turns on one card.
+
+Phases 2-13 pin ``rpe_precision``/``qk_precision`` to "highest" (the fp32
+kernels, `PIN_NOTE`), so that their gates and times stay comparable with
+the runs before the fast forms; phase 14 runs the YAMLs as shipped.
 
 Phases, each fatal on failure:
   1. device: card name, power limit, CUDA version; builds the six kernels
@@ -112,7 +118,22 @@ Phases, each fatal on failure:
      crops, objects before and after the merge, TP/FP/FN and peak memory;
      the first crop batch against the plain versions; the protocol again
      giving identical boxes; the host steps on stand-in offsets; (d) the
-     layout-removal driver's two ``.ply`` files read back.
+     layout-removal driver's two ``.ply`` files read back;
+ 14. the shipped YAMLs' fast mode (``rpe_precision``/``qk_precision:
+     default``): (a) the bf16 forms of the four attention kernels against
+     their plain fast versions at phase 2's S3DIS batch and every stage's
+     plans (output within FAST_OUT_REL_L2, gradients within
+     FAST_GRAD_REL_L2 relative L2, and each fp32 form beyond those gates
+     from the same plain fast versions), their times, bounds (products at
+     the bf16 tensor-core peak) and the fp32 forms' times on the same
+     inputs; (b) ``configs/s3dis_stratified.yaml`` as shipped at full
+     width: three eval forwards, 12 launches of each fast forward kernel
+     and none of the fp32 ones, logits against the plain fast versions'
+     (the fp32 kernels' logits beyond the gate); one training step, 12
+     launches of each fast kernel, step-1 gradients and loss against the
+     plain fast step (the fp32 kernels' step beyond the gate), and three
+     steps of each kind timed in turns; (c) the four fast kernels at
+     ScanNet's 80-row tables on phase 12's plans of one batch.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -121,12 +142,15 @@ result, when no CUDA card is present.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+import types
+from unittest import mock
 
 import numpy as np
 import torch
@@ -137,12 +161,15 @@ SCANNET_CONFIG = os.path.join(REPO, "configs", "scannetv2_stratified.yaml")
 N_PAD, SCENES = 40960, 2
 EVAL_BATCHES = 3
 TRAIN_STEPS = 3
+# phase 14 (b): train steps of each kind (fast, fp32 kernels) timed in turns
+STEP_TIMINGS = 3
 # the synthetic train set's iterations per epoch (train.py's BatchLoader
 # over 32 synthetic scenes in batches of 2): epoch-stepped schedules read it
 TRAIN_ITERS_PER_EPOCH = 16
-# H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the tensor cores
-# and HBM3 bandwidth.
+# H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the tensor cores,
+# dense bf16 on the tensor cores and HBM3 bandwidth.
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 # kernel vs plain version, both fp32: sums in another order (per-key online
 # softmax vs two-pass, per-pair table terms vs per-bin mass)
@@ -167,6 +194,43 @@ GRAD_REL_L2, GRAD_FLOOR = 1e-3, 1e-6
 # the 3-step loss trajectories: the same grads through AdamW's sign-like
 # first steps
 LOSS_RTOL = 1e-3
+# phase 14, the fast (bf16) kernels against their plain fast versions,
+# which round the same operands at the same maxima (p at the running row
+# maximum of 32-key chunks counted from the window's first key) and, given
+# the kernels' row slices (`slice_rows`), sum the key masses over the same
+# rows: what is left is fp32 sums in another order, whose last-bit
+# differences flip a bf16 rounding of p, dl or a mass here and there.
+# Relative L2 over each tensor, not per entry, for those flips. Each gate
+# must fail the fp32 form (control): every fast kernel's fp32 form is held
+# against the same plain fast version and must land beyond the gate, else
+# the gate could not tell a kernel that does not round from one that does
+# (the fp32 forms differ from the plain fast versions by the fast mode's
+# own rounding). On an H100 at S3DIS's and ScanNet's plans: outputs 2.6e-8
+# to 6.5e-5 (fp32 forms 2.4e-3 to 4.0e-3), gradients 3.5e-8 to 9.1e-5
+# (fp32 forms 2.3e-3 to 6.0e-3). m and den sum fp32 values of the same
+# rounded products and keep the fp32 tolerance (RTOL / ATOL).
+FAST_OUT_REL_L2, FAST_GRAD_REL_L2 = 2e-4, 5e-4
+# The full-width fast model (b), kernels against the plain fast versions
+# in the kernels' row slices (same weights, batch and drop-path masks): each
+# block's kernel-vs-plain difference (1e-8 to 6.5e-5 relative L2 at (a)'s
+# inputs on an H100) enters the next block, whose bf16 staging rounds it
+# again, so the model reads more than one kernel: logits 1.73e-4, step-1
+# gradients 3.4e-3 all together (on an H100; the kernels are deterministic,
+# so a reading repeats from run to run). The gates sit at 1.5-2x those
+# readings, below the fp32 kernels' 5.8e-4 and 7.2e-3 (controls, which must
+# fail them). Each parameter's gradient within FAST_STEP_GRAD_REL_L2
+# relative L2 (+ GRAD_FLOOR per entry) checks the wiring, not the rounding:
+# a bias's gradient sums tens of thousands of terms that cancel, so its
+# relative L2 carries their flips (1.15e-2 at most), as the fp32 kernels'
+# (1.9e-2).
+FAST_LOGITS_REL_L2 = 3e-4
+FAST_STEP_GRAD_REL_L2, FAST_STEP_ALL_REL_L2 = 3e-2, 5e-3
+# phases 2-13 run the fp32 kernels, whatever the YAML selects, so that their
+# gates and times stay comparable with the runs before the fast forms
+FP32 = dict(rpe_precision="highest", qk_precision="highest")
+HIGHEST = [x for item in FP32.items() for x in item]   # as YAML overrides
+PIN_NOTE = ("rpe_precision/qk_precision pinned to highest: the fp32 "
+            "kernels (the YAML's fast forms run in phase 14)")
 # the DCF step's L1 offset loss before any update: the mean over ~3e5
 # terms |shift - target| of two fp32 forwards within LOGIT_RTOL of each
 # other, so equal to ~1e-5
@@ -241,11 +305,23 @@ TPU_KERNELS = {
 }
 FWD_KERNELS = ("band_attention", "sparse_band_attention")
 BWD_KERNELS = ("band_attention_bwd", "sparse_band_attention_bwd")
+# the bf16 forms of the four attention kernels (their sources' `_bf16`
+# entry points), by report name
+FAST = "_bf16"
+FAST_KERNELS = tuple(n + FAST for n in FWD_KERNELS + BWD_KERNELS)
 PROBE_KERNELS = ("bin_math_probe", "cache_key_probe")
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def yaml_fp32(path):
+    """The YAML config at ``path`` with its precisions pinned to "highest"
+    (phases 2-13: `PIN_NOTE`)."""
+    from stratified_transformer_torch.utils.config import (
+        load_cfg, merge_cfg_from_list)
+    return merge_cfg_from_list(load_cfg(path), HIGHEST)
 
 
 # the six faces of a cuboid as (axis, side), in the DCF face-label order:
@@ -453,40 +529,54 @@ def log_pairs(label, cfg, hb, dev):
     log(f"[pairs] {label}: " + "; ".join(parts))
 
 
-def least_ops(pairs, n_q, n_k, h, d, nb):
-    """Least fp32 operations of one attention call with cRPE tables on q, k
-    and v over ``pairs`` unmasked pairs, ``n_q`` valid queries and ``n_k``
-    valid keys, ``nb`` table rows per axis. Per pair and head: q·k (2d),
-    p·v (2d) and the online-softmax update (~5). Per pair, shared by the
+def _table_ops(per_pair, pairs, nb, d, rows):
+    """(products, other operations) of one table term at the cheaper of its
+    per-pair form and its projection form (`least_ops`)."""
+    if per_pair * pairs <= 6 * nb * d * rows + 3 * pairs:
+        return per_pair * pairs, 0
+    return 6 * nb * d * rows, 3 * pairs
+
+
+def least_ops(pairs, n_q, n_k, h, d, nb, split=False):
+    """Least operations of one attention call with cRPE tables on q, k and
+    v over ``pairs`` unmasked pairs, ``n_q`` valid queries and ``n_k``
+    valid keys, ``nb`` table rows per axis; with ``split``, as ``(products,
+    other)``: the products are those the TPU kernel contracts (bf16
+    operands in the fast form), the rest fp32. Per pair and head: q·k (2d) and p·v (2d)
+    products, the online-softmax update (~5). Per pair, shared by the
     heads: the three axes' bin arithmetic (~24). Per table and head, the
     cheaper of its per-pair form (three d-long dot products for Tq and Tk,
     three d-long adds for Tv) and the TPU kernel's form: each query (Tq),
     key (Tk) or row's bin mass (Tv) projected once onto all 3·nb table rows
     (2d each), then 3 lookups or mass adds per pair."""
-    def table(per_pair, rows):
-        return min(per_pair * pairs, 6 * nb * d * rows + 3 * pairs)
-    per_head = ((4 * d + 5) * pairs + table(6 * d, n_q) + table(6 * d, n_k)
-                + table(3 * d, n_q))
-    return h * per_head + 24 * pairs
+    parts = [(4 * d * pairs, 5 * pairs),
+             _table_ops(6 * d, pairs, nb, d, n_q),
+             _table_ops(6 * d, pairs, nb, d, n_k),
+             _table_ops(3 * d, pairs, nb, d, n_q)]
+    ops = (h * sum(p for p, _ in parts),
+           h * sum(o for _, o in parts) + 24 * pairs)
+    return ops if split else sum(ops)
 
 
-def least_ops_bwd(pairs, n_q, n_k, h, d, nb):
-    """Least fp32 operations of one backward call (both table sets present)
-    over ``pairs`` unmasked pairs, ``n_q`` valid queries, ``n_k`` valid
-    keys, ``nb`` table rows per axis. Per pair and head: the recomputed q·k
-    (2d), g·v (2d), r and dl (~5), dq += dl k, dk += dl q, dv += r g (2d
-    each). Per query and head: g·o (2d). Per pair, shared by the heads: the
-    bins (~24). Eight table terms, each at the cheaper of its per-pair form
-    (three d-long dot products or axpys, 6d) and the projection form (3
-    lookups or mass adds per pair, then 6·nb·d per query or key): the
-    logit's Tq (queries) and Tk (keys), gv's Tv (queries), dq's Tq
-    (queries), dk's Tk (keys) and the grads dTq (queries), dTk (keys) and
-    dTv (queries)."""
-    def table(rows):
-        return min(6 * d * pairs, 6 * nb * d * rows + 3 * pairs)
-    per_head = ((10 * d + 5) * pairs + 2 * d * n_q
-                + 5 * table(n_q) + 3 * table(n_k))
-    return h * per_head + 24 * pairs
+def least_ops_bwd(pairs, n_q, n_k, h, d, nb, split=False):
+    """Least operations of one backward call (both table sets present) over
+    ``pairs`` unmasked pairs, ``n_q`` valid queries, ``n_k`` valid keys,
+    ``nb`` table rows per axis (with ``split`` as ``(products, other)``,
+    `least_ops`). Per
+    pair and head: the recomputed q·k (2d), g·v (2d), dq += dl k, dk += dl
+    q, dv += r g (2d each) products; r and dl (~5). Per query and head: g·o
+    (2d, fp32 in both forms). Per pair, shared by the heads: the bins (~24).
+    Eight table terms, each at the cheaper of its per-pair form (three
+    d-long dot products or axpys, 6d) and the projection form (3 lookups or
+    mass adds per pair, then 6·nb·d per query or key): the logit's Tq
+    (queries) and Tk (keys), gv's Tv (queries), dq's Tq (queries), dk's Tk
+    (keys) and the grads dTq (queries), dTk (keys) and dTv (queries)."""
+    parts = ([(10 * d * pairs, 5 * pairs + 2 * d * n_q)]
+             + [_table_ops(6 * d, pairs, nb, d, n_q)] * 5
+             + [_table_ops(6 * d, pairs, nb, d, n_k)] * 3)
+    ops = (h * sum(p for p, _ in parts),
+           h * sum(o for _, o in parts) + 24 * pairs)
+    return ops if split else sum(ops)
 
 
 def new_report(names):
@@ -494,13 +584,23 @@ def new_report(names):
                 "max_abs_err": 0.0, "bound_by": {}} for k in names}
 
 
+def ops_seconds(ops):
+    """Least seconds of ``ops`` operations: a number, all fp32 outside the
+    tensor cores (the fp32 kernels); or ``(products, other)`` (the fast
+    forms), the products at the bf16 tensor-core peak and the rest at the
+    fp32 peak, on units that may run together."""
+    if isinstance(ops, tuple):
+        return max(ops[0] / PEAK_BF16, ops[1] / PEAK_FP32)
+    return ops / PEAK_FP32
+
+
 def add_timing(report, name, blocks, ms, plain_ms, t_bytes, t_ops, err):
     """Adds one plan's launch to the kernel's per-step sums in ``report``
-    (``blocks`` launches of the step use this plan); returns (bound,
-    bound_by)."""
-    bound = max(t_bytes / PEAK_BYTES, t_ops / PEAK_FP32) * 1e3
-    by = ("bytes" if t_bytes / PEAK_BYTES >= t_ops / PEAK_FP32
-          else "operations")
+    (``blocks`` launches of the step use this plan); ``t_ops`` as
+    `ops_seconds` takes them. Returns (bound, bound_by)."""
+    t_op = ops_seconds(t_ops)
+    bound = max(t_bytes / PEAK_BYTES, t_op) * 1e3
+    by = "bytes" if t_bytes / PEAK_BYTES >= t_op else "operations"
     r = report[name]
     r["ms"] += blocks * ms
     r["plain_ms"] += blocks * plain_ms
@@ -718,19 +818,69 @@ def fwd_bytes(name, inputs, outs, sb):
     return total
 
 
-def fwd_phase(cfg, levels, plans, dev, report):
+def rel_l2(got, want):
+    return float((got.double() - want.double()).norm()
+                 / want.double().norm().clamp_min(1e-30))
+
+
+# phase 14's failed gates and controls: each is logged where it is found,
+# and fast_phase raises at its end if any, so that one run shows them all
+FAST_FAILURES = []
+
+
+def fast_gate(label, err, gate, control=None):
+    """A fast kernel's relative L2 ``err`` from its plain fast version must
+    be within ``gate``, and ``control`` (the fp32 form's from the same plain
+    fast version) beyond it; a failure is logged and kept in
+    FAST_FAILURES."""
+    bad = []
+    if not err <= gate:
+        bad.append(f"{label}: relative L2 {err:.3e} > {gate}")
+    if control is not None and not control > gate:
+        bad.append(f"{label}: the fp32 form's relative L2 {control:.3e} "
+                   f"is within the gate {gate} (control)")
+    for b in bad:
+        log(f"[fast] FAILED {b}")
+    FAST_FAILURES.extend(bad)
+
+
+def check_fast_triple(label, got, want, fp32):
+    """A fast kernel's triple against its plain fast version: acc within
+    FAST_OUT_REL_L2 relative L2 and the fp32 form's acc ``fp32`` beyond it
+    (`fast_gate`), m and den within RTOL / ATOL; returns (acc's relative
+    L2, the fp32 form's, the max abs errors)."""
+    err, control = rel_l2(got[0], want[0]), rel_l2(fp32[0], want[0])
+    fast_gate(f"{label} acc", err, FAST_OUT_REL_L2, control)
+    for tn, g, w in zip(("m", "den"), got[1:], want[1:]):
+        assert_close(f"{label} {tn}", g, w, RTOL, ATOL)
+    return err, control, [max_errors(g, w) for g, w in zip(got, want)]
+
+
+def kernel_slice_rows(name, dev, nb, fast=True):
+    """The rows per block of a backward kernel's fast form for tables of
+    ``nb`` rows per axis (the plain fast versions' ``slice_rows``); None
+    for the fp32 form, whose key masses are not rounded."""
+    from stratified_transformer_torch.kernels import block_limits
+    return block_limits(name, dev, nb, fast=True)[0] if fast else None
+
+
+def fwd_phase(cfg, levels, plans, dev, report, fast=False):
     """Phase 4: both forward kernels against their plain versions at every
     stage's plans, with random q/k/v and tables from seed 0. Adds each
     kernel's per-step times, bounds and errors to ``report``, and the public
     wrapper's device-busy time under ``wrapper_busy_ms``; returns one row
-    per (kernel, stage, parity)."""
+    per (kernel, stage, parity). ``fast`` (phase 14): the kernels' bf16
+    forms against the plain fast versions (`check_fast_triple`), reported
+    under ``<name>_bf16`` with the fp32 form's time on the same inputs
+    (``fp32_ms``) and no wrapper profile."""
     from stratified_transformer_torch.kernels import band_attention as band_k
     from stratified_transformer_torch.kernels import (
         sparse_band_attention as sparse_k)
     from stratified_transformer_torch.ops import attention as plain
     gen = torch.Generator(device="cpu").manual_seed(0)
+    suffix = FAST if fast else ""
     for name in FWD_KERNELS:
-        report[name]["wrapper_busy_ms"] = 0.0
+        report[name + suffix]["fp32_ms" if fast else "wrapper_busy_ms"] = 0.0
     rows_out = []
     for i in stages(cfg):
         h, d = cfg.num_heads[i], cfg.channels[i] // cfg.num_heads[i]
@@ -749,8 +899,8 @@ def fwd_phase(cfg, levels, plans, dev, report):
             pargs = (q, k, v, plan.xyz_sorted, plan.seg_start, plan.seg_end,
                      plan.valid_sorted) + tables
             sb = plan.sparse_band
-            bkw = dict(kw, band=band, tile=cfg.tile)
-            skw = dict(kw, s_band=cfg.s_band, tile=cfg.tile)
+            bkw = dict(kw, band=band, tile=cfg.tile, fast=fast)
+            skw = dict(kw, s_band=cfg.s_band, tile=cfg.tile, fast=fast)
             n_q = int(plan.valid_sorted.sum())
             s_pairs, s_q, s_k = sparse_pairs(plan, cfg.s_band, cfg.tile)
             nb = plain.band_table_slice(nbf)[1]
@@ -761,79 +911,115 @@ def fwd_phase(cfg, levels, plans, dev, report):
                 #        own band key
                 runs = {
                     "band_attention": (
-                        band_k, band_k.launch_args(*pargs, **bkw),
-                        lambda: band_k.band_attention(*pargs, **bkw),
+                        band_k, lambda f: band_k.launch_args(
+                            *pargs, **dict(bkw, fast=f)),
+                        lambda f=fast: band_k.band_attention(
+                            *pargs, **dict(bkw, fast=f)),
                         lambda: plain.band_attention_plain(*pargs, **bkw),
                         band_pairs(plan, band, cfg.tile), n_q, n_q, nb),
                     "sparse_band_attention": (
-                        sparse_k, sparse_k.launch_args(
-                            q, k, v, sb, *tables, **skw),
-                        lambda: sparse_k.sparse_band_attention(
-                            q, k, v, sb, *tables, **skw),
+                        sparse_k, lambda f: sparse_k.launch_args(
+                            q, k, v, sb, *tables, **dict(skw, fast=f)),
+                        lambda f=fast: sparse_k.sparse_band_attention(
+                            q, k, v, sb, *tables, **dict(skw, fast=f)),
                         lambda: plain.sparse_band_attention_plain(
                             q, k, v, sb, *tables, **skw),
                         s_pairs, s_q, s_k, nbf),
                 }
                 triples = {}
-                for name, (mod, (args, outs, inputs), wrapper, plain_fn,
-                           pairs, nq, nk, rows) in runs.items():
+                for name, (mod, make_args, wrapper, plain_fn, pairs, nq, nk,
+                           rows) in runs.items():
+                    key = name + suffix
+                    args, outs, inputs = make_args(fast)
                     got = wrapper()
                     want = plain_fn()
                     torch.cuda.synchronize()
                     triples[name] = (got, want)
-                    errs = []
-                    for tn, g, w in zip(("acc", "m", "den"), got, want):
-                        assert_close(f"{name} stage {i} shifted={shifted} "
-                                     f"{tn}", g, w, RTOL, ATOL)
-                        errs.append(max_errors(g, w))
-                    ms = cuda_time_ms(lambda: mod.KERNEL(*args), 20)
-                    busy_ms = device_busy_ms(wrapper, 3)
-                    report[name]["wrapper_busy_ms"] += blocks * busy_ms
+                    label = f"{key} stage {i} shifted={shifted}"
+                    if fast:
+                        acc_l2, ctl, errs = check_fast_triple(
+                            label, got, want, wrapper(False))
+                        report[key]["out_rel_l2"] = max(
+                            report[key].get("out_rel_l2", 0.0), acc_l2)
+                        report[key]["fp32_out_rel_l2"] = min(
+                            report[key].get("fp32_out_rel_l2", 1.0), ctl)
+                    else:
+                        for tn, g, w in zip(("acc", "m", "den"), got, want):
+                            assert_close(f"{label} {tn}", g, w, RTOL, ATOL)
+                        errs = [max_errors(g, w) for g, w in zip(got, want)]
+                    kernel = mod.KERNEL_FAST if fast else mod.KERNEL
+                    ms = cuda_time_ms(lambda: kernel(*args), 20)
+                    # beside the kernel's time: the fp32 form's on the same
+                    # inputs (fast), else the wrapper's device-busy time
+                    if fast:
+                        args32 = make_args(False)
+                        side_ms = cuda_time_ms(
+                            lambda: mod.KERNEL(*args32[0]), 20)
+                        side = "fp32_ms"
+                    else:
+                        side_ms = device_busy_ms(wrapper, 3)
+                        side = "wrapper_busy_ms"
+                    report[key][side] += blocks * side_ms
                     plain_ms = cuda_time_ms(plain_fn, 3)
-                    t_ops = least_ops(pairs, nq, nk, h, d, rows)
-                    bound, by = add_timing(report, name, blocks, ms,
+                    t_ops = least_ops(pairs, nq, nk, h, d, rows, split=fast)
+                    bound, by = add_timing(report, key, blocks, ms,
                                            plain_ms,
                                            fwd_bytes(name, inputs, outs, sb),
                                            t_ops, max(e[0] for e in errs))
+                    per_pair = sum(t_ops) if fast else t_ops
                     rows_out.append({
-                        "kernel": name, "stage": i, "shifted": int(shifted),
+                        "kernel": key, "stage": i, "shifted": int(shifted),
                         "blocks": blocks, "n": n, "h": h, "pairs": pairs,
-                        "ops_per_pair_head": t_ops / max(pairs, 1) / h,
-                        "ms": ms, "wrapper_busy_ms": busy_ms,
-                        "plain_ms": plain_ms, "bound_ms": bound,
-                        "bound_by": by})
-                    log(f"[kernel] {name} stage {i} shifted={int(shifted)} "
+                        "ops_per_pair_head": per_pair / max(pairs, 1) / h,
+                        "ms": ms, side: side_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": by})
+                    log(f"[kernel] {key} stage {i} shifted={int(shifted)} "
                         f"N={n} h={h} d={d} pairs={pairs} "
-                        f"ops/pair/head={t_ops / max(pairs, 1) / h:.1f}: "
-                        f"{ms:.4f} ms (wrapper device busy {busy_ms:.4f} ms; "
-                        f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms by "
-                        f"{by}); max abs/rel err acc {errs[0][0]:.2e}/"
+                        f"ops/pair/head={per_pair / max(pairs, 1) / h:.1f}: "
+                        f"{ms:.4f} ms ("
+                        + (f"fp32 form {side_ms:.4f} ms" if fast else
+                           f"wrapper device busy {side_ms:.4f} ms")
+                        + f"; plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
+                        f"by {by}); "
+                        + (f"acc relative L2 {acc_l2:.2e} (fp32 form "
+                           f"{ctl:.2e}), " if fast else "")
+                        + f"max abs/rel err acc {errs[0][0]:.2e}/"
                         f"{errs[0][1]:.2e} m {errs[1][0]:.2e}/{errs[1][1]:.2e}"
                         f" den {errs[2][0]:.2e}/{errs[2][1]:.2e}")
                 out_k = plain.merge([triples[n_][0] for n_ in FWD_KERNELS])[0]
                 out_p = plain.merge([triples[n_][1] for n_ in FWD_KERNELS])[0]
-                assert_close(f"merged stage {i}", out_k, out_p, RTOL, ATOL)
+                if fast:
+                    fast_gate(f"merged fast output stage {i}",
+                              rel_l2(out_k, out_p), FAST_OUT_REL_L2)
+                else:
+                    assert_close(f"merged stage {i}", out_k, out_p, RTOL,
+                                 ATOL)
                 e = max_errors(out_k, out_p)
-                log(f"[kernel] merged output stage {i} shifted={int(shifted)}"
-                    f": max abs/rel err {e[0]:.2e}/{e[1]:.2e}")
+                log(f"[kernel] merged output{' (fast)' if fast else ''} "
+                    f"stage {i} shifted={int(shifted)}: max abs/rel err "
+                    f"{e[0]:.2e}/{e[1]:.2e}")
     log("[kernel] library_ms: null for both kernels — no single PyTorch call "
         "computes attention with per-pair cRPE table terms on q, k and v "
         "(scaled_dot_product_attention takes one additive bias and no value "
         "term)")
     for name in FWD_KERNELS:
-        r = report[name]
-        log(f"[kernel] {name}: {r['ms']:.3f} ms per eval forward (wrapper "
-            f"device busy {r['wrapper_busy_ms']:.3f} ms; bound "
-            f"{r['bound_ms']:.3f} ms)")
+        r = report[name + suffix]
+        log(f"[kernel] {name + suffix}: {r['ms']:.3f} ms per eval forward ("
+            + (f"fp32 form {r['fp32_ms']:.3f} ms" if fast else
+               f"wrapper device busy {r['wrapper_busy_ms']:.3f} ms")
+            + f"; bound {r['bound_ms']:.3f} ms)")
     return rows_out
 
 
-def bwd_phase(cfg, levels, plans, dev, report):
+def bwd_phase(cfg, levels, plans, dev, report, fast=False):
     """Phase 7: both backward kernels against their plain versions at every
     stage's plans, with random q/k/v/g and tables from seed 0 and the merged
     forward residuals of the plain versions. Adds each kernel's per-step
     times, bounds and errors to ``report``, and the public wrapper's time
-    under ``wrapper_ms``."""
+    under ``wrapper_ms``. ``fast`` (phase 14): the bf16 forms against the
+    plain fast versions, every gradient within FAST_GRAD_REL_L2 relative
+    L2, reported under ``<name>_bf16`` with the fp32 form's time on the
+    same inputs (``fp32_ms``) and no wrapper timing."""
     from stratified_transformer_torch.kernels import (
         band_attention_bwd as band_bwd_k)
     from stratified_transformer_torch.kernels import (
@@ -841,8 +1027,13 @@ def bwd_phase(cfg, levels, plans, dev, report):
     from stratified_transformer_torch.ops import attention as plain
     gen = torch.Generator(device="cpu").manual_seed(0)
     grad_names = ("dq", "dk", "dv", "dtq", "dtk", "dtv")
+    suffix = FAST if fast else ""
     for name in BWD_KERNELS:
-        report[name]["wrapper_ms"] = report[name]["wrapper_busy_ms"] = 0.0
+        r = report[name + suffix]
+        if fast:
+            r["fp32_ms"] = 0.0
+        else:
+            r["wrapper_ms"] = r["wrapper_busy_ms"] = 0.0
     for i in stages(cfg):
         h, d = cfg.num_heads[i], cfg.channels[i] // cfg.num_heads[i]
         ws, qs = cfg.window_sizes()[i], cfg.quant_sizes()[i]
@@ -860,8 +1051,8 @@ def bwd_phase(cfg, levels, plans, dev, report):
             geom = (plan.xyz_sorted, plan.seg_start, plan.seg_end,
                     plan.valid_sorted)
             sb = plan.sparse_band
-            bkw = dict(kw, band=band, tile=cfg.tile)
-            skw = dict(kw, s_band=cfg.s_band, tile=cfg.tile)
+            bkw = dict(kw, band=band, tile=cfg.tile, fast=fast)
+            skw = dict(kw, s_band=cfg.s_band, tile=cfg.tile, fast=fast)
             with torch.no_grad():
                 # the merged forward's residuals, as the autograd Function
                 # saves them
@@ -874,52 +1065,94 @@ def bwd_phase(cfg, levels, plans, dev, report):
                 n_q = int(plan.valid_sorted.sum())
                 s_pairs, s_q, s_k = sparse_pairs(plan, cfg.s_band, cfg.tile)
                 nb = plain.band_table_slice(nbf)[1]
+                # the fast plain versions sum the key masses over the
+                # kernels' row slices (ROADMAP.md section 3)
+                band_rows, sparse_rows = (
+                    kernel_slice_rows(name, dev, nb_, fast)
+                    for name, nb_ in zip(BWD_KERNELS, (nb, nbf)))
                 runs = {
                     "band_attention_bwd": (
-                        band_bwd_k, band_bwd_k.launch_args(
-                            q, k, v, *geom, *res, *tables, **bkw),
-                        lambda: band_bwd_k.band_attention_bwd(
-                            q, k, v, *geom, *res, *tables, **bkw),
+                        band_bwd_k, lambda f: band_bwd_k.launch_args(
+                            q, k, v, *geom, *res, *tables,
+                            **dict(bkw, fast=f)),
+                        lambda f=fast: band_bwd_k.band_attention_bwd(
+                            q, k, v, *geom, *res, *tables,
+                            **dict(bkw, fast=f)),
                         lambda: plain.band_attention_bwd_plain(
-                            q, k, v, *geom, *res, *tables, **bkw),
+                            q, k, v, *geom, *res, *tables, **bkw,
+                            slice_rows=band_rows),
                         band_pairs(plan, band, cfg.tile), n_q, n_q, nb),
                     "sparse_band_attention_bwd": (
-                        sparse_bwd_k, sparse_bwd_k.launch_args(
-                            q, k, v, sb, *res, *tables, **skw),
-                        lambda: sparse_bwd_k.sparse_band_attention_bwd(
-                            q, k, v, sb, *res, *tables, **skw),
+                        sparse_bwd_k, lambda f: sparse_bwd_k.launch_args(
+                            q, k, v, sb, *res, *tables, **dict(skw, fast=f)),
+                        lambda f=fast: sparse_bwd_k.sparse_band_attention_bwd(
+                            q, k, v, sb, *res, *tables, **dict(skw, fast=f)),
                         lambda: plain.sparse_band_attention_bwd_plain(
-                            q, k, v, sb, *res, *tables, **skw),
+                            q, k, v, sb, *res, *tables, **skw,
+                            slice_rows=sparse_rows),
                         s_pairs, s_q, s_k, nbf),
                 }
-                for name, (mod, (args, outs, inputs), wrapper, plain_fn,
-                           pairs, nq, nk, rows) in runs.items():
+                for name, (mod, make_args, wrapper, plain_fn, pairs, nq, nk,
+                           rows) in runs.items():
+                    key = name + suffix
+                    args, outs, inputs = make_args(fast)
                     got = wrapper()
                     want = plain_fn()
                     torch.cuda.synchronize()
-                    errs = [grads_close(f"{name} stage {i} shifted="
-                                        f"{int(shifted)} {gn}", a, b)
-                            for gn, a, b in zip(grad_names, got, want)]
-                    ms = cuda_time_ms(lambda: mod.KERNEL(*args), 10)
-                    wrapper_ms = cuda_time_ms(wrapper, 10)
-                    busy_ms = device_busy_ms(wrapper, 3)
-                    report[name]["wrapper_ms"] += blocks * wrapper_ms
-                    report[name]["wrapper_busy_ms"] += blocks * busy_ms
+                    label = f"{key} stage {i} shifted={int(shifted)}"
+                    if fast:
+                        errs, l2s, ctls = [], [], []
+                        for gn, a, b, c in zip(grad_names, got, want,
+                                               wrapper(False)):
+                            l2s.append(rel_l2(a, b))
+                            ctls.append(rel_l2(c, b))
+                            fast_gate(f"{label} {gn}", l2s[-1],
+                                      FAST_GRAD_REL_L2, ctls[-1])
+                            errs.append(float((a - b).abs().max()))
+                        report[key]["grad_rel_l2"] = max(
+                            report[key].get("grad_rel_l2", 0.0), *l2s)
+                        report[key]["fp32_grad_rel_l2"] = min(
+                            report[key].get("fp32_grad_rel_l2", 1.0), *ctls)
+                    else:
+                        errs = [grads_close(f"{label} {gn}", a, b)
+                                for gn, a, b in zip(grad_names, got, want)]
+                    kernel = mod.KERNEL_FAST if fast else mod.KERNEL
+                    ms = cuda_time_ms(lambda: kernel(*args), 10)
+                    if fast:
+                        args32 = make_args(False)
+                        fp32_ms = cuda_time_ms(
+                            lambda: mod.KERNEL(*args32[0]), 10)
+                        report[key]["fp32_ms"] += blocks * fp32_ms
+                        timing = f"fp32 form {fp32_ms:.4f} ms"
+                    else:
+                        wrapper_ms = cuda_time_ms(wrapper, 10)
+                        busy_ms = device_busy_ms(wrapper, 3)
+                        report[key]["wrapper_ms"] += blocks * wrapper_ms
+                        report[key]["wrapper_busy_ms"] += blocks * busy_ms
+                        timing = (f"wrapper {wrapper_ms:.4f} ms, device busy "
+                                  f"{busy_ms:.4f} ms")
                     plain_ms = cuda_time_ms(plain_fn, 2)
                     # the function's bytes: its inputs (as the kernel takes
                     # them) read once, the six grads written once
-                    t_ops = least_ops_bwd(pairs, nq, nk, h, d, rows)
-                    bound, by = add_timing(report, name, blocks, ms,
+                    t_ops = least_ops_bwd(pairs, nq, nk, h, d, rows,
+                                          split=fast)
+                    bound, by = add_timing(report, key, blocks, ms,
                                            plain_ms,
                                            nbytes(inputs + tuple(got)),
                                            t_ops, max(errs))
-                    log(f"[bwd] {name} stage {i} shifted={int(shifted)} "
+                    per_pair = sum(t_ops) if fast else t_ops
+                    log(f"[bwd] {key} stage {i} shifted={int(shifted)} "
                         f"N={n} h={h} d={d} pairs={pairs} "
-                        f"ops/pair/head={t_ops / pairs / h:.1f}: {ms:.4f} ms "
-                        f"(wrapper {wrapper_ms:.4f} ms, device busy "
-                        f"{busy_ms:.4f} ms; plain {plain_ms:.3f} ms, bound "
-                        f"{bound:.4f} ms by {by}); dk/dv partials "
-                        f"{nbytes(outs[1:3]) / 2 ** 20:.0f} MiB; max abs err "
+                        f"ops/pair/head={per_pair / pairs / h:.1f}: "
+                        f"{ms:.4f} ms ({timing}; plain {plain_ms:.3f} ms, "
+                        f"bound {bound:.4f} ms by {by}); dk/dv partials "
+                        f"{nbytes(outs[1:3]) / 2 ** 20:.0f} MiB; "
+                        + ("relative L2 " + " ".join(
+                            f"{gn} {e:.2e}" for gn, e in zip(grad_names, l2s))
+                           + " (fp32 form " + " ".join(
+                            f"{e:.2e}" for e in ctls) + "); "
+                           if fast else "")
+                        + "max abs err "
                         + " ".join(f"{gn} {e:.2e}"
                                    for gn, e in zip(grad_names, errs))
                         + " (of max |grad| "
@@ -929,10 +1162,12 @@ def bwd_phase(cfg, levels, plans, dev, report):
         "PyTorch call computes the gradients of attention with per-pair cRPE "
         "table terms on q, k and v")
     for name in BWD_KERNELS:
-        r = report[name]
-        log(f"[bwd] {name}: {r['ms']:.3f} ms per train step (wrapper "
-            f"{r['wrapper_ms']:.3f} ms, of which the device is busy "
-            f"{r['wrapper_busy_ms']:.3f} ms; bound {r['bound_ms']:.3f} ms)")
+        r = report[name + suffix]
+        log(f"[bwd] {name + suffix}: {r['ms']:.3f} ms per train step ("
+            + (f"fp32 form {r['fp32_ms']:.3f} ms" if fast else
+               f"wrapper {r['wrapper_ms']:.3f} ms, of which the device is "
+               f"busy {r['wrapper_busy_ms']:.3f} ms")
+            + f"; bound {r['bound_ms']:.3f} ms)")
 
 
 def tree_leaves(prefix, x):
@@ -1067,8 +1302,7 @@ def scene_protocol(model, ref_model, dev, counts, reset, yaml_path=CONFIG,
     from stratified_transformer_torch.models.stratified import (
         geometry_pyramid, stem_neighbors)
     from stratified_transformer_torch.ops.neighbors import DENSE_KEYS
-    from stratified_transformer_torch.utils.config import load_cfg
-    yaml_cfg = load_cfg(yaml_path)
+    yaml_cfg = yaml_fp32(yaml_path)
     cfg = eval_config(yaml_cfg)
     data_name = yaml_cfg["data_name"]
     coord, feat, _, _ = SyntheticRooms(num_scenes=1, seed=999, **(
@@ -1217,7 +1451,6 @@ def scene_phase(cfg, hb, model, ref_model, dev, kernel_mods,
     with the seconds of (a) and the error of (b)."""
     from stratified_transformer_torch.eval.driver import eval_config
     from stratified_transformer_torch.models.stratified import build_model
-    from stratified_transformer_torch.utils.config import load_cfg
 
     def counts():
         return {k: m_.KERNEL.launches for k, m_ in kernel_mods.items()}
@@ -1226,9 +1459,10 @@ def scene_phase(cfg, hb, model, ref_model, dev, kernel_mods,
         for m_ in kernel_mods.values():
             m_.KERNEL.launches = 0
 
+    log(f"[scene] phase 10 / 12 (e): {PIN_NOTE}")
     geo_s = geometry_check(cfg, hb, dev, geometry)
     err = nopyramid_check(model, ref_model, hb, dev, counts, reset)
-    scfg = eval_config(load_cfg(yaml_path))
+    scfg = eval_config(yaml_fp32(yaml_path))
     scene_models = []
     for impl, src in (("fused", model), ("reference", ref_model)):
         m_ = build_model(dataclasses.replace(scfg, attn_impl=impl), "cuda")
@@ -1398,11 +1632,10 @@ def scannet_loop(dev, kernel_mods, blocks):
     import tempfile
 
     from stratified_transformer_torch.train import audit
-    from stratified_transformer_torch.utils.config import (
-        load_cfg, merge_cfg_from_list)
+    from stratified_transformer_torch.utils.config import merge_cfg_from_list
     with tempfile.TemporaryDirectory() as tmp:
         yaml_cfg = merge_cfg_from_list(
-            load_cfg(SCANNET_CONFIG),
+            yaml_fp32(SCANNET_CONFIG),
             SCANNET_LOOP_OVERRIDES + ["save_path", os.path.join(tmp, "run")])
         _, summary, loop_s = run_loop("[scannet] loop:", yaml_cfg,
                                       kernel_mods, blocks)
@@ -1438,10 +1671,10 @@ def scannet_phase(dev, kernel_mods):
     from stratified_transformer_torch.data.loader import host_batch, to_device
     from stratified_transformer_torch.models.stratified import build_model
     from stratified_transformer_torch.train.step import make_eval_step
-    from stratified_transformer_torch.utils.config import load_cfg
     t_phase = time.time()
-    yaml_cfg = load_cfg(SCANNET_CONFIG)
-    cfg = load_config(SCANNET_CONFIG)
+    log(f"[scannet] phase 12: {PIN_NOTE}")
+    yaml_cfg = yaml_fp32(SCANNET_CONFIG)
+    cfg = load_config(SCANNET_CONFIG, **FP32)
     blocks = attention_blocks(cfg)
 
     def counts():
@@ -1705,11 +1938,10 @@ def dcf_iou(model, dev, kernel_mods, tmp):
     from stratified_transformer_torch.eval import (
         box_map, instantiation, iou_driver)
     from stratified_transformer_torch.models.stratified import build_model
-    from stratified_transformer_torch.utils.config import (
-        load_cfg, merge_cfg_from_list)
+    from stratified_transformer_torch.utils.config import merge_cfg_from_list
     root = os.path.join(tmp, "iou")
     write_cube_files(root, "test", 1, 31, **DCF_IOU_SCENE)
-    yaml_cfg = merge_cfg_from_list(load_cfg(DCF_CONFIG), [
+    yaml_cfg = merge_cfg_from_list(yaml_fp32(DCF_CONFIG), [
         "data_root", str([root])])
     cfg = iou_driver.offset_config(yaml_cfg)
     voxel_max = int(yaml_cfg["voxel_max"])
@@ -1809,9 +2041,8 @@ def dcf_layout_removal(tmp):
     count."""
     from stratified_transformer_torch.data.ply import read_ply
     from stratified_transformer_torch.eval import layoutrm_driver
-    from stratified_transformer_torch.utils.config import (
-        load_cfg, merge_cfg_from_list)
-    yaml_cfg = merge_cfg_from_list(load_cfg(DCF_CONFIG), [
+    from stratified_transformer_torch.utils.config import merge_cfg_from_list
+    yaml_cfg = merge_cfg_from_list(yaml_fp32(DCF_CONFIG), [
         "result_path", os.path.join(tmp, "layoutrm")])
     t0 = time.perf_counter()
     [rec] = layoutrm_driver.run(yaml_cfg, "cuda",
@@ -1836,16 +2067,16 @@ def dcf_phase(dev, kernel_mods):
     from stratified_transformer_torch.config import from_cfg
     from stratified_transformer_torch.data.loader import to_device
     from stratified_transformer_torch.models.stratified import build_model
-    from stratified_transformer_torch.utils.config import (
-        load_cfg, merge_cfg_from_list)
+    from stratified_transformer_torch.utils.config import merge_cfg_from_list
     t_phase = time.time()
+    log(f"[dcf] phase 13: {PIN_NOTE}")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "cubes")
         t0 = time.time()
         write_cube_files(root, "train", DCF_TRAIN_FILES, 21, **DCF_SCENE)
         write_cube_files(root, "test", DCF_TEST_FILES, 22, **DCF_SCENE)
-        yaml_cfg = merge_cfg_from_list(load_cfg(DCF_CONFIG), [
+        yaml_cfg = merge_cfg_from_list(yaml_fp32(DCF_CONFIG), [
             "data_root", str([root]), "n_devices", "1"])
         cfg = from_cfg(yaml_cfg)
         blocks = attention_blocks(cfg)
@@ -1894,6 +2125,271 @@ def attention_kernel_modules():
             "sparse_band_attention": sparse_band_attention,
             "band_attention_bwd": band_attention_bwd,
             "sparse_band_attention_bwd": sparse_band_attention_bwd}
+
+
+def fast_kernel_modules():
+    """The fast (bf16) forms of the four attention kernels by report name,
+    each as an object whose ``KERNEL`` is the wrapper module's
+    ``KERNEL_FAST`` (the launch count that `counts` reads)."""
+    return {name + FAST: types.SimpleNamespace(KERNEL=mod.KERNEL_FAST)
+            for name, mod in attention_kernel_modules().items()}
+
+
+def fast_model_step(cfg, yaml_cfg, hbs, dev, mods):
+    """Phase 14 (b): the full-width eval forward and one training step of
+    the shipped S3DIS YAML (``cfg.fast``) through the fast kernels, against
+    the same through the plain fast versions, and the fast model's logits
+    against the fp32 kernels' on the same weights. ``mods``: the four fp32
+    and four fast kernels by name; every launch count is read from them."""
+    from stratified_transformer_torch.data.loader import to_device
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.train import schedulers
+    from stratified_transformer_torch.train.state import make_optimizer
+    from stratified_transformer_torch.train.step import (
+        make_eval_step, make_train_step)
+    blocks = attention_blocks(cfg)
+
+    def counts():
+        return {k: m_.KERNEL.launches for k, m_ in mods.items()}
+
+    def expect(label, before, names):
+        per = {k: counts()[k] - before[k] for k in before}
+        want = {k: blocks if k in names else 0 for k in before}
+        if per != want:
+            raise AssertionError(f"{label}: launches {per}, expected {want}")
+
+    model = build_model(cfg, "cuda", seed=0)
+    o1_weights(model, seed=0)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def twin(**kw):
+        m_ = build_model(dataclasses.replace(cfg, **kw), "cuda")
+        m_.load_state_dict(state)
+        return m_
+
+    eval_step = make_eval_step(int(yaml_cfg["ignore_label"]),
+                               cfg.num_classes)
+    batches = [to_device(hb, dev) for hb in hbs]
+    fast_fwd = tuple(n + FAST for n in FWD_KERNELS)
+    models = {"fast": model, "fp32": twin(**FP32)}
+    for m_ in models.values():
+        eval_step(m_, batches[0])               # first call: lazy set-up
+    torch.cuda.synchronize()
+    times = {k: [] for k in models}
+    logits = {k: [] for k in models}
+    for b in batches:                           # in turns: fast, fp32
+        for k, m_ in models.items():
+            before = counts()
+            t0 = time.perf_counter()
+            out_l = eval_step(m_, b)[0]
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+            expect(f"{k} forward", before,
+                   fast_fwd if k == "fast" else FWD_KERNELS)
+            if not bool(torch.isfinite(out_l).all()):
+                raise AssertionError(f"non-finite {k} logits")
+            logits[k].append(out_l)
+    plain_model = twin(attn_impl="reference")
+    out = {"forward_ms": times, "logits_rel_l2": [],
+           "fp32_logits_rel_l2": [], "vs_fp32_rel_l2": [],
+           "vs_fp32_max_abs": []}
+    for j, b in enumerate(batches):
+        before = counts()
+        want = eval_step(plain_model, b)[0]
+        expect("plain fast forward", before, ())
+        err = rel_l2(logits["fast"][j], want)
+        control = rel_l2(logits["fp32"][j], want)
+        fast_gate(f"fast logits batch {j}", err, FAST_LOGITS_REL_L2, control)
+        out["logits_rel_l2"].append(err)
+        out["fp32_logits_rel_l2"].append(control)
+        out["vs_fp32_rel_l2"].append(rel_l2(logits["fast"][j],
+                                            logits["fp32"][j]))
+        out["vs_fp32_max_abs"].append(
+            max_errors(logits["fast"][j], logits["fp32"][j])[0])
+    log(f"[fast] eval forward (N {cfg.n_pad}, host clock, synchronized, in "
+        f"turns) fast {', '.join(f'{t:.1f}' for t in times['fast'])} ms, "
+        f"fp32 {', '.join(f'{t:.1f}' for t in times['fp32'])} ms; fast "
+        f"logits vs plain fast versions relative L2 "
+        f"{max(out['logits_rel_l2']):.2e} (the fp32 kernels' logits "
+        f"{min(out['fp32_logits_rel_l2']):.2e}: control); vs the fp32 "
+        f"kernels' logits "
+        f"relative L2 {', '.join(f'{e:.2e}' for e in out['vs_fp32_rel_l2'])}"
+        f" (max abs {max(out['vs_fp32_max_abs']):.2e}; report only)")
+    del logits, models
+
+    # one training step from the same weights, kernels and plain versions
+    schedule = schedulers.from_config(yaml_cfg, TRAIN_ITERS_PER_EPOCH)[0]
+    train_step = make_train_step(int(yaml_cfg["ignore_label"]),
+                                 cfg.num_classes)
+
+    def step(impl, **kw):
+        m_ = build_model(dataclasses.replace(cfg, attn_impl=impl, **kw),
+                         "cuda", train=True)
+        m_.load_state_dict(state)
+        opt = make_optimizer(
+            m_, schedule, weight_decay=float(yaml_cfg["weight_decay"]),
+            transformer_lr_scale=float(yaml_cfg["transformer_lr_scale"]))
+        gen = torch.Generator(device="cuda").manual_seed(1000)
+        before = counts()
+        t0 = time.perf_counter()
+        stats = train_step(m_, opt, batches[0], gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        grads = {n_: p_.grad.clone() for n_, p_ in m_.named_parameters()}
+        return float(stats["loss"]), ms, grads, {
+            k: counts()[k] - before[k] for k in before}
+
+    step("fused")                               # set-up (cuBLAS, autograd)
+    loss_k, ms_k, grads_k, per_k = step("fused")
+    want = {k: blocks if k in FAST_KERNELS else 0 for k in per_k}
+    if per_k != want:
+        raise AssertionError(f"fast train step launches {per_k}, expected "
+                             f"{want}")
+    loss_32, ms_32, grads_32, per_32 = step("fused", **FP32)
+    want = {k: blocks if k in FWD_KERNELS + BWD_KERNELS else 0
+            for k in per_32}
+    if per_32 != want:
+        raise AssertionError(f"fp32 train step launches {per_32}, expected "
+                             f"{want}")
+    # more steps in turns for the times: host clocks spread by tens of
+    # percent from one step to the next
+    step_ms = {"fast": [ms_k], "fp32": [ms_32]}
+    for _ in range(STEP_TIMINGS - 1):
+        step_ms["fast"].append(step("fused")[1])
+        step_ms["fp32"].append(step("fused", **FP32)[1])
+    with plain_in_kernel_slices(dev):
+        loss_p, ms_p, grads_p, per_p = step("reference")
+    if any(per_p.values()):
+        raise AssertionError(f"the plain fast step launched {per_p}")
+    worst = (0.0, "", 0.0)
+    for name, gp in grads_p.items():
+        err = float((grads_k[name] - gp).norm())
+        bound = (FAST_STEP_GRAD_REL_L2 * float(gp.norm())
+                 + GRAD_FLOOR * gp.numel() ** 0.5)
+        if not err <= bound:
+            msg = (f"fast step-1 grad {name}: |kernel - plain| {err:.3e} > "
+                   f"{bound:.3e}")
+            log(f"[fast] FAILED {msg}")
+            FAST_FAILURES.append(msg)
+        if float(gp.norm()) > 1e3 * GRAD_FLOOR * gp.numel() ** 0.5:
+            worst = max(worst, (err / float(gp.norm()), name, float(
+                (grads_32[name] - gp).norm()) / float(gp.norm())))
+    flat = [torch.cat([g[n_].flatten() for n_ in grads_p])
+            for g in (grads_k, grads_p, grads_32)]
+    total, total_32 = rel_l2(flat[0], flat[1]), rel_l2(flat[2], flat[1])
+    fast_gate("fast step-1 grads, all parameters", total,
+              FAST_STEP_ALL_REL_L2, total_32)
+    np.testing.assert_allclose(loss_k, loss_p, rtol=LOSS_RTOL,
+                               err_msg="fast step-1 loss")
+    med = {k: float(np.median(v)) for k, v in step_ms.items()}
+    out.update(train_step_ms=med["fast"], fp32_train_step_ms=med["fp32"],
+               train_steps_ms=step_ms["fast"],
+               fp32_train_steps_ms=step_ms["fp32"],
+               plain_train_step_ms=ms_p, loss=loss_k, plain_loss=loss_p,
+               fp32_loss=loss_32, grad_worst_rel_l2=worst[0],
+               grad_worst=worst[1], grad_worst_fp32_rel_l2=worst[2],
+               grads_rel_l2=total, fp32_grads_rel_l2=total_32, launches=per_k)
+    log(f"[fast] train step (host clock, synchronized, {STEP_TIMINGS} each "
+        f"in turns): fast {', '.join(f'{t:.1f}' for t in step_ms['fast'])} "
+        f"ms (median {med['fast']:.1f}), fp32 "
+        f"{', '.join(f'{t:.1f}' for t in step_ms['fp32'])} ms (median "
+        f"{med['fp32']:.1f}), plain fast versions {ms_p:.1f} ms (one step);"
+        f" launches {per_k}; step-1 grads against the plain fast step in the"
+        f" kernels' row slices: all {len(grads_p)} parameters together "
+        f"{total:.2e} relative L2 (the fp32 kernels' step {total_32:.2e}: "
+        f"control); largest {worst[0]:.2e} ({worst[1]}; fp32 kernels "
+        f"{worst[2]:.2e}); loss {loss_k:.6f} (plain {loss_p:.6f}, fp32 "
+        f"kernels {loss_32:.6f})")
+    return out
+
+
+@contextlib.contextmanager
+def plain_in_kernel_slices(dev):
+    """Within: the plain fast backward versions that the fused attention's
+    ``plain`` path runs sum the key masses over the fast kernels' row
+    slices (`kernel_slice_rows`, from each call's table rows), so that the
+    plain fast step rounds where the kernels' step does (the kept
+    divergence from the TPU kernel's per-tile masses, ROADMAP.md section 3,
+    is pinned on the CPU by tests/test_torch_fast.py)."""
+    from stratified_transformer_torch.ops import attention as plain
+    from stratified_transformer_torch.ops import attention_fused
+
+    def sliced(fn, name, band):
+        def run(*args, **kw):
+            nbf = plain.num_bins(*args[-3:])
+            nb = plain.band_table_slice(nbf)[1] if band else nbf
+            rows = (kernel_slice_rows(name, dev, nb, kw.get("fast", False))
+                    if nbf else None)
+            return fn(*args, **kw, slice_rows=rows)
+        return run
+
+    with mock.patch.multiple(
+            attention_fused,
+            band_attention_bwd_plain=sliced(
+                plain.band_attention_bwd_plain, "band_attention_bwd", True),
+            sparse_band_attention_bwd_plain=sliced(
+                plain.sparse_band_attention_bwd_plain,
+                "sparse_band_attention_bwd", False)):
+        yield
+
+
+def fast_phase(dev):
+    """Phase 14: the shipped YAMLs as they are (``rpe_precision`` /
+    ``qk_precision: default``): (a) the four fast kernels against their
+    plain fast versions at S3DIS's operating point (N 40960, 2 scenes, host
+    pyramid) at every block's plan, with times, bounds and the fp32 forms'
+    times from this call; (b) `fast_model_step`; (c) the four fast kernels
+    at ScanNet's 80-row tables on phase 12's plans of one batch. Returns
+    the numbers and each fast kernel's reports under ``report`` and
+    ``scannet_report``."""
+    from stratified_transformer_torch.config import load_config
+    from stratified_transformer_torch.data.loader import host_batch
+    from stratified_transformer_torch.utils.config import load_cfg
+    t_phase = time.time()
+    FAST_FAILURES.clear()
+    cfg = load_config(CONFIG, n_pad=N_PAD, num_scenes=SCENES)
+    yaml_cfg = load_cfg(CONFIG)
+    if not (cfg.fast and yaml_cfg["rpe_precision"] == "default"):
+        raise AssertionError("the shipped S3DIS YAML does not select the "
+                             "fast forms")
+    log("[fast] phase 14: configs/s3dis_stratified.yaml as shipped "
+        "(rpe_precision/qk_precision default): the bf16 forms of the four "
+        "attention kernels")
+    hbs = [host_batch(cfg, seed=s) for s in range(EVAL_BATCHES)]
+    levels = stage_levels(cfg, hbs[0])
+    plans = {(i, sh): build_plan(cfg, i, levels[i], sh, dev)
+             for i in stages(cfg) for sh in (False, True)}
+    report = new_report(FAST_KERNELS)
+    out = {"stages": fwd_phase(cfg, levels, plans, dev, report, fast=True)}
+    bwd_phase(cfg, levels, plans, dev, report, fast=True)
+    out["report"] = report
+    del plans
+    mods = dict(attention_kernel_modules(), **fast_kernel_modules())
+    out["model"] = fast_model_step(cfg, yaml_cfg, hbs, dev, mods)
+
+    scfg = load_config(SCANNET_CONFIG)
+    if not scfg.fast:
+        raise AssertionError("the shipped ScanNet YAML does not select the "
+                             "fast forms")
+    t0 = time.time()
+    shb = host_batch(scfg, seed=0, **SCANNET_ROOMS)
+    log(f"[fast] ScanNet batch (n_pad {scfg.n_pad}, "
+        f"{int(shb['offsets'][-1])} valid points) built in "
+        f"{time.time() - t0:.2f} s")
+    slevels = stage_levels(scfg, shb)
+    splans = {(i, sh): build_plan(scfg, i, slevels[i], sh, dev)
+              for i in stages(scfg) for sh in (False, True)}
+    sreport = new_report(FAST_KERNELS)
+    fwd_phase(scfg, slevels, splans, dev, sreport, fast=True)
+    bwd_phase(scfg, slevels, splans, dev, sreport, fast=True)
+    out["scannet_report"] = sreport
+    out["seconds"] = time.time() - t_phase
+    log(f"[fast] phase 14 in {out['seconds']:.0f} s")
+    if FAST_FAILURES:
+        raise AssertionError(f"phase 14: {len(FAST_FAILURES)} gates or "
+                             f"controls failed: {FAST_FAILURES}")
+    return out
+
 
 
 def launch_deltas(marks, kernel_mods, blocks):
@@ -1945,15 +2441,15 @@ def loop_phase(dev, kernel_mods):
     from stratified_transformer_torch.train.metrics import memory_use
     from stratified_transformer_torch.train.step import (
         make_eval_step, make_train_step, pack_stats)
-    from stratified_transformer_torch.utils.config import (
-        load_cfg, merge_cfg_from_list)
+    from stratified_transformer_torch.utils.config import merge_cfg_from_list
+    log(f"[loop] phase 11: {PIN_NOTE}")
 
     def counts():
         return {k: m_.KERNEL.launches for k, m_ in kernel_mods.items()}
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        yaml_cfg = merge_cfg_from_list(load_cfg(CONFIG), LOOP_OVERRIDES + [
+        yaml_cfg = merge_cfg_from_list(yaml_fp32(CONFIG), LOOP_OVERRIDES + [
             "save_path", os.path.join(tmp, "run")])
         cfg = from_cfg(yaml_cfg)
         seed = int(yaml_cfg["manual_seed"])
@@ -2144,12 +2640,11 @@ def iou_phase(cfg, hb, dev, reps=50, rounds=6):
     from stratified_transformer_torch.models.stratified import build_model
     from stratified_transformer_torch.train import metrics
     from stratified_transformer_torch.train.step import make_eval_step
-    from stratified_transformer_torch.utils.config import (
-        load_cfg, merge_cfg_from_list)
+    from stratified_transformer_torch.utils.config import merge_cfg_from_list
 
     forms = {"scatter_add": metrics.intersection_and_union,
              "bincount": bincount_iou}
-    loop_n = from_cfg(merge_cfg_from_list(load_cfg(CONFIG),
+    loop_n = from_cfg(merge_cfg_from_list(yaml_fp32(CONFIG),
                                           LOOP_OVERRIDES)).n_pad
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {"counters": {}}
@@ -2228,6 +2723,11 @@ def phase_only(flag):
              for name, text in build.build_logs.items()
              for line in text.splitlines()
              if "registers" in line or "spill" in line]
+    if flag == "--fast-only":
+        out = {"card": card_line(), "repo": REPO, "fast": fast_phase(dev),
+               "ptxas": ptxas}
+        print(json.dumps(out))
+        return 0
     if flag in ("--loop-only", "--scannet-only", "--dcf-only"):
         phase = {"--loop-only": loop_phase, "--scannet-only": scannet_phase,
                  "--dcf-only": dcf_phase}[flag]
@@ -2236,7 +2736,8 @@ def phase_only(flag):
                "ptxas": ptxas}
         print(json.dumps(out))
         return 0
-    cfg = load_config(CONFIG, n_pad=N_PAD, num_scenes=SCENES)
+    cfg = load_config(CONFIG, n_pad=N_PAD, num_scenes=SCENES, **FP32)
+    log(f"[precision] {PIN_NOTE}")
     hb = host_batch(cfg, seed=0)
     out = {"card": card_line(), "repo": REPO}
     if flag == "--iou-only":
@@ -2276,7 +2777,8 @@ PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS,
               "--loop-only": FWD_KERNELS + BWD_KERNELS,
               "--scannet-only": FWD_KERNELS + BWD_KERNELS,
               "--dcf-only": FWD_KERNELS + BWD_KERNELS,
-              "--iou-only": FWD_KERNELS}
+              "--iou-only": FWD_KERNELS,
+              "--fast-only": FWD_KERNELS + BWD_KERNELS}
 
 
 def parse_args(argv):
@@ -2335,7 +2837,8 @@ def main(argv):
                 log(f"[ptxas] {name}: {line.strip()}")
 
     # ---- 2. host tier and plans on the card ------------------------------
-    cfg = load_config(CONFIG, n_pad=N_PAD, num_scenes=SCENES)
+    cfg = load_config(CONFIG, n_pad=N_PAD, num_scenes=SCENES, **FP32)
+    log(f"[precision] phases 2-13: {PIN_NOTE}")
     t0 = time.time()
     hb = host_batch(cfg, seed=0)
     log(f"[host] S3DIS batch N={N_PAD}, {SCENES} scenes, "
@@ -2468,7 +2971,7 @@ def main(argv):
     bwd_phase(cfg, levels, plans, dev, report)
 
     # ---- 8. full-width training steps -------------------------------------
-    yaml_cfg = load_cfg(CONFIG)
+    yaml_cfg = yaml_fp32(CONFIG)
     t0 = time.time()
     train_hbs = [host_batch(cfg, seed=10 + s, train=True,
                             rng=np.random.default_rng(100 + s), aug=yaml_cfg)
@@ -2504,6 +3007,9 @@ def main(argv):
 
     # ---- 13. the DCF family -----------------------------------------------
     dcf = dcf_phase(dev, kernel_mods)
+
+    # ---- 14. the shipped YAMLs' fast forms --------------------------------
+    fast = fast_phase(dev)
     log(f"[run] total {time.time() - t_start:.0f} s")
 
     kernels = []
@@ -2543,12 +3049,35 @@ def main(argv):
             entry["probe_launches"] = probe_launches[name]
             entry["times_per"] = "one launch of the probe"
         kernels.append(entry)
+    for name in FAST_KERNELS:
+        r, sr = fast["report"][name], fast["scannet_report"][name]
+        base = name[:-len(FAST)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"stratified_transformer_torch/csrc/{base}.cu",
+            "replaces": TPU_KERNELS[base] + " (fast=True)",
+            "launches": fast["model"]["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": max(r["bound_by"], key=r["bound_by"].get),
+            "library_ms": None, "fp32_ms": r["fp32_ms"],
+            # largest relative L2 from the plain fast version over the
+            # outputs (forward) or gradients (backward), and the fp32
+            # form's smallest (the control)
+            "rel_l2": r.get("out_rel_l2", r.get("grad_rel_l2")),
+            "fp32_rel_l2": r.get("fp32_out_rel_l2",
+                                 r.get("fp32_grad_rel_l2")),
+            "scannet_ms": sr["ms"], "scannet_fp32_ms": sr["fp32_ms"],
+            "scannet_plain_ms": sr["plain_ms"],
+            "scannet_bound_ms": sr["bound_ms"],
+            "scannet_max_abs_err": sr["max_abs_err"]})
     print(json.dumps({
         "kernels": kernels,
         "times_per": "one full-width training step (12 launches of each "
                      "attention kernel; a forward kernel's time is also one "
                      "eval forward's); a probe's: one launch, and its "
-                     "launches on the train step are 0",
+                     "launches on the train step are 0; the fast (_bf16) "
+                     "forms': see fast_times_per",
         "launches_over_train_steps": TRAIN_STEPS,
         "eval_launches_over_forwards": EVAL_BATCHES,
         "train_step_ms": train_ms,
@@ -2569,7 +3098,14 @@ def main(argv):
                          f"{TRAIN_STEPS} training steps, dcf_eval_launches "
                          f"over its {EVAL_BATCHES} forwards, "
                          "dcf_iou_launches over (c)'s first protocol run",
-        "dcf": dcf}))
+        "dcf": dcf,
+        "fast_times_per": "phase 14: a fast kernel's ms, fp32_ms (its fp32 "
+                          "form on the same inputs, same call), plain_ms "
+                          "and bound_ms per S3DIS train step (12 launches), "
+                          "scannet_* per ScanNet step (18); launches over "
+                          "one S3DIS train step of the shipped YAML",
+        "fast": {k: v for k, v in fast.items()
+                 if k not in ("report", "scannet_report")}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

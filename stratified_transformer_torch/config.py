@@ -73,6 +73,14 @@ class StratifiedConfig:
     # "fused": the CUDA kernels on the card (their plain versions on the
     # CPU); "reference": the plain PyTorch versions on any device.
     attn_impl: str = "fused"
+    # the YAML's precision keys (``train.py:105-107`` of the JAX package):
+    # with both precisions "default" the four attention kernels run their
+    # bf16 forms (`fast`; every shipped YAML sets both); "highest" is fp32
+    # throughout. ``compute_dtype`` "bfloat16" runs the blocks' qkv, proj,
+    # fc1 and fc2 products in bf16 with fp32 parameters.
+    rpe_precision: str = "highest"
+    qk_precision: str = "highest"
+    compute_dtype: Optional[str] = None
 
     # Accepted for config compatibility with the JAX package and ignored:
     # they size Mosaic programs and XLA maps, which the port does not have.
@@ -88,10 +96,20 @@ class StratifiedConfig:
                               ("sampler", ("grid", "fps", "blocked_fps")),
                               ("down_quota", ("scene", "cells")),
                               ("neighbor_method", ("grid", "brute")),
-                              ("activation", ("Relu", "Tanh"))):
+                              ("activation", ("Relu", "Tanh")),
+                              ("rpe_precision", ("highest", "default")),
+                              ("qk_precision", ("highest", "default")),
+                              ("compute_dtype", (None, "bfloat16"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name} {getattr(self, name)!r}: expected "
                                  f"one of {allowed}")
+
+    @property
+    def fast(self) -> bool:
+        """The attention kernels' bf16 forms: both precisions "default"
+        (``ops/attention_fused.py:229`` of the JAX package); one "highest"
+        keeps them fp32."""
+        return self.rpe_precision == "default" and self.qk_precision == "default"
 
     # -------- derived (reference train.py:110-113) --------
     @property
@@ -197,6 +215,9 @@ def from_cfg(cfg: CfgNode) -> StratifiedConfig:
         neighbor_cap=int(cfg.get("neighbor_cap", 32)),
         grid_knn_chunk=int(cfg.get("grid_knn_chunk", 4096)),
         attn_impl=str(cfg.get("attn_impl", "fused")),
+        rpe_precision=str(cfg.get("rpe_precision", "highest")),
+        qk_precision=str(cfg.get("qk_precision", "highest")),
+        compute_dtype=cfg.get("compute_dtype"),
         fused_stages=int(cfg.get("fused_stages", 3)),
         head_group=int(cfg.get("head_group", 6)),
         tile_batch=int(cfg.get("tile_batch", 16)),

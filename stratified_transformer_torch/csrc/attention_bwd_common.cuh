@@ -45,6 +45,15 @@
 // The products run on fp32 FMA: at d = 16 they take a minority of the
 // kernels' time (PERF.md, Findings), so the tensor cores are not yet the
 // lever.
+// kFast (the bf16 form, attention_common.cuh; fused_attention_bwd.py:95):
+// q, g, k, v and the tables are staged in shared memory as bf16, and dl, r
+// and the masses Mq, Mr, Mk are rounded where they enter a product; g·o
+// takes the fp32 g and o, and r, dl, the masses and every sum stay fp32.
+// Kept divergences from the TPU kernel's roundings (ROADMAP.md §3): Mk sums
+// dl over the block's R rows and is rounded per row slice (the TPU kernel:
+// per 128-row tile; ops/attention.py's `slice_rows` gives the plain version
+// this form), and Mq, Mr are rounded once per row (the TPU kernel: per
+// w_chunk of keys).
 // No two threads write one shared-memory address in a phase, so there are
 // no atomics (shared-memory float atomics serialise where the lanes of a
 // warp share bins: the first backward kernel of the port was 40x slower for
@@ -121,7 +130,7 @@ struct BwdOutputs {
 // Shared-memory layout of a block of R rows (offsets in 4-byte words, each
 // array 16-byte aligned). Per-row arrays of (axis, bin) pairs have an odd
 // stride (3·nb + 1) so that neighbouring rows fall on other banks.
-template <int D, int R>
+template <int D, int R, bool kFast>
 struct BwdSmem {
   static constexpr int C = kBwdChunk;
   static constexpr int S = kBwdRowStride;
@@ -129,17 +138,21 @@ struct BwdSmem {
   int tab, proj, mass, kp, k, v, xk, q, g, dl, r, bin, skey, act, total;
 
   __host__ __device__ static int up4(int x) { return (x + 3) & ~3; }
+  // words of `count` staged (Staged<kFast>) elements
+  __host__ __device__ static int st(int count) {
+    return up4(staged_words<kFast>(count));
+  }
   __host__ __device__ explicit BwdSmem(int nb) : nb3(3 * nb), ps(3 * nb + 1) {
     int o = 0;
-    tab = o;  o += 3 * nb3 * S;           // Tq, Tk, Tv: [3][3·nb][S]
+    tab = o;  o += st(3 * nb3 * S);       // Tq, Tk, Tv: [3][3·nb][S]
     proj = o; o += up4(2 * R * ps);       // float2 (q·Tq, g·Tv) [R][ps]
     mass = o; o += up4(2 * R * ps);       // float2 (Mq, Mr) [R][ps]
     kp = o;   o += up4(C * ps);           // k·Tk, then Mk [C][ps]
-    k = o;    o += up4(C * S);
-    v = o;    o += up4(C * S);
+    k = o;    o += st(C * S);
+    v = o;    o += st(C * S);
     xk = o;   o += 4 * C;                 // xyz, valid
-    q = o;    o += up4(R * S);
-    g = o;    o += up4(R * S);
+    q = o;    o += st(R * S);
+    g = o;    o += st(R * S);
     dl = o;   o += up4(R * (C + 1));
     r = o;    o += up4(R * (C + 1));
     bin = o;  o += up4(R * (C + 1));      // the axes' bins, 8 bits each
@@ -151,12 +164,13 @@ struct BwdSmem {
 };
 
 // The most table rows per axis (at most bwd_nb_cap<R>) for which a block of
-// R rows fits in `room` bytes. On the H100: 45 for 64-row blocks, 64 (the
-// cap; 78 would fit) for 32-row blocks, 116 for 16-row blocks.
-template <int D, int R>
+// R rows fits in `room` bytes. On the H100, fp32 form: 45 for 64-row
+// blocks, 64 (the cap; 78 would fit) for 32-row blocks, 116 for 16-row
+// blocks; the fast form's bf16 staging leaves more room.
+template <int D, int R, bool kFast>
 __host__ int bwd_max_nb(size_t room) {
   int nb = bwd_nb_cap<R>();
-  while (nb > 0 && BwdSmem<D, R>(nb).bytes() > room) --nb;
+  while (nb > 0 && BwdSmem<D, R, kFast>(nb).bytes() > room) --nb;
   return nb;
 }
 
@@ -179,7 +193,7 @@ __host__ inline void bwd_pick_rows(int nb, const int* rows_of,
 // [win_lo, win_hi) ∩ the union of the rows' [key_lo, key_hi). The tile's
 // n_slots key slots start at key slot0; blk indexes dk_part/dv_part and
 // dt_part.
-template <int D, int R>
+template <int D, int R, bool kFast>
 __device__ void attention_bwd_block(const BwdQueries& Q, const BwdKeys& K,
                                     const BwdTables& T, const BwdOutputs& O,
                                     int h, int blk, int row0,
@@ -196,20 +210,21 @@ __device__ void attention_bwd_block(const BwdQueries& Q, const BwdKeys& K,
   static_assert(LPR >= 4 && LPR <= 32, "R in [8, 64]");
   static_assert(bwd_nb_cap<R>() <= 255, "bins are packed 8 bits per axis");
 
+  using Stage = typename Staged<kFast>::type;
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_lo, s_hi;
-  const BwdSmem<D, R> L(T.nb);
+  const BwdSmem<D, R, kFast> L(T.nb);
   const int nb = T.nb, nb3 = L.nb3, ps = L.ps;
   const bool tabs = nb > 0;
-  float* s_tab = smem + L.tab;
+  Stage* s_tab = reinterpret_cast<Stage*>(smem + L.tab);
   float2* s_proj = reinterpret_cast<float2*>(smem + L.proj);
   float2* s_mass = reinterpret_cast<float2*>(smem + L.mass);
   float* s_kp = smem + L.kp;
-  float* s_k = smem + L.k;
-  float* s_v = smem + L.v;
+  Stage* s_k = reinterpret_cast<Stage*>(smem + L.k);
+  Stage* s_v = reinterpret_cast<Stage*>(smem + L.v);
   float* s_xk = smem + L.xk;
-  float* s_q = smem + L.q;
-  float* s_g = smem + L.g;
+  Stage* s_q = reinterpret_cast<Stage*>(smem + L.q);
+  Stage* s_g = reinterpret_cast<Stage*>(smem + L.g);
   float* s_dl = smem + L.dl;
   float* s_r = smem + L.r;
   int* s_bin = reinterpret_cast<int*>(smem + L.bin);
@@ -227,7 +242,8 @@ __device__ void attention_bwd_block(const BwdQueries& Q, const BwdKeys& K,
         : tabs_in[tb] + static_cast<size_t>(head) * nb3 * D;
     for (int i = tid; i < nb3 * D; i += NT) {
       const int ab = i / D, c = i - ab * D;
-      s_tab[(tb * nb3 + ab) * S + c] = src != nullptr ? src[i] : 0.0f;
+      stage_store(s_tab + (tb * nb3 + ab) * S + c,
+                  src != nullptr ? src[i] : 0.0f);
     }
   }
   for (int i = tid; i < 2 * R * ps; i += NT)
@@ -235,8 +251,8 @@ __device__ void attention_bwd_block(const BwdQueries& Q, const BwdKeys& K,
   for (int i = tid; i < R * D; i += NT) {
     const int t = i / D, c = i - t * D;
     const size_t o = (static_cast<size_t>(row0 + t) * h + head) * D + c;
-    s_q[t * S + c] = Q.q[o];
-    s_g[t * S + c] = Q.g[o];
+    stage_store(s_q + t * S + c, Q.q[o]);
+    stage_store(s_g + t * S + c, Q.g[o]);
   }
   if (tid == 0) {
     s_lo = win_hi;
@@ -262,10 +278,12 @@ __device__ void attention_bwd_block(const BwdQueries& Q, const BwdKeys& K,
     lds4(s_q + t * S + c, q + c);
     lds4(s_g + t * S + c, g + c);
   }
-  float go = 0.0f;
+  float go = 0.0f;                      // g·o of the fp32 g
 #pragma unroll
   for (int c = 0; c < D; ++c) {
-    go = fmaf(g[c], Q.o[ro * D + c], go);
+    // the fast form stages a rounded g: g·o reads the fp32 g again
+    const float gc = kFast ? Q.g[ro * D + c] : g[c];
+    go = fmaf(gc, Q.o[ro * D + c], go);
     dq[c] = 0.0f;
   }
   const float m = Q.m[ro];
@@ -313,8 +331,8 @@ __device__ void attention_bwd_block(const BwdQueries& Q, const BwdKeys& K,
     for (int i = tid; i < cn * D; i += NT) {
       const int j = i / D, c = i - j * D;
       const size_t src = (static_cast<size_t>(c0 + j) * h + head) * D + c;
-      s_k[j * S + c] = K.k[src];
-      s_v[j * S + c] = K.v[src];
+      stage_store(s_k + j * S + c, K.k[src]);
+      stage_store(s_v + j * S + c, K.v[src]);
     }
     for (int j = tid; j < cn; j += NT) {
       const int p = c0 + j;
@@ -390,8 +408,9 @@ __device__ void attention_bwd_block(const BwdQueries& Q, const BwdKeys& K,
         }
         r = expf(l - m) / den;
         dl = r * (gv - go);
+        const float dlc = op_round<kFast>(dl);
 #pragma unroll
-        for (int c = 0; c < D; ++c) dq[c] = fmaf(dl, kc[c], dq[c]);
+        for (int c = 0; c < D; ++c) dq[c] = fmaf(dlc, kc[c], dq[c]);
       }
       s_dl[t * (C + 1) + j] = dl;
       s_r[t * (C + 1) + j] = r;
@@ -427,13 +446,14 @@ __device__ void attention_bwd_block(const BwdQueries& Q, const BwdKeys& K,
         for (int tt = w * RPW; tt < (w + 1) * RPW; ++tt) {
           const float dl = s_dl[tt * (C + 1) + kj];
           if (sums) {
-            const float r = s_r[tt * (C + 1) + kj];
+            const float dlc = op_round<kFast>(dl);
+            const float r = op_round<kFast>(s_r[tt * (C + 1) + kj]);
             float qc[4], gc[4];
             lds4(s_q + tt * S + kq * 4, qc);
             lds4(s_g + tt * S + kq * 4, gc);
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
-              dk[c] = fmaf(dl, qc[c], dk[c]);
+              dk[c] = fmaf(dlc, qc[c], dk[c]);
               dv[c] = fmaf(r, gc[c], dv[c]);
             }
           } else if (dl != 0.0f) {
@@ -452,7 +472,7 @@ __device__ void attention_bwd_block(const BwdQueries& Q, const BwdKeys& K,
       float sk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (j8 < cn) {
         for (int ab = half; ab < nb3; ab += 2) {
-          const float mk = s_kp[j8 * ps + ab];
+          const float mk = op_round<kFast>(s_kp[j8 * ps + ab]);
           float tk[4];
           lds4(s_tab + (nb3 + ab) * S + cg * 4, tk);
 #pragma unroll
@@ -472,7 +492,7 @@ __device__ void attention_bwd_block(const BwdQueries& Q, const BwdKeys& K,
         if (i < nb3 * (D / 4)) {
           const int ab = i >> 2, c4 = (i & 3) * 4;
           for (int j = 0; j < cn; ++j) {
-            const float mk = s_kp[j * ps + ab];
+            const float mk = op_round<kFast>(s_kp[j * ps + ab]);
             float kc[4];
             lds4(s_k + j * S + c4, kc);
 #pragma unroll
@@ -504,7 +524,7 @@ __device__ void attention_bwd_block(const BwdQueries& Q, const BwdKeys& K,
   // dq; the row's lanes then add their parts
   if (tabs) {
     for (int ab = sub; ab < nb3; ab += LPR) {
-      const float mq = s_mass[t * ps + ab].x;
+      const float mq = op_round<kFast>(s_mass[t * ps + ab].x);
       float tq[D];
 #pragma unroll
       for (int c = 0; c < D; c += 4) lds4(s_tab + ab * S + c, tq + c);
@@ -528,13 +548,14 @@ __device__ void attention_bwd_block(const BwdQueries& Q, const BwdKeys& K,
       float sq[4] = {0.0f, 0.0f, 0.0f, 0.0f}, sv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       for (int tt = 0; tt < R; ++tt) {
         const float2 mv = s_mass[tt * ps + ab];
+        const float mq = op_round<kFast>(mv.x), mr = op_round<kFast>(mv.y);
         float qc[4], gc[4];
         lds4(s_q + tt * S + c4, qc);
         lds4(s_g + tt * S + c4, gc);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          sq[c] = fmaf(mv.x, qc[c], sq[c]);
-          sv[c] = fmaf(mv.y, gc[c], sv[c]);
+          sq[c] = fmaf(mq, qc[c], sq[c]);
+          sv[c] = fmaf(mr, gc[c], sv[c]);
         }
       }
       const int o = ab * D + c4;

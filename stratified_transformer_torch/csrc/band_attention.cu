@@ -31,8 +31,15 @@
 // outside the union of the slice's segments are never staged. Bins are
 // computed per head (a block of several heads would need their per-row
 // projections and masses at once, more shared memory than a block has).
-// The products stay on fp32 FMA; tensor cores, TMA staging and a bf16 mode
-// are left for later work.
+// The fp32 form's products stay on fp32 FMA; TMA staging is left for later
+// work.
+// The fast form (band_attention_fwd_bf16) is the TPU kernel's fast=True
+// (fused_attention.py:646-668, 86): q (rounded after the fp32 scaling), k,
+// v and the table entries in bf16, p rounded for p·v and the bin masses
+// for mass·Tv, everything else fp32 (attention_fwd_common.cuh). Its
+// projections q·Tq (per block) and k·Tk (per chunk) run on the tensor cores
+// (mma.sync m16n8k16 on the bf16 rows it stages); the pair loops and
+// mass·Tv stay on FMA.
 
 #include "attention_fwd_common.cuh"
 
@@ -40,14 +47,14 @@ namespace stratified {
 
 constexpr int kBandRows = 64;   // rows per block: 2 slices of a tile
 
-template <int D, int R>
+template <int D, int R, bool kFast>
 __global__ void __launch_bounds__(kFwdThreads, 2)
 band_attention_kernel(FwdQueries Q, FwdKeys K, FwdTables T, FwdOutputs O,
                       int n, int h, int tile, int band, float scale) {
   const int slices = tile / R;
   const int tile_idx = blockIdx.x / slices;
   const int t0 = tile_idx * tile;
-  attention_fwd_block<D, R, true>(
+  attention_fwd_block<D, R, true, kFast>(
       Q, K, T, O, h, t0 + (blockIdx.x - tile_idx * slices) * R,
       max(t0 - band, 0), min(t0 + tile + band, n), scale);
 }
@@ -59,6 +66,51 @@ __global__ void rel_bin_probe_kernel(const float* __restrict__ rel,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) out[i] = rel_bin(rel[i], bin_offset, inv_quant, nb_full, bin_lo,
                               nb);
+}
+
+template <bool kFast>
+cudaError_t band_fwd_limits(int* rows, int* max_nb) {
+  size_t room = 0;
+  const cudaError_t err =
+      smem_room(band_attention_kernel<16, kBandRows, kFast>, &room);
+  if (err != cudaSuccess) return err;
+  *rows = kBandRows;
+  *max_nb = fwd_max_nb<kBandRows, true, kFast>(room);
+  return cudaSuccess;
+}
+
+template <bool kFast>
+cudaError_t band_fwd(const float* q, const float* k, const float* v,
+                     const float* xyz, const int32_t* seg_start,
+                     const int32_t* seg_end, const uint8_t* valid,
+                     const float* tq, const float* tk, const float* tv,
+                     float* acc, float* m, float* den, int n, int h, int d,
+                     int q_rs, int k_rs, int v_rs, int tile, int band, int nb,
+                     int bin_lo, int nb_full, float bin_offset,
+                     float inv_quant, float scale, cudaStream_t stream) {
+  constexpr int R = kBandRows;
+  int rows = 0, max_nb = 0;
+  cudaError_t err = band_fwd_limits<kFast>(&rows, &max_nb);
+  if (err != cudaSuccess) return err;
+  // Every stage of the ported configurations has D = 16; instantiate more
+  // head sizes when a configuration needs them.
+  if (d != 16 || tile <= 0 || tile % R != 0 || n % tile != 0 || nb < 0 ||
+      nb > max_nb)
+    return cudaErrorInvalidValue;
+  const FwdQueries Q{q, q_rs, nullptr, xyz, valid, seg_start, seg_end,
+                     nullptr};
+  const FwdKeys K{k, k_rs, v, v_rs, nullptr, xyz, valid, nullptr};
+  const FwdTables T{tq, tk, tv, nb, bin_lo, nb_full, bin_offset, inv_quant};
+  const FwdOutputs O{acc, m, den};
+  const size_t smem = FwdSmem<R, true, kFast>(nb).bytes();
+  err = cudaFuncSetAttribute(band_attention_kernel<16, R, kFast>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(n / R, h);
+  band_attention_kernel<16, R, kFast><<<grid, kFwdThreads, smem, stream>>>(
+      Q, K, T, O, n, h, tile, band, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace stratified
@@ -90,31 +142,25 @@ extern "C" int band_attention_fwd(
     float* den, int n, int h, int d, int q_rs, int k_rs, int v_rs, int tile,
     int band, int nb, int bin_lo, int nb_full, float bin_offset,
     float inv_quant, float scale, void* stream) {
-  using namespace stratified;
-  constexpr int R = kBandRows;
-  size_t room = 0;
-  cudaError_t err = smem_room(band_attention_kernel<16, R>, &room);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Every stage of the ported configurations has D = 16; instantiate more
-  // head sizes when a configuration needs them.
-  if (d != 16 || tile <= 0 || tile % R != 0 || n % tile != 0 || nb < 0 ||
-      nb > fwd_max_nb<R, true>(room))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const FwdQueries Q{q, q_rs, nullptr, xyz, valid, seg_start, seg_end,
-                     nullptr};
-  const FwdKeys K{k, k_rs, v, v_rs, nullptr, xyz, valid, nullptr};
-  const FwdTables T{tq, tk, tv, nb, bin_lo, nb_full, bin_offset, inv_quant};
-  const FwdOutputs O{acc, m, den};
-  const size_t smem = FwdSmem<R, true>(nb).bytes();
-  err = cudaFuncSetAttribute(band_attention_kernel<16, R>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(n / R, h);
-  band_attention_kernel<16, R><<<grid, kFwdThreads, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      Q, K, T, O, n, h, tile, band, scale);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(stratified::band_fwd<false>(
+      q, k, v, xyz, seg_start, seg_end, valid, tq, tk, tv, acc, m, den, n,
+      h, d, q_rs, k_rs, v_rs, tile, band, nb, bin_lo, nb_full, bin_offset,
+      inv_quant, scale, static_cast<cudaStream_t>(stream)));
+}
+
+// The fast (bf16) form: the same arguments and outputs as
+// band_attention_fwd; band_attention_bf16_limits gives its table limit.
+extern "C" int band_attention_fwd_bf16(
+    const float* q, const float* k, const float* v, const float* xyz,
+    const int32_t* seg_start, const int32_t* seg_end, const uint8_t* valid,
+    const float* tq, const float* tk, const float* tv, float* acc, float* m,
+    float* den, int n, int h, int d, int q_rs, int k_rs, int v_rs, int tile,
+    int band, int nb, int bin_lo, int nb_full, float bin_offset,
+    float inv_quant, float scale, void* stream) {
+  return static_cast<int>(stratified::band_fwd<true>(
+      q, k, v, xyz, seg_start, seg_end, valid, tq, tk, tv, acc, m, den, n,
+      h, d, q_rs, k_rs, v_rs, tile, band, nb, bin_lo, nb_full, bin_offset,
+      inv_quant, scale, static_cast<cudaStream_t>(stream)));
 }
 
 // Rows per block, and the most table rows per axis whose block fits the
@@ -122,12 +168,10 @@ extern "C" int band_attention_fwd(
 // of S3DIS's 64-bin tables has 40, of ScanNet's 80-bin tables 48). Returns
 // a cudaError_t.
 extern "C" int band_attention_limits(int* rows, int* max_nb) {
-  using namespace stratified;
-  constexpr int R = kBandRows;
-  size_t room = 0;
-  const cudaError_t err = smem_room(band_attention_kernel<16, R>, &room);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *rows = R;
-  *max_nb = fwd_max_nb<R, true>(room);
-  return 0;
+  return static_cast<int>(stratified::band_fwd_limits<false>(rows, max_nb));
+}
+
+// The same for the fast form.
+extern "C" int band_attention_bf16_limits(int* rows, int* max_nb) {
+  return static_cast<int>(stratified::band_fwd_limits<true>(rows, max_nb));
 }

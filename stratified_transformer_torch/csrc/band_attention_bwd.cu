@@ -29,7 +29,12 @@
 // sub-tiles (the block visits only the union of its rows' segments, and a
 // warp only the keys of a chunk that its rows reach), uses no atomics and
 // keeps 8 warps per SM busy in every phase; the products run on fp32 FMA
-// (tensor cores, TMA staging and a bf16 mode are left for later work).
+// (tensor cores and TMA staging are left for later work).
+// The fast form (band_attention_bwd_bf16) is the TPU kernel's fast=True
+// (fused_attention_bwd.py:95): the operands of its DEFAULT products in bf16
+// (attention_bwd_common.cuh). Its bf16 staging leaves room for more table
+// rows per block, so the launcher may pick a taller block than the fp32
+// form for the same table.
 
 #include "attention_bwd_common.cuh"
 
@@ -42,53 +47,91 @@ namespace stratified {
 constexpr int kBandBwdRows[] = {64, 32, 16};
 constexpr int kBandBwdShapes = 3;
 
-template <int D, int R>
+template <int D, int R, bool kFast>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 band_attention_bwd_kernel(BwdQueries Q, BwdKeys K, BwdTables T, BwdOutputs O,
                           int n, int h, int tile, int band, float scale) {
   const int slices = tile / R;
   const int tile_idx = blockIdx.x / slices;
   const int t0 = tile_idx * tile;
-  attention_bwd_block<D, R>(Q, K, T, O, h, blockIdx.x,
+  attention_bwd_block<D, R, kFast>(Q, K, T, O, h, blockIdx.x,
                             t0 + (blockIdx.x - tile_idx * slices) * R,
                             max(t0 - band, 0), min(t0 + tile + band, n),
                             t0 - band, tile + 2 * band, scale);
 }
 
-template <int R>
+template <int R, bool kFast>
 cudaError_t band_bwd_max_nb(int* max_nb) {
   size_t room = 0;
-  const cudaError_t err = smem_room(band_attention_bwd_kernel<16, R>, &room);
-  if (err == cudaSuccess) *max_nb = bwd_max_nb<16, R>(room);
+  const cudaError_t err =
+      smem_room(band_attention_bwd_kernel<16, R, kFast>, &room);
+  if (err == cudaSuccess) *max_nb = bwd_max_nb<16, R, kFast>(room);
   return err;
 }
 
 // Rows per block for nb table rows per axis (0 if no block takes them) and
 // the most rows per axis that any block takes on the current device.
-inline cudaError_t band_bwd_rows(int nb, int* rows, int* max_nb) {
+template <bool kFast>
+cudaError_t band_bwd_rows(int nb, int* rows, int* max_nb) {
   int fit[kBandBwdShapes];
-  cudaError_t err = band_bwd_max_nb<64>(&fit[0]);
-  if (err == cudaSuccess) err = band_bwd_max_nb<32>(&fit[1]);
-  if (err == cudaSuccess) err = band_bwd_max_nb<16>(&fit[2]);
+  cudaError_t err = band_bwd_max_nb<64, kFast>(&fit[0]);
+  if (err == cudaSuccess) err = band_bwd_max_nb<32, kFast>(&fit[1]);
+  if (err == cudaSuccess) err = band_bwd_max_nb<16, kFast>(&fit[2]);
   if (err == cudaSuccess)
     bwd_pick_rows(nb, kBandBwdRows, fit, kBandBwdShapes, rows, max_nb);
   return err;
 }
 
-template <int R>
+template <int R, bool kFast>
 cudaError_t band_bwd_launch(const BwdQueries& Q, const BwdKeys& K,
                             const BwdTables& T, const BwdOutputs& O, int n,
                             int h, int tile, int band, float scale,
                             cudaStream_t stream) {
-  const size_t smem = BwdSmem<16, R>(T.nb).bytes();
+  const size_t smem = BwdSmem<16, R, kFast>(T.nb).bytes();
   const cudaError_t err = cudaFuncSetAttribute(
-      band_attention_bwd_kernel<16, R>,
+      band_attention_bwd_kernel<16, R, kFast>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid(n / R, h);
-  band_attention_bwd_kernel<16, R><<<grid, kBwdThreads, smem, stream>>>(
+  band_attention_bwd_kernel<16, R, kFast><<<grid, kBwdThreads, smem,
+                                            stream>>>(
       Q, K, T, O, n, h, tile, band, scale);
   return cudaGetLastError();
+}
+
+template <bool kFast>
+cudaError_t band_bwd(
+    const float* q, const float* k, const float* v, const float* xyz,
+    const int32_t* seg_start, const int32_t* seg_end, const uint8_t* valid,
+    const float* g, const float* o, const float* m, const float* den,
+    const float* tq, const float* tk, const float* tv, float* dq,
+    float* dk_part, float* dv_part, float* dt_part, int n, int h, int d,
+    int tile, int band, int nb, int bin_lo, int nb_full, float bin_offset,
+    float inv_quant, float scale, cudaStream_t st) {
+  int rows = 0, max_nb = 0;
+  const cudaError_t err = band_bwd_rows<kFast>(nb, &rows, &max_nb);
+  if (err != cudaSuccess) return err;
+  // Every stage of the ported configurations has D = 16; instantiate more
+  // head sizes when a configuration needs them.
+  if (d != 16 || rows == 0 || tile <= 0 || tile % rows != 0 ||
+      n % tile != 0 || nb < 0)
+    return cudaErrorInvalidValue;
+  const BwdQueries Q{q, g, o, m, den, xyz, valid, seg_start, seg_end,
+                     nullptr};
+  const BwdKeys K{k, v, xyz, valid, nullptr};
+  const BwdTables T{tq, tk, tv, nb, bin_lo, nb_full, bin_offset, inv_quant};
+  const BwdOutputs O{dq, dk_part, dv_part, dt_part};
+  switch (rows) {
+    case 64:
+      return band_bwd_launch<64, kFast>(Q, K, T, O, n, h, tile, band, scale,
+                                        st);
+    case 32:
+      return band_bwd_launch<32, kFast>(Q, K, T, O, n, h, tile, band, scale,
+                                        st);
+    default:
+      return band_bwd_launch<16, kFast>(Q, K, T, O, n, h, tile, band, scale,
+                                        st);
+  }
 }
 
 }  // namespace stratified
@@ -110,32 +153,27 @@ extern "C" int band_attention_bwd(
     float* dk_part, float* dv_part, float* dt_part, int n, int h, int d,
     int tile, int band, int nb, int bin_lo, int nb_full, float bin_offset,
     float inv_quant, float scale, void* stream) {
-  using namespace stratified;
-  int rows = 0, max_nb = 0;
-  const cudaError_t err = band_bwd_rows(nb, &rows, &max_nb);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Every stage of the ported configurations has D = 16; instantiate more
-  // head sizes when a configuration needs them.
-  if (d != 16 || rows == 0 || tile <= 0 || tile % rows != 0 ||
-      n % tile != 0 || nb < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const BwdQueries Q{q, g, o, m, den, xyz, valid, seg_start, seg_end,
-                     nullptr};
-  const BwdKeys K{k, v, xyz, valid, nullptr};
-  const BwdTables T{tq, tk, tv, nb, bin_lo, nb_full, bin_offset, inv_quant};
-  const BwdOutputs O{dq, dk_part, dv_part, dt_part};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 64:
-      return static_cast<int>(
-          band_bwd_launch<64>(Q, K, T, O, n, h, tile, band, scale, st));
-    case 32:
-      return static_cast<int>(
-          band_bwd_launch<32>(Q, K, T, O, n, h, tile, band, scale, st));
-    default:
-      return static_cast<int>(
-          band_bwd_launch<16>(Q, K, T, O, n, h, tile, band, scale, st));
-  }
+  return static_cast<int>(stratified::band_bwd<false>(
+      q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den, tq, tk, tv, dq,
+      dk_part, dv_part, dt_part, n, h, d, tile, band, nb, bin_lo, nb_full,
+      bin_offset, inv_quant, scale, static_cast<cudaStream_t>(stream)));
+}
+
+// The fast (bf16) form: the same arguments and outputs as
+// band_attention_bwd, with R the rows per block that
+// band_attention_bwd_bf16_limits gives for nb.
+extern "C" int band_attention_bwd_bf16(
+    const float* q, const float* k, const float* v, const float* xyz,
+    const int32_t* seg_start, const int32_t* seg_end, const uint8_t* valid,
+    const float* g, const float* o, const float* m, const float* den,
+    const float* tq, const float* tk, const float* tv, float* dq,
+    float* dk_part, float* dv_part, float* dt_part, int n, int h, int d,
+    int tile, int band, int nb, int bin_lo, int nb_full, float bin_offset,
+    float inv_quant, float scale, void* stream) {
+  return static_cast<int>(stratified::band_bwd<true>(
+      q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den, tq, tk, tv, dq,
+      dk_part, dv_part, dt_part, n, h, d, tile, band, nb, bin_lo, nb_full,
+      bin_offset, inv_quant, scale, static_cast<cudaStream_t>(stream)));
 }
 
 // The rows per block that band_attention_bwd takes for nb table rows per
@@ -144,5 +182,11 @@ extern "C" int band_attention_bwd(
 // (the band slice of S3DIS's 64-bin tables has 40), 32 rows up to 64 (of
 // ScanNet's 80-bin tables 48), 16 rows up to 116. Returns a cudaError_t.
 extern "C" int band_attention_bwd_limits(int nb, int* rows, int* max_nb) {
-  return static_cast<int>(stratified::band_bwd_rows(nb, rows, max_nb));
+  return static_cast<int>(stratified::band_bwd_rows<false>(nb, rows, max_nb));
+}
+
+// The same for the fast form.
+extern "C" int band_attention_bwd_bf16_limits(int nb, int* rows,
+                                              int* max_nb) {
+  return static_cast<int>(stratified::band_bwd_rows<true>(nb, rows, max_nb));
 }

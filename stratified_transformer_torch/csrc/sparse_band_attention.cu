@@ -35,8 +35,14 @@
 // three full tables are staged once per block, a thread per (table, bin)
 // with its twelve float4 reads of the model's layout in flight together;
 // the block visits only the union of its rows' segments in the s_band
-// window. Tensor cores, TMA staging and a bf16 mode are left for later
-// work.
+// window. Tensor cores and TMA staging are left for later work.
+// The fast form (sparse_band_attention_fwd_bf16) is the TPU kernel's
+// fast=True: the TPU kernel stages fp32 (fused_attention.py:494-499) and
+// rounds the operands of its DEFAULT products to bf16, which this form
+// stages in bf16 (q after the scaling, k, v and the head's tables), with p
+// rounded for p·v and Tv taken as the TPU kernel takes it: per row and
+// (axis, bin) the fp32 mass of p, rounded once for mass·Tv
+// (fused_attention.py:451-456; attention_fwd_common.cuh).
 
 #include "attention_fwd_common.cuh"
 
@@ -44,7 +50,7 @@ namespace stratified {
 
 constexpr int kSparseRows = 64;   // rows per block: 2 slices of a tile
 
-template <int D, int R>
+template <int D, int R, bool kFast>
 __global__ void __launch_bounds__(kFwdThreads, 2)
 sparse_band_attention_kernel(FwdQueries Q, FwdKeys K, FwdTables T,
                              FwdOutputs O, int a_sz, int h, int tile,
@@ -53,9 +59,56 @@ sparse_band_attention_kernel(FwdQueries Q, FwdKeys K, FwdTables T,
   const int tile_idx = blockIdx.x / slices;
   const int t0 = tile_idx * tile;
   const int base = (min(Q.key_lo[t0], a_sz - s_band) / 16) * 16;
-  attention_fwd_block<D, R, false>(
+  attention_fwd_block<D, R, false, kFast>(
       Q, K, T, O, h, t0 + (blockIdx.x - tile_idx * slices) * R, base,
       base + s_band, scale);
+}
+
+template <bool kFast>
+cudaError_t sparse_fwd_limits(int* rows, int* max_nb) {
+  size_t room = 0;
+  const cudaError_t err =
+      smem_room(sparse_band_attention_kernel<16, kSparseRows, kFast>, &room);
+  if (err != cudaSuccess) return err;
+  *rows = kSparseRows;
+  *max_nb = fwd_max_nb<kSparseRows, false, kFast>(room);
+  return cudaSuccess;
+}
+
+template <bool kFast>
+cudaError_t sparse_fwd(
+    const float* q, const float* k, const float* v, const int32_t* lw_map,
+    const float* xyz_lw, const uint8_t* valid_lw, const int32_t* skey_lw,
+    const int32_t* sb_start, const int32_t* sb_end, const int32_t* sb_src,
+    const float* sb_xyz, const uint8_t* sb_valid, const int32_t* sb_skey,
+    const float* tq, const float* tk, const float* tv, float* acc, float* m,
+    float* den, int n, int a_sz, int h, int d, int q_rs, int k_rs, int v_rs,
+    int tile, int s_band, int nb, float bin_offset, float inv_quant,
+    float scale, cudaStream_t stream) {
+  constexpr int R = kSparseRows;
+  int rows = 0, max_nb = 0;
+  cudaError_t err = sparse_fwd_limits<kFast>(&rows, &max_nb);
+  if (err != cudaSuccess) return err;
+  // Every stage of the ported configurations has D = 16; instantiate more
+  // head sizes when a configuration needs them.
+  if (d != 16 || tile <= 0 || tile % R != 0 || n % tile != 0 || nb < 0 ||
+      nb > max_nb || s_band <= 0 || s_band > a_sz)
+    return cudaErrorInvalidValue;
+  const FwdQueries Q{q, q_rs, lw_map, xyz_lw, valid_lw, sb_start, sb_end,
+                     skey_lw};
+  const FwdKeys K{k, k_rs, v, v_rs, sb_src, sb_xyz, sb_valid, sb_skey};
+  const FwdTables T{tq, tk, tv, nb, 0, nb, bin_offset, inv_quant};
+  const FwdOutputs O{acc, m, den};
+  const size_t smem = FwdSmem<R, false, kFast>(nb).bytes();
+  err = cudaFuncSetAttribute(sparse_band_attention_kernel<16, R, kFast>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(n / R, h);
+  sparse_band_attention_kernel<16, R, kFast><<<grid, kFwdThreads, smem,
+                                               stream>>>(
+      Q, K, T, O, a_sz, h, tile, s_band, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace stratified
@@ -80,31 +133,30 @@ extern "C" int sparse_band_attention_fwd(
     float* den, int n, int a_sz, int h, int d, int q_rs, int k_rs, int v_rs,
     int tile, int s_band, int nb, float bin_offset, float inv_quant,
     float scale, void* stream) {
-  using namespace stratified;
-  constexpr int R = kSparseRows;
-  size_t room = 0;
-  cudaError_t err = smem_room(sparse_band_attention_kernel<16, R>, &room);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Every stage of the ported configurations has D = 16; instantiate more
-  // head sizes when a configuration needs them.
-  if (d != 16 || tile <= 0 || tile % R != 0 || n % tile != 0 || nb < 0 ||
-      nb > fwd_max_nb<R, false>(room) || s_band <= 0 || s_band > a_sz)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const FwdQueries Q{q, q_rs, lw_map, xyz_lw, valid_lw, sb_start, sb_end,
-                     skey_lw};
-  const FwdKeys K{k, k_rs, v, v_rs, sb_src, sb_xyz, sb_valid, sb_skey};
-  const FwdTables T{tq, tk, tv, nb, 0, nb, bin_offset, inv_quant};
-  const FwdOutputs O{acc, m, den};
-  const size_t smem = FwdSmem<R, false>(nb).bytes();
-  err = cudaFuncSetAttribute(sparse_band_attention_kernel<16, R>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(n / R, h);
-  sparse_band_attention_kernel<16, R><<<grid, kFwdThreads, smem,
-                                        static_cast<cudaStream_t>(stream)>>>(
-      Q, K, T, O, a_sz, h, tile, s_band, scale);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(stratified::sparse_fwd<false>(
+      q, k, v, lw_map, xyz_lw, valid_lw, skey_lw, sb_start, sb_end, sb_src,
+      sb_xyz, sb_valid, sb_skey, tq, tk, tv, acc, m, den, n, a_sz, h, d,
+      q_rs, k_rs, v_rs, tile, s_band, nb, bin_offset, inv_quant, scale,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The fast (bf16) form: the same arguments and outputs as
+// sparse_band_attention_fwd; sparse_band_attention_bf16_limits gives its
+// table limit.
+extern "C" int sparse_band_attention_fwd_bf16(
+    const float* q, const float* k, const float* v, const int32_t* lw_map,
+    const float* xyz_lw, const uint8_t* valid_lw, const int32_t* skey_lw,
+    const int32_t* sb_start, const int32_t* sb_end, const int32_t* sb_src,
+    const float* sb_xyz, const uint8_t* sb_valid, const int32_t* sb_skey,
+    const float* tq, const float* tk, const float* tv, float* acc, float* m,
+    float* den, int n, int a_sz, int h, int d, int q_rs, int k_rs, int v_rs,
+    int tile, int s_band, int nb, float bin_offset, float inv_quant,
+    float scale, void* stream) {
+  return static_cast<int>(stratified::sparse_fwd<true>(
+      q, k, v, lw_map, xyz_lw, valid_lw, skey_lw, sb_start, sb_end, sb_src,
+      sb_xyz, sb_valid, sb_skey, tq, tk, tv, acc, m, den, n, a_sz, h, d,
+      q_rs, k_rs, v_rs, tile, s_band, nb, bin_offset, inv_quant, scale,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // Rows per block, and the most table rows per axis that the entry point
@@ -112,13 +164,10 @@ extern "C" int sparse_band_attention_fwd(
 // block's shared memory would fit 307; S3DIS's tables have 64, ScanNet's
 // 80). Returns a cudaError_t.
 extern "C" int sparse_band_attention_limits(int* rows, int* max_nb) {
-  using namespace stratified;
-  constexpr int R = kSparseRows;
-  size_t room = 0;
-  const cudaError_t err =
-      smem_room(sparse_band_attention_kernel<16, R>, &room);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *rows = R;
-  *max_nb = fwd_max_nb<R, false>(room);
-  return 0;
+  return static_cast<int>(stratified::sparse_fwd_limits<false>(rows, max_nb));
+}
+
+// The same for the fast form.
+extern "C" int sparse_band_attention_bf16_limits(int* rows, int* max_nb) {
+  return static_cast<int>(stratified::sparse_fwd_limits<true>(rows, max_nb));
 }

@@ -27,7 +27,11 @@
 // g, o, m, den and the aux k/v once and writing dq, the windows and the
 // table grads. A tile's far keys span a few dozen aux slots, so the bytes
 // are a large share of the bound; chip_smoke.py computes it from the run's
-// data. Tensor cores, TMA staging and a bf16 mode are left for later work.
+// data. Tensor cores and TMA staging are left for later work.
+// The fast form (sparse_band_attention_bwd_bf16) is the TPU kernel's
+// fast=True (fused_attention_bwd.py:474): the operands of its DEFAULT
+// products in bf16 (attention_bwd_common.cuh), with the block heights
+// picked from its own shared-memory limits.
 
 #include "attention_bwd_common.cuh"
 
@@ -39,7 +43,7 @@ namespace stratified {
 constexpr int kSparseBwdRows[] = {32, 16};
 constexpr int kSparseBwdShapes = 2;
 
-template <int D, int R>
+template <int D, int R, bool kFast>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 sparse_band_attention_bwd_kernel(BwdQueries Q, BwdKeys K, BwdTables T,
                                  BwdOutputs O, int a_sz, int h, int tile,
@@ -48,46 +52,78 @@ sparse_band_attention_bwd_kernel(BwdQueries Q, BwdKeys K, BwdTables T,
   const int tile_idx = blockIdx.x / slices;
   const int t0 = tile_idx * tile;
   const int base = (min(Q.key_lo[t0], a_sz - s_band) / 16) * 16;
-  attention_bwd_block<D, R>(Q, K, T, O, h, blockIdx.x,
+  attention_bwd_block<D, R, kFast>(Q, K, T, O, h, blockIdx.x,
                             t0 + (blockIdx.x - tile_idx * slices) * R, base,
                             base + s_band, base, s_band, scale);
 }
 
-template <int R>
+template <int R, bool kFast>
 cudaError_t sparse_bwd_max_nb(int* max_nb) {
   size_t room = 0;
   const cudaError_t err =
-      smem_room(sparse_band_attention_bwd_kernel<16, R>, &room);
-  if (err == cudaSuccess) *max_nb = bwd_max_nb<16, R>(room);
+      smem_room(sparse_band_attention_bwd_kernel<16, R, kFast>, &room);
+  if (err == cudaSuccess) *max_nb = bwd_max_nb<16, R, kFast>(room);
   return err;
 }
 
 // Rows per block for nb table rows per axis (0 if no block takes them) and
 // the most rows per axis that any block takes on the current device.
-inline cudaError_t sparse_bwd_rows(int nb, int* rows, int* max_nb) {
+template <bool kFast>
+cudaError_t sparse_bwd_rows(int nb, int* rows, int* max_nb) {
   int fit[kSparseBwdShapes];
-  cudaError_t err = sparse_bwd_max_nb<32>(&fit[0]);
-  if (err == cudaSuccess) err = sparse_bwd_max_nb<16>(&fit[1]);
+  cudaError_t err = sparse_bwd_max_nb<32, kFast>(&fit[0]);
+  if (err == cudaSuccess) err = sparse_bwd_max_nb<16, kFast>(&fit[1]);
   if (err == cudaSuccess)
     bwd_pick_rows(nb, kSparseBwdRows, fit, kSparseBwdShapes, rows, max_nb);
   return err;
 }
 
-template <int R>
+template <int R, bool kFast>
 cudaError_t sparse_bwd_launch(const BwdQueries& Q, const BwdKeys& K,
                               const BwdTables& T, const BwdOutputs& O,
                               int n, int a_sz, int h, int tile, int s_band,
                               float scale, cudaStream_t stream) {
-  const size_t smem = BwdSmem<16, R>(T.nb).bytes();
+  const size_t smem = BwdSmem<16, R, kFast>(T.nb).bytes();
   const cudaError_t err = cudaFuncSetAttribute(
-      sparse_band_attention_bwd_kernel<16, R>,
+      sparse_band_attention_bwd_kernel<16, R, kFast>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid(n / R, h);
-  sparse_band_attention_bwd_kernel<16, R><<<grid, kBwdThreads, smem,
-                                            stream>>>(
+  sparse_band_attention_bwd_kernel<16, R, kFast><<<grid, kBwdThreads, smem,
+                                                   stream>>>(
       Q, K, T, O, a_sz, h, tile, s_band, scale);
   return cudaGetLastError();
+}
+
+template <bool kFast>
+cudaError_t sparse_bwd(
+    const float* q_lw, const float* g_lw, const float* o_lw,
+    const float* m_lw, const float* den_lw, const float* xyz_lw,
+    const uint8_t* valid_lw, const int32_t* skey_lw, const int32_t* sb_start,
+    const int32_t* sb_end, const float* k_aux, const float* v_aux,
+    const float* xyz_aux, const uint8_t* valid_aux, const int32_t* skey_aux,
+    const float* tq, const float* tk, const float* tv, float* dq_lw,
+    float* dk_part, float* dv_part, float* dt_part, int n, int a_sz, int h,
+    int d, int tile, int s_band, int nb, float bin_offset, float inv_quant,
+    float scale, cudaStream_t st) {
+  int rows = 0, max_nb = 0;
+  const cudaError_t err = sparse_bwd_rows<kFast>(nb, &rows, &max_nb);
+  if (err != cudaSuccess) return err;
+  // Every stage of the ported configurations has D = 16; instantiate more
+  // head sizes when a configuration needs them.
+  if (d != 16 || rows == 0 || tile <= 0 || tile % rows != 0 ||
+      n % tile != 0 || nb < 0)
+    return cudaErrorInvalidValue;
+  const BwdQueries Q{q_lw, g_lw, o_lw, m_lw, den_lw, xyz_lw, valid_lw,
+                     sb_start, sb_end, skey_lw};
+  const BwdKeys K{k_aux, v_aux, xyz_aux, valid_aux, skey_aux};
+  const BwdTables T{tq, tk, tv, nb, 0, nb, bin_offset, inv_quant};
+  const BwdOutputs O{dq_lw, dk_part, dv_part, dt_part};
+  if (rows == 32)
+    return sparse_bwd_launch<32, kFast>(Q, K, T, O, n, a_sz, h, tile, s_band,
+                                        scale, st);
+  return sparse_bwd_launch<16, kFast>(Q, K, T, O, n, a_sz, h, tile, s_band,
+                                      scale, st);
 }
 
 }  // namespace stratified
@@ -111,26 +147,31 @@ extern "C" int sparse_band_attention_bwd(
     float* dk_part, float* dv_part, float* dt_part, int n, int a_sz, int h,
     int d, int tile, int s_band, int nb, float bin_offset, float inv_quant,
     float scale, void* stream) {
-  using namespace stratified;
-  int rows = 0, max_nb = 0;
-  const cudaError_t err = sparse_bwd_rows(nb, &rows, &max_nb);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Every stage of the ported configurations has D = 16; instantiate more
-  // head sizes when a configuration needs them.
-  if (d != 16 || rows == 0 || tile <= 0 || tile % rows != 0 ||
-      n % tile != 0 || nb < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const BwdQueries Q{q_lw, g_lw, o_lw, m_lw, den_lw, xyz_lw, valid_lw,
-                     sb_start, sb_end, skey_lw};
-  const BwdKeys K{k_aux, v_aux, xyz_aux, valid_aux, skey_aux};
-  const BwdTables T{tq, tk, tv, nb, 0, nb, bin_offset, inv_quant};
-  const BwdOutputs O{dq_lw, dk_part, dv_part, dt_part};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows == 32)
-    return static_cast<int>(sparse_bwd_launch<32>(
-        Q, K, T, O, n, a_sz, h, tile, s_band, scale, st));
-  return static_cast<int>(sparse_bwd_launch<16>(
-      Q, K, T, O, n, a_sz, h, tile, s_band, scale, st));
+  return static_cast<int>(stratified::sparse_bwd<false>(
+      q_lw, g_lw, o_lw, m_lw, den_lw, xyz_lw, valid_lw, skey_lw, sb_start,
+      sb_end, k_aux, v_aux, xyz_aux, valid_aux, skey_aux, tq, tk, tv, dq_lw,
+      dk_part, dv_part, dt_part, n, a_sz, h, d, tile, s_band, nb, bin_offset,
+      inv_quant, scale, static_cast<cudaStream_t>(stream)));
+}
+
+// The fast (bf16) form: the same arguments and outputs as
+// sparse_band_attention_bwd, with R the rows per block that
+// sparse_band_attention_bwd_bf16_limits gives for nb.
+extern "C" int sparse_band_attention_bwd_bf16(
+    const float* q_lw, const float* g_lw, const float* o_lw,
+    const float* m_lw, const float* den_lw, const float* xyz_lw,
+    const uint8_t* valid_lw, const int32_t* skey_lw, const int32_t* sb_start,
+    const int32_t* sb_end, const float* k_aux, const float* v_aux,
+    const float* xyz_aux, const uint8_t* valid_aux, const int32_t* skey_aux,
+    const float* tq, const float* tk, const float* tv, float* dq_lw,
+    float* dk_part, float* dv_part, float* dt_part, int n, int a_sz, int h,
+    int d, int tile, int s_band, int nb, float bin_offset, float inv_quant,
+    float scale, void* stream) {
+  return static_cast<int>(stratified::sparse_bwd<true>(
+      q_lw, g_lw, o_lw, m_lw, den_lw, xyz_lw, valid_lw, skey_lw, sb_start,
+      sb_end, k_aux, v_aux, xyz_aux, valid_aux, skey_aux, tq, tk, tv, dq_lw,
+      dk_part, dv_part, dt_part, n, a_sz, h, d, tile, s_band, nb, bin_offset,
+      inv_quant, scale, static_cast<cudaStream_t>(stream)));
 }
 
 // The rows per block that sparse_band_attention_bwd takes for nb table rows
@@ -140,5 +181,13 @@ extern "C" int sparse_band_attention_bwd(
 // 80). Returns a cudaError_t.
 extern "C" int sparse_band_attention_bwd_limits(int nb, int* rows,
                                                 int* max_nb) {
-  return static_cast<int>(stratified::sparse_bwd_rows(nb, rows, max_nb));
+  return static_cast<int>(
+      stratified::sparse_bwd_rows<false>(nb, rows, max_nb));
+}
+
+// The same for the fast form.
+extern "C" int sparse_band_attention_bwd_bf16_limits(int nb, int* rows,
+                                                     int* max_nb) {
+  return static_cast<int>(
+      stratified::sparse_bwd_rows<true>(nb, rows, max_nb));
 }

@@ -3,7 +3,9 @@
 Each wrapper takes the same arguments as its plain version in
 ``ops/attention.py``. Given CPU tensors it runs the plain version; given
 CUDA tensors it launches the kernel or raises. It never falls back from the
-card to the plain version.
+card to the plain version. Each attention wrapper takes ``fast``: its
+kernel's bf16 form (``KERNEL_FAST``, the C entry point ``<symbol>_bf16``),
+never the fp32 form in its place.
 """
 
 from __future__ import annotations
@@ -48,8 +50,8 @@ class CudaKernel:
 
 
 @functools.lru_cache(maxsize=None)
-def _limits(source, index, nb):
-    fn = getattr(build.load(source), f"{source}_limits")
+def _limits(source, symbol, index, nb):
+    fn = getattr(build.load(source), symbol)
     rows, max_nb = ctypes.c_int(), ctypes.c_int()
     out = (ctypes.byref(rows), ctypes.byref(max_nb))
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
@@ -60,19 +62,22 @@ def _limits(source, index, nb):
     with torch.cuda.device(index):
         rc = fn(*out)
     if rc != 0:
-        raise RuntimeError(f"{source}_limits failed: cudaError_t {rc}")
+        raise RuntimeError(f"{symbol} failed: cudaError_t {rc}")
     return rows.value, max_nb.value
 
 
-def block_limits(source, dev, nb=None):
+def block_limits(source, dev, nb=None, fast=False):
     """``(rows per block, most table rows per axis)`` of the attention
     kernel of ``csrc/<source>.cu`` on the CUDA device ``dev``, from its C
     entry point ``<source>_limits``: the second is the most that the
     kernel's blocks fit in that device's shared memory. The backward
     kernels offer several block heights and pick one by the table size:
     give them ``nb``, the table rows per axis, and the first value is the
-    rows they launch with for it (0 beyond the limit)."""
-    return _limits(source, dev.index if dev.index is not None
+    rows they launch with for it (0 beyond the limit). ``fast``: the limits
+    of the kernel's bf16 form (``<source>_bf16_limits``), whose staging in
+    bf16 leaves room for more table rows."""
+    symbol = f"{source}_bf16_limits" if fast else f"{source}_limits"
+    return _limits(source, symbol, dev.index if dev.index is not None
                    else torch.cuda.current_device(), nb)
 
 

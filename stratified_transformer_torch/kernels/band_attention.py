@@ -10,9 +10,11 @@ from stratified_transformer_torch.kernels import (
 from stratified_transformer_torch.ops.attention import (
     band_attention_plain, band_table_slice, bin_constants, num_bins)
 
-KERNEL = CudaKernel(
-    "band_attention", "band_attention_fwd",
-    [P] * 13 + [I] * 11 + [F, F, F, P])
+ARGTYPES = [P] * 13 + [I] * 11 + [F, F, F, P]
+KERNEL = CudaKernel("band_attention", "band_attention_fwd", ARGTYPES)
+# the bf16 form (rpe_precision/qk_precision: default)
+KERNEL_FAST = CudaKernel("band_attention", "band_attention_fwd_bf16",
+                         ARGTYPES)
 BIN_PROBE = CudaKernel(
     "band_attention", "rel_bin_probe", [P, P, I, F, F, I, I, I, P])
 
@@ -22,9 +24,10 @@ HEAD_DIMS = (16,)
 
 def launch_args(q, k, v, xyz, seg_start, seg_end, valid,
                 table_q=None, table_k=None, table_v=None, *,
-                window_size, quant_size, scale, band, tile=128):
-    """Output buffers and ``KERNEL`` arguments for CUDA inputs: returns
-    ``(args, (acc, m, den), inputs)``; ``KERNEL(*args)`` fills the outputs.
+                window_size, quant_size, scale, band, tile=128, fast=False):
+    """Output buffers and ``KERNEL`` (``KERNEL_FAST`` with ``fast``)
+    arguments for CUDA inputs: returns ``(args, (acc, m, den), inputs)``;
+    ``KERNEL(*args)`` fills the outputs.
     The kernel reads q, k, v (the model's strided views pass as they are)
     and the model's tables in place; ``inputs`` holds what it reads (the
     tables as their band slices). The argument tuple holds raw pointers, so
@@ -35,7 +38,7 @@ def launch_args(q, k, v, xyz, seg_start, seg_end, valid,
     n, h, d = q.shape
     nb_full = num_bins(*tables)
     bin_lo, nb = band_table_slice(nb_full) if nb_full else (0, 0)
-    rows, max_nb = block_limits("band_attention", dev)
+    rows, max_nb = block_limits("band_attention", dev, fast=fast)
     if d not in HEAD_DIMS or tile <= 0 or n % tile or tile % rows:
         raise ValueError(
             f"band_attention: unsupported shape N={n}, d={d}, tile={tile} "
@@ -66,18 +69,19 @@ def launch_args(q, k, v, xyz, seg_start, seg_end, valid,
 
 def band_attention(q, k, v, xyz, seg_start, seg_end, valid,
                    table_q=None, table_k=None, table_v=None, *,
-                   window_size, quant_size, scale, band, tile=128):
+                   window_size, quant_size, scale, band, tile=128,
+                   fast=False):
     """Dense half of stratified attention; arguments and the returned triple
     ``(acc [N,h,d], m [N,h], den [N,h])`` as `band_attention_plain`."""
     kw = dict(window_size=window_size, quant_size=quant_size, scale=scale,
-              band=band, tile=tile)
+              band=band, tile=tile, fast=fast)
     if q.device.type == "cpu":
         return band_attention_plain(q, k, v, xyz, seg_start, seg_end, valid,
                                     table_q, table_k, table_v, **kw)
     args, outs, _inputs = launch_args(q, k, v, xyz, seg_start, seg_end,
                                       valid, table_q, table_k, table_v, **kw)
     with torch.cuda.device(q.device):
-        KERNEL(*args)
+        (KERNEL_FAST if fast else KERNEL)(*args)
     return outs
 
 

@@ -19,9 +19,11 @@ from stratified_transformer_torch.ops.attention import (
     band_attention_bwd_plain, band_table_slice, bin_constants, compose_band,
     num_bins, place_table_grads)
 
-KERNEL = CudaKernel(
-    "band_attention_bwd", "band_attention_bwd",
-    [P] * 18 + [I] * 8 + [F, F, F, P])
+ARGTYPES = [P] * 18 + [I] * 8 + [F, F, F, P]
+KERNEL = CudaKernel("band_attention_bwd", "band_attention_bwd", ARGTYPES)
+# the bf16 form (rpe_precision/qk_precision: default)
+KERNEL_FAST = CudaKernel("band_attention_bwd", "band_attention_bwd_bf16",
+                         ARGTYPES)
 
 # head sizes the kernels are instantiated for (csrc/*.cu)
 HEAD_DIMS = (16,)
@@ -29,8 +31,9 @@ HEAD_DIMS = (16,)
 
 def launch_args(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
                 table_q=None, table_k=None, table_v=None, *, window_size,
-                quant_size, scale, band, tile=128):
-    """Device buffers and ``KERNEL`` arguments for CUDA inputs: returns
+                quant_size, scale, band, tile=128, fast=False):
+    """Device buffers and ``KERNEL`` (``KERNEL_FAST`` with ``fast``)
+    arguments for CUDA inputs: returns
     ``(args, (dq, dk_part, dv_part, dt_part), inputs)``; ``KERNEL(*args)``
     fills the outputs. The argument tuple holds raw pointers, so keep the
     returned buffers alive while it is used."""
@@ -41,7 +44,7 @@ def launch_args(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
     n, h, d = q.shape
     nb_full = num_bins(*tables)
     bin_lo, nb = band_table_slice(nb_full) if nb_full else (0, 0)
-    rows, max_nb = block_limits("band_attention_bwd", dev, nb)
+    rows, max_nb = block_limits("band_attention_bwd", dev, nb, fast)
     if nb > max_nb:
         raise ValueError(
             f"band_attention_bwd: a band slice of {nb} table rows per axis "
@@ -74,11 +77,12 @@ def launch_args(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
 
 def band_attention_bwd(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
                        table_q=None, table_k=None, table_v=None, *,
-                       window_size, quant_size, scale, band, tile=128):
+                       window_size, quant_size, scale, band, tile=128,
+                       fast=False):
     """Backward of the dense half; arguments and the returned
     ``(dq, dk, dv, dtq, dtk, dtv)`` as `band_attention_bwd_plain`."""
     kw = dict(window_size=window_size, quant_size=quant_size, scale=scale,
-              band=band, tile=tile)
+              band=band, tile=tile, fast=fast)
     tables = (table_q, table_k, table_v)
     if q.device.type == "cpu":
         return band_attention_bwd_plain(q, k, v, xyz, seg_start, seg_end,
@@ -86,7 +90,7 @@ def band_attention_bwd(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
     args, (dq, dk_part, dv_part, dt_part), _inputs = launch_args(
         q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den, *tables, **kw)
     with torch.cuda.device(q.device):
-        KERNEL(*args)
+        (KERNEL_FAST if fast else KERNEL)(*args)
     n = q.shape[0]
     nb_full = num_bins(*tables)
     bin_lo = band_table_slice(nb_full)[0] if nb_full else 0

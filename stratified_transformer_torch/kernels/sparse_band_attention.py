@@ -18,17 +18,22 @@ from stratified_transformer_torch.kernels import (
 from stratified_transformer_torch.ops.attention import (
     bin_constants, num_bins, sparse_band_attention_plain)
 
-KERNEL = CudaKernel(
-    "sparse_band_attention", "sparse_band_attention_fwd",
-    [P] * 19 + [I] * 10 + [F, F, F, P])
+ARGTYPES = [P] * 19 + [I] * 10 + [F, F, F, P]
+KERNEL = CudaKernel("sparse_band_attention", "sparse_band_attention_fwd",
+                    ARGTYPES)
+# the bf16 form (rpe_precision/qk_precision: default)
+KERNEL_FAST = CudaKernel("sparse_band_attention",
+                         "sparse_band_attention_fwd_bf16", ARGTYPES)
 
 # head sizes the kernels are instantiated for (csrc/*.cu)
 HEAD_DIMS = (16,)
 
 
 def launch_args(q, k, v, sb, table_q=None, table_k=None, table_v=None, *,
-                window_size, quant_size, scale, s_band=128, tile=128):
-    """Output buffers and ``KERNEL`` arguments for CUDA inputs: returns
+                window_size, quant_size, scale, s_band=128, tile=128,
+                fast=False):
+    """Output buffers and ``KERNEL`` (``KERNEL_FAST`` with ``fast``)
+    arguments for CUDA inputs: returns
     ``(args, (acc, m, den) in small-window order, inputs)``. ``inputs``
     holds what the kernel reads in place. The argument tuple holds raw
     pointers, so keep the returned buffers alive while it is used."""
@@ -37,7 +42,7 @@ def launch_args(q, k, v, sb, table_q=None, table_k=None, table_v=None, *,
                             (q, k, v) + tables + tuple(sb))
     n, h, d = q.shape
     nb = num_bins(*tables)
-    rows, max_nb = block_limits("sparse_band_attention", dev)
+    rows, max_nb = block_limits("sparse_band_attention", dev, fast=fast)
     if d not in HEAD_DIMS or tile <= 0 or n % tile or tile % rows:
         raise ValueError(
             f"sparse_band_attention: unsupported shape N={n}, d={d}, "
@@ -71,16 +76,16 @@ def launch_args(q, k, v, sb, table_q=None, table_k=None, table_v=None, *,
 
 def sparse_band_attention(q, k, v, sb, table_q=None, table_k=None,
                           table_v=None, *, window_size, quant_size, scale,
-                          s_band=128, tile=128):
+                          s_band=128, tile=128, fast=False):
     """Far-key half of stratified attention; arguments and the returned
     triple (small-window-sorted order) as `sparse_band_attention_plain`."""
     kw = dict(window_size=window_size, quant_size=quant_size, scale=scale,
-              s_band=s_band, tile=tile)
+              s_band=s_band, tile=tile, fast=fast)
     if q.device.type == "cpu":
         return sparse_band_attention_plain(q, k, v, sb, table_q, table_k,
                                            table_v, **kw)
     args, outs, _inputs = launch_args(
         q, k, v, sb, table_q, table_k, table_v, **kw)
     with torch.cuda.device(q.device):
-        KERNEL(*args)
+        (KERNEL_FAST if fast else KERNEL)(*args)
     return outs

@@ -19,9 +19,12 @@ from stratified_transformer_torch.ops.attention import (
     bin_constants, num_bins, sparse_band_attention_bwd_plain,
     sparse_bwd_finish, sparse_inputs, sparse_window)
 
-KERNEL = CudaKernel(
-    "sparse_band_attention_bwd", "sparse_band_attention_bwd",
-    [P] * 22 + [I] * 7 + [F, F, F, P])
+ARGTYPES = [P] * 22 + [I] * 7 + [F, F, F, P]
+KERNEL = CudaKernel("sparse_band_attention_bwd", "sparse_band_attention_bwd",
+                    ARGTYPES)
+# the bf16 form (rpe_precision/qk_precision: default)
+KERNEL_FAST = CudaKernel("sparse_band_attention_bwd",
+                         "sparse_band_attention_bwd_bf16", ARGTYPES)
 
 # head sizes the kernels are instantiated for (csrc/*.cu)
 HEAD_DIMS = (16,)
@@ -29,8 +32,9 @@ HEAD_DIMS = (16,)
 
 def launch_args(q, k, v, sb, g, o, m, den, table_q=None, table_k=None,
                 table_v=None, *, window_size, quant_size, scale, s_band=128,
-                tile=128):
-    """Device buffers and ``KERNEL`` arguments for CUDA inputs: returns
+                tile=128, fast=False):
+    """Device buffers and ``KERNEL`` (``KERNEL_FAST`` with ``fast``)
+    arguments for CUDA inputs: returns
     ``(args, (dq_lw, dk_part, dv_part, dt_part), inputs)``. The argument
     tuple holds raw pointers, so keep the returned buffers alive while it
     is used."""
@@ -40,7 +44,7 @@ def launch_args(q, k, v, sb, g, o, m, den, table_q=None, table_k=None,
         + tuple(sb))
     n, h, d = q.shape
     nb = num_bins(*tables)
-    rows, max_nb = block_limits("sparse_band_attention_bwd", dev, nb)
+    rows, max_nb = block_limits("sparse_band_attention_bwd", dev, nb, fast)
     if nb > max_nb:
         raise ValueError(
             f"sparse_band_attention_bwd: {nb} table rows per axis exceed the "
@@ -79,12 +83,13 @@ def launch_args(q, k, v, sb, g, o, m, den, table_q=None, table_k=None,
 
 def sparse_band_attention_bwd(q, k, v, sb, g, o, m, den, table_q=None,
                               table_k=None, table_v=None, *, window_size,
-                              quant_size, scale, s_band=128, tile=128):
+                              quant_size, scale, s_band=128, tile=128,
+                              fast=False):
     """Backward of the far-key half; arguments and the returned
     ``(dq, dk, dv, dtq, dtk, dtv)`` (small-window order) as
     `sparse_band_attention_bwd_plain`."""
     kw = dict(window_size=window_size, quant_size=quant_size, scale=scale,
-              s_band=s_band, tile=tile)
+              s_band=s_band, tile=tile, fast=fast)
     tables = (table_q, table_k, table_v)
     if q.device.type == "cpu":
         return sparse_band_attention_bwd_plain(q, k, v, sb, g, o, m, den,
@@ -92,7 +97,7 @@ def sparse_band_attention_bwd(q, k, v, sb, g, o, m, den, table_q=None,
     args, (dq_lw, dk_part, dv_part, dt_part), _inputs = launch_args(
         q, k, v, sb, g, o, m, den, *tables, **kw)
     with torch.cuda.device(q.device):
-        KERNEL(*args)
+        (KERNEL_FAST if fast else KERNEL)(*args)
     n = q.shape[0]
     bases = sparse_window(sb, tile, s_band)[1]
     dk_part, dv_part = (part.view(n // tile, -1, *part.shape[1:]).sum(1)

@@ -3,8 +3,11 @@
 114-248``).
 
 Fused QKV projection, contextual RPE tables of shape ``(2*qgl, heads,
-head_dim, 3)``, attention in fp32, pre-LN residual blocks with drop-path in
-training mode.
+head_dim, 3)``, attention in fp32 or in the kernels' bf16 forms (``fast``),
+pre-LN residual blocks with drop-path in training mode. ``dtype`` (the
+config's ``compute_dtype``) computes the qkv, proj, fc1 and fc2 products in
+that dtype with fp32 parameters (``models/attention.py:67-68,142`` of the
+JAX package).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch
 from torch import nn
 
 from stratified_transformer_torch.models.layers import (
-    Mlp, drop_path, layer_norm)
+    Mlp, dense, drop_path, layer_norm)
 from stratified_transformer_torch.ops.attention_fused import (
     stratified_attention_fused)
 
@@ -21,8 +24,10 @@ from stratified_transformer_torch.ops.attention_fused import (
 class WindowAttention(nn.Module):
     def __init__(self, dim, num_heads, window_size, quant_size, *, band,
                  tile, s_band, rel_query=True, rel_key=True, rel_value=True,
-                 plain=False):
+                 plain=False, fast=False, dtype=None):
         super().__init__()
+        self.fast = fast
+        self.dtype = dtype
         self.dim = dim
         self.num_heads = num_heads
         self.window_size = window_size
@@ -47,7 +52,7 @@ class WindowAttention(nn.Module):
     def forward(self, feats, plan):
         n, c = feats.shape
         h = self.num_heads
-        qkv = self.qkv(feats).reshape(n, 3, h, c // h)
+        qkv = dense(self.qkv, feats, self.dtype).reshape(n, 3, h, c // h)
         o = plan.order.long()
         q, k, v = qkv[o].unbind(1)
         out_sorted = stratified_attention_fused(
@@ -56,9 +61,9 @@ class WindowAttention(nn.Module):
             self.rel_key_table, self.rel_value_table,
             window_size=self.window_size, quant_size=self.quant_size,
             scale=self.scale, band=self.band, tile=self.tile,
-            s_band=self.s_band, plain=self.plain)
+            s_band=self.s_band, plain=self.plain, fast=self.fast)
         out = out_sorted[plan.inv_order.long()].reshape(n, c).to(feats.dtype)
-        return self.proj(out)
+        return dense(self.proj, out, self.dtype)
 
 
 class Block(nn.Module):
@@ -67,16 +72,17 @@ class Block(nn.Module):
 
     def __init__(self, dim, num_heads, window_size, quant_size, *, band,
                  tile, s_band, mlp_ratio=4.0, rel_query=True, rel_key=True,
-                 rel_value=True, plain=False, drop_path_rate=0.0):
+                 rel_value=True, plain=False, drop_path_rate=0.0, fast=False,
+                 dtype=None):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.norm1 = layer_norm(dim)
         self.attn = WindowAttention(
             dim, num_heads, window_size, quant_size, band=band, tile=tile,
             s_band=s_band, rel_query=rel_query, rel_key=rel_key,
-            rel_value=rel_value, plain=plain)
+            rel_value=rel_value, plain=plain, fast=fast, dtype=dtype)
         self.norm2 = layer_norm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype)
 
     def forward(self, feats, plan, generator=None):
         """``generator`` draws the drop-path masks (training mode only)."""

@@ -16,6 +16,18 @@ from stratified_transformer_torch.ops.neighbors import (
     gather_group, interpolate_from_idx)
 
 
+def dense(layer, x, dtype=None):
+    """The ``nn.Linear`` ``layer`` applied to ``x``; with ``dtype`` (the
+    config's ``compute_dtype``) computed in that dtype from the fp32
+    parameters, as flax's ``Dense(dtype=...)`` (``layers.py:31-39`` of the
+    JAX package): the product is rounded to ``dtype``, then the bias is
+    added in ``dtype``."""
+    if dtype is None:
+        return layer(x)
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return y if layer.bias is None else y + layer.bias.to(dtype)
+
+
 def layer_norm(dim):
     """LayerNorm with the reference's epsilon (torch default 1e-5)."""
     return nn.LayerNorm(dim, eps=1e-5)
@@ -57,15 +69,18 @@ class MaskedBatchNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2 (reference :67-85; dropout 0)."""
+    """fc1 -> exact GELU -> fc2 (reference :67-85; dropout 0), computed in
+    ``dtype`` if given (`dense`)."""
 
-    def __init__(self, dim, hidden, out):
+    def __init__(self, dim, hidden, out, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, out)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        h = F.gelu(dense(self.fc1, x, self.dtype), approximate="none")
+        return dense(self.fc2, h, self.dtype)
 
 
 def drop_path(x, rate, generator):

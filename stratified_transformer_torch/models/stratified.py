@@ -185,7 +185,9 @@ class BasicLayer(nn.Module):
                 rel_query=cfg.rel_query, rel_key=cfg.rel_key,
                 rel_value=cfg.rel_value,
                 plain=cfg.attn_impl == "reference",
-                drop_path_rate=rates[b]))
+                drop_path_rate=rates[b], fast=cfg.fast,
+                dtype=(torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                       else None)))
 
     def forward(self, feats, xyz, offsets, is_down, generator=None):
         cfg = self.cfg

@@ -21,6 +21,19 @@ These are the arithmetic the CUDA kernels in
 ``stratified_transformer_torch/csrc`` implement: the tests hold them
 against the JAX package's Pallas kernels, and the chip smoke run holds the
 kernels against them.
+
+``fast=True`` is the bf16 form that the shipped YAMLs select
+(``rpe_precision``/``qk_precision: default``): each operand of a product
+that the TPU kernels contract at DEFAULT precision (q·k, p·v, q·Tq, k·Tk,
+mass·Tv and the backward's products) is rounded to bf16 (`bf16_round`)
+and the products accumulate in fp32; the bins, masks, softmax statistics,
+masses, merges and the sums of partials stay fp32. Where the TPU kernels'
+roundings depend on how they cut the work, the fast forms cut it as the
+CUDA kernels do: p is rounded at the row's running maximum over key
+chunks of `FAST_CHUNK` from the window's first key (the TPU kernel's
+``w_chunk`` chunks), and the backward's key masses are rounded per tile,
+or per ``slice_rows`` query rows (the CUDA kernels' row slices, a kept
+divergence: ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -35,6 +48,25 @@ NEG_INF = -1e30
 _PAIR_BUDGET = 1 << 24
 
 _INV_1E5 = float(np.float32(1e-5))
+
+
+# keys per chunk of the fast forms' running maximum (the kernels' kFwdChunk)
+FAST_CHUNK = 32
+
+
+def bf16_round(t):
+    """``t`` rounded to bf16 (to nearest, ties to even) and back to fp32: an
+    operand of a bf16 product, whose products of two such values are exact
+    in fp32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _rounding(fast):
+    return bf16_round if fast else (lambda t: t)
+
+
+def _round_tables(tables, fast):
+    return tuple(None if t is None else _rounding(fast)(t) for t in tables)
 
 
 def bin_constants(window_size, quant_size):
@@ -122,26 +154,62 @@ def _bin_mass(ridx_a, weights, nb):
                              weights)
 
 
-def _triple(q_t, x_t, k_b, v_b, x_b, mask, tables, **bins):
+def _chunk_max(logits, chunk):
+    """``[B,h,T,W]``: each key's running row maximum of the masked
+    ``logits [B,h,T,W]`` as of the end of its chunk (``chunk [B,W]``, the
+    keys' chunk numbers, ascending along W)."""
+    last = torch.searchsorted(chunk, chunk, right=True) - 1         # [B,W]
+    run = logits.cummax(-1).values
+    return run.gather(-1, last[:, None, None, :].expand_as(run))
+
+
+def _triple(q_t, x_t, k_b, v_b, x_b, mask, tables, chunk=None, **bins):
     """Online-softmax triple ``(acc [B,T,h,d], m [B,T,h], den [B,T,h])``
-    for a batch of query tiles (arguments as `_logits`)."""
+    for a batch of query tiles (arguments as `_logits`). ``chunk [B,W]``
+    (the fast form; None: fp32): the keys' chunk numbers. The caller has
+    rounded q, k, v and the tables; p is rounded for p·v at the running
+    maximum as of its chunk's end and carried to the final maximum in fp32,
+    as an online softmax over those chunks does, and the bin masses are
+    rounded for mass·Tv; den and the masses sum the fp32 p."""
     tv = tables[2]
+    rnd = _rounding(chunk is not None)
     logits, ridx = _logits(q_t, x_t, k_b, x_b, mask, tables, **bins)
     mask_h = mask[:, None]
     m = logits.amax(-1).clamp_min(NEG_INF)                          # [B,h,T]
     p = torch.where(mask_h, torch.exp(logits - m[..., None]), 0.0)
     den = p.sum(-1)
-    acc = torch.einsum("bhtw,bwhd->bthd", p, v_b)
+    if chunk is not None:
+        run = _chunk_max(logits, chunk)
+        pv = torch.where(mask_h, bf16_round(torch.exp(logits - run))
+                         * torch.exp(run - m[..., None]), 0.0)
+    else:
+        pv = p
+    acc = torch.einsum("bhtw,bwhd->bthd", pv, v_b)
     if tv is not None and ridx is not None:
         for a in range(3):
-            acc = acc + torch.einsum("bhtl,lhd->bthd",
-                                     _bin_mass(ridx[..., a], p, bins["nb"]),
-                                     tv[..., a])
+            acc = acc + torch.einsum(
+                "bhtl,lhd->bthd",
+                rnd(_bin_mass(ridx[..., a], p, bins["nb"])), tv[..., a])
     return acc, m.transpose(1, 2), den.transpose(1, 2)
 
 
+def _key_mass(ridx_a, dl, nb, slice_rows, rnd):
+    """``[B,h,W,nb]``: each key's sums of ``dl [B,h,T,W]`` over the rows of
+    each bin (``ridx_a [B,T,W]``), rounded by ``rnd`` per run of
+    ``slice_rows`` rows (None: all T rows) and the runs added in fp32."""
+    bsz, h, t, w = dl.shape
+    rows = slice_rows or t
+    if t % rows:
+        raise ValueError(f"tile {t} is not a multiple of slice_rows {rows}")
+    s = t // rows
+    r_s = ridx_a.reshape(bsz * s, rows, w).transpose(1, 2)         # [BS,W,R]
+    dl_s = dl.reshape(bsz, h, s, rows, w).transpose(1, 2).reshape(
+        bsz * s, h, rows, w).transpose(2, 3)                      # [BS,h,W,R]
+    return rnd(_bin_mass(r_s, dl_s, nb)).reshape(bsz, s, h, w, nb).sum(1)
+
+
 def _triple_bwd(q_t, x_t, k_b, v_b, x_b, mask, tables, g_t, o_t, m_t, den_t,
-                **bins):
+                fast=False, slice_rows=None, **bins):
     """Backward of a batch of query tiles against the merged statistics
     (``fused_attention_bwd.py:5-15``): ``r = exp(l - m) / den`` and
     ``dl = r * (g·(v + ΣT_v[bin]) - g·o)``.
@@ -149,14 +217,20 @@ def _triple_bwd(q_t, x_t, k_b, v_b, x_b, mask, tables, g_t, o_t, m_t, den_t,
     g_t/o_t ``[B,T,h,d]``, m_t/den_t ``[B,T,h]``. Returns ``(dq_t
     [B,T,h,d]`` (w.r.t. the pre-scaled q), ``dk_w, dv_w [B,W,h,d]`` per key
     slot of each tile, ``(dtq, dtk, dtv)`` each ``[nb,h,d,3]`` summed over
-    the batch or None).
+    the batch or None). With ``fast`` the caller has rounded q, k, v and the
+    tables; g is rounded here for its products (``g·o`` takes the fp32 g),
+    and r, dl and the masses as operands of theirs, the key masses per run
+    of ``slice_rows`` rows (`_key_mass`).
     """
     tq, tk, tv = tables
     nb = bins["nb"]
+    rnd = _rounding(fast)
     logits, ridx = _logits(q_t, x_t, k_b, x_b, mask, tables, **bins)
     m = m_t.transpose(1, 2)[..., None]                              # [B,h,T,1]
     den = den_t.transpose(1, 2).clamp_min(1e-20)[..., None]
     r = torch.where(mask[:, None], torch.exp(logits - m) / den, 0.0)
+    go = (g_t * o_t).sum(-1).transpose(1, 2)[..., None]            # [B,h,T,1]
+    g_t = rnd(g_t)
     gv = torch.einsum("bthd,bwhd->bhtw", g_t, v_b)
     if tv is not None and ridx is not None:
         bsz, h, t, w = gv.shape
@@ -164,26 +238,26 @@ def _triple_bwd(q_t, x_t, k_b, v_b, x_b, mask, tables, g_t, o_t, m_t, den_t,
             gproj = torch.einsum("bthd,lhd->bhtl", g_t, tv[..., a])
             gv = gv + gproj.gather(
                 3, ridx[..., a][:, None].expand(bsz, h, t, w))
-    go = (g_t * o_t).sum(-1).transpose(1, 2)[..., None]            # [B,h,T,1]
     dl = r * (gv - go)
-    dq = torch.einsum("bhtw,bwhd->bthd", dl, k_b)
-    dk = torch.einsum("bhtw,bthd->bwhd", dl, q_t)
-    dv = torch.einsum("bhtw,bthd->bwhd", r, g_t)
+    dl_c, r_c = rnd(dl), rnd(r)
+    dq = torch.einsum("bhtw,bwhd->bthd", dl_c, k_b)
+    dk = torch.einsum("bhtw,bthd->bwhd", dl_c, q_t)
+    dv = torch.einsum("bhtw,bthd->bwhd", r_c, g_t)
     dtabs = [None if tb is None or ridx is None else torch.zeros_like(tb)
              for tb in tables]
     for a in range(3 if ridx is not None else 0):
         r_a = ridx[..., a]
         if tq is not None:
-            dmq = _bin_mass(r_a, dl, nb)                            # [B,h,T,nb]
+            dmq = rnd(_bin_mass(r_a, dl, nb))                       # [B,h,T,nb]
             dq = dq + torch.einsum("bhtl,lhd->bthd", dmq, tq[..., a])
             dtabs[0][..., a] = torch.einsum("bhtl,bthd->lhd", dmq, q_t)
         if tk is not None:
-            dmk = _bin_mass(r_a.transpose(1, 2), dl.transpose(2, 3), nb)
+            dmk = _key_mass(r_a, dl, nb, slice_rows, rnd)
             dk = dk + torch.einsum("bhwl,lhd->bwhd", dmk, tk[..., a])
             dtabs[1][..., a] = torch.einsum("bhwl,bwhd->lhd", dmk, k_b)
         if tv is not None:
             dtabs[2][..., a] = torch.einsum(
-                "bhtl,bthd->lhd", _bin_mass(r_a, r, nb), g_t)
+                "bhtl,bthd->lhd", rnd(_bin_mass(r_a, r, nb)), g_t)
     return dq, dk, dv, tuple(dtabs)
 
 
@@ -194,13 +268,16 @@ def _tile_batches(nt, tile, w, h):
 
 def band_attention_plain(q, k, v, xyz, seg_start, seg_end, valid,
                          table_q=None, table_k=None, table_v=None, *,
-                         window_size, quant_size, scale, band, tile=128):
+                         window_size, quant_size, scale, band, tile=128,
+                         fast=False):
     """Dense (same-window) half over the window-sorted order.
 
     q/k/v ``[N,h,d]`` sorted; xyz ``[N,3]``; seg bounds ``[N]``; valid
     ``[N]`` bool; tables ``[2L,h,d,3]`` or None. A query in tile
     ``t0 = (row // tile) * tile`` sees keys ``[t0 - band, t0 + tile + band)
-    ∩ [seg_start, seg_end)``, both ends valid. Returns the triple.
+    ∩ [seg_start, seg_end)``, both ends valid. Returns the triple. ``fast``:
+    the bf16 form (q rounded after the fp32 scaling, as the TPU kernel
+    stages it, ``fused_attention.py:646-668``).
     """
     n, h, d = q.shape
     if n % tile:
@@ -208,15 +285,16 @@ def band_attention_plain(q, k, v, xyz, seg_start, seg_end, valid,
     nt = n // tile
     w = tile + 2 * band
     dev = q.device
-    qf = q.to(torch.float32) * scale
-    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    rnd = _rounding(fast)
+    qf = rnd(q.to(torch.float32) * scale)
+    kf, vf = rnd(k.to(torch.float32)), rnd(v.to(torch.float32))
     xf = xyz.to(torch.float32)
     num_bins_full = num_bins(table_q, table_k, table_v)
     bin_lo, nb = (band_table_slice(num_bins_full) if num_bins_full
                   else (0, 0))
-    tables = tuple(None if tb is None else
-                   tb.to(torch.float32)[bin_lo:bin_lo + nb]
-                   for tb in (table_q, table_k, table_v))
+    tables = _round_tables(tuple(None if tb is None else
+                                 tb.to(torch.float32)[bin_lo:bin_lo + nb]
+                                 for tb in (table_q, table_k, table_v)), fast)
 
     acc = torch.empty(n, h, d, dtype=torch.float32, device=dev)
     m = torch.empty(n, h, dtype=torch.float32, device=dev)
@@ -231,9 +309,12 @@ def band_attention_plain(q, k, v, xyz, seg_start, seg_end, valid,
         mask = ((pos[:, None, :] >= seg_start[rows][..., None].long())
                 & (pos[:, None, :] < seg_end[rows][..., None].long())
                 & val_t[..., None] & (valid[safe] & inside)[:, None, :])
+        # chunks counted from the window's first key, max(t0 - band, 0)
+        chunk = (torch.div(pos - pos[:, :1].clamp_min(0), FAST_CHUNK,
+                           rounding_mode="floor") if fast else None)
         a_, m_, d_ = _triple(
             qf[rows], xf[rows], kf[safe], vf[safe], xf[safe], mask, tables,
-            window_size=window_size, quant_size=quant_size,
+            chunk, window_size=window_size, quant_size=quant_size,
             num_bins_full=num_bins_full, bin_lo=bin_lo, nb=nb)
         acc[s * tile:e * tile] = a_.reshape(-1, h, d)
         m[s * tile:e * tile] = m_.reshape(-1, h)
@@ -287,7 +368,7 @@ def _sum_tables(acc, dt):
 def band_attention_bwd_plain(q, k, v, xyz, seg_start, seg_end, valid, g, o,
                              m, den, table_q=None, table_k=None, table_v=None,
                              *, window_size, quant_size, scale, band,
-                             tile=128):
+                             tile=128, fast=False, slice_rows=None):
     """Backward of the dense half w.r.t. ``(q, k, v, table_q/k/v)``.
 
     Arguments as `band_attention_plain`, plus the output cotangent ``g``
@@ -295,7 +376,9 @@ def band_attention_bwd_plain(q, k, v, xyz, seg_start, seg_end, valid, g, o,
     statistics ``m``/``den`` ``[N,h]`` merged over BOTH halves. Returns
     ``(dq, dk, dv, dtq, dtk, dtv)``; a table's grad is None when the table
     is. dk/dv are composed from per-tile slots by absolute key position
-    (`compose_band`), so any ``band`` works.
+    (`compose_band`), so any ``band`` works. ``fast``: the bf16 form;
+    ``slice_rows``: round the key masses per that many rows of a tile, as
+    the CUDA kernel's row slices do (None: per tile, as the TPU kernel).
     """
     n, h, d = q.shape
     if n % tile:
@@ -303,17 +386,18 @@ def band_attention_bwd_plain(q, k, v, xyz, seg_start, seg_end, valid, g, o,
     nt = n // tile
     w = tile + 2 * band
     dev = q.device
-    qf = q.to(torch.float32) * scale
-    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    rnd = _rounding(fast)
+    qf = rnd(q.to(torch.float32) * scale)
+    kf, vf = rnd(k.to(torch.float32)), rnd(v.to(torch.float32))
     gf, of = g.to(torch.float32), o.to(torch.float32)
     mf, denf = m.to(torch.float32), den.to(torch.float32)
     xf = xyz.to(torch.float32)
     num_bins_full = num_bins(table_q, table_k, table_v)
     bin_lo, nb = (band_table_slice(num_bins_full) if num_bins_full
                   else (0, 0))
-    tables = tuple(None if tb is None else
-                   tb.to(torch.float32)[bin_lo:bin_lo + nb]
-                   for tb in (table_q, table_k, table_v))
+    tables = _round_tables(tuple(None if tb is None else
+                                 tb.to(torch.float32)[bin_lo:bin_lo + nb]
+                                 for tb in (table_q, table_k, table_v)), fast)
 
     dq = torch.empty(n, h, d, dtype=torch.float32, device=dev)
     dk_part = torch.empty(nt, w, h, d, dtype=torch.float32, device=dev)
@@ -331,7 +415,7 @@ def band_attention_bwd_plain(q, k, v, xyz, seg_start, seg_end, valid, g, o,
                 & (valid[safe] & inside)[:, None, :])
         dq_, dk_part[s:e], dv_part[s:e], dt = _triple_bwd(
             qf[rows], xf[rows], kf[safe], vf[safe], xf[safe], mask, tables,
-            gf[rows], of[rows], mf[rows], denf[rows],
+            gf[rows], of[rows], mf[rows], denf[rows], fast, slice_rows,
             window_size=window_size, quant_size=quant_size,
             num_bins_full=num_bins_full, bin_lo=bin_lo, nb=nb)
         dq[s * tile:e * tile] = dq_.reshape(-1, h, d)
@@ -367,37 +451,41 @@ def sparse_window(sb, tile, s_band):
 
 def sparse_band_attention_plain(q, k, v, sb, table_q=None, table_k=None,
                                 table_v=None, *, window_size, quant_size,
-                                scale, s_band=128, tile=128):
+                                scale, s_band=128, tile=128, fast=False):
     """Far-key half over the `SparseBandLayout` aux arrays.
 
     q/k/v ``[N,h,d]`` in small-window-sorted order. Each lw-ordered query
     tile reads ``s`` aux slots from its base; the mask is the query's aux
     segment ``[sb_start, sb_end)`` ∧ not its own small window ∧ valid. Bins
     span the full ±2·window range. Returns the triple in small-sorted order.
+    ``fast``: the bf16 form (the TPU kernel stages fp32 and rounds in its
+    DEFAULT products, ``fused_attention.py:494-499``).
     """
     if q.shape[0] % tile:
         raise ValueError(f"N={q.shape[0]} is not a multiple of tile={tile}")
     acc, m, den = sparse_triple_lw(
         *sparse_inputs(q, k, v, sb, scale), sb, table_q, table_k, table_v,
         window_size=window_size, quant_size=quant_size, s_band=s_band,
-        tile=tile)
+        tile=tile, fast=fast)
     u = sb.lw_unmap.long()
     return acc[u], m[u], den[u]
 
 
 def sparse_triple_lw(q_lw, k_aux, v_aux, sb, table_q=None, table_k=None,
                      table_v=None, *, window_size, quant_size, s_band=128,
-                     tile=128):
+                     tile=128, fast=False):
     """The far-key triple in large-window order, from the pre-scaled
     queries ``q_lw [N,h,d]`` in lw order and the keys and values ``k_aux,
     v_aux [A,h,d]`` in aux order (as `sparse_inputs` gathers them)."""
     n, h, d = q_lw.shape
     nt = n // tile
     dev = q_lw.device
+    rnd = _rounding(fast)
+    q_lw, k_aux, v_aux = rnd(q_lw), rnd(k_aux), rnd(v_aux)
     s, bases = sparse_window(sb, tile, s_band)
     num_bins_full = num_bins(table_q, table_k, table_v)
-    tables = tuple(None if tb is None else tb.to(torch.float32)
-                   for tb in (table_q, table_k, table_v))
+    tables = _round_tables(tuple(None if tb is None else tb.to(torch.float32)
+                                 for tb in (table_q, table_k, table_v)), fast)
     x_lw = sb.xyz_lw.to(torch.float32)
     x_aux = sb.sb_xyz.to(torch.float32)
 
@@ -414,10 +502,12 @@ def sparse_triple_lw(q_lw, k_aux, v_aux, sb, table_q=None, table_k=None,
                    != sb.q_skey_lw[rows][..., None])
                 & sb.valid_lw[rows][..., None]
                 & sb.sb_valid[pos][:, None, :])
+        chunk = ((pos - pos[:, :1]) // FAST_CHUNK if fast else None)
         a_, m_, d_ = _triple(
             q_lw[rows], x_lw[rows], k_aux[pos], v_aux[pos], x_aux[pos],
-            mask, tables, window_size=window_size, quant_size=quant_size,
-            num_bins_full=num_bins_full, bin_lo=0, nb=num_bins_full)
+            mask, tables, chunk, window_size=window_size,
+            quant_size=quant_size, num_bins_full=num_bins_full, bin_lo=0,
+            nb=num_bins_full)
         acc[s0 * tile:e0 * tile] = a_.reshape(-1, h, d)
         m[s0 * tile:e0 * tile] = m_.reshape(-1, h)
         den[s0 * tile:e0 * tile] = d_.reshape(-1, h)
@@ -448,26 +538,29 @@ def sparse_bwd_finish(sb, dq_lw, dk_part, dv_part, bases):
 def sparse_band_attention_bwd_plain(q, k, v, sb, g, o, m, den, table_q=None,
                                     table_k=None, table_v=None, *,
                                     window_size, quant_size, scale,
-                                    s_band=128, tile=128):
+                                    s_band=128, tile=128, fast=False,
+                                    slice_rows=None):
     """Backward of the far-key half w.r.t. ``(q, k, v, table_q/k/v)``.
 
     q/k/v/g/o ``[N,h,d]`` and m/den ``[N,h]`` in small-window-sorted order,
     the statistics merged over BOTH halves. Returns ``(dq, dk, dv, dtq, dtk,
     dtv)`` in small-window order; the tables' grads cover every bin.
+    ``fast``, ``slice_rows``: as `band_attention_bwd_plain`.
     """
     n, h, d = q.shape
     if n % tile:
         raise ValueError(f"N={n} is not a multiple of tile={tile}")
     nt = n // tile
     dev = q.device
-    q_lw, k_aux, v_aux = sparse_inputs(q, k, v, sb, scale)
+    rnd = _rounding(fast)
+    q_lw, k_aux, v_aux = (rnd(t) for t in sparse_inputs(q, k, v, sb, scale))
     lw = sb.lw_map.long()
     g_lw, o_lw = g.to(torch.float32)[lw], o.to(torch.float32)[lw]
     m_lw, den_lw = m.to(torch.float32)[lw], den.to(torch.float32)[lw]
     s, bases = sparse_window(sb, tile, s_band)
     num_bins_full = num_bins(table_q, table_k, table_v)
-    tables = tuple(None if tb is None else tb.to(torch.float32)
-                   for tb in (table_q, table_k, table_v))
+    tables = _round_tables(tuple(None if tb is None else tb.to(torch.float32)
+                                 for tb in (table_q, table_k, table_v)), fast)
     x_lw = sb.xyz_lw.to(torch.float32)
     x_aux = sb.sb_xyz.to(torch.float32)
 
@@ -488,7 +581,7 @@ def sparse_band_attention_bwd_plain(q, k, v, sb, g, o, m, den, table_q=None,
         dq_, dk_part[s0:e0], dv_part[s0:e0], dt = _triple_bwd(
             q_lw[rows], x_lw[rows], k_aux[pos], v_aux[pos], x_aux[pos],
             mask, tables, g_lw[rows], o_lw[rows], m_lw[rows], den_lw[rows],
-            window_size=window_size, quant_size=quant_size,
+            fast, slice_rows, window_size=window_size, quant_size=quant_size,
             num_bins_full=num_bins_full, bin_lo=0, nb=num_bins_full)
         dq_lw[s0 * tile:e0 * tile] = dq_.reshape(-1, h, d)
         dtabs = _sum_tables(dtabs, dt)

@@ -9,7 +9,9 @@ halves' backward kernels (`band_attention_bwd`, `sparse_band_attention_bwd`)
 run on the same merged statistics and output, and their gradients add. On
 the card every step is a CUDA kernel; on the CPU the wrappers run the plain
 versions; ``plain=True`` runs the plain versions in both directions on any
-device.
+device. ``fast=True`` selects every kernel's bf16 form (the JAX package's
+``fast``: ``rpe_precision`` and ``qk_precision`` both "default",
+``attention_fused.py:229``) in both directions, or the plain versions'.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ class StratifiedAttention(torch.autograd.Function):
         tables = (table_q, table_k, table_v)
         kw = dict(window_size=opts["window_size"],
                   quant_size=opts["quant_size"], scale=opts["scale"],
-                  tile=opts["tile"])
+                  tile=opts["tile"], fast=opts["fast"])
         band_fn = band_attention_plain if plain else band_attention
         parts = [band_fn(q, k, v, xyz, seg_start, seg_end, valid, *tables,
                          **kw, band=opts["band"])]
@@ -65,7 +67,7 @@ class StratifiedAttention(torch.autograd.Function):
         tables = (table_q, table_k, table_v)
         kw = dict(window_size=opts["window_size"],
                   quant_size=opts["quant_size"], scale=opts["scale"],
-                  tile=opts["tile"])
+                  tile=opts["tile"], fast=opts["fast"])
         g = g.to(torch.float32).contiguous()
         band_fn = band_attention_bwd_plain if plain else band_attention_bwd
         grads = band_fn(q, k, v, xyz, seg_start, seg_end, valid, g, out, m,
@@ -87,16 +89,16 @@ def stratified_attention_fused(q, k, v, xyz, seg_start, seg_end, valid,
                                sparse_band=None, table_q=None, table_k=None,
                                table_v=None, *, window_size, quant_size,
                                scale, band, tile=128, s_band=128,
-                               plain=False):
+                               plain=False, fast=False):
     """``[N, h, d]`` attention output in window-sorted order, differentiable
     in q, k, v and the three tables.
 
     ``plain=True`` runs the plain PyTorch versions on any device, forward
     and backward (the ``attn_impl: reference`` model path, which the chip
-    smoke run compares the kernels against).
+    smoke run compares the kernels against). ``fast=True``: the bf16 forms.
     """
     opts = dict(window_size=window_size, quant_size=quant_size, scale=scale,
-                band=band, tile=tile, s_band=s_band, plain=plain)
+                band=band, tile=tile, s_band=s_band, plain=plain, fast=fast)
     return StratifiedAttention.apply(
         q, k, v, table_q, table_k, table_v,
         (xyz, seg_start, seg_end, valid, sparse_band), opts)

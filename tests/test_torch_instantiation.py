@@ -294,7 +294,8 @@ def test_ply_equals_jax(tmp_path, binary):
 # ---- test_iou.py's prediction and the drivers
 
 NARROW = ["channels", "[16,32,64,128]", "num_heads", "[1,2,4,8]", "depths",
-          "[1,1,2,1]", "voxel_max", "500", "batch_size_test", "2"]
+          "[1,1,2,1]", "voxel_max", "500", "batch_size_test", "2",
+          "rpe_precision", "highest", "qk_precision", "highest"]
 # per-point means of logits and offsets over a point's crops, each crop's
 # forward as test_torch_dcf's comparison (1e-3 / 1e-4); labels equal where
 # the mean logits' top two differ by more than 1e-3

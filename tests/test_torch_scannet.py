@@ -490,7 +490,8 @@ def test_scannet_eval_driver_matches_jax_protocol(tmp_path, setup):
         load_cfg(os.path.join(CONFIGS, "scannetv2_stratified.yaml")),
         ["data_root", str(tmp_path), "voxel_max", "300", "batch_size_test",
          "2", "channels", "[16,16,32,64,64]", "num_heads", "[1,1,2,4,4]",
-         "depths", "[1,1,1,2,1]", "band_per_stage", "[256,256,256,384,256]"])
+         "depths", "[1,1,1,2,1]", "band_per_stage", "[256,256,256,384,256]",
+         "rpe_precision", "highest", "qk_precision", "highest"])
     cfg = driver.eval_config(yaml_cfg)
     model = _torch_model(variables, cfg)
     assert len(voting.tta_transforms("scannetv2")) == 5

@@ -114,6 +114,100 @@ def test_add_timing_sums_blocks_and_takes_the_larger_bound():
     assert r["max_abs_err"] == 1e-6
 
 
+@pytest.mark.parametrize("fn", ["least_ops", "least_ops_bwd"])
+@pytest.mark.parametrize("rows, per_row", [(1000, 1), (100, 150)])
+def test_split_ops_add_up_to_the_total(fn, rows, per_row):
+    """Phase 14's bound splits the least operations into the products (bf16
+    operands in the fast forms) and the rest (fp32), which add up to the
+    fp32 kernels' count; g·o, r, dl and the bins are never products."""
+    d, h, nb = 16, 12, 40
+    pairs = rows * per_row
+    count = getattr(chip_smoke, fn)
+    products, other = count(pairs, rows, rows, h, d, nb, split=True)
+    assert products + other == count(pairs, rows, rows, h, d, nb)
+    assert other >= 24 * pairs + h * 5 * pairs
+    assert products >= h * 4 * d * pairs
+
+
+def test_fast_bound_takes_products_at_the_bf16_peak():
+    """989 TFLOP/s of products and 67 TFLOP/s of the rest may run together:
+    the slower of the two sets the bound."""
+    assert chip_smoke.ops_seconds(67e6) == pytest.approx(1e-6)
+    assert chip_smoke.ops_seconds((989e6, 6.7e6)) == pytest.approx(1e-6)
+    assert chip_smoke.ops_seconds((9.89e6, 67e6)) == pytest.approx(1e-6)
+    report = chip_smoke.new_report(["k"])
+    bound, by = chip_smoke.add_timing(report, "k", 1, 0.5, 4.0, 3.35e6,
+                                      (2 * 989e6, 67e6), 1e-6)
+    assert by == "operations" and bound == pytest.approx(2e-3)
+
+
+def test_phases_2_to_13_pin_the_fp32_kernels():
+    """The shipped YAML selects the fast forms; the helper that phases 2-13
+    read it through keeps the fp32 kernels, as PRs 1-8 ran them."""
+    from stratified_transformer_torch.config import from_cfg
+    assert load_config(chip_smoke.CONFIG).fast
+    for path in (chip_smoke.CONFIG, chip_smoke.SCANNET_CONFIG,
+                 chip_smoke.DCF_CONFIG):
+        assert not from_cfg(chip_smoke.yaml_fp32(path)).fast
+    assert not load_config(chip_smoke.CONFIG, **chip_smoke.FP32).fast
+    assert set(chip_smoke.FAST_KERNELS) == {
+        n + "_bf16" for n in chip_smoke.FWD_KERNELS + chip_smoke.BWD_KERNELS}
+
+
+@pytest.mark.parametrize("err, control, failures", [
+    (1e-5, 3e-3, 0),        # within the gate, the fp32 form beyond it
+    (3e-4, 3e-3, 1),        # beyond the gate
+    (1e-5, 1e-4, 1),        # a gate that the fp32 form would pass
+    (3e-4, 1e-4, 2),
+    (1e-5, None, 0)])       # no control
+def test_fast_gate_records_each_failure(monkeypatch, err, control, failures):
+    monkeypatch.setattr(chip_smoke, "FAST_FAILURES", [])
+    chip_smoke.fast_gate("k", err, 2e-4, control)
+    assert len(chip_smoke.FAST_FAILURES) == failures
+
+
+def test_plain_in_kernel_slices_rounds_the_key_masses_per_slice(monkeypatch):
+    """Within `plain_in_kernel_slices` the fused attention's plain backward
+    takes the kernels' row slices (here 16 rows of a 32-row tile, from each
+    call's table rows): only dk and the key table's gradient move."""
+    from stratified_transformer_torch.ops import plan as torch_plan
+    from stratified_transformer_torch.ops.attention_fused import (
+        stratified_attention_fused)
+    asked = []
+    monkeypatch.setattr(chip_smoke, "kernel_slice_rows",
+                        lambda name, dev, nb, fast=True:
+                        asked.append((name, nb, fast)) or 16)
+    gen = torch.Generator().manual_seed(0)
+    n_pad, h = 256, 2
+    xyz = torch.rand(n_pad, 3, generator=gen) * 2
+    batch = torch.repeat_interleave(torch.tensor([0, 1, 2], dtype=torch.int32),
+                                    torch.tensor([100, 100, 56]))
+    valid = batch < 2
+    is_down = (torch.rand(n_pad, generator=gen) < 0.4) & valid
+    plan = torch_plan.build_attention_plan(xyz, batch, valid, 0.5,
+                                           shifted=False, is_down=is_down,
+                                           sparse_cap=16)
+    leaves = [torch.randn(n_pad, h, 16, generator=gen) for _ in range(3)] + [
+        torch.randn(16, h, 16, 3, generator=gen) * 0.05 for _ in range(3)]
+    leaves = [x.requires_grad_(True) for x in leaves]
+
+    def grads():
+        out = stratified_attention_fused(
+            *leaves[:3], plan.xyz_sorted, plan.seg_start, plan.seg_end,
+            plan.valid_sorted, plan.sparse_band, *leaves[3:],
+            window_size=0.5, quant_size=0.125, scale=0.25, band=32, tile=32,
+            s_band=64, plain=True, fast=True)
+        return torch.autograd.grad(out.sum(), leaves)
+
+    tile = grads()
+    with chip_smoke.plain_in_kernel_slices(torch.device("cpu")):
+        sliced = grads()
+    assert asked == [("band_attention_bwd", 13, True),
+                     ("sparse_band_attention_bwd", 16, True)]
+    for name, a, b in zip(("q", "k", "v", "tq", "tk", "tv"), tile, sliced):
+        assert torch.equal(a, b) is (name not in ("k", "tk")), name
+
+
 def test_chip_smoke_refuses_unknown_arguments_or_a_missing_card(capsys):
     # without a card it exits non-zero before reading its arguments
     rc = chip_smoke.main(["--no-such-option"])
@@ -131,16 +225,17 @@ def test_chip_smoke_refuses_unknown_arguments_or_a_missing_card(capsys):
     (["--iou-only"], "--iou-only"),
     (["--scannet-only"], "--scannet-only"),
     (["--dcf-only"], "--dcf-only"),
+    (["--fast-only"], "--fast-only"),
 ])
 def test_parse_args_picks_the_phase_run_alone(argv, want):
     assert chip_smoke.parse_args(argv) == want
     if want is not None:
         # the kernels it builds: the forward pair for phases 4 and 10 and
-        # the IoU timing, all four attention kernels for phases 11-13
+        # the IoU timing, all four attention kernels for phases 11-14
         both = chip_smoke.FWD_KERNELS + chip_smoke.BWD_KERNELS
         assert chip_smoke.PHASE_ONLY[want] == {
             "--bwd-only": chip_smoke.BWD_KERNELS, "--loop-only": both,
-            "--scannet-only": both, "--dcf-only": both,
+            "--scannet-only": both, "--dcf-only": both, "--fast-only": both,
         }.get(want, chip_smoke.FWD_KERNELS)
 
 
