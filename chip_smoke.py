@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's evaluation forward, training step, whole-scene
-evaluation and training loop, for the S3DIS, ScanNet and DCF families, the
-DCF family's box-mAP and layout-removal drivers, its two probes, and the
-shipped YAMLs' bf16 fast mode, on an NVIDIA GPU.
+evaluation and training loop, for the S3DIS, ScanNet, DCF and Swin3D
+families, the DCF family's box-mAP and layout-removal drivers, its two
+probes, and the shipped YAMLs' bf16 fast mode, on an NVIDIA GPU.
 
 Run from the repository root with no arguments (needs one CUDA card):
 
@@ -16,6 +16,7 @@ phase 11 alone; ``--scannet-only`` builds the four attention kernels and
 runs phase 12 alone; ``--dcf-only`` builds the four attention kernels and
 runs phase 13 alone; ``--fast-only`` builds the four attention kernels
 (their sources hold the fp32 and the fast forms) and runs phase 14 alone;
+``--swin-only`` builds the two band kernels and runs phase 15 alone;
 ``--iou-only`` builds the two forward kernels and times the train and eval
 steps' IoU counters (`iou_phase`). Each prints its
 times as one JSON line (``--fwd-only`` also per stage and parity). Copied into another checkout (say a parent commit
@@ -23,9 +24,10 @@ unpacked beside the tree) and run from there, it times that checkout's
 kernels and wrappers the same way, so two versions can be compared in
 turns on one card.
 
-Phases 2-13 pin ``rpe_precision``/``qk_precision`` to "highest" (the fp32
-kernels, `PIN_NOTE`), so that their gates and times stay comparable with
-the runs before the fast forms; phase 14 runs the YAMLs as shipped.
+Phases 2-13 and 15 (but its (f)) pin ``rpe_precision``/``qk_precision`` to
+"highest" (the fp32 kernels, `PIN_NOTE`), so that their gates and times
+stay comparable with the runs before the fast forms; phase 14 runs the
+YAMLs as shipped (the Swin YAMLs ship "highest").
 
 Phases, each fatal on failure:
   1. device: card name, power limit, CUDA version; builds the six kernels
@@ -36,8 +38,8 @@ Phases, each fatal on failure:
      ``relative_position_index`` on the CPU over a boundary-dense sweep;
   4. the forward kernels against their plain PyTorch versions at every
      stage's real shapes and plans: errors, CUDA-event times of the bare
-     launch, the public wrapper's device-busy time from the profiler,
-     bounds;
+     launch, the public wrapper's device-busy time (CUDA events behind a
+     sleep kernel, `device_busy_ms`), bounds;
   5. the full-width S3DIS eval step (channels 48/96/192/384, heads
      3/6/12/24, depths 2/2/6/2) on 3 synthetic batches, with random weights
      scaled for O(1) activations: each batch's pairs per stage
@@ -48,7 +50,7 @@ Phases, each fatal on failure:
      real shapes and plans (cotangent and merged residuals of the forward):
      errors, CUDA-event times of the bare launch and of the public wrapper
      (its input copies, zeroed partials and the sums around the launch),
-     the wrapper's device-busy time from the profiler, bounds;
+     the wrapper's device-busy time (`device_busy_ms`), bounds;
   8. three full-width training steps after one warm-up step (AdamW, the
      YAML's schedule, drop-path 0.3 from a seeded generator, augmented
      synthetic batches, whose pairs per stage it logs):
@@ -133,7 +135,28 @@ Phases, each fatal on failure:
      launches of each fast kernel, step-1 gradients and loss against the
      plain fast step (the fp32 kernels' step beyond the gate), and three
      steps of each kind timed in turns; (c) the four fast kernels at
-     ScanNet's 80-row tables on phase 12's plans of one batch.
+     ScanNet's 80-row tables on phase 12's plans of one batch;
+ 15. the Swin3D family (``configs/s3dis_swin3d.yaml`` and
+     ``configs/scannetv2_swin3d.yaml``: ``arch: swin3d_transformer``, no far
+     keys, window-quantized cRPE bins over 31 table rows, through the band
+     kernels' swin mode; the YAMLs' ``attn_impl: reference`` runs the main
+     path, as ``config.from_cfg`` reads it): (a) at phase 2's batch, every
+     stage's and parity's quantized positions bit-identical between the
+     card and the CPU, and the swin bin probe on every integer ``rel`` in
+     ``[-qgl-2, qgl+2]`` equal to ``swin_relative_position_index``; (b) the
+     band forward and backward kernels in the swin mode against their plain
+     versions at every block's plan (phase 4's and 7's gates), with times,
+     bounds and plain times; (c) the full-width S3DIS Swin3D: three eval
+     forwards (12 band launches each, none else) and three training steps
+     (12 of each band kernel per step) against the plain-version model
+     (phases 5 and 8's gates); (d) the same at ScanNet's Swin3D (n_pad
+     250112 in 2 slots, stages 1-4, 18 blocks), one forward and one step;
+     (e) the shipped S3DIS Swin YAML through the training driver (1 epoch of
+     2 steps with validation) and the eval driver (one 40000-point room at
+     the YAML's test shape); (f) the fast forms against their plain fast
+     versions at (b)'s plans (phase 14's kernel gates with their fp32
+     controls), and the YAML at ``default`` precision through one forward
+     and one training step on the bf16 band kernels.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -225,6 +248,13 @@ FAST_OUT_REL_L2, FAST_GRAD_REL_L2 = 2e-4, 5e-4
 # (1.9e-2).
 FAST_LOGITS_REL_L2 = 3e-4
 FAST_STEP_GRAD_REL_L2, FAST_STEP_ALL_REL_L2 = 3e-2, 5e-3
+# Phase 15 (f), the fast Swin3D model the same way: its logits read
+# 2.12e-4 (fp32 kernels 6.79e-4) and are held to FAST_LOGITS_REL_L2; its
+# step-1 gradients read 4.96e-3 to 5.02e-3 in three runs on an H100, at
+# FAST_STEP_ALL_REL_L2 itself, with the fp32 kernels' step at 8.42e-3, so
+# its gate sits between the two (their geometric mean), and the control
+# must fail it
+FAST_SWIN_STEP_ALL_REL_L2 = 6.5e-3
 # phases 2-13 run the fp32 kernels, whatever the YAML selects, so that their
 # gates and times stay comparable with the runs before the fast forms
 FP32 = dict(rpe_precision="highest", qk_precision="highest")
@@ -432,14 +462,15 @@ def assert_close(name, got, want, rtol, atol):
 
 def stage_levels(cfg, hb):
     """(xyz, offsets, is_down) of each level, from the host pyramid; a
-    level without a transformer stage (the ScanNet family's stem level) has
-    no member mask (None)."""
+    level without a transformer stage (the ScanNet family's stem level) or
+    a model without stratified keys (Swin3D) has no member mask (None)."""
     pyr = hb["pyramid"]
     xyz, off = hb["xyz"], hb["offsets"]
     out = []
     for i in range(cfg.num_layers):
         out.append((xyz, off, pyr["stage_down"][i - cfg.layer_start][
-            "is_down"] if i >= cfg.layer_start else None))
+            "is_down"] if i >= cfg.layer_start and cfg.use_stratified
+            else None))
         if i < cfg.num_layers - 1:
             xyz, off = xyz[pyr["down"][i]["idx"]], pyr["down"][i]["offsets"]
     return out
@@ -467,7 +498,8 @@ def build_plan(cfg, stage, level, shifted, device):
         torch.from_numpy(xyz).to(device),
         sampling.offsets_to_batch(toff, n), sampling.offsets_to_valid(toff, n),
         cfg.window_sizes()[stage], shifted=shifted,
-        is_down=torch.from_numpy(is_down).to(device),
+        is_down=None if is_down is None else torch.from_numpy(is_down).to(
+            device),
         sparse_cap=cfg.sparse_cap, aux_pad=((d_pad + 127) // 128) * 128)
 
 
@@ -523,7 +555,8 @@ def log_pairs(label, cfg, hb, dev):
             blocks = (cfg.depths[i] + (0 if shifted else 1)) // 2
             plan = build_plan(cfg, i, levels[i], shifted, dev)
             band += blocks * band_pairs(plan, cfg.stage_band(i), cfg.tile)
-            far += blocks * sparse_pairs(plan, cfg.s_band, cfg.tile)[0]
+            if plan.sparse_band is not None:
+                far += blocks * sparse_pairs(plan, cfg.s_band, cfg.tile)[0]
         valid = int(levels[i][1][-1])
         parts.append(f"stage {i}: {valid} points, band {band}, sparse {far}")
     log(f"[pairs] {label}: " + "; ".join(parts))
@@ -537,7 +570,13 @@ def _table_ops(per_pair, pairs, nb, d, rows):
     return 6 * nb * d * rows, 3 * pairs
 
 
-def least_ops(pairs, n_q, n_k, h, d, nb, split=False):
+# operations of one pair's bins on its three axes, shared by the heads: the
+# stratified bins (round to 1e-5, offset, scale, floor, clip, slice shift)
+# and Swin3D's (difference, round, offset, clip)
+BIN_OPS = {"stratified": 24, "swin_window": 15}
+
+
+def least_ops(pairs, n_q, n_k, h, d, nb, split=False, bin_ops=24):
     """Least operations of one attention call with cRPE tables on q, k and
     v over ``pairs`` unmasked pairs, ``n_q`` valid queries and ``n_k``
     valid keys, ``nb`` table rows per axis; with ``split``, as ``(products,
@@ -548,17 +587,18 @@ def least_ops(pairs, n_q, n_k, h, d, nb, split=False):
     cheaper of its per-pair form (three d-long dot products for Tq and Tk,
     three d-long adds for Tv) and the TPU kernel's form: each query (Tq),
     key (Tk) or row's bin mass (Tv) projected once onto all 3·nb table rows
-    (2d each), then 3 lookups or mass adds per pair."""
+    (2d each), then 3 lookups or mass adds per pair. ``bin_ops``: a pair's
+    bins (`BIN_OPS`)."""
     parts = [(4 * d * pairs, 5 * pairs),
              _table_ops(6 * d, pairs, nb, d, n_q),
              _table_ops(6 * d, pairs, nb, d, n_k),
              _table_ops(3 * d, pairs, nb, d, n_q)]
     ops = (h * sum(p for p, _ in parts),
-           h * sum(o for _, o in parts) + 24 * pairs)
+           h * sum(o for _, o in parts) + bin_ops * pairs)
     return ops if split else sum(ops)
 
 
-def least_ops_bwd(pairs, n_q, n_k, h, d, nb, split=False):
+def least_ops_bwd(pairs, n_q, n_k, h, d, nb, split=False, bin_ops=24):
     """Least operations of one backward call (both table sets present) over
     ``pairs`` unmasked pairs, ``n_q`` valid queries, ``n_k`` valid keys,
     ``nb`` table rows per axis (with ``split`` as ``(products, other)``,
@@ -575,7 +615,7 @@ def least_ops_bwd(pairs, n_q, n_k, h, d, nb, split=False):
              + [_table_ops(6 * d, pairs, nb, d, n_q)] * 5
              + [_table_ops(6 * d, pairs, nb, d, n_k)] * 3)
     ops = (h * sum(p for p, _ in parts),
-           h * sum(o for _, o in parts) + 24 * pairs)
+           h * sum(o for _, o in parts) + bin_ops * pairs)
     return ops if split else sum(ops)
 
 
@@ -670,16 +710,32 @@ def o1_weights(model, seed):
     model.load_state_dict(state, strict=True)
 
 
-def device_kernels(fn):
-    """One profiled call of ``fn``: its wall time (ms, profiler on) and
-    ``{name: (device ms, count)}`` of the device kernels and copies it
-    ran."""
+def attention_launches():
+    """Launches so far of the four attention kernels (fp32 and bf16 entry
+    points), by source: the count the wrappers keep."""
+    return {k: m_.KERNEL.launches + m_.KERNEL_FAST.launches
+            for k, m_ in attention_kernel_modules().items()}
+
+
+def device_kernels(fn, reps=1):
+    """``reps`` profiled calls of ``fn`` in one session: their wall time (ms,
+    profiler on) and ``{name: (device ms, count)}`` of the device kernels
+    and copies they ran.
+
+    On the H100 machine the profiler loses all or part of a session's
+    device records once the card has idled (PERF.md §6), so every
+    session is held complete or fails: it holds one record of an attention
+    kernel for each launch that kernel's wrapper counted in it, each kernel
+    ``reps`` times over (the calls run the same kernels), and some device
+    time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    before = attention_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -690,17 +746,67 @@ def device_kernels(fn):
                 and not getattr(e, "is_user_annotation", False)):
             ms, count = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    launched = {k: v - before[k] for k, v in attention_launches().items()}
+    recorded = {k: sum(c for name, (_, c) in by_name.items()
+                       if f"stratified::{k}_kernel<" in name)
+                for k in launched}
+    uneven = {n: c for n, (_, c) in by_name.items() if c % reps}
+    if (recorded != launched or uneven
+            or not sum(ms for ms, _ in by_name.values()) > 0):
+        raise AssertionError(
+            f"the profiler lost device records of {reps} call(s): attention "
+            f"kernels launched {launched}, recorded {recorded}; kernels not "
+            f"a multiple of {reps} times: {len(uneven)}")
     return wall_ms, by_name
 
 
-def device_busy_ms(fn, reps):
-    """Device time of ``fn()`` per call, summed over the device kernels and
-    copies of ``reps`` profiled calls after one warm-up: unlike
-    `cuda_time_ms`, it leaves out the device's idle gaps while the host
-    dispatches."""
+def profiled_busy_ms(fn, reps):
+    """Device time of ``fn()`` per call from the profiler, summed over the
+    device kernels and copies of ``reps`` profiled calls after one warm-up
+    (for calls that wait for the card, which `device_busy_ms` cannot
+    take); `device_kernels` fails an incomplete session."""
     fn()
-    by_name = device_kernels(lambda: [fn() for _ in range(reps)])[1]
+    by_name = device_kernels(fn, reps)[1]
     return sum(ms for ms, _ in by_name.values()) / reps
+
+
+# the sleep kernel that `device_busy_ms` queues calls behind, in cycles of
+# the card's clock (~50 ms on the H100): longer than the host takes to
+# enqueue the calls it times
+SLEEP_CYCLES = int(1e8)
+
+
+def device_busy_ms(fn, reps):
+    """Device time of ``fn()`` per call without the card's idle gaps while
+    the host dispatches: ``reps`` calls after one warm-up, queued behind a
+    sleep kernel so that the card runs them back to back, timed by CUDA
+    events from the sleep's end. Not the profiler: on the H100 machine its
+    sessions lose their device records once the card has idled for tens of
+    seconds (PERF.md §6). ``fn`` must not wait for the card. If the
+    host has not enqueued the calls before the sleep ends, the sleep is
+    doubled and the calls timed again (up to 3 times); a reading that is
+    not positive fails."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = SLEEP_CYCLES
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()      # the card still sleeping
+        torch.cuda.synchronize()
+        if queued:
+            busy = start.elapsed_time(end) / reps
+            if not busy > 0:
+                raise AssertionError(f"device time {busy} ms of {reps} "
+                                     "calls that launch device work")
+            return busy
+        cycles *= 2
+    raise AssertionError(f"the host did not enqueue {reps} calls within a "
+                         f"sleep of {cycles // 2} cycles")
 
 
 def profile_call(label, fn):
@@ -2317,7 +2423,8 @@ def plain_in_kernel_slices(dev):
     def sliced(fn, name, band):
         def run(*args, **kw):
             nbf = plain.num_bins(*args[-3:])
-            nb = plain.band_table_slice(nbf)[1] if band else nbf
+            nb = (plain.band_slice(nbf, kw.get("rpe_mode", "stratified"))[1]
+                  if band else nbf)
             rows = (kernel_slice_rows(name, dev, nb, kw.get("fast", False))
                     if nbf else None)
             return fn(*args, **kw, slice_rows=rows)
@@ -2390,6 +2497,555 @@ def fast_phase(dev):
                              f"controls failed: {FAST_FAILURES}")
     return out
 
+
+
+# phase 15: the Swin3D family (arch: swin3d_transformer) on the band kernels'
+# swin mode; its kernels in the kernels line, by report name
+SWIN_CONFIG = os.path.join(REPO, "configs", "s3dis_swin3d.yaml")
+SCANNET_SWIN_CONFIG = os.path.join(REPO, "configs", "scannetv2_swin3d.yaml")
+SWIN = "_swin"
+SWIN_KERNELS = ("band_attention" + SWIN, "band_attention_bwd" + SWIN)
+SWIN_FAST_KERNELS = tuple(n + FAST for n in SWIN_KERNELS)
+# (e): the training driver's loop, 1 epoch of 2 steps on the YAML's batch
+# shape (8 slots of 140000 points; 16 synthetic rooms of 60000 points) with
+# validation (16 rooms of seed 10000 in the YAML's batches of 4), and
+# the eval driver's protocol at the YAML's test shape (n_pad 400000 in 5
+# crops) on one synthetic room of SWIN_SCENE_POINTS points (reduced from
+# phase 10's 300000 for time)
+SWIN_LOOP_OVERRIDES = [
+    "data_name", "synthetic", "max_batch_points", "140000", "batch_size", "8",
+    "voxel_max", "80000", "synthetic_points", "60000", "synthetic_scenes",
+    "16", "epochs", "1", "evaluate", "True", "print_freq", "1",
+    "use_tensorboard", "False", "n_devices", "1"]
+SWIN_SCENE_POINTS = 40000
+
+
+def swin_kernels(cfg, levels, dev, report):
+    """Phase 15 (b) and (f)'s kernels: at every stage's plans of parity 0
+    and 1 (no far keys; each point's window-quantized position from the
+    plan's grid origin, the shifted parity at window / 2), with random
+    q/k/v/g and 31-row tables from seed 0: the band forward and backward
+    kernels in the swin mode against their plain versions (phase 4's and
+    phase 7's gates), and their fast forms against the plain fast versions
+    (phase 14's gates, each with its fp32 control). Adds per-step times,
+    bounds and errors to ``report`` (``<kernel>_swin``, ``..._swin_bf16``)
+    and the forward wrapper's device-busy time."""
+    from stratified_transformer_torch.kernels import band_attention as band_k
+    from stratified_transformer_torch.kernels import (
+        band_attention_bwd as band_bwd_k)
+    from stratified_transformer_torch.models.attention import swin_positions
+    from stratified_transformer_torch.ops import attention as plain
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    grad_names = ("dq", "dk", "dv", "dtq", "dtk", "dtv")
+    bin_ops = BIN_OPS["swin_window"]
+    report[SWIN_KERNELS[0]]["wrapper_busy_ms"] = 0.0
+    for name in SWIN_FAST_KERNELS:
+        report[name]["fp32_ms"] = 0.0
+    for i in stages(cfg):
+        h, d = cfg.num_heads[i], cfg.channels[i] // cfg.num_heads[i]
+        ws, qs = cfg.window_sizes()[i], cfg.quant_sizes()[i]
+        nbf = 2 * int(ws / qs) - 1
+        band = cfg.stage_band(i)
+        n = len(levels[i][0])
+        q, k, v, g = (torch.randn(n, h, d, generator=gen).to(dev)
+                      for _ in range(4))
+        tables = tuple((torch.randn(nbf, h, d, 3, generator=gen) * 0.05
+                        ).to(dev) for _ in range(3))
+        for shifted in (False, True):
+            blocks = (cfg.depths[i] + (0 if shifted else 1)) // 2
+            plan = build_plan(cfg, i, levels[i], shifted, dev)
+            if plan.sparse_band is not None:
+                raise AssertionError("a Swin3D plan with far keys")
+            u = swin_positions(plan.xyz_sorted, plan.grid_start,
+                               ws / 2.0 if shifted else 0.0, ws, qs)
+            geom = (u, plan.seg_start, plan.seg_end, plan.valid_sorted)
+            kw = dict(window_size=ws, quant_size=qs, scale=d ** -0.5,
+                      band=band, tile=cfg.tile, rpe_mode="swin_window")
+            pairs = band_pairs(plan, band, cfg.tile)
+            n_q = int(plan.valid_sorted.sum())
+            label = f"stage {i} shifted={int(shifted)}"
+            rows = kernel_slice_rows("band_attention_bwd", dev, nbf)
+            with torch.no_grad():
+                for fast in (False, True):
+                    fkw = dict(kw, fast=fast)
+                    sfx = SWIN + (FAST if fast else "")
+                    # forward
+                    key = "band_attention" + sfx
+                    args, outs, inputs = band_k.launch_args(
+                        q, k, v, *geom, *tables, **fkw)
+                    got = band_k.band_attention(q, k, v, *geom, *tables,
+                                                **fkw)
+                    want = plain.band_attention_plain(q, k, v, *geom,
+                                                      *tables, **fkw)
+                    if fast:
+                        err = check_fast_triple(
+                            f"{key} {label}", got, want,
+                            band_k.band_attention(
+                                q, k, v, *geom, *tables,
+                                **dict(fkw, fast=False)))
+                        side_ms = cuda_time_ms(lambda: band_k.KERNEL(
+                            *band_k.launch_args(q, k, v, *geom, *tables,
+                                                **kw)[0]), 20)
+                        report[key]["fp32_ms"] += blocks * side_ms
+                        errs = err[2]
+                    else:
+                        for tn, a, b in zip(("acc", "m", "den"), got, want):
+                            assert_close(f"{key} {label} {tn}", a, b, RTOL,
+                                         ATOL)
+                        errs = [max_errors(a, b) for a, b in zip(got, want)]
+                        side_ms = device_busy_ms(
+                            lambda: band_k.band_attention(
+                                q, k, v, *geom, *tables, **fkw), 3)
+                        report[key]["wrapper_busy_ms"] += blocks * side_ms
+                    kern = band_k.KERNEL_FAST if fast else band_k.KERNEL
+                    ms = cuda_time_ms(lambda: kern(*args), 20)
+                    plain_ms = cuda_time_ms(lambda: plain.band_attention_plain(
+                        q, k, v, *geom, *tables, **fkw), 3)
+                    t_ops = least_ops(pairs, n_q, n_q, h, d, nbf, split=fast,
+                                      bin_ops=bin_ops)
+                    bound, by = add_timing(
+                        report, key, blocks, ms, plain_ms,
+                        fwd_bytes("band_attention", inputs, outs, None),
+                        t_ops, max(e[0] for e in errs))
+                    log(f"[swin] {key} {label} N={n} h={h} pairs={pairs}: "
+                        f"{ms:.4f} ms ("
+                        + (f"fp32 form {side_ms:.4f} ms" if fast else
+                           f"wrapper device busy {side_ms:.4f} ms")
+                        + f"; plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
+                        f"by {by}); max abs err acc {errs[0][0]:.2e}")
+                    # backward, on the merged residuals of the plain forward
+                    key = "band_attention_bwd" + sfx
+                    out, m, den = plain.merge([want])
+                    res = (g, out, m, den)
+                    args, outs, inputs = band_bwd_k.launch_args(
+                        q, k, v, *geom, *res, *tables, **fkw)
+                    got = band_bwd_k.band_attention_bwd(
+                        q, k, v, *geom, *res, *tables, **fkw)
+                    want_g = plain.band_attention_bwd_plain(
+                        q, k, v, *geom, *res, *tables, **fkw,
+                        slice_rows=rows if fast else None)
+                    if fast:
+                        ctl_g = band_bwd_k.band_attention_bwd(
+                            q, k, v, *geom, *res, *tables,
+                            **dict(fkw, fast=False))
+                        l2s = []
+                        for gn, a, b, c in zip(grad_names, got, want_g,
+                                               ctl_g):
+                            l2s.append(rel_l2(a, b))
+                            fast_gate(f"{key} {label} {gn}", l2s[-1],
+                                      FAST_GRAD_REL_L2, rel_l2(c, b))
+                        errs = [float((a - b).abs().max())
+                                for a, b in zip(got, want_g)]
+                        fp32_args = band_bwd_k.launch_args(
+                            q, k, v, *geom, *res, *tables, **kw)[0]
+                        side_ms = cuda_time_ms(
+                            lambda: band_bwd_k.KERNEL(*fp32_args), 10)
+                        report[key]["fp32_ms"] += blocks * side_ms
+                    else:
+                        errs = [grads_close(f"{key} {label} {gn}", a, b)
+                                for gn, a, b in zip(grad_names, got, want_g)]
+                    kern = band_bwd_k.KERNEL_FAST if fast else band_bwd_k.KERNEL
+                    ms = cuda_time_ms(lambda: kern(*args), 10)
+                    plain_ms = cuda_time_ms(
+                        lambda: plain.band_attention_bwd_plain(
+                            q, k, v, *geom, *res, *tables, **fkw), 2)
+                    t_ops = least_ops_bwd(pairs, n_q, n_q, h, d, nbf,
+                                          split=fast, bin_ops=bin_ops)
+                    bound, by = add_timing(report, key, blocks, ms, plain_ms,
+                                           nbytes(inputs + tuple(got)),
+                                           t_ops, max(errs))
+                    log(f"[swin] {key} {label}: {ms:.4f} ms ("
+                        + (f"fp32 form {side_ms:.4f} ms; " if fast else "")
+                        + f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms by "
+                        f"{by}); max abs err "
+                        + " ".join(f"{gn} {e:.2e}"
+                                   for gn, e in zip(grad_names, errs)))
+    for name in SWIN_KERNELS + SWIN_FAST_KERNELS:
+        r = report[name]
+        log(f"[swin] {name}: {r['ms']:.3f} ms per S3DIS Swin3D train step "
+            f"(plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.3f} ms"
+            + (f", fp32 form {r['fp32_ms']:.3f} ms" if "fp32_ms" in r else "")
+            + (f", wrapper device busy {r['wrapper_busy_ms']:.3f} ms"
+               if "wrapper_busy_ms" in r else "") + ")")
+
+
+def swin_eval(tag, cfg, yaml_cfg, batches, model, ref_model, all_mods):
+    """Phase 15 (c)/(d)'s eval forwards: one band launch per block and no
+    other (no far-key kernel, no backward), finite logits equal to the
+    plain-version model's within LOGIT_RTOL / LOGIT_ATOL. Returns times
+    and errors."""
+    from stratified_transformer_torch.train.step import make_eval_step
+    blocks = attention_blocks(cfg)
+    eval_step = make_eval_step(int(yaml_cfg["ignore_label"]),
+                               cfg.num_classes)
+
+    def counts():
+        return {k: m_.KERNEL.launches for k, m_ in all_mods.items()}
+
+    eval_step(model, batches[0])                # first call: lazy set-up
+    torch.cuda.synchronize()
+    times, errs = [], []
+    for j, b in enumerate(batches):
+        before = counts()
+        t0 = time.perf_counter()
+        logits, _, stats = eval_step(model, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per = {k: counts()[k] - before[k] for k in before}
+        want_n = {k: blocks if k == "band_attention" else 0 for k in before}
+        if per != want_n:
+            raise AssertionError(f"{tag} forward {j} launches {per}, "
+                                 f"expected {want_n}")
+        if not (bool(torch.isfinite(logits).all())
+                and bool(torch.isfinite(stats["loss"]))):
+            raise AssertionError(f"{tag} non-finite logits or loss")
+        before = counts()
+        want = eval_step(ref_model, b)[0]
+        if counts() != before:
+            raise AssertionError(f"{tag} the plain-version forward launched "
+                                 "a kernel")
+        assert_close(f"{tag} logits batch {j}", logits, want, LOGIT_RTOL,
+                     LOGIT_ATOL)
+        errs.append(max_errors(logits, want))
+    log(f"{tag} eval forward (host clock, synchronized) "
+        f"{', '.join(f'{t:.1f}' for t in times)} ms; {blocks} band launches"
+        f" and none else per forward; logits vs plain-version forward max "
+        f"abs/rel err {max(e[0] for e in errs):.2e}/"
+        f"{max(e[1] for e in errs):.2e}")
+    return {"forward_ms": times, "logits_max_abs_err": [e[0] for e in errs]}
+
+
+def swin_model(tag, cfg, yaml_cfg, eval_hbs, train_hbs, dev, band_mods,
+               all_mods):
+    """Phase 15 (c)/(d): the full-width Swin3D at ``o1_weights`` through the
+    kernels against the plain-version model: eval forwards on ``eval_hbs``
+    (`swin_eval`) and `train_phase`'s steps on ``train_hbs`` (one launch of
+    each band kernel per block and step, step-1 grads within GRAD_REL_L2,
+    the loss trajectory), with no far-key kernel launched."""
+    from stratified_transformer_torch.data.loader import to_device
+    from stratified_transformer_torch.models.stratified import build_model
+    model = build_model(cfg, "cuda", seed=0)
+    o1_weights(model, seed=0)
+    ref_model = build_model(dataclasses.replace(cfg, attn_impl="reference"),
+                            "cuda")
+    ref_model.load_state_dict(model.state_dict())
+    if not all(not m_.attn.plain and m_.attn.rpe_mode == "swin_window"
+               for m_ in model.modules() if hasattr(m_, "attn")):
+        raise AssertionError(f"{tag} a block off the kernels' swin mode")
+    batches = [to_device(hb, dev) for hb in eval_hbs]
+    out = {"eval": swin_eval(tag, cfg, yaml_cfg, batches, model, ref_model,
+                             all_mods)}
+    del batches, ref_model
+    init_state = {k_: v_.clone() for k_, v_ in model.state_dict().items()}
+    del model
+    sparse = {k: all_mods[k].KERNEL.launches for k in all_mods
+              if k not in band_mods}
+    train = train_phase(tag, cfg, yaml_cfg, init_state,
+                        [to_device(hb, dev) for hb in train_hbs], band_mods)
+    if {k: all_mods[k].KERNEL.launches for k in sparse} != sparse:
+        raise AssertionError(f"{tag} a far-key kernel launched in training")
+    train.pop("profiled_kernels")
+    out["train"] = train
+    return out
+
+
+def swin_drivers(band_mods, all_mods):
+    """Phase 15 (e): the shipped S3DIS Swin YAML (``attn_impl: reference``,
+    which the port runs on its main path) through ``train/driver.py`` for 1
+    epoch of 2 steps with validation and ``eval/driver.py`` on one
+    synthetic room of SWIN_SCENE_POINTS points at the YAML's test shape:
+    band launches one per block and step (forward), no far-key kernel, no
+    audit."""
+    import tempfile
+
+    from stratified_transformer_torch.eval import driver as eval_driver
+    from stratified_transformer_torch.utils.config import merge_cfg_from_list
+    blocks = 12
+    sparse = {k: all_mods[k].KERNEL.launches for k in all_mods
+              if k not in band_mods}
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml_cfg = merge_cfg_from_list(
+            yaml_fp32(SWIN_CONFIG),
+            SWIN_LOOP_OVERRIDES + ["save_path", os.path.join(tmp, "run")])
+        model, summary, loop_s = run_loop("[swin] loop:", yaml_cfg,
+                                          band_mods, blocks)
+    losses = [r["loss"] for r in summary["iters"]]
+    if (summary["steps"] != 2 or not np.isfinite(losses).all()
+            or any("audit" in r for r in summary["iters"])):
+        raise AssertionError(f"swin loop: {summary['steps']} steps, losses "
+                             f"{losses}, an audit where none runs")
+    if model.cfg.attn_impl != "fused" or model.cfg.use_stratified:
+        raise AssertionError(f"swin loop model {model.cfg}")
+    out = {"loop_s": loop_s, "steps": summary["steps"], "losses": losses,
+           "val_forwards": summary["val_forwards"],
+           "step_wall_ms": [1e3 * r["wall_s"] for r in summary["iters"]],
+           "valid_points": [r["points"] for r in summary["iters"]],
+           "launches": {k: m_.KERNEL.launches for k, m_ in band_mods.items()}}
+    log(f"[swin] loop: {summary['steps']} steps in {loop_s:.1f} s, launches "
+        f"{out['launches']}; losses {losses}; valid points "
+        f"{out['valid_points']}")
+    del model
+    eval_cfg = merge_cfg_from_list(yaml_fp32(SWIN_CONFIG), [
+        "data_name", "synthetic", "synthetic_points", str(SWIN_SCENE_POINTS),
+        "synthetic_eval_scenes", "1"])
+    for m_ in band_mods.values():
+        m_.KERNEL.launches = 0
+    lines = []
+    t0 = time.perf_counter()
+    metrics = eval_driver.run(eval_cfg, "cuda",
+                              log=lambda x: (lines.append(x), log(
+                                  f"[swin] eval driver: {x[:300]}")))
+    torch.cuda.synchronize()
+    scene_s = time.perf_counter() - t0
+    ev = {k: m_.KERNEL.launches for k, m_ in band_mods.items()}
+    if (len(metrics["scenes"]) != 1 or ev["band_attention"] == 0
+            or ev["band_attention"] % blocks or ev["band_attention_bwd"]
+            or not lines[-1].startswith("Val result")):
+        raise AssertionError(f"swin eval driver: scenes "
+                             f"{len(metrics['scenes'])}, launches {ev}")
+    if {k: all_mods[k].KERNEL.launches for k in sparse} != sparse:
+        raise AssertionError("a far-key kernel launched in the swin drivers")
+    out.update(scene_s=scene_s, scene_forwards=ev["band_attention"] // blocks,
+               scene_launches=ev, scene_points=SWIN_SCENE_POINTS)
+    log(f"[swin] eval driver: one {SWIN_SCENE_POINTS}-point room in "
+        f"{scene_s:.1f} s, {out['scene_forwards']} forwards, launches {ev}")
+    return out
+
+
+def swin_fast_model(hb, dev, band_mods, all_mods):
+    """Phase 15 (f): the S3DIS Swin YAML with ``rpe_precision/qk_precision
+    default`` at full width (``o1_weights``), one eval forward and one
+    train step through the bf16 band kernels: 12 launches of each fast form
+    per step (the forward's alone in evaluation) and none of the fp32 forms
+    or the far-key kernels. The forward's logits and the step's gradients
+    against the plain fast versions' (in the kernels' row slices) are held
+    to FAST_LOGITS_REL_L2 and FAST_SWIN_STEP_ALL_REL_L2 (`fast_gate`), with
+    the same forward and step on the fp32 kernels as the controls, and each
+    parameter's gradient and the loss as in phase 14. Returns the launches
+    and readings."""
+    from stratified_transformer_torch.config import load_config
+    from stratified_transformer_torch.data.loader import to_device
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.train import schedulers
+    from stratified_transformer_torch.train.state import make_optimizer
+    from stratified_transformer_torch.train.step import (
+        make_eval_step, make_train_step)
+    from stratified_transformer_torch.utils.config import (
+        load_cfg, merge_cfg_from_list)
+    yaml_cfg = merge_cfg_from_list(load_cfg(SWIN_CONFIG), [
+        "rpe_precision", "default", "qk_precision", "default"])
+    cfg = load_config(SWIN_CONFIG, n_pad=N_PAD, num_scenes=SCENES,
+                      rpe_precision="default", qk_precision="default")
+    if not cfg.fast:
+        raise AssertionError("default precisions do not select the fast "
+                             "forms")
+    fast_mods = {k + SWIN + FAST: types.SimpleNamespace(KERNEL=m_.KERNEL_FAST)
+                 for k, m_ in band_mods.items()}
+    mods = dict(all_mods, **fast_mods)
+
+    def counts():
+        return {k: m_.KERNEL.launches for k, m_ in mods.items()}
+
+    model = build_model(cfg, "cuda", seed=0)
+    o1_weights(model, seed=0)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def twin(impl, train=False, **kw):
+        m_ = build_model(dataclasses.replace(cfg, attn_impl=impl, **kw),
+                         "cuda", train=train)
+        m_.load_state_dict(state)
+        return m_
+
+    eval_step = make_eval_step(int(yaml_cfg["ignore_label"]),
+                               cfg.num_classes)
+    b = to_device(hb, dev)
+    eval_step(model, b)                         # first call: lazy set-up
+    schedule = schedulers.from_config(yaml_cfg, TRAIN_ITERS_PER_EPOCH)[0]
+    train_step = make_train_step(int(yaml_cfg["ignore_label"]),
+                                 cfg.num_classes)
+
+    def step(impl, **kw):
+        m_ = twin(impl, train=True, **kw)
+        opt = make_optimizer(
+            m_, schedule, weight_decay=float(yaml_cfg["weight_decay"]),
+            transformer_lr_scale=float(yaml_cfg["transformer_lr_scale"]))
+        stats = train_step(m_, opt, b,
+                           torch.Generator(device="cuda").manual_seed(1))
+        return float(stats["loss"]), {
+            n_: p_.grad.clone() for n_, p_ in m_.named_parameters()}
+
+    step("fused")                               # set-up (cuBLAS, autograd)
+    torch.cuda.synchronize()
+    for m_ in fast_mods.values():
+        m_.KERNEL.launches = 0
+    before = counts()
+    logits = eval_step(model, b)[0]
+    loss_k, grads_k = step("fused")
+    torch.cuda.synchronize()
+    per = {k: counts()[k] - before[k] for k in before}
+    # the forward kernel in the eval forward and the step, the backward in
+    # the step
+    want = dict.fromkeys(per, 0)
+    fwd_name, bwd_name = fast_mods
+    want.update({fwd_name: 24, bwd_name: 12})
+    if per != want:
+        raise AssertionError(f"fast swin forward and step launches {per}, "
+                             f"expected {want}")
+    # the controls: the same forward and step on the fp32 kernels
+    before = counts()
+    logits_32 = eval_step(twin("fused", **FP32), b)[0]
+    loss_32, grads_32 = step("fused", **FP32)
+    per_32 = {k: counts()[k] - before[k] for k in before}
+    want = dict.fromkeys(per_32, 0)
+    want.update({"band_attention": 24, "band_attention_bwd": 12})
+    if per_32 != want:
+        raise AssertionError(f"fp32 swin forward and step launches "
+                             f"{per_32}, expected {want}")
+    before = counts()
+    logits_p = eval_step(twin("reference"), b)[0]
+    with plain_in_kernel_slices(dev):
+        loss_p, grads_p = step("reference")
+    if counts() != before:
+        raise AssertionError("the plain fast swin model launched a kernel")
+    err, control = rel_l2(logits, logits_p), rel_l2(logits_32, logits_p)
+    fast_gate("swin fast logits", err, FAST_LOGITS_REL_L2, control)
+    for name, gp in grads_p.items():
+        diff = float((grads_k[name] - gp).norm())
+        bound = (FAST_STEP_GRAD_REL_L2 * float(gp.norm())
+                 + GRAD_FLOOR * gp.numel() ** 0.5)
+        if not diff <= bound:
+            msg = (f"swin fast step-1 grad {name}: |kernel - plain| "
+                   f"{diff:.3e} > {bound:.3e}")
+            log(f"[fast] FAILED {msg}")
+            FAST_FAILURES.append(msg)
+    flat = [torch.cat([g[n_].flatten() for n_ in grads_p])
+            for g in (grads_k, grads_p, grads_32)]
+    total, total_32 = rel_l2(flat[0], flat[1]), rel_l2(flat[2], flat[1])
+    fast_gate("swin fast step-1 grads, all parameters", total,
+              FAST_SWIN_STEP_ALL_REL_L2, total_32)
+    np.testing.assert_allclose(loss_k, loss_p, rtol=LOSS_RTOL,
+                               err_msg="swin fast step-1 loss")
+    out = {"launches": {k: per[k] for k in fast_mods},
+           "logits_rel_l2": err, "fp32_logits_rel_l2": control,
+           "grads_rel_l2": total, "fp32_grads_rel_l2": total_32,
+           "loss": loss_k, "plain_loss": loss_p, "fp32_loss": loss_32}
+    log(f"[swin] (f) default precision: one forward and one train step, "
+        f"launches {out['launches']} (none of the fp32 forms); against the "
+        f"plain fast versions: logits relative L2 {err:.2e} (gate "
+        f"{FAST_LOGITS_REL_L2}; the fp32 kernels' {control:.2e}: control), "
+        f"step-1 gradients {total:.2e} (gate {FAST_SWIN_STEP_ALL_REL_L2}; "
+        f"fp32 kernels {total_32:.2e}: control); loss {loss_k:.6f} (plain "
+        f"{loss_p:.6f}, fp32 kernels {loss_32:.6f})")
+    return out
+
+
+def swin_phase(dev):
+    """Phase 15: the Swin3D family (module docstring): (a) the quantized
+    positions and the swin bins on the card, (b)/(f) the band kernels' swin
+    mode and its fast form against the plain versions, (c) S3DIS and (d)
+    ScanNet Swin3D at full width against the plain-version models, (e) the
+    train and eval drivers on the shipped S3DIS Swin YAML, (f) the same
+    YAML at ``default`` precision on the fast kernels. Returns the numbers
+    and the kernels' report under ``report``."""
+    from stratified_transformer_torch.config import load_config
+    from stratified_transformer_torch.data.loader import host_batch
+    from stratified_transformer_torch.kernels import band_attention as band_k
+    from stratified_transformer_torch.models.attention import swin_positions
+    from stratified_transformer_torch.ops import attention as plain
+    t_phase = time.time()
+    FAST_FAILURES.clear()
+    log(f"[swin] phase 15: configs/s3dis_swin3d.yaml and "
+        f"configs/scannetv2_swin3d.yaml ({PIN_NOTE}; (f) at default)")
+    all_mods = attention_kernel_modules()
+    band_mods = {k: all_mods[k] for k in ("band_attention",
+                                          "band_attention_bwd")}
+    yaml_cfg = yaml_fp32(SWIN_CONFIG)
+    cfg = load_config(SWIN_CONFIG, n_pad=N_PAD, num_scenes=SCENES, **FP32)
+    if cfg.use_stratified or cfg.rpe_mode != "swin_window" or (
+            cfg.attn_impl != "fused"):
+        raise AssertionError(f"the S3DIS Swin YAML reads as {cfg}")
+    hbs = [host_batch(cfg, seed=s) for s in range(EVAL_BATCHES)]
+    if hbs[0]["pyramid"]["stage_down"] != ():
+        raise AssertionError("a Swin3D host pyramid with member masks")
+    out = {}
+
+    # (a) positions and bins: the card against the CPU
+    levels = stage_levels(cfg, hbs[0])
+    n_u = 0
+    for i in stages(cfg):
+        ws, qs = cfg.window_sizes()[i], cfg.quant_sizes()[i]
+        for shifted in (False, True):
+            us = []
+            for where in (dev, "cpu"):
+                plan = build_plan(cfg, i, levels[i], shifted, where)
+                us.append((plan.order, swin_positions(
+                    plan.xyz_sorted, plan.grid_start,
+                    ws / 2.0 if shifted else 0.0, ws, qs)))
+            for a, b in zip(us[0], us[1]):
+                if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"stage {i} shifted={shifted}: "
+                                         "swin positions differ between the "
+                                         "card and the CPU")
+            n_u += us[1][1].numel()
+        qgl = int(ws / qs)
+        rel = torch.arange(-qgl - 2, qgl + 3, dtype=torch.float32)
+        got = band_k.rel_bins(rel.to(dev), ws, qs, 2 * qgl - 1,
+                              rpe_mode="swin_window").cpu().long()
+        want = plain.swin_relative_position_index(rel, 2 * qgl - 1)
+        if not torch.equal(got, want):
+            raise AssertionError(f"stage {i}: swin bins on the card {got} "
+                                 f"vs {want}")
+    log(f"[swin] (a) {n_u} quantized coordinates (4 stages x 2 parities) "
+        "bit-identical between the card and the CPU; the swin bin probe on "
+        "every integer rel in [-qgl-2, qgl+2] == "
+        "swin_relative_position_index")
+
+    # (b) and (f): the kernels
+    report = new_report(SWIN_KERNELS + SWIN_FAST_KERNELS)
+    swin_kernels(cfg, levels, dev, report)
+    out["report"] = report
+
+    # (c) S3DIS Swin3D at full width
+    train_hbs = [host_batch(cfg, seed=10 + s, train=True,
+                            rng=np.random.default_rng(100 + s), aug=yaml_cfg)
+                 for s in range(TRAIN_STEPS)]
+    for m_ in all_mods.values():
+        m_.KERNEL.launches = 0
+    out["s3dis"] = swin_model("[swin-s3dis]", cfg, yaml_cfg, hbs, train_hbs,
+                              dev, band_mods, all_mods)
+    main_launches = {k: m_.KERNEL.launches for k, m_ in all_mods.items()}
+    if not (main_launches["band_attention"]
+            and main_launches["band_attention_bwd"]) or (
+                main_launches["sparse_band_attention"]
+                or main_launches["sparse_band_attention_bwd"]):
+        raise AssertionError(f"swin main path launches {main_launches}")
+    out["launches"] = main_launches
+    del train_hbs
+
+    # (d) ScanNet Swin3D at phase 12's batch shape
+    syaml = yaml_fp32(SCANNET_SWIN_CONFIG)
+    scfg = load_config(SCANNET_SWIN_CONFIG, num_scenes=2, **FP32)
+    t0 = time.time()
+    shb = host_batch(scfg, seed=0, **SCANNET_ROOMS)
+    log(f"[swin] scannet: batch n_pad {scfg.n_pad}, 2 slots, "
+        f"{int(shb['offsets'][-1])} valid points, built in "
+        f"{time.time() - t0:.2f} s")
+    out["scannet"] = swin_model("[swin-scannet]", scfg, syaml, [shb], [shb],
+                                dev, band_mods, all_mods)
+    del shb
+
+    # (e) the drivers
+    out["drivers"] = swin_drivers(band_mods, all_mods)
+
+    # (f) the S3DIS Swin YAML at default precision: the fast kernels, one
+    # eval forward and one train step
+    out["fast"] = swin_fast_model(hbs[0], dev, band_mods, all_mods)
+    out["seconds"] = time.time() - t_phase
+    log(f"[swin] phase 15 in {out['seconds']:.0f} s")
+    if FAST_FAILURES:
+        raise AssertionError(f"phase 15: {len(FAST_FAILURES)} fast gates or "
+                             f"controls failed: {FAST_FAILURES}")
+    return out
 
 
 def launch_deltas(marks, kernel_mods, blocks):
@@ -2632,7 +3288,7 @@ def iou_phase(cfg, hb, dev, reps=50, rounds=6):
     against `bincount_iou`, on random predictions and labels (10% ignored,
     the last 15% of rows padding) at phase 2's N and at phase 11's: equal
     counts, the synchronized host wall per call (median of ``reps``) and the
-    device time per call (`device_busy_ms`). Then phase 5's eval forward
+    device time per call (`profiled_busy_ms`). Then phase 5's eval forward
     (phase 2's batch, full width) with each form, in turns over ``rounds``
     rounds, synchronized host wall per forward."""
     from stratified_transformer_torch.config import from_cfg
@@ -2672,7 +3328,8 @@ def iou_phase(cfg, hb, dev, reps=50, rounds=6):
                 torch.cuda.synchronize()
                 walls.append(1e3 * (time.perf_counter() - t0))
             row[name] = {"host_ms": float(np.median(walls)),
-                         "device_ms": device_busy_ms(lambda: fn(*args), 20)}
+                         "device_ms": profiled_busy_ms(lambda: fn(*args),
+                                                       20)}
         out["counters"][str(n)] = row
         log(f"[iou] N {n}: " + "; ".join(
             f"{k} host {v['host_ms']:.3f} ms, device {v['device_ms']:.4f} ms"
@@ -2723,8 +3380,9 @@ def phase_only(flag):
              for name, text in build.build_logs.items()
              for line in text.splitlines()
              if "registers" in line or "spill" in line]
-    if flag == "--fast-only":
-        out = {"card": card_line(), "repo": REPO, "fast": fast_phase(dev),
+    if flag in ("--fast-only", "--swin-only"):
+        phase = fast_phase if flag == "--fast-only" else swin_phase
+        out = {"card": card_line(), "repo": REPO, flag[2:-5]: phase(dev),
                "ptxas": ptxas}
         print(json.dumps(out))
         return 0
@@ -2778,7 +3436,8 @@ PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS,
               "--scannet-only": FWD_KERNELS + BWD_KERNELS,
               "--dcf-only": FWD_KERNELS + BWD_KERNELS,
               "--iou-only": FWD_KERNELS,
-              "--fast-only": FWD_KERNELS + BWD_KERNELS}
+              "--fast-only": FWD_KERNELS + BWD_KERNELS,
+              "--swin-only": ("band_attention", "band_attention_bwd")}
 
 
 def parse_args(argv):
@@ -3010,6 +3669,9 @@ def main(argv):
 
     # ---- 14. the shipped YAMLs' fast forms --------------------------------
     fast = fast_phase(dev)
+
+    # ---- 15. the Swin3D family --------------------------------------------
+    swin = swin_phase(dev)
     log(f"[run] total {time.time() - t_start:.0f} s")
 
     kernels = []
@@ -3071,6 +3733,25 @@ def main(argv):
             "scannet_plain_ms": sr["plain_ms"],
             "scannet_bound_ms": sr["bound_ms"],
             "scannet_max_abs_err": sr["max_abs_err"]})
+    for name in SWIN_KERNELS + SWIN_FAST_KERNELS:
+        r = swin["report"][name]
+        base = name.replace(SWIN, "").replace(FAST, "")
+        fast_form = name.endswith(FAST)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"stratified_transformer_torch/csrc/{base}.cu",
+            "replaces": TPU_KERNELS[base] + (
+                " (fast=True)" if fast_form else "")
+            + ", swin bins (ops/attention.py:59-72)",
+            "launches": (swin["fast"]["launches"][name] if fast_form
+                         else swin["launches"][base]),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": max(r["bound_by"], key=r["bound_by"].get),
+            "library_ms": None,
+            **({"fp32_ms": r["fp32_ms"]} if fast_form else {}),
+            **({"wrapper_busy_ms": r["wrapper_busy_ms"]}
+               if "wrapper_busy_ms" in r else {})})
     print(json.dumps({
         "kernels": kernels,
         "times_per": "one full-width training step (12 launches of each "
@@ -3105,7 +3786,14 @@ def main(argv):
                           "scannet_* per ScanNet step (18); launches over "
                           "one S3DIS train step of the shipped YAML",
         "fast": {k: v for k, v in fast.items()
-                 if k not in ("report", "scannet_report")}}))
+                 if k not in ("report", "scannet_report")},
+        "swin_times_per": "phase 15: a swin kernel's ms, plain_ms and "
+                          "bound_ms per S3DIS Swin3D train step (12 launches "
+                          "at phase 2's batch); launches over phase 15 (c)'s "
+                          f"{EVAL_BATCHES} forwards and {TRAIN_STEPS} train "
+                          "steps through the kernels; the fast forms' over "
+                          "(f)'s forward and train step",
+        "swin": {k: v for k, v in swin.items() if k != "report"}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,7 @@ the reference ``train.py:110-113``: ``patch = grid_size * patch_size``;
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Optional, Tuple
 
 import numpy as np
@@ -49,6 +50,13 @@ class StratifiedConfig:
     # activation, "Relu" or "Tanh"
     with_regressor: bool = False
     activation: str = "Relu"
+    # False: plain windows without stratified far keys (no member masks, no
+    # sparse layout; the Swin3D family); rpe_mode "swin_window": Swin3D's
+    # window-quantized cRPE bins over 2*int(window/quant) - 1 table rows
+    # (``models/attention.py:57-109`` of the JAX package), which needs
+    # use_stratified False
+    use_stratified: bool = True
+    rpe_mode: str = "stratified"
 
     # static layout
     n_pad: int = 140_000                      # flat point capacity
@@ -99,10 +107,15 @@ class StratifiedConfig:
                               ("activation", ("Relu", "Tanh")),
                               ("rpe_precision", ("highest", "default")),
                               ("qk_precision", ("highest", "default")),
-                              ("compute_dtype", (None, "bfloat16"))):
+                              ("compute_dtype", (None, "bfloat16")),
+                              ("rpe_mode", ("stratified", "swin_window"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name} {getattr(self, name)!r}: expected "
                                  f"one of {allowed}")
+        if self.use_stratified and self.rpe_mode == "swin_window":
+            # the JAX package asserts the same (ops/attention.py:461-465)
+            raise ValueError("rpe_mode 'swin_window' is window-dense only: "
+                             "it needs use_stratified False")
 
     @property
     def fast(self) -> bool:
@@ -152,23 +165,32 @@ class StratifiedConfig:
                 else self.band)
 
 
-# The port runs the S3DIS-, ScanNet- and DCF-style models (stratified
-# keys): each of these YAML keys may hold only the value given here, and the
-# value names the ROADMAP queue 1 item that ports the family.
-ONLY_SUPPORTED = {"arch": ("stratified_transformer", 5),
-                  "use_stratified": (True, 5)}
-
-
 def from_cfg(cfg: CfgNode) -> StratifiedConfig:
     """`StratifiedConfig` from a flattened YAML config (same keys and
     defaults as ``train.py::build_model_config`` of the JAX package, on one
-    device). Raises ValueError for a model family the port does not run."""
-    unsupported = [f"{key}: {cfg.get(key)} (ROADMAP queue 1 item {item})"
-                   for key, (only, item) in ONLY_SUPPORTED.items()
-                   if cfg.get(key, only) != only]
-    if unsupported:
-        raise ValueError("not supported by the PyTorch port yet: "
-                         + ", ".join(unsupported))
+    device). ``arch: swin3d_transformer`` selects the Swin3D family
+    (``use_stratified`` False, ``rpe_mode`` "swin_window"); explicit keys
+    still win (``train.py:49-83``).
+
+    ``attn_impl`` under ``rpe_mode: swin_window``: the JAX package has one
+    implementation of that mode (``models/attention.py:100-109`` runs its
+    jnp path whatever the key says), so the value selects nothing there,
+    and the shipped Swin YAMLs say "reference". The port builds its main
+    path, "fused" (the kernels on the card, their plain versions on the
+    CPU), and logs one line saying so; a `StratifiedConfig` built with
+    ``attn_impl="reference"`` still selects the plain versions."""
+    swin = str(cfg.get("arch", "stratified_transformer")) == \
+        "swin3d_transformer"
+    rpe_mode = str(cfg.get("rpe_mode",
+                           "swin_window" if swin else "stratified"))
+    attn_impl = str(cfg.get("attn_impl", "fused"))
+    if rpe_mode == "swin_window" and attn_impl != "fused":
+        logging.getLogger("st_torch").info(
+            f"attn_impl {attn_impl!r} under rpe_mode 'swin_window': the "
+            "JAX package runs its one implementation of this mode whatever "
+            "the key says; the port runs its main path, 'fused' (the CUDA "
+            "kernels on the card, their plain versions on the CPU)")
+        attn_impl = "fused"
     tile = int(cfg.get("tile", 128))
     n_pad = int(cfg.get("max_batch_points", 140000))
     n_pad = max((n_pad + tile - 1) // tile * tile, tile)
@@ -214,7 +236,9 @@ def from_cfg(cfg: CfgNode) -> StratifiedConfig:
         neighbor_method=str(cfg.get("neighbor_method", "grid")),
         neighbor_cap=int(cfg.get("neighbor_cap", 32)),
         grid_knn_chunk=int(cfg.get("grid_knn_chunk", 4096)),
-        attn_impl=str(cfg.get("attn_impl", "fused")),
+        use_stratified=bool(cfg.get("use_stratified", not swin)),
+        rpe_mode=rpe_mode,
+        attn_impl=attn_impl,
         rpe_precision=str(cfg.get("rpe_precision", "highest")),
         qk_precision=str(cfg.get("qk_precision", "highest")),
         compute_dtype=cfg.get("compute_dtype"),

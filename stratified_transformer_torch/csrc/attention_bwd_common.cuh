@@ -192,8 +192,8 @@ __host__ inline void bwd_pick_rows(int nb, const int* rows_of,
 // The backward of rows [row0, row0 + R), for the head blockIdx.y, over keys
 // [win_lo, win_hi) ∩ the union of the rows' [key_lo, key_hi). The tile's
 // n_slots key slots start at key slot0; blk indexes dk_part/dv_part and
-// dt_part.
-template <int D, int R, bool kFast>
+// dt_part. kSwin: Swin3D's bins (table_bin).
+template <int D, int R, bool kFast, bool kSwin = false>
 __device__ void attention_bwd_block(const BwdQueries& Q, const BwdKeys& K,
                                     const BwdTables& T, const BwdOutputs& O,
                                     int h, int blk, int row0,
@@ -397,9 +397,8 @@ __device__ void attention_bwd_block(const BwdQueries& Q, const BwdKeys& K,
           const float xq[3] = {xq0, xq1, xq2};
 #pragma unroll
           for (int ax = 0; ax < 3; ++ax) {
-            const int bn = rel_bin(__fsub_rn(xq[ax], s_xk[j * 4 + ax]),
-                                   T.bin_offset, T.inv_quant, T.nb_full,
-                                   T.bin_lo, nb);
+            const int bn =
+                table_bin<kSwin>(T, __fsub_rn(xq[ax], s_xk[j * 4 + ax]));
             const float2 pr = s_proj[t * ps + ax * nb + bn];
             l += pr.x + s_kp[j * ps + ax * nb + bn];
             gv += pr.y;

@@ -30,6 +30,30 @@ __device__ __forceinline__ int rel_bin(float rel, float bin_offset,
   return min(max(b, 0), nb - 1);
 }
 
+// Swin3D's window-quantized bin of one axis (rpe_mode "swin_window"),
+// bit-identical to swin_relative_position_index (ops/attention.py) and to
+// the JAX package's ops/attention.py:59-72: rel = u_i - u_j of two points'
+// window-quantized positions, small integers held as floats (so the
+// subtraction before the call is exact), rounded half to even, plus
+// qgl - 1, clipped to [0, nb). The tables have nb = 2 qgl - 1 rows and no
+// slice.
+__device__ __forceinline__ int swin_bin(float rel, int qgl, int nb) {
+  const float f = __fadd_rn(rintf(rel), static_cast<float>(qgl - 1));
+  return static_cast<int>(fminf(fmaxf(f, 0.0f), static_cast<float>(nb - 1)));
+}
+
+// The bin of one axis of the kernel's tables (FwdTables, BwdTables):
+// swin_bin in the swin mode (kSwin, an instantiation of its own, so the
+// stratified instantiations carry no branch), else rel_bin.
+template <bool kSwin, typename Tables>
+__device__ __forceinline__ int table_bin(const Tables& T, float rel) {
+  if constexpr (kSwin)
+    return swin_bin(rel, (T.nb_full + 1) / 2, T.nb);
+  else
+    return rel_bin(rel, T.bin_offset, T.inv_quant, T.nb_full, T.bin_lo,
+                   T.nb);
+}
+
 // 4 consecutive floats of shared memory at a 16-byte aligned address.
 __device__ __forceinline__ void lds4(const float* p, float* out) {
   const float4 v = *reinterpret_cast<const float4*>(p);

@@ -93,7 +93,10 @@ struct FwdKeys {
 };
 
 // cRPE tables in the model's layout, [nb_full][H][D][3] (each may be null),
-// of which rows [bin_lo, bin_lo + nb) are read.
+// of which rows [bin_lo, bin_lo + nb) are read: the stratified bins of
+// rel_bin (bin_offset, inv_quant), or in the swin mode (kSwin) Swin3D's
+// window-quantized bins of swin_bin (the coordinates are the points'
+// quantized positions, bin_lo 0, nb = nb_full; table_bin).
 struct FwdTables {
   const float* tq;
   const float* tk;
@@ -243,8 +246,9 @@ __device__ void project_mma(const __nv_bfloat16* x, int m_tiles,
 }
 
 // The forward of rows [row0, row0 + R), for the head blockIdx.y, over keys
-// [win_lo, win_hi) ∩ the union of the rows' [key_lo, key_hi).
-template <int D, int R, bool kProj, bool kFast>
+// [win_lo, win_hi) ∩ the union of the rows' [key_lo, key_hi). kSwin:
+// Swin3D's bins (table_bin).
+template <int D, int R, bool kProj, bool kFast, bool kSwin = false>
 __device__ void attention_fwd_block(const FwdQueries& Q, const FwdKeys& K,
                                     const FwdTables& T, const FwdOutputs& O,
                                     int h, int row0, int win_lo, int win_hi,
@@ -467,8 +471,7 @@ __device__ void attention_fwd_block(const FwdQueries& Q, const FwdKeys& K,
             int packed = 0;
 #pragma unroll
             for (int ax = 0; ax < 3; ++ax) {
-              const int bn = rel_bin(__fsub_rn(xq[ax], xk[ax]), T.bin_offset,
-                                     T.inv_quant, T.nb_full, T.bin_lo, nb);
+              const int bn = table_bin<kSwin>(T, __fsub_rn(xq[ax], xk[ax]));
               packed |= bn << (8 * ax);
               if (kProj) {
                 s += s_qp[t * ps + ax * nb + bn] + s_kp[j * ps + ax * nb + bn];

@@ -40,6 +40,14 @@
 // projections q·Tq (per block) and k·Tk (per chunk) run on the tensor cores
 // (mma.sync m16n8k16 on the bf16 rows it stages); the pair loops and
 // mass·Tv stay on FMA.
+// The swin mode (swin 1; Swin3D, rpe_mode "swin_window") is the same kernel,
+// instantiated with kSwin (the stratified instantiations carry no branch),
+// with Swin3D's bins (swin_bin, attention_common.cuh): xyz holds the points'
+// window-quantized positions, the bin is round(u_i - u_j) + qgl - 1 over the
+// whole table of 2 qgl - 1 rows (31 at every stage of the shipped Swin
+// YAMLs), no slice. The TPU kernel has no such mode: the JAX package runs
+// Swin3D on its jnp path (ops/attention.py:400-560), whose function this
+// computes.
 
 #include "attention_fwd_common.cuh"
 
@@ -47,14 +55,14 @@ namespace stratified {
 
 constexpr int kBandRows = 64;   // rows per block: 2 slices of a tile
 
-template <int D, int R, bool kFast>
+template <int D, int R, bool kFast, bool kSwin>
 __global__ void __launch_bounds__(kFwdThreads, 2)
 band_attention_kernel(FwdQueries Q, FwdKeys K, FwdTables T, FwdOutputs O,
                       int n, int h, int tile, int band, float scale) {
   const int slices = tile / R;
   const int tile_idx = blockIdx.x / slices;
   const int t0 = tile_idx * tile;
-  attention_fwd_block<D, R, true, kFast>(
+  attention_fwd_block<D, R, true, kFast, kSwin>(
       Q, K, T, O, h, t0 + (blockIdx.x - tile_idx * slices) * R,
       max(t0 - band, 0), min(t0 + tile + band, n), scale);
 }
@@ -62,21 +70,42 @@ band_attention_kernel(FwdQueries Q, FwdKeys K, FwdTables T, FwdOutputs O,
 __global__ void rel_bin_probe_kernel(const float* __restrict__ rel,
                                      int32_t* __restrict__ out, int n,
                                      float bin_offset, float inv_quant,
-                                     int nb_full, int bin_lo, int nb) {
+                                     int nb_full, int bin_lo, int nb,
+                                     int swin) {
+  const FwdTables T{nullptr, nullptr, nullptr, nb, bin_lo,
+                    nb_full, bin_offset, inv_quant};
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = rel_bin(rel[i], bin_offset, inv_quant, nb_full, bin_lo,
-                              nb);
+  if (i < n)
+    out[i] = swin ? table_bin<true>(T, rel[i]) : table_bin<false>(T, rel[i]);
 }
 
 template <bool kFast>
 cudaError_t band_fwd_limits(int* rows, int* max_nb) {
   size_t room = 0;
   const cudaError_t err =
-      smem_room(band_attention_kernel<16, kBandRows, kFast>, &room);
+      smem_room(band_attention_kernel<16, kBandRows, kFast, false>, &room);
   if (err != cudaSuccess) return err;
   *rows = kBandRows;
   *max_nb = fwd_max_nb<kBandRows, true, kFast>(room);
   return cudaSuccess;
+}
+
+template <bool kFast, bool kSwin>
+cudaError_t band_fwd_launch(const FwdQueries& Q, const FwdKeys& K,
+                            const FwdTables& T, const FwdOutputs& O, int n,
+                            int h, int tile, int band, float scale,
+                            cudaStream_t stream) {
+  constexpr int R = kBandRows;
+  const size_t smem = FwdSmem<R, true, kFast>(T.nb).bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      band_attention_kernel<16, R, kFast, kSwin>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(n / R, h);
+  band_attention_kernel<16, R, kFast, kSwin>
+      <<<grid, kFwdThreads, smem, stream>>>(Q, K, T, O, n, h, tile, band,
+                                            scale);
+  return cudaGetLastError();
 }
 
 template <bool kFast>
@@ -86,44 +115,41 @@ cudaError_t band_fwd(const float* q, const float* k, const float* v,
                      const float* tq, const float* tk, const float* tv,
                      float* acc, float* m, float* den, int n, int h, int d,
                      int q_rs, int k_rs, int v_rs, int tile, int band, int nb,
-                     int bin_lo, int nb_full, float bin_offset,
+                     int bin_lo, int nb_full, int swin, float bin_offset,
                      float inv_quant, float scale, cudaStream_t stream) {
   constexpr int R = kBandRows;
   int rows = 0, max_nb = 0;
   cudaError_t err = band_fwd_limits<kFast>(&rows, &max_nb);
   if (err != cudaSuccess) return err;
   // Every stage of the ported configurations has D = 16; instantiate more
-  // head sizes when a configuration needs them.
+  // head sizes when a configuration needs them. The swin mode reads the
+  // whole table, no slice.
   if (d != 16 || tile <= 0 || tile % R != 0 || n % tile != 0 || nb < 0 ||
-      nb > max_nb)
+      nb > max_nb || (swin != 0 && (bin_lo != 0 || nb != nb_full)))
     return cudaErrorInvalidValue;
   const FwdQueries Q{q, q_rs, nullptr, xyz, valid, seg_start, seg_end,
                      nullptr};
   const FwdKeys K{k, k_rs, v, v_rs, nullptr, xyz, valid, nullptr};
   const FwdTables T{tq, tk, tv, nb, bin_lo, nb_full, bin_offset, inv_quant};
   const FwdOutputs O{acc, m, den};
-  const size_t smem = FwdSmem<R, true, kFast>(nb).bytes();
-  err = cudaFuncSetAttribute(band_attention_kernel<16, R, kFast>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid(n / R, h);
-  band_attention_kernel<16, R, kFast><<<grid, kFwdThreads, smem, stream>>>(
-      Q, K, T, O, n, h, tile, band, scale);
-  return cudaGetLastError();
+  return swin ? band_fwd_launch<kFast, true>(Q, K, T, O, n, h, tile, band,
+                                             scale, stream)
+              : band_fwd_launch<kFast, false>(Q, K, T, O, n, h, tile, band,
+                                              scale, stream);
 }
 
 }  // namespace stratified
 
-// Diagnostic entry point: the bins rel_bin (the device function the
-// attention kernels use) gives for n relative coordinates of one axis.
+// Diagnostic entry point: the bins table_bin (the device function the
+// attention kernels use: rel_bin, or swin_bin when swin is 1) gives for n
+// relative coordinates of one axis.
 extern "C" int rel_bin_probe(const float* rel, int32_t* out, int n,
                              float bin_offset, float inv_quant, int nb_full,
-                             int bin_lo, int nb, void* stream) {
+                             int bin_lo, int nb, int swin, void* stream) {
   const int threads = 256;
   stratified::rel_bin_probe_kernel<<<(n + threads - 1) / threads, threads, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
-      rel, out, n, bin_offset, inv_quant, nb_full, bin_lo, nb);
+      rel, out, n, bin_offset, inv_quant, nb_full, bin_lo, nb, swin);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -132,20 +158,24 @@ extern "C" int rel_bin_probe(const float* rel, int32_t* out, int n,
 // its qkv projection); q is scaled by `scale` in the kernel. xyz [N,3]
 // fp32, seg bounds [N] int32, valid [N] bool; the tables are the model's
 // [nb_full][H][D][3] fp32 or null, of which rows [bin_lo, bin_lo + nb) are
-// read. Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
-// for a head size other than 16, a tile that is not a multiple of 64, or
-// more table rows per axis than band_attention_limits gives).
+// read. swin 0: the stratified bins of xyz, the points' coordinates; swin
+// 1: Swin3D's window-quantized bins (rpe_mode "swin_window"), xyz holding
+// the points' quantized in-window positions, bin_lo 0 and nb = nb_full.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
+// head size other than 16, a tile that is not a multiple of 64, more table
+// rows per axis than band_attention_limits gives, or a table slice in the
+// swin mode).
 extern "C" int band_attention_fwd(
     const float* q, const float* k, const float* v, const float* xyz,
     const int32_t* seg_start, const int32_t* seg_end, const uint8_t* valid,
     const float* tq, const float* tk, const float* tv, float* acc, float* m,
     float* den, int n, int h, int d, int q_rs, int k_rs, int v_rs, int tile,
-    int band, int nb, int bin_lo, int nb_full, float bin_offset,
+    int band, int nb, int bin_lo, int nb_full, int swin, float bin_offset,
     float inv_quant, float scale, void* stream) {
   return static_cast<int>(stratified::band_fwd<false>(
       q, k, v, xyz, seg_start, seg_end, valid, tq, tk, tv, acc, m, den, n,
-      h, d, q_rs, k_rs, v_rs, tile, band, nb, bin_lo, nb_full, bin_offset,
-      inv_quant, scale, static_cast<cudaStream_t>(stream)));
+      h, d, q_rs, k_rs, v_rs, tile, band, nb, bin_lo, nb_full, swin,
+      bin_offset, inv_quant, scale, static_cast<cudaStream_t>(stream)));
 }
 
 // The fast (bf16) form: the same arguments and outputs as
@@ -155,12 +185,12 @@ extern "C" int band_attention_fwd_bf16(
     const int32_t* seg_start, const int32_t* seg_end, const uint8_t* valid,
     const float* tq, const float* tk, const float* tv, float* acc, float* m,
     float* den, int n, int h, int d, int q_rs, int k_rs, int v_rs, int tile,
-    int band, int nb, int bin_lo, int nb_full, float bin_offset,
+    int band, int nb, int bin_lo, int nb_full, int swin, float bin_offset,
     float inv_quant, float scale, void* stream) {
   return static_cast<int>(stratified::band_fwd<true>(
       q, k, v, xyz, seg_start, seg_end, valid, tq, tk, tv, acc, m, den, n,
-      h, d, q_rs, k_rs, v_rs, tile, band, nb, bin_lo, nb_full, bin_offset,
-      inv_quant, scale, static_cast<cudaStream_t>(stream)));
+      h, d, q_rs, k_rs, v_rs, tile, band, nb, bin_lo, nb_full, swin,
+      bin_offset, inv_quant, scale, static_cast<cudaStream_t>(stream)));
 }
 
 // Rows per block, and the most table rows per axis whose block fits the

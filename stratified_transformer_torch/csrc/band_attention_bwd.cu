@@ -17,6 +17,10 @@
 // wrapper adds the slices, composes dk/dv by absolute key position, so any
 // band works (the TPU kernel needed band % tile == 0), sums the table
 // partials over tiles and places them at bin_lo.
+// The swin mode (swin 1, Swin3D; kSwin instantiations) takes Swin3D's bins
+// as the forward does (band_attention.cu): the whole table of 2 qgl - 1
+// rows (31 for the shipped Swin YAMLs, which keeps the 64-row blocks of
+// S3DIS's 40-row slice), bin_lo 0.
 //
 // What bounds it on the H100: the fp32 work of the unmasked pairs (the
 // recomputed q·k and g·v, dl, dq, dk and dv: ~10 multiply-adds per channel
@@ -47,14 +51,14 @@ namespace stratified {
 constexpr int kBandBwdRows[] = {64, 32, 16};
 constexpr int kBandBwdShapes = 3;
 
-template <int D, int R, bool kFast>
+template <int D, int R, bool kFast, bool kSwin>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 band_attention_bwd_kernel(BwdQueries Q, BwdKeys K, BwdTables T, BwdOutputs O,
                           int n, int h, int tile, int band, float scale) {
   const int slices = tile / R;
   const int tile_idx = blockIdx.x / slices;
   const int t0 = tile_idx * tile;
-  attention_bwd_block<D, R, kFast>(Q, K, T, O, h, blockIdx.x,
+  attention_bwd_block<D, R, kFast, kSwin>(Q, K, T, O, h, blockIdx.x,
                             t0 + (blockIdx.x - tile_idx * slices) * R,
                             max(t0 - band, 0), min(t0 + tile + band, n),
                             t0 - band, tile + 2 * band, scale);
@@ -64,7 +68,7 @@ template <int R, bool kFast>
 cudaError_t band_bwd_max_nb(int* max_nb) {
   size_t room = 0;
   const cudaError_t err =
-      smem_room(band_attention_bwd_kernel<16, R, kFast>, &room);
+      smem_room(band_attention_bwd_kernel<16, R, kFast, false>, &room);
   if (err == cudaSuccess) *max_nb = bwd_max_nb<16, R, kFast>(room);
   return err;
 }
@@ -82,21 +86,40 @@ cudaError_t band_bwd_rows(int nb, int* rows, int* max_nb) {
   return err;
 }
 
-template <int R, bool kFast>
+template <int R, bool kFast, bool kSwin>
 cudaError_t band_bwd_launch(const BwdQueries& Q, const BwdKeys& K,
                             const BwdTables& T, const BwdOutputs& O, int n,
                             int h, int tile, int band, float scale,
                             cudaStream_t stream) {
   const size_t smem = BwdSmem<16, R, kFast>(T.nb).bytes();
   const cudaError_t err = cudaFuncSetAttribute(
-      band_attention_bwd_kernel<16, R, kFast>,
+      band_attention_bwd_kernel<16, R, kFast, kSwin>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid(n / R, h);
-  band_attention_bwd_kernel<16, R, kFast><<<grid, kBwdThreads, smem,
-                                            stream>>>(
+  band_attention_bwd_kernel<16, R, kFast, kSwin><<<grid, kBwdThreads, smem,
+                                                   stream>>>(
       Q, K, T, O, n, h, tile, band, scale);
   return cudaGetLastError();
+}
+
+// The launch at the block height band_bwd_rows picked.
+template <bool kFast, bool kSwin>
+cudaError_t band_bwd_rows_launch(int rows, const BwdQueries& Q,
+                                 const BwdKeys& K, const BwdTables& T,
+                                 const BwdOutputs& O, int n, int h, int tile,
+                                 int band, float scale, cudaStream_t st) {
+  switch (rows) {
+    case 64:
+      return band_bwd_launch<64, kFast, kSwin>(Q, K, T, O, n, h, tile, band,
+                                               scale, st);
+    case 32:
+      return band_bwd_launch<32, kFast, kSwin>(Q, K, T, O, n, h, tile, band,
+                                               scale, st);
+    default:
+      return band_bwd_launch<16, kFast, kSwin>(Q, K, T, O, n, h, tile, band,
+                                               scale, st);
+  }
 }
 
 template <bool kFast>
@@ -106,32 +129,27 @@ cudaError_t band_bwd(
     const float* g, const float* o, const float* m, const float* den,
     const float* tq, const float* tk, const float* tv, float* dq,
     float* dk_part, float* dv_part, float* dt_part, int n, int h, int d,
-    int tile, int band, int nb, int bin_lo, int nb_full, float bin_offset,
-    float inv_quant, float scale, cudaStream_t st) {
+    int tile, int band, int nb, int bin_lo, int nb_full, int swin,
+    float bin_offset, float inv_quant, float scale, cudaStream_t st) {
   int rows = 0, max_nb = 0;
   const cudaError_t err = band_bwd_rows<kFast>(nb, &rows, &max_nb);
   if (err != cudaSuccess) return err;
   // Every stage of the ported configurations has D = 16; instantiate more
-  // head sizes when a configuration needs them.
+  // head sizes when a configuration needs them. The swin mode reads the
+  // whole table, no slice.
   if (d != 16 || rows == 0 || tile <= 0 || tile % rows != 0 ||
-      n % tile != 0 || nb < 0)
+      n % tile != 0 || nb < 0 ||
+      (swin != 0 && (bin_lo != 0 || nb != nb_full)))
     return cudaErrorInvalidValue;
   const BwdQueries Q{q, g, o, m, den, xyz, valid, seg_start, seg_end,
                      nullptr};
   const BwdKeys K{k, v, xyz, valid, nullptr};
   const BwdTables T{tq, tk, tv, nb, bin_lo, nb_full, bin_offset, inv_quant};
   const BwdOutputs O{dq, dk_part, dv_part, dt_part};
-  switch (rows) {
-    case 64:
-      return band_bwd_launch<64, kFast>(Q, K, T, O, n, h, tile, band, scale,
-                                        st);
-    case 32:
-      return band_bwd_launch<32, kFast>(Q, K, T, O, n, h, tile, band, scale,
-                                        st);
-    default:
-      return band_bwd_launch<16, kFast>(Q, K, T, O, n, h, tile, band, scale,
-                                        st);
-  }
+  return swin ? band_bwd_rows_launch<kFast, true>(rows, Q, K, T, O, n, h,
+                                                  tile, band, scale, st)
+              : band_bwd_rows_launch<kFast, false>(rows, Q, K, T, O, n, h,
+                                                   tile, band, scale, st);
 }
 
 }  // namespace stratified
@@ -139,7 +157,8 @@ cudaError_t band_bwd(
 // C entry point, bound with ctypes. q is pre-scaled by d^-0.5; q/k/v/g/o
 // are [N,H,D] fp32, m/den [N,H] (merged over both halves), xyz [N,3],
 // seg bounds [N] int32, valid [N] bool; tables [H,3,nb,D] fp32 slices or
-// null. With R the rows per block that band_attention_bwd_limits gives for
+// null; swin as band_attention_fwd (xyz the quantized positions in the swin
+// mode). With R the rows per block that band_attention_bwd_limits gives for
 // nb, dk_part/dv_part ([N / R][tile + 2*band][H][D]) must be zeroed by the
 // caller; dt_part is [N / R][H][3][3][nb][D]. Returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue for a head size other than 16, a
@@ -151,12 +170,12 @@ extern "C" int band_attention_bwd(
     const float* g, const float* o, const float* m, const float* den,
     const float* tq, const float* tk, const float* tv, float* dq,
     float* dk_part, float* dv_part, float* dt_part, int n, int h, int d,
-    int tile, int band, int nb, int bin_lo, int nb_full, float bin_offset,
-    float inv_quant, float scale, void* stream) {
+    int tile, int band, int nb, int bin_lo, int nb_full, int swin,
+    float bin_offset, float inv_quant, float scale, void* stream) {
   return static_cast<int>(stratified::band_bwd<false>(
       q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den, tq, tk, tv, dq,
       dk_part, dv_part, dt_part, n, h, d, tile, band, nb, bin_lo, nb_full,
-      bin_offset, inv_quant, scale, static_cast<cudaStream_t>(stream)));
+      swin, bin_offset, inv_quant, scale, static_cast<cudaStream_t>(stream)));
 }
 
 // The fast (bf16) form: the same arguments and outputs as
@@ -168,12 +187,12 @@ extern "C" int band_attention_bwd_bf16(
     const float* g, const float* o, const float* m, const float* den,
     const float* tq, const float* tk, const float* tv, float* dq,
     float* dk_part, float* dv_part, float* dt_part, int n, int h, int d,
-    int tile, int band, int nb, int bin_lo, int nb_full, float bin_offset,
-    float inv_quant, float scale, void* stream) {
+    int tile, int band, int nb, int bin_lo, int nb_full, int swin,
+    float bin_offset, float inv_quant, float scale, void* stream) {
   return static_cast<int>(stratified::band_bwd<true>(
       q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den, tq, tk, tv, dq,
       dk_part, dv_part, dt_part, n, h, d, tile, band, nb, bin_lo, nb_full,
-      bin_offset, inv_quant, scale, static_cast<cudaStream_t>(stream)));
+      swin, bin_offset, inv_quant, scale, static_cast<cudaStream_t>(stream)));
 }
 
 // The rows per block that band_attention_bwd takes for nb table rows per

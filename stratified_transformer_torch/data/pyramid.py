@@ -85,7 +85,8 @@ def build_geometry_pyramid(xyz, offsets, cfg):
       up:    per Upsample (decoder order) — {"idx", "mask"} 3-NN of fine
              points vs coarse points.
       stage_down: per transformer stage (``layer_start`` on) — {"is_down"}
-             stratified member mask at that stage's level.
+             stratified member mask at that stage's level; empty without
+             stratified keys (``use_stratified`` False).
     All shapes are static given cfg; padding is gather-safe.
     """
     xyz = np.asarray(xyz, np.float32)
@@ -131,7 +132,8 @@ def build_geometry_pyramid(xyz, offsets, cfg):
     # TransitionDown (the first down level, at grid_sizes[0] * 2) leads to
     # stage 1 (the JAX package's data/pyramid.py:133-139,179-201)
     stage_down = []
-    for i in range(cfg.layer_start, cfg.num_layers):
+    for i in range(cfg.layer_start,
+                   cfg.num_layers if cfg.use_stratified else 0):
         cur_xyz, cur_off, n_lvl = levels[i]
         cnts = np.diff(np.concatenate([[0], cur_off]))
         d_pad = n_lvl // cfg.downsample_scale + cfg.num_scenes

@@ -16,10 +16,10 @@ from stratified_transformer_torch.kernels import (
     CudaKernel, F, I, P, block_limits, check_cuda_inputs, pack_tables, ptr,
     stream_of, sum_table_partials)
 from stratified_transformer_torch.ops.attention import (
-    band_attention_bwd_plain, band_table_slice, bin_constants, compose_band,
+    band_attention_bwd_plain, band_slice, bin_constants, compose_band,
     num_bins, place_table_grads)
 
-ARGTYPES = [P] * 18 + [I] * 8 + [F, F, F, P]
+ARGTYPES = [P] * 18 + [I] * 9 + [F, F, F, P]
 KERNEL = CudaKernel("band_attention_bwd", "band_attention_bwd", ARGTYPES)
 # the bf16 form (rpe_precision/qk_precision: default)
 KERNEL_FAST = CudaKernel("band_attention_bwd", "band_attention_bwd_bf16",
@@ -31,7 +31,8 @@ HEAD_DIMS = (16,)
 
 def launch_args(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
                 table_q=None, table_k=None, table_v=None, *, window_size,
-                quant_size, scale, band, tile=128, fast=False):
+                quant_size, scale, band, tile=128, fast=False,
+                rpe_mode="stratified"):
     """Device buffers and ``KERNEL`` (``KERNEL_FAST`` with ``fast``)
     arguments for CUDA inputs: returns
     ``(args, (dq, dk_part, dv_part, dt_part), inputs)``; ``KERNEL(*args)``
@@ -43,12 +44,12 @@ def launch_args(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
         (q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den) + tables)
     n, h, d = q.shape
     nb_full = num_bins(*tables)
-    bin_lo, nb = band_table_slice(nb_full) if nb_full else (0, 0)
+    bin_lo, nb = band_slice(nb_full, rpe_mode)
     rows, max_nb = block_limits("band_attention_bwd", dev, nb, fast)
     if nb > max_nb:
         raise ValueError(
-            f"band_attention_bwd: a band slice of {nb} table rows per axis "
-            f"(of {nb_full}) does not fit any block's shared memory on "
+            f"band_attention_bwd: {nb} table rows per axis "
+            f"(of {nb_full}) do not fit any block's shared memory on "
             f"{dev}, which holds at most {max_nb}")
     if d not in HEAD_DIMS or tile <= 0 or n % tile or tile % rows:
         raise ValueError(
@@ -70,19 +71,20 @@ def launch_args(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
             torch.zeros((nblk, tile + 2 * band, h, d), dtype=f32, device=dev),
             torch.empty((nblk, h, 3, 3, nb, d), dtype=f32, device=dev))
     args = tuple(ptr(t) for t in inputs + outs) + (
-        n, h, d, tile, band, nb, bin_lo, nb_full, bin_offset, inv_quant,
-        float(scale), stream_of(dev))
+        n, h, d, tile, band, nb, bin_lo, nb_full,
+        int(rpe_mode == "swin_window"), bin_offset, inv_quant, float(scale),
+        stream_of(dev))
     return args, outs, inputs
 
 
 def band_attention_bwd(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
                        table_q=None, table_k=None, table_v=None, *,
                        window_size, quant_size, scale, band, tile=128,
-                       fast=False):
+                       fast=False, rpe_mode="stratified"):
     """Backward of the dense half; arguments and the returned
     ``(dq, dk, dv, dtq, dtk, dtv)`` as `band_attention_bwd_plain`."""
     kw = dict(window_size=window_size, quant_size=quant_size, scale=scale,
-              band=band, tile=tile, fast=fast)
+              band=band, tile=tile, fast=fast, rpe_mode=rpe_mode)
     tables = (table_q, table_k, table_v)
     if q.device.type == "cpu":
         return band_attention_bwd_plain(q, k, v, xyz, seg_start, seg_end,
@@ -93,7 +95,7 @@ def band_attention_bwd(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
         (KERNEL_FAST if fast else KERNEL)(*args)
     n = q.shape[0]
     nb_full = num_bins(*tables)
-    bin_lo = band_table_slice(nb_full)[0] if nb_full else 0
+    bin_lo = band_slice(nb_full, rpe_mode)[0]
     dk, dv = (compose_band(part.view(n // tile, -1, *part.shape[1:]).sum(1),
                            band, tile, n)
               for part in (dk_part, dv_part))

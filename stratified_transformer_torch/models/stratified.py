@@ -149,13 +149,14 @@ def geometry_pyramid(cfg: StratifiedConfig, xyz, offsets):
     samplers and neighbour searches that the JAX package's model runs
     inside ``BasicLayer``, ``TransitionDown`` (``stem_down`` included) and
     ``Upsample`` when it gets no pyramid; member masks for the transformer
-    stages only. They read the coordinates and offsets alone, so they run
-    before the first layer."""
+    stages only, and none without stratified keys (``use_stratified``
+    False, ``models/stratified.py:191-218``). They read the coordinates and
+    offsets alone, so they run before the first layer."""
     levels = [(xyz, offsets)]
     down, stage_down = [], []
     for i in range(cfg.num_layers):
         cur_xyz, cur_off = levels[-1]
-        if i >= cfg.layer_start:
+        if i >= cfg.layer_start and cfg.use_stratified:
             stage_down.append({"is_down": _stage_members(cfg, i, cur_xyz,
                                                          cur_off)})
         if i < cfg.num_layers - 1:
@@ -169,7 +170,11 @@ def geometry_pyramid(cfg: StratifiedConfig, xyz, offsets):
 
 
 class BasicLayer(nn.Module):
-    """One encoder stage: two plans + depth x Block (reference :250-326)."""
+    """One encoder stage: two plans + depth x Block (reference :250-326).
+    Without stratified keys (``use_stratified`` False) the plans hold no
+    far-key layout, and the odd blocks, on the shifted plan, take the
+    shift ``window / 2`` for Swin3D's quantized positions
+    (``models/stratified.py:219-248`` of the JAX package)."""
 
     def __init__(self, cfg: StratifiedConfig, stage: int):
         super().__init__()
@@ -177,9 +182,10 @@ class BasicLayer(nn.Module):
         self.stage = stage
         i = stage
         rates = cfg.drop_path_schedule()[sum(cfg.depths[:i]):]
+        ws = cfg.window_sizes()[i]
         for b in range(cfg.depths[i]):
             self.add_module(f"blocks_{b}", Block(
-                cfg.channels[i], cfg.num_heads[i], cfg.window_sizes()[i],
+                cfg.channels[i], cfg.num_heads[i], ws,
                 cfg.quant_sizes()[i], band=cfg.stage_band(i), tile=cfg.tile,
                 s_band=cfg.s_band, mlp_ratio=cfg.mlp_ratio,
                 rel_query=cfg.rel_query, rel_key=cfg.rel_key,
@@ -187,19 +193,27 @@ class BasicLayer(nn.Module):
                 plain=cfg.attn_impl == "reference",
                 drop_path_rate=rates[b], fast=cfg.fast,
                 dtype=(torch.bfloat16 if cfg.compute_dtype == "bfloat16"
-                       else None)))
+                       else None),
+                rpe_mode=cfg.rpe_mode,
+                shift_size=ws / 2.0 if b % 2 else 0.0))
 
     def forward(self, feats, xyz, offsets, is_down, generator=None):
+        """``is_down``: the stage's member mask (None without stratified
+        keys)."""
         cfg = self.cfg
         n = xyz.shape[0]
         batch = sampling.offsets_to_batch(offsets, n)
         valid = sampling.offsets_to_valid(offsets, n)
         d_pad = n // cfg.downsample_scale + cfg.num_scenes
+        if not cfg.use_stratified:
+            is_down = None
         plans = [
             build_attention_plan(
                 xyz, batch, valid, cfg.window_sizes()[self.stage],
                 shifted=bool(parity), is_down=is_down,
-                sparse_cap=cfg.sparse_cap, aux_pad=_round_up(d_pad, 128))
+                sparse_cap=cfg.sparse_cap,
+                aux_pad=_round_up(d_pad, 128) if is_down is not None
+                else None)
             for parity in (0, 1)
         ]
         for b in range(cfg.depths[self.stage]):
@@ -269,8 +283,8 @@ class Stratified(nn.Module):
             if i >= cfg.layer_start:
                 feats = getattr(self, f"layer_{i}")(
                     feats, xyz, offsets,
-                    pyramid["stage_down"][i - cfg.layer_start]["is_down"],
-                    generator)
+                    pyramid["stage_down"][i - cfg.layer_start]["is_down"]
+                    if cfg.use_stratified else None, generator)
             stack.append((feats, xyz, offsets))
             if i < cfg.num_layers - 1:
                 feats, xyz, offsets = getattr(self, down_name(cfg, i))(

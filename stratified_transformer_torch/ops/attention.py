@@ -22,6 +22,12 @@ These are the arithmetic the CUDA kernels in
 against the JAX package's Pallas kernels, and the chip smoke run holds the
 kernels against them.
 
+``rpe_mode="swin_window"`` is Swin3D's form of the dense half (the JAX
+package's ``ops/attention.py:59-72,461-465,513-515``): its coordinates are
+the points' window-quantized positions, its bin
+`swin_relative_position_index` of their difference, over the whole table of
+``2*qgl - 1`` rows (no band slice), and there are no far keys.
+
 ``fast=True`` is the bf16 form that the shipped YAMLs select
 (``rpe_precision``/``qk_precision: default``): each operand of a product
 that the TPU kernels contract at DEFAULT precision (q·k, p·v, q·Tq, k·Tk,
@@ -91,6 +97,46 @@ def relative_position_index(rel, window_size, quant_size, num_bins):
     return ridx.clamp(0, num_bins - 1).to(torch.int64)
 
 
+def swin_relative_position_index(rel, num_bins):
+    """Swin3D's window-quantized bin per axis (``rpe_mode="swin_window"``;
+    the JAX package's ``ops/attention.py:59-72``).
+
+    ``rel = u_i - u_j`` of two points' window-quantized positions ``u =
+    floor(((xyz - origin + shift) mod window) / quant)`` (integer-valued
+    floats, so the subtraction is exact); the bin is ``round(rel) + qgl -
+    1`` (half to even) over ``num_bins = 2*qgl - 1`` table rows, clipped to
+    ``[0, num_bins)``. The clip matters: ``mod`` followed by the division
+    can reach ``qgl`` at a window's far edge.
+    """
+    qgl = (num_bins + 1) // 2
+    return (torch.round(rel.to(torch.float32)).to(torch.int64)
+            + (qgl - 1)).clamp(0, num_bins - 1)
+
+
+def table_bins(rel, window_size, quant_size, num_bins, rpe_mode):
+    """The bins of ``rel`` in ``rpe_mode``: "stratified"
+    (`relative_position_index`) or "swin_window"
+    (`swin_relative_position_index`)."""
+    if rpe_mode == "swin_window":
+        return swin_relative_position_index(rel, num_bins)
+    if rpe_mode != "stratified":
+        raise ValueError(f"rpe_mode {rpe_mode!r}: expected 'stratified' or "
+                         "'swin_window'")
+    return relative_position_index(rel, window_size, quant_size, num_bins)
+
+
+def band_slice(num_bins_full, rpe_mode="stratified"):
+    """``(bin_lo, nb)`` of the table rows the dense half reads: the band
+    slice of the stratified bins (`band_table_slice`); the whole table of
+    the swin bins, which span exactly the in-window range
+    (``ops/attention.py:513-515`` of the JAX package)."""
+    if not num_bins_full:
+        return 0, 0
+    if rpe_mode == "swin_window":
+        return 0, num_bins_full
+    return band_table_slice(num_bins_full)
+
+
 def band_table_slice(num_bins_full):
     """``(bin_lo, nb)``: the table rows a band (same-window) pair can reach.
 
@@ -112,13 +158,13 @@ def num_bins(table_q, table_k, table_v):
 
 
 def _logits(q_t, x_t, k_b, x_b, mask, tables, *, window_size, quant_size,
-            num_bins_full, bin_lo, nb):
+            num_bins_full, bin_lo, nb, rpe_mode="stratified"):
     """Masked logits ``[B,h,T,W]`` of a batch of query tiles and the clamped
     per-axis bins ``[B,T,W,3]`` (None without tables).
 
     q_t ``[B,T,h,d]`` (pre-scaled), x_t ``[B,T,3]``, k_b ``[B,W,h,d]``,
     x_b ``[B,W,3]``, mask ``[B,T,W]``; tables ``(tq, tk, tv)`` each
-    ``[nb,h,d,3]`` or None.
+    ``[nb,h,d,3]`` or None; ``rpe_mode`` the bins (`table_bins`).
     """
     tq, tk, _ = tables
     bsz, t, h, _ = q_t.shape
@@ -127,9 +173,8 @@ def _logits(q_t, x_t, k_b, x_b, mask, tables, *, window_size, quant_size,
     ridx = None
     if num_bins_full:
         rel = x_t[:, :, None, :] - x_b[:, None, :, :]             # [B,T,W,3]
-        ridx = (relative_position_index(rel, window_size, quant_size,
-                                        num_bins_full) - bin_lo
-                ).clamp(0, nb - 1)
+        ridx = (table_bins(rel, window_size, quant_size, num_bins_full,
+                           rpe_mode) - bin_lo).clamp(0, nb - 1)
     for a in range(3 if ridx is not None else 0):
         r_a = ridx[..., a]                                          # [B,T,W]
         if tq is not None:
@@ -269,7 +314,7 @@ def _tile_batches(nt, tile, w, h):
 def band_attention_plain(q, k, v, xyz, seg_start, seg_end, valid,
                          table_q=None, table_k=None, table_v=None, *,
                          window_size, quant_size, scale, band, tile=128,
-                         fast=False):
+                         fast=False, rpe_mode="stratified"):
     """Dense (same-window) half over the window-sorted order.
 
     q/k/v ``[N,h,d]`` sorted; xyz ``[N,3]``; seg bounds ``[N]``; valid
@@ -277,7 +322,9 @@ def band_attention_plain(q, k, v, xyz, seg_start, seg_end, valid,
     ``t0 = (row // tile) * tile`` sees keys ``[t0 - band, t0 + tile + band)
     ∩ [seg_start, seg_end)``, both ends valid. Returns the triple. ``fast``:
     the bf16 form (q rounded after the fp32 scaling, as the TPU kernel
-    stages it, ``fused_attention.py:646-668``).
+    stages it, ``fused_attention.py:646-668``). ``rpe_mode``
+    "swin_window": Swin3D's bins (`swin_relative_position_index`) of xyz,
+    the points' window-quantized positions, over the whole table.
     """
     n, h, d = q.shape
     if n % tile:
@@ -290,8 +337,7 @@ def band_attention_plain(q, k, v, xyz, seg_start, seg_end, valid,
     kf, vf = rnd(k.to(torch.float32)), rnd(v.to(torch.float32))
     xf = xyz.to(torch.float32)
     num_bins_full = num_bins(table_q, table_k, table_v)
-    bin_lo, nb = (band_table_slice(num_bins_full) if num_bins_full
-                  else (0, 0))
+    bin_lo, nb = band_slice(num_bins_full, rpe_mode)
     tables = _round_tables(tuple(None if tb is None else
                                  tb.to(torch.float32)[bin_lo:bin_lo + nb]
                                  for tb in (table_q, table_k, table_v)), fast)
@@ -315,7 +361,8 @@ def band_attention_plain(q, k, v, xyz, seg_start, seg_end, valid,
         a_, m_, d_ = _triple(
             qf[rows], xf[rows], kf[safe], vf[safe], xf[safe], mask, tables,
             chunk, window_size=window_size, quant_size=quant_size,
-            num_bins_full=num_bins_full, bin_lo=bin_lo, nb=nb)
+            num_bins_full=num_bins_full, bin_lo=bin_lo, nb=nb,
+            rpe_mode=rpe_mode)
         acc[s * tile:e * tile] = a_.reshape(-1, h, d)
         m[s * tile:e * tile] = m_.reshape(-1, h)
         den[s * tile:e * tile] = d_.reshape(-1, h)
@@ -368,7 +415,8 @@ def _sum_tables(acc, dt):
 def band_attention_bwd_plain(q, k, v, xyz, seg_start, seg_end, valid, g, o,
                              m, den, table_q=None, table_k=None, table_v=None,
                              *, window_size, quant_size, scale, band,
-                             tile=128, fast=False, slice_rows=None):
+                             tile=128, fast=False, slice_rows=None,
+                             rpe_mode="stratified"):
     """Backward of the dense half w.r.t. ``(q, k, v, table_q/k/v)``.
 
     Arguments as `band_attention_plain`, plus the output cotangent ``g``
@@ -378,7 +426,9 @@ def band_attention_bwd_plain(q, k, v, xyz, seg_start, seg_end, valid, g, o,
     is. dk/dv are composed from per-tile slots by absolute key position
     (`compose_band`), so any ``band`` works. ``fast``: the bf16 form;
     ``slice_rows``: round the key masses per that many rows of a tile, as
-    the CUDA kernel's row slices do (None: per tile, as the TPU kernel).
+    the CUDA kernel's row slices do (None: per tile, as the TPU kernel);
+    ``rpe_mode``: as `band_attention_plain` (the swin tables' grads cover
+    every row).
     """
     n, h, d = q.shape
     if n % tile:
@@ -393,8 +443,7 @@ def band_attention_bwd_plain(q, k, v, xyz, seg_start, seg_end, valid, g, o,
     mf, denf = m.to(torch.float32), den.to(torch.float32)
     xf = xyz.to(torch.float32)
     num_bins_full = num_bins(table_q, table_k, table_v)
-    bin_lo, nb = (band_table_slice(num_bins_full) if num_bins_full
-                  else (0, 0))
+    bin_lo, nb = band_slice(num_bins_full, rpe_mode)
     tables = _round_tables(tuple(None if tb is None else
                                  tb.to(torch.float32)[bin_lo:bin_lo + nb]
                                  for tb in (table_q, table_k, table_v)), fast)
@@ -417,7 +466,8 @@ def band_attention_bwd_plain(q, k, v, xyz, seg_start, seg_end, valid, g, o,
             qf[rows], xf[rows], kf[safe], vf[safe], xf[safe], mask, tables,
             gf[rows], of[rows], mf[rows], denf[rows], fast, slice_rows,
             window_size=window_size, quant_size=quant_size,
-            num_bins_full=num_bins_full, bin_lo=bin_lo, nb=nb)
+            num_bins_full=num_bins_full, bin_lo=bin_lo, nb=nb,
+            rpe_mode=rpe_mode)
         dq[s * tile:e * tile] = dq_.reshape(-1, h, d)
         dtabs = _sum_tables(dtabs, dt)
     return (dq * scale, compose_band(dk_part, band, tile, n),

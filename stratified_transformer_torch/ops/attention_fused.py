@@ -12,6 +12,9 @@ versions; ``plain=True`` runs the plain versions in both directions on any
 device. ``fast=True`` selects every kernel's bf16 form (the JAX package's
 ``fast``: ``rpe_precision`` and ``qk_precision`` both "default",
 ``attention_fused.py:229``) in both directions, or the plain versions'.
+``rpe_mode="swin_window"`` (Swin3D: window-quantized bins over the whole
+table, ``xyz`` the points' quantized positions) runs the dense half alone:
+the JAX package refuses far keys in that mode (``ops/attention.py:461-465``).
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ class StratifiedAttention(torch.autograd.Function):
                   tile=opts["tile"], fast=opts["fast"])
         band_fn = band_attention_plain if plain else band_attention
         parts = [band_fn(q, k, v, xyz, seg_start, seg_end, valid, *tables,
-                         **kw, band=opts["band"])]
+                         **kw, band=opts["band"],
+                         rpe_mode=opts["rpe_mode"])]
         if sb is not None:
             sparse_fn = (sparse_band_attention_plain if plain
                          else sparse_band_attention)
@@ -71,7 +75,8 @@ class StratifiedAttention(torch.autograd.Function):
         g = g.to(torch.float32).contiguous()
         band_fn = band_attention_bwd_plain if plain else band_attention_bwd
         grads = band_fn(q, k, v, xyz, seg_start, seg_end, valid, g, out, m,
-                        den, *tables, **kw, band=opts["band"])
+                        den, *tables, **kw, band=opts["band"],
+                        rpe_mode=opts["rpe_mode"])
         if sb is not None:
             sparse_fn = (sparse_band_attention_bwd_plain if plain
                          else sparse_band_attention_bwd)
@@ -89,16 +94,22 @@ def stratified_attention_fused(q, k, v, xyz, seg_start, seg_end, valid,
                                sparse_band=None, table_q=None, table_k=None,
                                table_v=None, *, window_size, quant_size,
                                scale, band, tile=128, s_band=128,
-                               plain=False, fast=False):
+                               plain=False, fast=False,
+                               rpe_mode="stratified"):
     """``[N, h, d]`` attention output in window-sorted order, differentiable
     in q, k, v and the three tables.
 
     ``plain=True`` runs the plain PyTorch versions on any device, forward
     and backward (the ``attn_impl: reference`` model path, which the chip
     smoke run compares the kernels against). ``fast=True``: the bf16 forms.
+    ``rpe_mode``: "stratified" or "swin_window" (no ``sparse_band``).
     """
+    if rpe_mode == "swin_window" and sparse_band is not None:
+        raise ValueError("rpe_mode 'swin_window' is window-dense only: far "
+                         "keys (a sparse_band layout) are refused")
     opts = dict(window_size=window_size, quant_size=quant_size, scale=scale,
-                band=band, tile=tile, s_band=s_band, plain=plain, fast=fast)
+                band=band, tile=tile, s_band=s_band, plain=plain, fast=fast,
+                rpe_mode=rpe_mode)
     return StratifiedAttention.apply(
         q, k, v, table_q, table_k, table_v,
         (xyz, seg_start, seg_end, valid, sparse_band), opts)

@@ -84,7 +84,13 @@ def audit_truncation_packed(cfg, batch):
     pyramid (``xyz``, ``offsets``, ``pyramid`` on one device) as ONE int64
     tensor ``[num_layers - layer_start, 6]`` on that device: row ``r`` is
     stage ``layer_start + r`` at pyramid level ``layer_start + r``, columns
-    in `FIELDS` order. One tensor, one transfer when the loop reads it."""
+    in `FIELDS` order. One tensor, one transfer when the loop reads it.
+    Without stratified keys (``use_stratified`` False) there are no
+    stages to count: ``[0, 6]`` (the JAX package's ``{}``,
+    ``train/audit.py:102``)."""
+    if not cfg.use_stratified:
+        return torch.zeros(0, len(FIELDS), dtype=torch.int64,
+                           device=batch["xyz"].device)
     pyramid = batch["pyramid"]
     levels = [(batch["xyz"], batch["offsets"])]
     for lvl in pyramid["down"]:
@@ -105,7 +111,8 @@ def unpack_truncation(cfg, arr):
     """numpy ``[stages, 6]`` -> ``{stage_i: {field: int}}`` for the stages
     ``layer_start..num_layers-1``, the JAX package's ``audit_truncation``
     dict."""
-    keys = [f"stage_{i}" for i in range(cfg.layer_start, cfg.num_layers)]
+    keys = [f"stage_{i}" for i in range(cfg.layer_start, cfg.num_layers)
+            if cfg.use_stratified]
     return {k: {f: int(arr[si, fi]) for fi, f in enumerate(FIELDS)}
             for si, k in enumerate(sorted(keys))}
 

@@ -167,9 +167,10 @@ def run(yaml_cfg, device="cuda", log=None):
     eval_step = make_eval_step(ignore, ncls)
     epochs = int(yaml_cfg.get("epochs", 100))
     log_every = int(yaml_cfg.get("print_freq", 1))
+    # the audit counts stratified layouts: none without them (train.py:508)
     audit_on = (bool(yaml_cfg.get("truncation_audit", True))
                 and bool(yaml_cfg.get("host_pyramid", True))
-                and cfg.sampler == "grid")
+                and cfg.sampler == "grid" and cfg.use_stratified)
     audit_freq = int(yaml_cfg.get("audit_freq", 4))
     os.makedirs(save_path, exist_ok=True)
     metrics_path = os.path.join(save_path, "metrics.jsonl")

@@ -1,9 +1,11 @@
 """PyTorch port, configuration: the YAML reader against the JAX driver's
 ``build_model_config`` on one device (the ScanNet YAML's in
-``test_torch_scannet.py``), and the model families the port does not run
-yet refused by name; the DCF family's offset-head keys."""
+``test_torch_scannet.py``), the Swin3D family's ``arch``,
+``use_stratified`` and ``rpe_mode`` and its ``attn_impl`` rule; the DCF
+family's offset-head keys."""
 
 import dataclasses
+import logging
 import os
 
 import pytest
@@ -31,12 +33,81 @@ def test_s3dis_config_matches_jax_driver():
     assert [ours.stage_band(i) for i in range(4)] == [128, 128, 384, 192]
 
 
-@pytest.mark.parametrize("name, refused", [
-    ("s3dis_swin3d.yaml", "arch: swin3d_transformer"),
-])
-def test_unported_families_are_refused(name, refused):
-    with pytest.raises(ValueError, match=refused):
-        from_cfg(torch_load(os.path.join(CONFIGS, name)))
+# the Swin3D family: the shipped YAMLs, and the keys set on the S3DIS
+# stratified YAML (explicit keys win over ``arch``, train.py:49-83)
+SWIN_CASES = {
+    "s3dis_swin3d.yaml": ("s3dis_swin3d.yaml", {}),
+    "scannetv2_swin3d.yaml": ("scannetv2_swin3d.yaml", {}),
+    "plain windows, stratified bins": (
+        "s3dis_stratified.yaml", {"use_stratified": False}),
+    "arch with explicit stratified bins": (
+        "s3dis_swin3d.yaml", {"rpe_mode": "stratified"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SWIN_CASES))
+def test_swin_family_is_read_as_the_jax_driver_reads_it(case):
+    """Every field equals ``build_model_config``'s but ``attn_impl``: under
+    ``rpe_mode: swin_window`` the port builds its main path ("fused"),
+    where the JAX package's key selects nothing (its one implementation of
+    the mode, ``models/attention.py:100-109``)."""
+    name, keys = SWIN_CASES[case]
+    cfg = torch_load(os.path.join(CONFIGS, name))
+    cfg.update(keys)
+    ours, theirs = from_cfg(cfg), build_model_config(cfg, 1)
+    for f in dataclasses.fields(ours):
+        if f.name != "attn_impl":
+            assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+    assert ours.use_stratified is False
+    swin = ours.rpe_mode == "swin_window"
+    assert ours.attn_impl == ("fused" if swin else theirs.attn_impl)
+    if name.endswith("_swin3d.yaml") and not keys:
+        assert swin and theirs.attn_impl == "reference"
+        # window / quant is 16 at every stage: 31 table rows
+        assert {int(w / q) for w, q in zip(ours.window_sizes(),
+                                           ours.quant_sizes())} == {16}
+
+
+def test_swin_bins_with_stratified_keys_are_refused():
+    """``use_stratified: True`` with ``rpe_mode: swin_window``: the JAX
+    package asserts the mode is window-dense (``ops/attention.py:
+    461-465``)."""
+    cfg = torch_load(os.path.join(CONFIGS, "s3dis_swin3d.yaml"))
+    cfg["use_stratified"] = True
+    with pytest.raises(ValueError, match="window-dense"):
+        from_cfg(cfg)
+    with pytest.raises(ValueError, match="rpe_mode"):
+        dataclasses.replace(load_config(
+            os.path.join(CONFIGS, "s3dis_stratified.yaml")),
+            rpe_mode="swin")
+
+
+def test_attn_impl_rule_under_the_swin_bins(caplog):
+    """The shipped Swin YAMLs say ``attn_impl: reference``: ``from_cfg``
+    builds the main path and logs one line saying so; a config built with
+    "reference" keeps the plain versions, and the stratified YAMLs keep
+    what they say."""
+    cfg = torch_load(os.path.join(CONFIGS, "s3dis_swin3d.yaml"))
+    assert cfg["attn_impl"] == "reference"
+    # the drivers' logger does not propagate (utils/logger.py): listen on it
+    # directly, and on it alone
+    logger = logging.getLogger("st_torch")
+    propagate = logger.propagate
+    logger.addHandler(caplog.handler)
+    logger.propagate = False
+    try:
+        with caplog.at_level("INFO", logger="st_torch"):
+            assert from_cfg(cfg).attn_impl == "fused"
+    finally:
+        logger.removeHandler(caplog.handler)
+        logger.propagate = propagate
+    assert len(caplog.records) == 1
+    assert "swin_window" in caplog.records[0].getMessage()
+    ref = dataclasses.replace(from_cfg(cfg), attn_impl="reference")
+    assert ref.attn_impl == "reference"
+    strat = torch_load(os.path.join(CONFIGS, "s3dis_stratified.yaml"))
+    strat["attn_impl"] = "reference"
+    assert from_cfg(strat).attn_impl == "reference"
 
 
 def test_dcf_family_is_accepted():
@@ -51,20 +122,6 @@ def test_unknown_attention_impl_is_refused():
     with pytest.raises(ValueError, match="attn_impl"):
         dataclasses.replace(load_config(
             os.path.join(CONFIGS, "s3dis_stratified.yaml")), attn_impl="jnp")
-
-
-# the ROADMAP queue 1 item that ports each refused family: Swin3D is item 5
-ROADMAP_ITEM = {"use_stratified": 5, "arch": 5}
-
-
-@pytest.mark.parametrize("key, value", [
-    ("use_stratified", False), ("arch", "swin3d_transformer")])
-def test_refusals_name_their_roadmap_item(key, value):
-    cfg = torch_load(os.path.join(CONFIGS, "s3dis_stratified.yaml"))
-    cfg[key] = value
-    with pytest.raises(ValueError, match=(
-            f"{key}: {value} \\(ROADMAP queue 1 item {ROADMAP_ITEM[key]}\\)")):
-        from_cfg(cfg)
 
 
 def test_on_device_sampling_keys_are_read_as_the_jax_driver_reads_them():

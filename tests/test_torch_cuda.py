@@ -1,6 +1,7 @@
 """CUDA kernels of the PyTorch port (attention forward and backward, the two
 probes) against their plain PyTorch versions, and the kernels' limits,
-empty rows and determinism.
+empty rows and determinism; the band kernels' swin mode (Swin3D's
+window-quantized bins).
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for the card
 and is skipped where there is none. Run them on a GPU machine with
@@ -589,3 +590,125 @@ def test_forward_without_pyramid_launches_the_kernels(cuda_device):
         want = ref(*args)[0]
     assert launched == (sum(cfg.depths),) * 2
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+# ---- the swin bins (Swin3D, rpe_mode "swin_window") -------------------------
+
+SWIN_WS, SWIN_QS = 0.16, 0.01           # S3DIS Swin stage 0: 31 table rows
+SWIN_QGL = int(SWIN_WS / SWIN_QS)
+SWIN_NBINS = 2 * SWIN_QGL - 1
+
+
+def _swin_case(dev, seed, shifted, n_pad=512, n_valid=430, h=3):
+    """A plan of 0.16 m windows (no far keys) over two scenes of a 0.6 m
+    box, its points' window-quantized positions, q/k/v/g and 31-row
+    tables."""
+    from stratified_transformer_torch.models.attention import swin_positions
+    gen = torch.Generator().manual_seed(seed)
+    xyz = torch.rand(n_pad, 3, generator=gen) * 0.6
+    batch = torch.cat([torch.zeros(n_valid // 2, dtype=torch.int32),
+                       torch.ones(n_valid - n_valid // 2, dtype=torch.int32),
+                       torch.full((n_pad - n_valid,), 2, dtype=torch.int32)])
+    valid = torch.arange(n_pad) < n_valid
+    plan = plan_mod.build_attention_plan(
+        xyz.to(dev), batch.to(dev), valid.to(dev), SWIN_WS, shifted=shifted)
+    u = swin_positions(plan.xyz_sorted, plan.grid_start,
+                       SWIN_WS / 2 if shifted else 0.0, SWIN_WS, SWIN_QS)
+    q, k, v, g = (torch.randn(n_pad, h, 16, generator=gen).to(dev)
+                  for _ in range(4))
+    tables = tuple((torch.randn(SWIN_NBINS, h, 16, 3, generator=gen) * 0.05
+                    ).to(dev) for _ in range(3))
+    geom = (u, plan.seg_start, plan.seg_end, plan.valid_sorted)
+    kw = dict(window_size=SWIN_WS, quant_size=SWIN_QS, scale=16 ** -0.5,
+              band=128, tile=128, rpe_mode="swin_window")
+    return geom, (q, k, v), g, tables, kw
+
+
+def _rel_l2(got, want):
+    return float((got - want).double().norm() / want.double().norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_swin_kernels_match_plain(cuda_device, fast, shifted):
+    """The band forward and backward kernels in the swin mode (fp32 form:
+    the fp32 tolerances; bf16 form: phase 14's relative-L2 gates against the
+    plain fast versions in the kernels' row slices), one launch each, no
+    far-key kernel."""
+    geom, qkv, g, tables, kw = _swin_case(cuda_device, 5, shifted)
+    kw = dict(kw, fast=fast)
+    fwd = band_k.KERNEL_FAST if fast else band_k.KERNEL
+    bwd = band_bwd_k.KERNEL_FAST if fast else band_bwd_k.KERNEL
+    before = (fwd.launches, bwd.launches, sparse_k.KERNEL.launches,
+              sparse_bwd_k.KERNEL.launches)
+    got = band_k.band_attention(*qkv, *geom, *tables, **kw)
+    want = plain.band_attention_plain(*qkv, *geom, *tables, **kw)
+    out, m, den = plain.merge([want])
+    rows = (band_bwd_k.block_limits("band_attention_bwd", cuda_device,
+                                    SWIN_NBINS, True)[0] if fast else None)
+    gk = band_bwd_k.band_attention_bwd(*qkv, *geom, g, out, m, den, *tables,
+                                       **kw)
+    gp = plain.band_attention_bwd_plain(*qkv, *geom, g, out, m, den,
+                                        *tables, **kw, slice_rows=rows)
+    assert (fwd.launches, bwd.launches, sparse_k.KERNEL.launches,
+            sparse_bwd_k.KERNEL.launches) == (before[0] + 1, before[1] + 1,
+                                              before[2], before[3])
+    if fast:
+        assert _rel_l2(got[0], want[0]) < 2e-4
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+        for a, b in zip(gk, gp):
+            assert _rel_l2(a, b) < 5e-4
+    else:
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+        for a, b in zip(gk, gp):
+            torch.testing.assert_close(a, b, rtol=BWD_RTOL, atol=BWD_ATOL)
+
+
+@pytest.mark.cuda
+def test_swin_bins_on_the_card(cuda_device):
+    """The swin `rel_bin_probe` on every integer ``rel`` in ``[-qgl-2,
+    qgl+2]`` equals `swin_relative_position_index` (the clip at both
+    ends)."""
+    rel = torch.arange(-SWIN_QGL - 2, SWIN_QGL + 3, dtype=torch.float32)
+    got = band_k.rel_bins(rel.to(cuda_device), SWIN_WS, SWIN_QS, SWIN_NBINS,
+                          rpe_mode="swin_window").cpu().long()
+    torch.testing.assert_close(got, plain.swin_relative_position_index(
+        rel, SWIN_NBINS))
+    assert int(got.min()) == 0 and int(got.max()) == SWIN_NBINS - 1
+
+
+@pytest.mark.cuda
+def test_swin_mode_refuses_a_table_slice(cuda_device):
+    """The C entry points refuse the swin mode with a band slice of the
+    table (the mode reads the whole table)."""
+    geom, qkv, g, tables, kw = _swin_case(cuda_device, 6, False)
+    args, outs, _ = band_k.launch_args(*qkv, *geom, *tables, **kw)
+    args = list(args)
+    # n, h, d, q_rs, k_rs, v_rs, tile, band, nb, bin_lo, nb_full, swin
+    ints = len(args) - 16
+    assert args[ints + 11] == 1 and args[ints + 9] == 0
+    args[ints + 9] = 1                  # bin_lo 1: a slice
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        band_k.KERNEL(*args)
+
+
+@pytest.mark.cuda
+def test_device_busy_times_the_queued_calls(cuda_device):
+    """`chip_smoke.device_busy_ms` (the wrappers' device-busy time: calls
+    queued behind a sleep kernel, CUDA events) reads the kernel's own time,
+    not 0 and not the host's dispatch."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    geom, qkv, g, tables, kw = _swin_case(cuda_device, 7, False)
+    args, _, _ = band_k.launch_args(*qkv, *geom, *tables, **kw)
+    with torch.no_grad():
+        busy = chip_smoke.device_busy_ms(
+            lambda: band_k.band_attention(*qkv, *geom, *tables, **kw), 5)
+    kernel = chip_smoke.cuda_time_ms(lambda: band_k.KERNEL(*args), 20)
+    assert 0 < busy < 2 * kernel + 0.05

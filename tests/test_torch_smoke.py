@@ -2,6 +2,8 @@
 full-width comparison runs at, its count of the least operations and bytes
 an attention call needs, its pair counts per stage, and its arguments."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -226,16 +228,19 @@ def test_chip_smoke_refuses_unknown_arguments_or_a_missing_card(capsys):
     (["--scannet-only"], "--scannet-only"),
     (["--dcf-only"], "--dcf-only"),
     (["--fast-only"], "--fast-only"),
+    (["--swin-only"], "--swin-only"),
 ])
 def test_parse_args_picks_the_phase_run_alone(argv, want):
     assert chip_smoke.parse_args(argv) == want
     if want is not None:
         # the kernels it builds: the forward pair for phases 4 and 10 and
-        # the IoU timing, all four attention kernels for phases 11-14
+        # the IoU timing, all four attention kernels for phases 11-14, the
+        # two band kernels for phase 15 (Swin3D has no far keys)
         both = chip_smoke.FWD_KERNELS + chip_smoke.BWD_KERNELS
         assert chip_smoke.PHASE_ONLY[want] == {
             "--bwd-only": chip_smoke.BWD_KERNELS, "--loop-only": both,
             "--scannet-only": both, "--dcf-only": both, "--fast-only": both,
+            "--swin-only": ("band_attention", "band_attention_bwd"),
         }.get(want, chip_smoke.FWD_KERNELS)
 
 
@@ -266,7 +271,7 @@ def test_parse_args_refuses_anything_else(argv):
 @pytest.mark.parametrize("flag", ["--fwd-only", "--bwd-only",
                                   "--scene-only", "--loop-only",
                                   "--iou-only", "--scannet-only",
-                                  "--dcf-only"])
+                                  "--dcf-only", "--swin-only"])
 def test_phase_only_runs_need_a_card(flag, capsys):
     if torch.cuda.is_available():
         pytest.skip("checks the run without a card")
@@ -376,3 +381,105 @@ def test_cube_scene_is_a_dcf_file(tmp_path):
             at = centre[rows][labels[rows] == 6 + e]
             np.testing.assert_allclose(at, np.tile(want, (len(at), 1)),
                                        atol=1e-12)
+
+
+def test_swin_levels_and_plans_have_no_far_keys(capsys):
+    """Phase 15's levels and plans under the S3DIS Swin YAML: no member
+    masks, no far-key layout, no far pairs in the ``[pairs]`` line."""
+    from stratified_transformer_torch.config import load_config
+    cfg = load_config(chip_smoke.SWIN_CONFIG, n_pad=2048, num_scenes=2,
+                      channels=(16, 32, 64, 128), num_heads=(1, 2, 4, 8))
+    hb = host_batch(cfg, seed=0)
+    levels = chip_smoke.stage_levels(cfg, hb)
+    assert [lv[2] for lv in levels] == [None] * cfg.num_layers
+    plan = chip_smoke.build_plan(cfg, 0, levels[0], True, "cpu")
+    assert plan.sparse_band is None
+    chip_smoke.log_pairs("swin batch 0", cfg, hb, "cpu")
+    line = capsys.readouterr().out
+    assert line.count("sparse 0") == cfg.num_layers
+
+
+def test_swin_bound_counts_the_swin_bins():
+    """The swin bins cost fewer operations per pair than the stratified
+    bins; the rest of the bound is the same."""
+    args = (10000, 500, 500, 3, 16, 31)
+    for fn in (chip_smoke.least_ops, chip_smoke.least_ops_bwd):
+        strat = fn(*args)
+        swin = fn(*args, bin_ops=chip_smoke.BIN_OPS["swin_window"])
+        assert strat - swin == 10000 * (chip_smoke.BIN_OPS["stratified"]
+                                        - chip_smoke.BIN_OPS["swin_window"])
+
+
+def test_device_busy_reading_of_zero_fails(monkeypatch):
+    """A profiled session is held complete: one record of an attention
+    kernel per launch its wrapper counted, each kernel ``reps`` times over,
+    some device time. A session that lost all or part of its device
+    records fails its phase rather than being recorded low."""
+    from stratified_transformer_torch.kernels import band_attention as bk
+
+    def event(name, us):
+        return types.SimpleNamespace(
+            name=name, device_type=torch.autograd.DeviceType.CUDA,
+            time_range=types.SimpleNamespace(elapsed_us=lambda: us))
+
+    band = "void stratified::band_attention_kernel<16, 64, false, true>(...)"
+    sparse = ("void stratified::sparse_band_attention_kernel<16, 64, false>"
+              "(...)")
+    session = []
+
+    class Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return session
+
+    def launch():
+        bk.KERNEL.launches += 1
+
+    monkeypatch.setattr(bk.KERNEL, "launches", bk.KERNEL.launches)
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    session[:] = [event(band, 300.0), event("copy", 100.0)] * 2
+    wall, by_name = chip_smoke.device_kernels(launch, 2)
+    assert by_name == {band: (0.6, 2), "copy": (0.2, 2)}
+    assert chip_smoke.profiled_busy_ms(launch, 2) == pytest.approx(0.4)
+    session[:] = session[:2]
+    assert chip_smoke.profile_call("forward", launch)[1] == pytest.approx(0.4)
+    for lost in ([event(band, 300.0), event("copy", 100.0)],     # part
+                 [event(band, 300.0), event(sparse, 50.0)] * 2,  # not ours
+                 [event("copy", 100.0)] * 3,                     # uneven
+                 []):                                            # all
+        session[:] = lost
+        with pytest.raises(AssertionError, match="lost device records"):
+            chip_smoke.device_kernels(launch, 2)
+    with pytest.raises(AssertionError, match="lost device records"):
+        chip_smoke.profile_call("forward", lambda: None)
+
+
+def test_plain_in_kernel_slices_takes_the_whole_swin_table(monkeypatch):
+    """Under the swin bins the plain fast backward's row slices are asked
+    for the whole 31-row table (no band slice)."""
+    from stratified_transformer_torch.ops import attention as plain
+    from stratified_transformer_torch.ops import attention_fused
+    asked = []
+    monkeypatch.setattr(chip_smoke, "kernel_slice_rows",
+                        lambda name, dev, nb, fast: asked.append(
+                            (name, nb)) or None)
+    tables = tuple(torch.zeros(31, 1, 16, 3) for _ in range(3))
+    x = torch.zeros(128, 1, 16)
+    with chip_smoke.plain_in_kernel_slices(torch.device("cpu")):
+        attention_fused.band_attention_bwd_plain(
+            x, x, x, torch.zeros(128, 3), torch.zeros(128, dtype=torch.int32),
+            torch.zeros(128, dtype=torch.int32),
+            torch.zeros(128, dtype=torch.bool), x, x, torch.zeros(128, 1),
+            torch.ones(128, 1), *tables, window_size=0.16, quant_size=0.01,
+            scale=0.25, band=0, rpe_mode="swin_window")
+    assert asked == [("band_attention_bwd", 31)]
+    assert plain.band_slice(31, "swin_window") == (0, 31)
