@@ -17,6 +17,7 @@ runs phase 12 alone; ``--dcf-only`` builds the four attention kernels and
 runs phase 13 alone; ``--fast-only`` builds the four attention kernels
 (their sources hold the fp32 and the fast forms) and runs phase 14 alone;
 ``--swin-only`` builds the two band kernels and runs phase 15 alone;
+``--dp-only`` builds the four attention kernels and runs phase 16 alone;
 ``--iou-only`` builds the two forward kernels and times the train and eval
 steps' IoU counters (`iou_phase`). Each prints its
 times as one JSON line (``--fwd-only`` also per stage and parity). Copied into another checkout (say a parent commit
@@ -24,7 +25,7 @@ unpacked beside the tree) and run from there, it times that checkout's
 kernels and wrappers the same way, so two versions can be compared in
 turns on one card.
 
-Phases 2-13 and 15 (but its (f)) pin ``rpe_precision``/``qk_precision`` to
+Phases 2-13, 15 (but its (f)) and 16 pin ``rpe_precision``/``qk_precision`` to
 "highest" (the fp32 kernels, `PIN_NOTE`), so that their gates and times
 stay comparable with the runs before the fast forms; phase 14 runs the
 YAMLs as shipped (the Swin YAMLs ship "highest").
@@ -156,7 +157,23 @@ Phases, each fatal on failure:
      the YAML's test shape); (f) the fast forms against their plain fast
      versions at (b)'s plans (phase 14's kernel gates with their fp32
      controls), and the YAML at ``default`` precision through one forward
-     and one training step on the bf16 band kernels.
+     and one training step on the bf16 band kernels;
+ 16. data-parallel training (``parallel/``, SyncBN, the per-rank loader,
+     the training driver's rank function), fp32 kernels: (a) two S3DIS
+     steps at phase 2's batch shape through every collective of the DP
+     step (SyncBN, the gradient average, the packed statistics) in a
+     one-rank NCCL group, bit-identical to the one-device steps
+     (deterministic algorithms); (b) two ranks on the one card over gloo (NCCL refuses two
+     ranks on one device) at the shipped S3DIS YAML's DP shape (phase 11's
+     140000 points in 8 slots split into 2 x n_pad 70016 in 4 slots): on
+     identical batches the one-device step's parameters; on distinct
+     batches the ranks bit-identical, every attention kernel launched on
+     every rank, the gradients against the plain versions'; the DP step's
+     wall per rank and the gradient all-reduce's share; (c) the training
+     driver's rank function on two ranks for one epoch of 2 steps with
+     validation on rank 0, the ranks in one state, rank 0's checkpoint
+     restored into a one-device model bit for bit, step walls and the
+     all-reduce's share.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -3361,6 +3378,496 @@ def iou_phase(cfg, hb, dev, reps=50, rounds=6):
     return out
 
 
+# phase 16: data-parallel training. (b) and (c) split phase 11's batch shape
+# (max_batch_points 140000 in batch_size 8 slots) over two ranks on the one
+# card: n_pad 70016 and 4 scene slots each, joined over gloo (NCCL refuses
+# two ranks on one device: "Duplicate GPU detected"). (c) is the training
+# driver's rank function for one epoch of 2 steps (16 synthetic rooms of
+# 60000 raw points, 8 per global batch) and one validation
+DP_WORLD = 2
+DP_OVERRIDES = [
+    "data_name", "synthetic", "max_batch_points", "140000", "batch_size", "8",
+    "voxel_max", "80000", "synthetic_points", "60000", "synthetic_scenes",
+    "16", "epochs", "1", "evaluate", "True", "print_freq", "1",
+    "use_tensorboard", "False", "n_devices", str(DP_WORLD)]
+# (b): kernel-path DP steps timed per rank after the checked one, and
+# gradient all-reduces timed alone
+DP_TIMED_STEPS = 3
+DP_ALL_REDUCES = 3
+# the ranks' rendezvous and every collective wait at most this long
+DP_TIMEOUT_S = 300
+# the S3DIS model's five parameters whose gradient is 0 in exact arithmetic
+# (GRAD_FLOOR's: a shift of the head's input that the training BatchNorm
+# removes): the first AdamW step moves them by lr times the sign of fp32
+# noise, so (b) holds them within 2.02 lr of the one-device step
+ZERO_GRAD_BIASES = ("up_2.norm1.bias", "up_2.norm2.bias",
+                    "up_2.linear1.bias", "up_2.linear2.bias",
+                    "cls_fc1.bias")
+# ... and only while their gradients are fp32 noise below this (as the CPU
+# test `tests/test_torch_dp.py::assert_params_close` requires)
+ZERO_GRAD_MAX = 1e-7
+
+
+def sync(dev):
+    """Wait for ``dev`` (a CUDA device; nothing on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def release(dev):
+    """Hand ``dev``'s cached blocks back to the card, for the ranks that
+    share it (nothing on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def state_tensors(model, optimizer):
+    """``model``'s state (parameters, BatchNorm statistics) and
+    ``optimizer``'s moments, by name, on the CPU."""
+    out = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    names = {id(p): n for n, p in model.named_parameters()}
+    for p, s in optimizer.state.items():
+        for key, t in s.items():
+            out[f"{names[id(p)]}/{key}"] = t.detach().cpu().clone()
+    return out
+
+
+def assert_same_tensors(label, got, want):
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    if set(got) != set(want) or differ:
+        raise AssertionError(f"{label}: {len(differ)} of {len(want)} "
+                             f"tensors differ ({differ[:5]})")
+
+
+def dp_world_one(dev):
+    """Phase 16 (a): two S3DIS training steps at phase 2's batch shape
+    (phase 8's augmented batches) through the one-device step and through
+    the collectives of the data-parallel step in a one-rank NCCL group on
+    ``cuda:0``, from the same `o1_weights`, with PyTorch's deterministic
+    algorithms (its default CUDA ``index_add_`` orders its float atomics
+    differently from run to run): the one-device step twice (the control:
+    bit-identical), then the DP path with every reduction forced, which
+    `parallel.dp.make_dp_train_step` skips at one rank: SyncBN on
+    (``bn_axis_name`` "data"), `parallel.dp.all_reduce_grads` in the step
+    and the packed statistics all-reduced. A sum over one rank and the
+    division by 1 are exact, so the parameters, statistics and AdamW state
+    must be bit-identical to the one-device steps'; NCCL's all-reduce on
+    CUDA tensors, SyncBN's autograd function and the flattened gradient
+    buffer run on the card."""
+    from stratified_transformer_torch.config import load_config
+    from stratified_transformer_torch.data.loader import host_batch, to_device
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.parallel import mesh
+    from stratified_transformer_torch.parallel.dp import all_reduce_grads
+    from stratified_transformer_torch.train import driver
+    from stratified_transformer_torch.train.step import (
+        make_train_step, pack_stats)
+    cfg = load_config(CONFIG, n_pad=N_PAD, num_scenes=SCENES, **FP32)
+    yaml_cfg = yaml_fp32(CONFIG)
+    batches = [to_device(host_batch(
+        cfg, seed=10 + s, train=True, rng=np.random.default_rng(100 + s),
+        aug=yaml_cfg), dev) for s in range(2)]
+    init = build_model(cfg, dev, seed=0)
+    o1_weights(init, seed=0)
+    init = init.state_dict()
+    ignore = int(yaml_cfg["ignore_label"])
+    one_device = make_train_step(ignore, cfg.num_classes)
+    reduced = make_train_step(ignore, cfg.num_classes,
+                              reduce_grads=all_reduce_grads)
+
+    def two_steps(step, cfg=cfg):
+        model = build_model(cfg, dev, seed=0, train=True)
+        model.load_state_dict(init)
+        opt = driver.build_optimizer(model, yaml_cfg, TRAIN_ITERS_PER_EPOCH)
+        packed = [step(model, opt, b, driver.drop_path_generator(
+            dev, yaml_cfg["manual_seed"], s)) for s, b in enumerate(batches)]
+        sync(dev)
+        return state_tensors(model, opt), [p.cpu() for p in packed]
+
+    def single(m_, o_, b, g):
+        return pack_stats(one_device(m_, o_, b, g))
+
+    def dp(m_, o_, b, g):
+        packed = pack_stats(reduced(m_, o_, b, g))
+        torch.distributed.all_reduce(packed)
+        return packed
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want, want_packed = two_steps(single)
+        control, _ = two_steps(single)
+        mesh.init_group(0, 1, dev, mesh.free_port(), timeout_s=DP_TIMEOUT_S)
+        try:
+            backend = torch.distributed.get_backend()
+            got, got_packed = two_steps(dp, dataclasses.replace(
+                cfg, bn_axis_name="data"))
+        finally:
+            torch.distributed.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert_same_tensors("(a) the one-device step run twice", control, want)
+    assert_same_tensors("(a) the DP step at world size 1", got, want)
+    if not all(torch.equal(a, b) for a, b in zip(got_packed, want_packed)):
+        raise AssertionError("(a) the DP step's statistics differ")
+    log(f"[dp] (a) world size 1 ({backend}, {dev}): 2 steps at N {N_PAD} "
+        "through SyncBN's, the gradients' and the statistics' all-reduces "
+        f"bit-identical to the one-device steps in all {len(want)} "
+        "parameters, statistics and AdamW moments (deterministic algorithms;"
+        " the one-device steps repeat bit for bit)")
+    return {"backend": backend, "tensors": len(want),
+            "losses": [float(p[0]) for p in got_packed]}
+
+
+def nccl_pair_rank(rank, world, port, dev):
+    """A rank of `nccl_pair`: joins an NCCL group on ``dev`` (which forms
+    its communicator at once) and sums one value."""
+    sys.path.insert(0, REPO)
+    from stratified_transformer_torch.parallel import mesh
+    mesh.init_group(rank, world, dev, port, timeout_s=60)
+    try:
+        t = torch.ones(1, device=dev)
+        torch.distributed.all_reduce(t)
+        sync(dev)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def nccl_pair(dev):
+    """Whether NCCL forms a group of two ranks on the one card ``dev``:
+    "formed", or the last line of the error it raises."""
+    from stratified_transformer_torch.parallel import mesh
+    try:
+        mesh.spawn(nccl_pair_rank, 2, args=(2, mesh.free_port(), dev),
+                   timeout_s=120)
+    except Exception as e:              # the answer, recorded
+        return "refused: " + str(e).strip().splitlines()[-1][:200]
+    return "formed"
+
+
+def dp_job(tmp, dev):
+    """(b)'s job: the per-rank configuration of DP_OVERRIDES, `o1_weights`,
+    and each rank's share of the first batch of the DP loaders."""
+    from stratified_transformer_torch.config import from_cfg
+    from stratified_transformer_torch.data.loader import (
+        BatchLoader, build_dataset)
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.utils.config import merge_cfg_from_list
+    yaml_cfg = merge_cfg_from_list(yaml_fp32(CONFIG), DP_OVERRIDES + [
+        "save_path", os.path.join(tmp, "run")])
+    cfg = from_cfg(yaml_cfg, DP_WORLD)
+    batches, iters = [], 0
+    for r in range(DP_WORLD):
+        bl = BatchLoader(build_dataset(yaml_cfg, "train"), cfg, yaml_cfg,
+                         shuffle=True, seed=int(yaml_cfg["manual_seed"]),
+                         rank=r, world=DP_WORLD)
+        itr = iter(bl)
+        batches.append(next(itr))
+        itr.close()
+        iters = bl.batches_per_epoch
+    model = build_model(cfg, dev, seed=0)
+    o1_weights(model, seed=0)
+    return {"yaml_cfg": dict(yaml_cfg), "cfg": cfg, "iters": iters,
+            "init": {k: v.cpu() for k, v in model.state_dict().items()},
+            "batches": batches}
+
+
+def dp_steps_rank(rank, world, port, job_path, out, dev):
+    """Phase 16 (b), rank ``rank`` of ``world`` on ``dev`` over gloo:
+    one DP step (`parallel.dp.make_dp_train_step`, SyncBN on) through the
+    kernels on rank 0's share for every rank (identical batches), then one
+    on each rank's own share (distinct batches), its kernel launches
+    counted, its averaged gradients held against the same DP step through
+    the plain versions (`check_grads`); then DP_TIMED_STEPS kernel steps
+    timed and the gradient all-reduce timed alone. Writes
+    ``<out>/rank<rank>.pt``."""
+    sys.path.insert(0, REPO)
+    from stratified_transformer_torch.data.loader import to_device
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.parallel import dp, mesh
+    from stratified_transformer_torch.train import driver
+    mesh.init_group(rank, world, dev, port, backend="gloo",
+                    timeout_s=DP_TIMEOUT_S)
+    try:
+        job = torch.load(job_path, weights_only=False)
+        cfg, yaml_cfg = job["cfg"], job["yaml_cfg"]
+        kernel_mods = attention_kernel_modules()
+        step = dp.make_dp_train_step(int(yaml_cfg["ignore_label"]),
+                                     cfg.num_classes)
+
+        def counts():
+            return {k: m_.KERNEL.launches for k, m_ in kernel_mods.items()}
+
+        def trainer(impl):
+            m_ = build_model(dataclasses.replace(cfg, attn_impl=impl),
+                             dev, seed=0, train=True)
+            m_.load_state_dict(job["init"])
+            return m_, driver.build_optimizer(m_, yaml_cfg, job["iters"])
+
+        def gen(s):
+            return driver.drop_path_generator(dev, yaml_cfg["manual_seed"],
+                                              s)
+
+        res = {}
+        model, opt = trainer("fused")
+        step(model, opt, to_device(job["batches"][0], dev), gen(0))
+        res["identical"] = {n: p.detach().cpu()
+                            for n, p in model.named_parameters()}
+        del model, opt
+        batch = to_device(job["batches"][rank], dev)
+        model, opt = trainer("fused")
+        for m_ in kernel_mods.values():
+            m_.KERNEL.launches = 0
+        packed = step(model, opt, batch, gen(0))
+        sync(dev)
+        res["launches"] = counts()
+        res["packed"] = packed.cpu()
+        res["state"] = state_tensors(model, opt)
+        grads_k = {n: p.grad.clone() for n, p in model.named_parameters()}
+        plain, opt_p = trainer("reference")
+        step(plain, opt_p, batch, gen(0))
+        if counts() != res["launches"]:
+            raise AssertionError("the plain-version DP step launched a "
+                                 "kernel")
+        res["grad_worst"] = check_grads(f"[dp] rank {rank} step 1", grads_k, {
+            n: p.grad for n, p in plain.named_parameters()})
+        del plain, opt_p, grads_k
+        walls = []
+        for s in range(1, DP_TIMED_STEPS + 1):
+            sync(dev)
+            t0 = time.perf_counter()
+            step(model, opt, batch, gen(s))
+            sync(dev)
+            walls.append(1e3 * (time.perf_counter() - t0))
+        reduces = []
+        for _ in range(DP_ALL_REDUCES):
+            sync(dev)
+            t0 = time.perf_counter()
+            dp.all_reduce_grads(model)
+            sync(dev)
+            reduces.append(1e3 * (time.perf_counter() - t0))
+        res.update(step_wall_ms=walls, all_reduce_ms=reduces,
+                   points=int(batch["offsets"][-1]),
+                   grad_floats=sum(p.numel() for p in model.parameters()))
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dp_driver_rank(rank, world, port, yaml_cfg, out, dev):
+    """Phase 16 (c), rank ``rank`` of ``world`` on ``dev`` over gloo:
+    `train.driver.run_rank` (rank 0's lines logged with ``[dp]``), its
+    kernel launches and the host wall of each gradient all-reduce
+    (`parallel.dp.all_reduce_grads` between synchronizations). Writes
+    ``<out>/rank<rank>.pt``."""
+    sys.path.insert(0, REPO)
+    from stratified_transformer_torch.parallel import dp
+    from stratified_transformer_torch.train import driver
+    kernel_mods = attention_kernel_modules()
+    reduces = []
+    all_reduce_grads = dp.all_reduce_grads
+
+    def timed(model):
+        sync(dev)
+        t0 = time.perf_counter()
+        all_reduce_grads(model)
+        sync(dev)
+        reduces.append(1e3 * (time.perf_counter() - t0))
+
+    dp.all_reduce_grads = timed
+    for m_ in kernel_mods.values():
+        m_.KERNEL.launches = 0
+    model, summary = driver.run_rank(
+        rank, world, yaml_cfg, dev, port,
+        log=lambda msg: log(f"[dp] (c) rank 0: {msg[:300]}"),
+        backend="gloo", timeout_s=DP_TIMEOUT_S)
+    res = {"summary": summary, "all_reduce_ms": reduces, "launches": {
+        k: m_.KERNEL.launches for k, m_ in kernel_mods.items()}}
+    if rank == 0:
+        res["model"] = {k: v.cpu() for k, v in model.state_dict().items()}
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def dp_phase(dev):
+    """Phase 16: data-parallel training (`parallel/`, SyncBN, the per-rank
+    loader, `train/driver.py`'s rank function), fp32 kernels (`PIN_NOTE`):
+    (a) `dp_world_one`; (b) `dp_steps_rank` on two ranks: with identical
+    batches each rank's parameters within RTOL / ATOL of the one-device
+    step on that batch (ZERO_GRAD_BIASES within 2.02 lr), with distinct
+    batches the ranks' parameters, SyncBN statistics and AdamW moments
+    bit-identical, one launch of each attention kernel per block on every
+    rank, the gradients against the plain versions' on every rank; the DP
+    step's wall per rank and the gradient all-reduce's share of it; (c)
+    `dp_driver_rank` on two ranks: the ranks in one state at the end, the
+    launches per rank (12 of each kernel per step; rank 0 alone
+    validates), rank 0's checkpoint restored into a one-device model and
+    optimizer bit for bit, the step walls and the all-reduce's share. Two
+    ranks over gloo on one card: no forecast of NCCL across cards."""
+    import tempfile
+
+    from stratified_transformer_torch.config import from_cfg
+    from stratified_transformer_torch.data.loader import to_device
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.parallel import mesh
+    from stratified_transformer_torch.train import checkpoint, driver
+    from stratified_transformer_torch.train.step import make_train_step
+    t_phase = time.time()
+    log(f"[dp] phase 16: {PIN_NOTE}")
+    out = {"a": dp_world_one(dev)}
+    if dev.type == "cuda":
+        out["nccl_two_ranks_one_card"] = nccl_pair(dev)
+        log(f"[dp] NCCL, two ranks on {dev}: "
+            f"{out['nccl_two_ranks_one_card']} (so (b) and (c) join over "
+            "gloo)")
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- (b) -----------------------------------------------------------
+        job = dp_job(tmp, dev)
+        cfg, yaml_cfg = job["cfg"], job["yaml_cfg"]
+        blocks = attention_blocks(cfg)
+        one = build_model(dataclasses.replace(cfg, bn_axis_name=None), dev,
+                          seed=0, train=True)
+        one.load_state_dict(job["init"])
+        opt = driver.build_optimizer(one, yaml_cfg, job["iters"])
+        make_train_step(int(yaml_cfg["ignore_label"]), cfg.num_classes)(
+            one, opt, to_device(job["batches"][0], dev),
+            driver.drop_path_generator(dev, yaml_cfg["manual_seed"], 0))
+        want = {n: p.detach().cpu() for n, p in one.named_parameters()}
+        zero_grads = max(float(one.get_parameter(n).grad.abs().max())
+                         for n in ZERO_GRAD_BIASES)
+        if not zero_grads < ZERO_GRAD_MAX:
+            raise AssertionError(
+                f"(b) the biases {ZERO_GRAD_BIASES} have gradients up to "
+                f"{zero_grads:.2e}, not below {ZERO_GRAD_MAX}: they are not "
+                "the zero-gradient parameters that 2.02 lr admits")
+        del one, opt
+        release(dev)
+        job_path = os.path.join(tmp, "job.pt")
+        torch.save(job, job_path)
+        t0 = time.perf_counter()
+        mesh.spawn(dp_steps_rank, DP_WORLD, args=(
+            DP_WORLD, mesh.free_port(), job_path, tmp, dev),
+            timeout_s=2 * DP_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_WORLD)]
+        lr = float(yaml_cfg["base_lr"])
+        for r, res in enumerate(ranks):
+            for name, w in want.items():
+                got = res["identical"][name]
+                if name in ZERO_GRAD_BIASES:
+                    assert_close(f"(b) rank {r} {name}", got, w, 0.0,
+                                 2.02 * lr)
+                else:
+                    assert_close(f"(b) rank {r} {name}", got, w, RTOL, ATOL)
+            if res["launches"] != {k: blocks for k in res["launches"]}:
+                raise AssertionError(f"(b) rank {r}: kernel launches "
+                                     f"{res['launches']} in one DP step, "
+                                     f"expected {blocks} each")
+        for r in range(1, DP_WORLD):
+            assert_same_tensors(f"(b) rank {r} against rank 0",
+                                ranks[r]["state"], ranks[0]["state"])
+        step_ms = [float(np.median(res["step_wall_ms"])) for res in ranks]
+        reduce_ms = [float(np.median(res["all_reduce_ms"])) for res in ranks]
+        out["b"] = {
+            "n_pad": cfg.n_pad, "num_scenes": cfg.num_scenes,
+            "points": [res["points"] for res in ranks],
+            "psum_points": float(ranks[0]["packed"][3]),
+            "launches": [res["launches"] for res in ranks],
+            "grad_worst_rel_l2": [res["grad_worst"][0] for res in ranks],
+            "grad_worst": [res["grad_worst"][1] for res in ranks],
+            "zero_grad_biases_max_grad": zero_grads,
+            "step_wall_ms": [res["step_wall_ms"] for res in ranks],
+            "step_wall_ms_median": step_ms,
+            "all_reduce_ms": [res["all_reduce_ms"] for res in ranks],
+            "all_reduce_ms_median": reduce_ms,
+            "all_reduce_share": [a / s for a, s in zip(reduce_ms, step_ms)],
+            "grad_floats": ranks[0]["grad_floats"], "spawn_s": spawn_s}
+        log(f"[dp] (b) {DP_WORLD} ranks on {dev} over gloo, n_pad "
+            f"{cfg.n_pad} in {cfg.num_scenes} slots each ({out['b']['points']}"
+            f" valid points; psum'd {out['b']['psum_points']:.0f}): identical "
+            f"batches give the one-device step's parameters (rtol {RTOL} / "
+            f"atol {ATOL}; the 5 zero-gradient biases, |grad| <= "
+            f"{zero_grads:.1e}, within 2.02 lr); distinct batches leave the "
+            "ranks' parameters, SyncBN statistics and AdamW moments "
+            f"bit-identical; {blocks} launches of each attention kernel per "
+            "rank; step-1 grads within "
+            f"{GRAD_REL_L2} relative L2 of the plain versions' (largest "
+            + ", ".join(f"{e:.2e}" for e in out['b']['grad_worst_rel_l2'])
+            + ")")
+        log(f"[dp] (b) DP step wall per rank (median of {DP_TIMED_STEPS}, "
+            "synchronized): " + ", ".join(f"{s:.1f}" for s in step_ms)
+            + f" ms; gradient all-reduce of {out['b']['grad_floats']} floats: "
+            + ", ".join(f"{a:.1f}" for a in reduce_ms) + " ms, share "
+            + ", ".join(f"{a / s:.1%}" for a, s in zip(reduce_ms, step_ms))
+            + " (two ranks over gloo on one card)")
+        iters = job["iters"]
+        del job, ranks
+        release(dev)
+
+        # ---- (c) -----------------------------------------------------------
+        t0 = time.perf_counter()
+        mesh.spawn(dp_driver_rank, DP_WORLD, args=(
+            DP_WORLD, mesh.free_port(), yaml_cfg, tmp, dev),
+            timeout_s=2 * DP_TIMEOUT_S)
+        loop_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_WORLD)]
+        summaries = [res["summary"] for res in ranks]
+        digests = {s["state_sha256"] for s in summaries}
+        if len(digests) != 1:
+            raise AssertionError(f"(c) the ranks ended in different states: "
+                                 f"{digests}")
+        steps, vals = summaries[0]["steps"], summaries[0]["val_forwards"]
+        if not (steps and vals):
+            raise AssertionError(f"(c) {steps} steps, {vals} validation "
+                                 "forwards")
+        for r, res in enumerate(ranks):
+            want_l = {k: blocks * steps + (blocks * vals if r == 0
+                                           and k in FWD_KERNELS else 0)
+                      for k in res["launches"]}
+            if res["launches"] != want_l:
+                raise AssertionError(f"(c) rank {r}: launches "
+                                     f"{res['launches']}, expected {want_l}")
+        fresh = build_model(dataclasses.replace(cfg, bn_axis_name=None),
+                            dev, seed=1, train=True)
+        opt = driver.build_optimizer(fresh, yaml_cfg, iters)
+        _, epoch, _ = checkpoint.restore(os.path.join(tmp, "run", "ckpt"),
+                                         fresh, opt)
+        assert_same_tensors("(c) rank 0's checkpoint restored", {
+            k: v.cpu() for k, v in fresh.state_dict().items()},
+            ranks[0]["model"])
+        if not (epoch == 1 and all(g["t"] == steps
+                                   for g in opt.param_groups)):
+            raise AssertionError(f"(c) restored epoch {epoch}, step "
+                                 f"{[g['t'] for g in opt.param_groups]}")
+        walls = [[1e3 * it["wall_s"] for it in s["iters"]]
+                 for s in summaries]
+        reduces = [res["all_reduce_ms"] for res in ranks]
+        out["c"] = {
+            "steps": steps, "val_forwards": vals, "loop_s": loop_s,
+            "launches": [res["launches"] for res in ranks],
+            "step_wall_ms": walls, "all_reduce_ms": reduces,
+            "all_reduce_share": [sum(a) / sum(w) for a, w in zip(reduces,
+                                                                 walls)],
+            "losses": [it["loss"] for it in summaries[0]["iters"]],
+            "points": [it["points"] for it in summaries[0]["iters"]],
+            "timing": summaries[0]["timing"],
+            "records": summaries[0]["records"]}
+        log(f"[dp] (c) the training driver's rank function on {DP_WORLD} "
+            f"ranks (gloo, {dev}): {steps} steps and {vals} validation "
+            f"forwards in {loop_s:.1f} s; the ranks end in one state; launches"
+            f" {out['c']['launches']}; rank 0's checkpoint restores into a "
+            "one-device model and optimizer bit for bit; step walls "
+            + "; ".join("rank " + str(r) + " " + ", ".join(
+                f"{w:.0f}" for w in ws) + " ms" for r, ws in enumerate(walls))
+            + "; all-reduce share "
+            + ", ".join(f"{s:.1%}" for s in out["c"]["all_reduce_share"])
+            + " (two ranks over gloo on one card)")
+        del fresh, opt
+    out["seconds"] = time.time() - t_phase
+    log(f"[dp] phase 16 in {out['seconds']:.0f} s")
+    return out
+
+
 def phase_only(flag):
     """``--fwd-only`` / ``--bwd-only`` / ``--scene-only`` / ``--loop-only``
     / ``--scannet-only`` / ``--iou-only``: phase 1's build of the kernels
@@ -3380,8 +3887,9 @@ def phase_only(flag):
              for name, text in build.build_logs.items()
              for line in text.splitlines()
              if "registers" in line or "spill" in line]
-    if flag in ("--fast-only", "--swin-only"):
-        phase = fast_phase if flag == "--fast-only" else swin_phase
+    if flag in ("--fast-only", "--swin-only", "--dp-only"):
+        phase = {"--fast-only": fast_phase, "--swin-only": swin_phase,
+                 "--dp-only": dp_phase}[flag]
         out = {"card": card_line(), "repo": REPO, flag[2:-5]: phase(dev),
                "ptxas": ptxas}
         print(json.dumps(out))
@@ -3437,7 +3945,8 @@ PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS,
               "--dcf-only": FWD_KERNELS + BWD_KERNELS,
               "--iou-only": FWD_KERNELS,
               "--fast-only": FWD_KERNELS + BWD_KERNELS,
-              "--swin-only": ("band_attention", "band_attention_bwd")}
+              "--swin-only": ("band_attention", "band_attention_bwd"),
+              "--dp-only": FWD_KERNELS + BWD_KERNELS}
 
 
 def parse_args(argv):
@@ -3672,6 +4181,9 @@ def main(argv):
 
     # ---- 15. the Swin3D family --------------------------------------------
     swin = swin_phase(dev)
+
+    # ---- 16. data-parallel training ----------------------------------------
+    dp_out = dp_phase(dev)
     log(f"[run] total {time.time() - t_start:.0f} s")
 
     kernels = []
@@ -3710,6 +4222,10 @@ def main(argv):
         if name in PROBE_KERNELS:
             entry["probe_launches"] = probe_launches[name]
             entry["times_per"] = "one launch of the probe"
+        else:
+            entry.update(
+                dp_launches=[c[name] for c in dp_out["b"]["launches"]],
+                dp_loop_launches=[c[name] for c in dp_out["c"]["launches"]])
         kernels.append(entry)
     for name in FAST_KERNELS:
         r, sr = fast["report"][name], fast["scannet_report"][name]
@@ -3793,7 +4309,12 @@ def main(argv):
                           f"{EVAL_BATCHES} forwards and {TRAIN_STEPS} train "
                           "steps through the kernels; the fast forms' over "
                           "(f)'s forward and train step",
-        "swin": {k: v for k, v in swin.items() if k != "report"}}))
+        "swin": {k: v for k, v in swin.items() if k != "report"},
+        "dp_times_per": "phase 16: dp_launches per rank over (b)'s one DP "
+                        "step with distinct batches (two ranks over gloo on "
+                        "one card, n_pad 70016 each), dp_loop_launches per "
+                        "rank over (c)'s driver run (rank 0 validates)",
+        "dp": dp_out}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

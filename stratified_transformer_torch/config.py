@@ -89,6 +89,10 @@ class StratifiedConfig:
     rpe_precision: str = "highest"
     qk_precision: str = "highest"
     compute_dtype: Optional[str] = None
+    # SyncBN, named as the JAX package names its mesh axis: "data" sums
+    # every `MaskedBatchNorm`'s training statistics over the data-parallel
+    # ranks (the default process group); None keeps them per rank
+    bn_axis_name: Optional[str] = None
 
     # Accepted for config compatibility with the JAX package and ignored:
     # they size Mosaic programs and XLA maps, which the port does not have.
@@ -108,6 +112,7 @@ class StratifiedConfig:
                               ("rpe_precision", ("highest", "default")),
                               ("qk_precision", ("highest", "default")),
                               ("compute_dtype", (None, "bfloat16")),
+                              ("bn_axis_name", (None, "data")),
                               ("rpe_mode", ("stratified", "swin_window"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name} {getattr(self, name)!r}: expected "
@@ -165,12 +170,18 @@ class StratifiedConfig:
                 else self.band)
 
 
-def from_cfg(cfg: CfgNode) -> StratifiedConfig:
+def from_cfg(cfg: CfgNode, n_devices: int = 1) -> StratifiedConfig:
     """`StratifiedConfig` from a flattened YAML config (same keys and
-    defaults as ``train.py::build_model_config`` of the JAX package, on one
-    device). ``arch: swin3d_transformer`` selects the Swin3D family
+    defaults as ``train.py::build_model_config`` of the JAX package).
+    ``arch: swin3d_transformer`` selects the Swin3D family
     (``use_stratified`` False, ``rpe_mode`` "swin_window"); explicit keys
     still win (``train.py:49-83``).
+
+    ``n_devices`` D (data-parallel ranks) gives each rank's share of a
+    batch (``train.py:32-41``): ``max_batch_points // D`` points rounded up
+    to a tile and ``batch_size // D`` scenes (at least one tile and one
+    scene), and SyncBN when D > 1 and ``sync_bn`` (default True,
+    ``train.py:84-85``). D = 1 is the one-device configuration.
 
     ``attn_impl`` under ``rpe_mode: swin_window``: the JAX package has one
     implementation of that mode (``models/attention.py:100-109`` runs its
@@ -193,7 +204,8 @@ def from_cfg(cfg: CfgNode) -> StratifiedConfig:
         attn_impl = "fused"
     tile = int(cfg.get("tile", 128))
     n_pad = int(cfg.get("max_batch_points", 140000))
-    n_pad = max((n_pad + tile - 1) // tile * tile, tile)
+    d = max(int(n_devices), 1)
+    n_pad = max((n_pad // d + tile - 1) // tile * tile, tile)
     fea_dim = int(cfg.get("fea_dim", 6))
     concat_xyz = bool(cfg.get("concat_xyz", True))
     return StratifiedConfig(
@@ -223,7 +235,7 @@ def from_cfg(cfg: CfgNode) -> StratifiedConfig:
         with_regressor=bool(cfg.get("with_regressor", False)),
         activation=str(cfg.get("activation", "Relu")),
         n_pad=n_pad,
-        num_scenes=max(int(cfg.get("batch_size", 8)), 1),
+        num_scenes=max(int(cfg.get("batch_size", 8)) // d, 1),
         band=int(cfg.get("band", 128)),
         band_per_stage=(tuple(int(x) for x in cfg.get("band_per_stage"))
                         if cfg.get("band_per_stage") else None),
@@ -242,6 +254,8 @@ def from_cfg(cfg: CfgNode) -> StratifiedConfig:
         rpe_precision=str(cfg.get("rpe_precision", "highest")),
         qk_precision=str(cfg.get("qk_precision", "highest")),
         compute_dtype=cfg.get("compute_dtype"),
+        bn_axis_name="data" if d > 1 and bool(cfg.get("sync_bn", True))
+        else None,
         fused_stages=int(cfg.get("fused_stages", 3)),
         head_group=int(cfg.get("head_group", 6)),
         tile_batch=int(cfg.get("tile_batch", 16)),

@@ -91,37 +91,55 @@ class BatchLoader:
     (``train.py:164-302``), in an order shuffled by ``seed`` (the same
     order every epoch) or in dataset order.
 
+    Data parallel (``rank`` of ``world`` ranks, ``cfg`` the per-rank
+    configuration of ``config.from_cfg(..., world)``): a batch is
+    ``cfg.num_scenes * world`` scenes of the order, every rank iterates the
+    same ``len(dataset) // (num_scenes * world)`` batches, and rank r builds
+    the r-th ``num_scenes`` of each, as the JAX loader's device r
+    (``train.py:164-200``). With ``world`` 1 this is the one-device loader.
+
     ``yaml_cfg`` keys: ``prefetch`` (default true) builds the batches ahead
     in ``prefetch_workers`` threads (default 2), worker ``w`` building
     batches ``w, w + W, ...`` into its own queue of 2 and the consumer
     reading the queues in turn, so the order equals the synchronous
     loader's; ``mix3d`` merges consecutive scene pairs of a training batch
-    with that probability, drawn once per batch from ``seed + 101`` (one
-    worker then, so the draws keep their order); ``host_pyramid`` (default
-    true) ships the geometry pyramid with a ``grid``-sampler batch, else the
-    model builds it on the device; ``ignore_label``. ``compress_payload``
-    is accepted and ignored: integer arrays travel as int64.
+    with that probability, drawn once per rank's share of a batch (``world``
+    draws per batch, in rank order, the r-th deciding rank r's) from
+    ``seed + 101`` (one worker then, so the draws keep their order);
+    ``host_pyramid`` (default true) ships the geometry pyramid with a
+    ``grid``-sampler batch, else the model builds it on the device;
+    ``ignore_label``. ``compress_payload`` is accepted and ignored: integer
+    arrays travel as int64.
     """
 
-    def __init__(self, dataset, cfg, yaml_cfg, shuffle, seed=0):
+    def __init__(self, dataset, cfg, yaml_cfg, shuffle, seed=0, rank=0,
+                 world=1):
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of {world} ranks")
         self.dataset = dataset
         self.cfg = cfg
         self.yaml_cfg = yaml_cfg
         self.shuffle = shuffle
         self.seed = seed
-        self.scenes_per_batch = cfg.num_scenes
+        self.rank, self.world = rank, world
+        self.scenes_per_batch = cfg.num_scenes * world
         self.batches_per_epoch = max(len(dataset) // self.scenes_per_batch, 1)
         self.mix3d_p = float(yaml_cfg.get("mix3d", 0.0)) if shuffle else 0.0
         self._mix_rng = np.random.default_rng(seed + 101)
 
     def make_batch(self, scene_ids):
-        """The host batch of the scenes ``scene_ids``: ``feats/xyz/offsets/
-        labels``, ``stem_nidx/stem_nmask`` and, for the grid sampler with
-        ``host_pyramid``, the ``pyramid``."""
+        """This rank's host batch of the batch of scenes ``scene_ids``
+        (``scenes_per_batch`` of them; the rank's ``num_scenes``-slice):
+        ``feats/xyz/offsets/labels``, ``stem_nidx/stem_nmask`` and, for the
+        grid sampler with ``host_pyramid``, the ``pyramid``."""
         cfg = self.cfg
-        scenes = [self.dataset[i] for i in scene_ids]
-        if self.mix3d_p > 0 and self._mix_rng.random() <= self.mix3d_p:
-            scenes = mix3d_pairs(scenes)
+        spd = cfg.num_scenes
+        ids = scene_ids[self.rank * spd:(self.rank + 1) * spd]
+        scenes = [self.dataset[i] for i in ids]
+        if self.mix3d_p > 0:
+            draws = self._mix_rng.random(self.world)
+            if draws[self.rank] <= self.mix3d_p:
+                scenes = mix3d_pairs(scenes)
         if cfg.concat_xyz:
             scenes = [with_xyz_concat(s) for s in scenes]
         b = collate_scenes(scenes, cfg.n_pad, cfg.num_scenes,
@@ -129,6 +147,19 @@ class BatchLoader:
                                                               255)))
         return finish_batch(b, cfg, pyramid=bool(
             self.yaml_cfg.get("host_pyramid", True)) and cfg.sampler == "grid")
+
+    def init_batch(self):
+        """This rank's share of the batch the JAX driver initialises its
+        model from (``train.py:426``: the first ``scenes_per_batch`` items).
+        The JAX loader builds every device's share, which visits each of
+        those items once; this rank reads the other ranks' items too, so
+        that the datasets' per-item visit counters (the augmentation draws
+        of the items it reads later) stay equal to the JAX loader's."""
+        ids = list(range(self.scenes_per_batch))
+        spd = self.cfg.num_scenes
+        for i in ids[:self.rank * spd] + ids[(self.rank + 1) * spd:]:
+            self.dataset[i]
+        return self.make_batch(ids)
 
     def _ids(self, order, bi):
         return order[bi * self.scenes_per_batch:

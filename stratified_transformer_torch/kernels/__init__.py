@@ -17,6 +17,11 @@ import torch
 
 from stratified_transformer_torch.kernels import build
 
+# the sources of the four attention kernels, which the model runs (their
+# fp32, bf16 and swin forms)
+ATTENTION_SOURCES = ("band_attention", "sparse_band_attention",
+                     "band_attention_bwd", "sparse_band_attention_bwd")
+
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float

@@ -76,14 +76,14 @@ class KPConv(nn.Module):
 
 class KPConvSimpleBlock(nn.Module):
     """KPConv -> BN (momentum 0.02) -> LeakyReLU(0.2) (reference
-    :344-359)."""
+    :344-359); ``sync``: SyncBN (`MaskedBatchNorm`)."""
 
     def __init__(self, in_channels, out_channels, point_influence,
-                 negative_slope=0.2):
+                 negative_slope=0.2, sync=False):
         super().__init__()
         self.negative_slope = negative_slope
         self.kpconv = KPConv(in_channels, out_channels, point_influence)
-        self.bn = MaskedBatchNorm(out_channels, momentum=0.02)
+        self.bn = MaskedBatchNorm(out_channels, momentum=0.02, sync=sync)
 
     def forward(self, feats, xyz, neighbor_idx, neighbor_mask, valid):
         x = self.kpconv(feats, xyz, neighbor_idx, neighbor_mask)
@@ -95,21 +95,23 @@ class KPConvResBlock(nn.Module):
     ``models/kpconv.py:115-147``): ``unary1`` to ``out / 4`` channels -> BN
     -> LeakyReLU -> KPConv -> ``unary2`` -> BN -> LeakyReLU, plus the input,
     or its ``shortcut`` projection and BN where the channels differ. The
-    unaries are bias-free; every BN has momentum 0.02."""
+    unaries are bias-free; every BN has momentum 0.02 (SyncBN with
+    ``sync``)."""
 
     def __init__(self, in_channels, out_channels, point_influence,
-                 negative_slope=0.2):
+                 negative_slope=0.2, sync=False):
         super().__init__()
         d2 = out_channels // 4
         self.negative_slope = negative_slope
         self.unary1 = nn.Linear(in_channels, d2, bias=False)
-        self.bn1 = MaskedBatchNorm(d2, momentum=0.02)
+        self.bn1 = MaskedBatchNorm(d2, momentum=0.02, sync=sync)
         self.kpconv = KPConv(d2, d2, point_influence)
         self.unary2 = nn.Linear(d2, out_channels, bias=False)
-        self.bn2 = MaskedBatchNorm(out_channels, momentum=0.02)
+        self.bn2 = MaskedBatchNorm(out_channels, momentum=0.02, sync=sync)
         if in_channels != out_channels:
             self.shortcut = nn.Linear(in_channels, out_channels, bias=False)
-            self.bn_sc = MaskedBatchNorm(out_channels, momentum=0.02)
+            self.bn_sc = MaskedBatchNorm(out_channels, momentum=0.02,
+                                         sync=sync)
 
     def forward(self, feats, xyz, neighbor_idx, neighbor_mask, valid):
         def act(t):

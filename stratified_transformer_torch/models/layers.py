@@ -9,6 +9,7 @@ reference sub-modules at ``model/stratified_transformer.py``: ``Mlp``
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
@@ -33,18 +34,45 @@ def layer_norm(dim):
     return nn.LayerNorm(dim, eps=1e-5)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """``lax.psum`` as autograd sees it under ``shard_map``: the sum over
+    the ranks of the default process group forward, and the sum of the
+    ranks' cotangents backward (the transpose of a sum that every rank
+    reads)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = x.clone()
+        dist.all_reduce(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad)
+        return grad
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over valid points with running statistics (``layers.py:
     45-88``): ``(x - mean) * rsqrt(var + eps) * weight + bias``. Training
     mode normalises with the valid points' batch statistics and updates the
     buffers in place, torch style: ``(1 - momentum) * running + momentum *
     batch``, the variance unbiased (``var * cnt / (cnt - 1)``). Buffers
-    ``mean``/``var`` hold the flax ``batch_stats``."""
+    ``mean``/``var`` hold the flax ``batch_stats``.
 
-    def __init__(self, dim, epsilon=1e-5, momentum=0.1):
+    ``sync`` (SyncBN, the JAX package's ``axis_name``): in training mode
+    the sums ``(s1, s2, cnt)`` are summed over the ranks of the default
+    process group before the mean and variance, in one differentiable
+    all-reduce (`_AllReduceSum`), so every rank normalises with the global
+    statistics and updates its buffers alike. Eval mode issues no
+    collective."""
+
+    def __init__(self, dim, epsilon=1e-5, momentum=0.1, sync=False):
         super().__init__()
         self.epsilon = epsilon
         self.momentum = momentum
+        self.sync = sync
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("mean", torch.zeros(dim))
@@ -54,9 +82,15 @@ class MaskedBatchNorm(nn.Module):
         xf = x.to(torch.float32)
         if self.training:
             w = valid.to(torch.float32)[:, None]
-            count = w.sum().clamp_min(1.0)
-            mean = (xf * w).sum(0) / count
-            var = ((xf * xf * w).sum(0) / count - mean * mean).clamp_min(0.0)
+            s1, s2, cnt = (xf * w).sum(0), (xf * xf * w).sum(0), w.sum()
+            if self.sync:
+                c = s1.shape[0]
+                packed = _AllReduceSum.apply(
+                    torch.cat([s1, s2, cnt.reshape(1)]))
+                s1, s2, cnt = packed[:c], packed[c:2 * c], packed[2 * c]
+            count = cnt.clamp_min(1.0)
+            mean = s1 / count
+            var = (s2 / count - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 unbiased = var * count / (count - 1.0).clamp_min(1.0)

@@ -233,11 +233,12 @@ class Stratified(nn.Module):
         super().__init__()
         self.cfg = cfg
         c = cfg.channels
+        sync = cfg.bn_axis_name is not None
         self.stem_0 = KPConvSimpleBlock(cfg.in_channels, c[0],
-                                        cfg.grid_size * cfg.sigma)
+                                        cfg.grid_size * cfg.sigma, sync=sync)
         if not cfg.stem_transformer:
             self.stem_1 = KPConvResBlock(c[0], c[0],
-                                         cfg.grid_size * cfg.sigma)
+                                         cfg.grid_size * cfg.sigma, sync=sync)
         for i in range(cfg.num_layers):
             if i >= cfg.layer_start:
                 self.add_module(f"layer_{i}", BasicLayer(cfg, i))
@@ -248,11 +249,11 @@ class Stratified(nn.Module):
             fine = cfg.num_layers - 2 - j
             self.add_module(f"up_{j}", Upsample(c[fine + 1], c[fine]))
         self.cls_fc1 = nn.Linear(c[0], c[0])
-        self.cls_bn = MaskedBatchNorm(c[0])
+        self.cls_bn = MaskedBatchNorm(c[0], sync=sync)
         self.cls_fc2 = nn.Linear(c[0], cfg.num_classes)
         if cfg.with_regressor:
             self.reg_fc1 = nn.Linear(c[0], c[0])
-            self.reg_bn = MaskedBatchNorm(c[0])
+            self.reg_bn = MaskedBatchNorm(c[0], sync=sync)
             self.reg_fc2 = nn.Linear(c[0], 3)
 
     def forward(self, feats, xyz, offsets, *, stem_nidx=None,

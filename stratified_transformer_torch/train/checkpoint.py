@@ -7,7 +7,9 @@ count), the step, the epoch and the best IoU (always 0.0: the JAX driver
 saves the default). Schedules are pure functions of the step, so no
 scheduler state is kept. The training loop writes one file per epoch,
 ``<save_path>/ckpt/<epoch>.pt``, and keeps the newest ``max_to_keep`` (5,
-orbax's setting in the JAX package).
+orbax's setting in the JAX package). A data-parallel run writes the same
+file from rank 0, so a checkpoint resumes on one device or on any number
+of ranks.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import os
 import re
 
 import torch
+
+from stratified_transformer_torch.parallel import mesh
 
 _EPOCH_FILE = re.compile(r"^(\d+)\.pt$")
 
@@ -40,13 +44,18 @@ def epochs(directory):
 def save(directory, model, optimizer, step, epoch, best_iou=0.0,
          max_to_keep=5):
     """Writes ``<directory>/<epoch>.pt`` and removes all but the newest
-    ``max_to_keep`` epochs; returns the path written."""
+    ``max_to_keep`` epochs; returns the path written. Under data
+    parallelism every rank calls it: rank 0 writes (the ranks hold the same
+    state, so the file is the one a single device writes), then all wait
+    for it at a barrier."""
     path = os.path.join(directory, f"{int(epoch)}.pt")
-    write(path, {"model": model.state_dict(),
-                 "optimizer": optimizer.state_dict(), "step": int(step),
-                 "epoch": int(epoch), "best_iou": float(best_iou)})
-    for old in epochs(directory)[:-max_to_keep]:
-        os.remove(os.path.join(directory, f"{old}.pt"))
+    if mesh.rank() == 0:
+        write(path, {"model": model.state_dict(),
+                     "optimizer": optimizer.state_dict(), "step": int(step),
+                     "epoch": int(epoch), "best_iou": float(best_iou)})
+        for old in epochs(directory)[:-max_to_keep]:
+            os.remove(os.path.join(directory, f"{old}.pt"))
+    mesh.barrier()
     return path
 
 

@@ -10,13 +10,16 @@ from stratified_transformer_torch.train import losses, metrics
 from stratified_transformer_torch.train.state import optimizer_step
 
 
-def make_train_step(ignore_label, num_classes, offset_weight=1.0):
+def make_train_step(ignore_label, num_classes, offset_weight=1.0,
+                    reduce_grads=None):
     """Returns ``train_step(model, optimizer, batch, generator) -> stats``:
     forward in training mode (batch statistics, drop-path masks from
     ``generator``), masked CE plus, when the model returns a shift and the
     batch carries ``target_shift``, ``offset_weight`` times the L1 offset
-    loss (``train/step.py:52-55``), backward through the attention kernels, one
-    scheduled optimizer update (`train.state.optimizer_step`), IoU counters.
+    loss (``train/step.py:52-55``), backward through the attention kernels,
+    ``reduce_grads(model)`` where given (the data-parallel gradient
+    average, `parallel.dp.all_reduce_grads`), one scheduled optimizer
+    update (`train.state.optimizer_step`), IoU counters.
     The stats keys are the JAX step's (``train/step.py:68-72``); they are
     device tensors, and the step reads none of them on the host, so the
     caller can prepare the next batch while the device runs this one.
@@ -42,6 +45,8 @@ def make_train_step(ignore_label, num_classes, offset_weight=1.0):
             loss = loss + offset_weight * loss_off
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if reduce_grads is not None:
+            reduce_grads(model)
         optimizer_step(optimizer)
         with torch.no_grad():
             pred = logits.argmax(-1)

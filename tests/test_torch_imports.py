@@ -68,3 +68,9 @@ def test_the_training_loop_modules_are_checked():
             "stratified_transformer_torch/data/loader.py",
             "stratified_transformer_torch/train/driver.py"} <= set(FILES)
     assert "tools/orbax_to_torch.py" not in FILES
+
+
+def test_the_parallel_modules_are_checked():
+    assert {"stratified_transformer_torch/parallel/__init__.py",
+            "stratified_transformer_torch/parallel/mesh.py",
+            "stratified_transformer_torch/parallel/dp.py"} <= set(FILES)

@@ -300,21 +300,36 @@ def test_resumed_epoch_is_bit_identical(tmp_path):
 
 
 def test_loop_refuses_more_than_one_device(tmp_path):
-    with pytest.raises(ValueError, match="queue 1 item 6"):
-        driver.run(loop_cfg(tmp_path, "n_devices", "2"), "cpu")
+    """``n_devices 2``, which the one-device loop refused until data
+    parallelism (ROADMAP queue 1 item 6a) was ported, now trains on two CPU
+    ranks: each takes half of every batch, the ranks end in one state, and
+    rank 0 alone writes the records and the checkpoint."""
+    model, summary = driver.run(
+        loop_cfg(tmp_path, "n_devices", "2", "epochs", "1"), "cpu",
+        log=lambda _: None, timeout_s=60, join_timeout_s=180)
+    assert summary["steps"] == 2 and summary["step"] == 2
+    assert len(summary["state_sha256"]) == 2
+    assert len(set(summary["state_sha256"])) == 1
+    assert len(open(tmp_path / "metrics.jsonl").read().splitlines()) == 1
+    saved = torch.load(tmp_path / "ckpt" / "1.pt", weights_only=True)
+    for name, t in model.state_dict().items():
+        assert torch.equal(saved["model"][name], t), name
 
 
 def test_loop_takes_all_visible_devices_as_one(monkeypatch):
-    """``n_devices`` 0 (the YAML's "all visible") trains on one device
-    however many cards are visible; only an explicit count above 1
-    raises."""
+    """``n_devices`` 0 (the YAML's "all visible") is every visible card,
+    and a count above them is clamped to them (``train.py:403-404``); on
+    the CPU it is that many ranks, 0 being one. (The one-device loop took
+    every count as one device and refused counts above 1.)"""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     shipped = load_cfg(CONFIG)
     assert shipped["n_devices"] == 0
-    assert driver.single_device(shipped) == 1
-    assert driver.single_device(dict(shipped, n_devices=1)) == 1
-    with pytest.raises(ValueError, match="queue 1 item 6"):
-        driver.single_device(dict(shipped, n_devices=4))
+    assert driver.resolve_n_devices(shipped, "cuda") == 4
+    for asked, ranks in ((1, 1), (2, 2), (4, 4), (8, 4)):
+        assert driver.resolve_n_devices(dict(shipped, n_devices=asked),
+                                        "cuda") == ranks
+    assert driver.resolve_n_devices(shipped, "cpu") == 1
+    assert driver.resolve_n_devices(dict(shipped, n_devices=3), "cpu") == 3
 
 
 def test_resume_from_a_missing_path_raises(tmp_path):

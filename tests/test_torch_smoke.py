@@ -229,18 +229,20 @@ def test_chip_smoke_refuses_unknown_arguments_or_a_missing_card(capsys):
     (["--dcf-only"], "--dcf-only"),
     (["--fast-only"], "--fast-only"),
     (["--swin-only"], "--swin-only"),
+    (["--dp-only"], "--dp-only"),
 ])
 def test_parse_args_picks_the_phase_run_alone(argv, want):
     assert chip_smoke.parse_args(argv) == want
     if want is not None:
         # the kernels it builds: the forward pair for phases 4 and 10 and
-        # the IoU timing, all four attention kernels for phases 11-14, the
-        # two band kernels for phase 15 (Swin3D has no far keys)
+        # the IoU timing, all four attention kernels for phases 11-14 and
+        # 16, the two band kernels for phase 15 (Swin3D has no far keys)
         both = chip_smoke.FWD_KERNELS + chip_smoke.BWD_KERNELS
         assert chip_smoke.PHASE_ONLY[want] == {
             "--bwd-only": chip_smoke.BWD_KERNELS, "--loop-only": both,
             "--scannet-only": both, "--dcf-only": both, "--fast-only": both,
             "--swin-only": ("band_attention", "band_attention_bwd"),
+            "--dp-only": both,
         }.get(want, chip_smoke.FWD_KERNELS)
 
 
@@ -271,7 +273,7 @@ def test_parse_args_refuses_anything_else(argv):
 @pytest.mark.parametrize("flag", ["--fwd-only", "--bwd-only",
                                   "--scene-only", "--loop-only",
                                   "--iou-only", "--scannet-only",
-                                  "--dcf-only", "--swin-only"])
+                                  "--dcf-only", "--swin-only", "--dp-only"])
 def test_phase_only_runs_need_a_card(flag, capsys):
     if torch.cuda.is_available():
         pytest.skip("checks the run without a card")
