@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's evaluation forward, training step, whole-scene
-evaluation and training loop, for the S3DIS, ScanNet, DCF and Swin3D
-families, the DCF family's box-mAP and layout-removal drivers, its two
-probes, and the shipped YAMLs' bf16 fast mode, on an NVIDIA GPU.
+evaluation (sharded too) and training loop, for the S3DIS, ScanNet, DCF
+and Swin3D families, the DCF family's box-mAP and layout-removal drivers,
+its two probes, and the shipped YAMLs' bf16 fast mode, on an NVIDIA GPU.
 
 Run from the repository root with no arguments (needs one CUDA card):
 
@@ -18,6 +18,7 @@ runs phase 13 alone; ``--fast-only`` builds the four attention kernels
 (their sources hold the fp32 and the fast forms) and runs phase 14 alone;
 ``--swin-only`` builds the two band kernels and runs phase 15 alone;
 ``--dp-only`` builds the four attention kernels and runs phase 16 alone;
+``--halo-only`` builds the two forward kernels and runs phase 17 alone;
 ``--iou-only`` builds the two forward kernels and times the train and eval
 steps' IoU counters (`iou_phase`). Each prints its
 times as one JSON line (``--fwd-only`` also per stage and parity). Copied into another checkout (say a parent commit
@@ -173,7 +174,30 @@ Phases, each fatal on failure:
      driver's rank function on two ranks for one epoch of 2 steps with
      validation on rank 0, the ranks in one state, rank 0's checkpoint
      restored into a one-device model bit for bit, step walls and the
-     all-reduce's share.
+     all-reduce's share;
+ 17. sharded whole-scene inference (``parallel/halo.py``,
+     ``evaluate_scene_sharded``, the eval driver's ``sharded*`` keys),
+     fp32 kernels: (a) the first vote chunk of phase 10's room at full
+     width through host replication and both halo exchanges in a one-rank
+     NCCL group (every collective forced), against the whole-chunk
+     forward at one capacity; (b) the JAX test's corridor
+     (``tests/test_halo.py:79-115``, heads (1, 2)) on four gloo ranks on
+     the card: host replication, ``ppermute`` and ``allgather`` against
+     the whole-scene forward through the kernels, the sub-window controls,
+     no halo point dropped, every block forward against the plain
+     versions; (c) the eval driver with ``sharded: true`` on two gloo
+     ranks on phase 10's room (HALO_PASSES TTA passes), capacities at the
+     largest chunk and slab: nothing truncated, dropped or re-run, one
+     launch of each forward kernel per block and block forward, the
+     driver's lines; the first chunk against the whole-chunk forward with
+     each block's and the chunk's truncation audit; seconds, forwards per
+     rank, the collectives' ms per chunk, the host's share; the serial
+     sphere-crop protocol on the same passes and the two labelings'
+     agreement; (d) the YAML's own capacities on one pass: every chunk
+     whose halo overflows ``halo_cap`` re-run through host replication and
+     logged; (e) ``python -m stratified_transformer_torch.eval.driver
+     --config configs/s3dis_stratified.yaml sharded true`` as a user runs
+     it (the card, the YAML's fast mode) on one S3DIS-format room.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -3868,6 +3892,693 @@ def dp_phase(dev):
     return out
 
 
+# phase 17: sharded whole-scene inference (`parallel/halo.py`,
+# `eval/voting.py::evaluate_scene_sharded`, the eval driver's `sharded*`
+# keys), fp32 kernels. (b) runs the JAX test's corridor
+# (tests/test_halo.py:79-115: 10000 points in 32 m, the 2-stage model) on
+# HALO_WORLD gloo ranks on the one card, at heads (1, 2): the kernels' head
+# size is 16. (c) and (d) run phase 10's room through the eval driver on
+# HALO_DRIVER_WORLD gloo ranks (NCCL refuses two ranks on one device).
+HALO_WORLD = 4
+HALO_DRIVER_WORLD = 2
+HALO_TIMEOUT_S = 600
+# (a)-(c): max |dprob| of the sharded paths against the whole-scene (or
+# whole-chunk) forward, all through the kernels, where the halo covers the
+# receptive field: the block's valid rows reach the forward in the whole
+# forward's order, and only the pad (hence the level capacities and the
+# dense layers' row counts) differs. Stated before the first run: the
+# ceiling of 1e-5 (readings expected below 1e-6).
+HALO_EXACT = 1e-5
+# (b): the sub-window halo of the JAX test's control; its error must
+# exceed 100 x HALO_EXACT
+HALO_SUB = 0.05
+# (c): TTA passes of phase 10's seven run through the driver (and through
+# the serial sphere-crop protocol beside it). All seven took 141 s through
+# the driver and 81 s through the serial protocol on an H100 (222 s of
+# (c)); three keep the script's time in bounds
+HALO_PASSES = 3
+# (e): the points of the S3DIS-format room the entry point reads
+HALO_CLI_POINTS = 40000
+
+
+def corridor_scene(n_scene=10000, seed=123):
+    """``tests/test_halo.py::_real_model_setup``'s corridor: a 32 x 1.5 m
+    floor and two 32 x 0.3 m walls (``(coord, feat)``)."""
+    rng = np.random.default_rng(seed)
+    nf, nw = (3 * n_scene) // 4, n_scene // 8
+    f = rng.uniform(0, 1, (nf, 3)) * [32.0, 1.5, 0.02]
+    w1 = rng.uniform(0, 1, (nw, 3)) * [32.0, 0.02, 0.3]
+    w2 = rng.uniform(0, 1, (nw, 3)) * [32.0, 0.02, 0.3] + [0, 1.48, 0]
+    coord = np.concatenate([f, w1, w2]).astype(np.float32)
+    feat = rng.normal(size=(len(coord), 3)).astype(np.float32)
+    return coord, feat
+
+
+def corridor_config():
+    """The JAX test's corridor model (2 stages, grid 0.1, windows 0.25 /
+    0.5 m, ``down_quota`` cells) at heads (1, 2), fp32."""
+    from stratified_transformer_torch.config import StratifiedConfig
+    return StratifiedConfig(
+        num_classes=5, in_channels=6, n_pad=0, num_scenes=1, depths=(1, 1),
+        channels=(16, 32), num_heads=(1, 2), num_layers=2, grid_size=0.1,
+        window_size=2.5, patch_size=1, quant_size=0.025, downsample_scale=4,
+        band=128, tile=128, sparse_cap=64, sampler="grid",
+        down_quota="cells", neighbor_method="grid", stem_transformer=True,
+        drop_path_rate=0.0, **FP32)
+
+
+def round_tile(n, tile=128):
+    return (int(n) + tile - 1) // tile * tile
+
+
+def whole_probs(model, coord, feat, n_pad=None, concat_xyz=True):
+    """The whole-scene (or whole-chunk) forward through ``model`` anchored
+    at the origin, as `parallel.halo` anchors its blocks, at the flat
+    capacity ``n_pad`` (default: the points rounded up to a tile): numpy
+    probabilities of the valid rows. The samplers keep at most a level's
+    capacity (``int(n_pad * ratio) + 1`` rounded to a tile) of grid cells,
+    so a capacity that binds makes the result depend on ``n_pad``."""
+    from stratified_transformer_torch.parallel import halo
+    dev = next(model.parameters()).device
+    n = len(coord)
+    c = coord - coord.min(0)
+    f = np.concatenate([feat, c], 1) if concat_xyz else feat
+    n_pad = n_pad or round_tile(n)
+    feats = torch.zeros((n_pad, f.shape[1]), device=dev)
+    xyz = torch.zeros((n_pad, 3), device=dev)
+    feats[:n] = torch.from_numpy(np.asarray(f, np.float32)).to(dev)
+    xyz[:n] = torch.from_numpy(np.asarray(c, np.float32)).to(dev)
+    off = torch.tensor([n], device=dev)
+    return halo.block_predict(model)(feats, xyz, off)[:n].cpu().numpy()
+
+
+def checked_predict(model, ref_model, errors):
+    """`parallel.halo.block_predict` of ``model`` that holds each block's
+    logits against ``ref_model``'s (the plain versions) on the same block,
+    phase 5's LOGIT_RTOL / LOGIT_ATOL, and appends the worst error."""
+    dev = next(model.parameters()).device
+    anchor = torch.zeros(3, device=dev)
+
+    @torch.inference_mode()
+    def predict(feats, xyz, offsets):
+        logits = model(feats, xyz, offsets, anchor=anchor)[0]
+        want = ref_model(feats, xyz, offsets, anchor=anchor)[0]
+        n = int(offsets[-1])
+        assert_close(f"block of {n} points, kernels vs plain versions",
+                     logits[:n], want[:n], LOGIT_RTOL, LOGIT_ATOL)
+        errors.append(max_errors(logits[:n], want[:n])[0])
+        return torch.softmax(logits, -1)
+    return predict
+
+
+def halo_calls(paths, predict, coord, feat, ncls, dev):
+    """Run ``paths`` (``{key: (host | collective, keywords)}``) through
+    `parallel.halo`; returns ``{key: {"probs", "stats", "s"}}``."""
+    from stratified_transformer_torch.parallel import halo
+    out = {}
+    for key, (name, kw) in paths.items():
+        fn = (halo.sharded_scene_probs if name == "host"
+              else halo.sharded_scene_probs_collective)
+        stats = {}
+        sync(dev)
+        t0 = time.perf_counter()
+        probs = fn(predict, coord, feat, ncls, device=dev, stats=stats, **kw)
+        out[key] = {"probs": probs, "stats": stats,
+                    "s": time.perf_counter() - t0}
+    return out
+
+
+def halo_world_one(dev, model, ref_model, coord, feat):
+    """Phase 17 (a): one chunk (the first vote chunk of phase 10's room)
+    through host replication and both exchanges, every collective forced
+    in a one-rank NCCL group on ``dev`` (the gather of the core
+    probabilities, the band / slab gathers, the drop count's sum), against
+    the whole-chunk forward, all through the kernels and at one flat
+    capacity (the exchange's block): within HALO_EXACT of each other, 12 +
+    12 launches per forward."""
+    from stratified_transformer_torch.parallel import mesh
+    blocks = attention_blocks(model.cfg)
+    n = len(coord)
+    pad = round_tile(n)
+    b_pad = pad + 2 * 128
+    errors = []
+    predict = checked_predict(model, ref_model, errors)
+    mods = attention_kernel_modules()
+    for m_ in mods.values():
+        m_.KERNEL.launches = 0
+    want = whole_probs(model, coord, feat, b_pad)
+    coll = dict(core_pad=pad, halo_cap=128, halo=1.0)
+    paths = {"host": ("host", dict(n_pad=b_pad, halo=1.0)),
+             "ppermute": ("collective", dict(coll, mode="ppermute")),
+             "allgather": ("collective", dict(coll, mode="allgather"))}
+    mesh.init_group(0, 1, dev, mesh.free_port(), timeout_s=HALO_TIMEOUT_S)
+    try:
+        backend = torch.distributed.get_backend()
+        got = halo_calls(paths, predict, coord, feat, model.cfg.num_classes,
+                         dev)
+    finally:
+        torch.distributed.destroy_process_group()
+    launches = {k: m_.KERNEL.launches for k, m_ in mods.items()}
+    forwards = 1 + len(errors)
+    want_l = {k: blocks * forwards if k in FWD_KERNELS else 0
+              for k in launches}
+    if launches != want_l:
+        raise AssertionError(f"(a) launches {launches}, expected {want_l}")
+    err = {k: float(np.abs(v["probs"] - want).max()) for k, v in got.items()}
+    err["host_vs_collective"] = float(max(
+        np.abs(got["host"]["probs"] - got[m]["probs"]).max()
+        for m in ("ppermute", "allgather")))
+    log(f"[halo] (a) one rank ({backend}, {dev}), every collective forced, "
+        f"one {n}-point chunk at full width: max |dprob| against the "
+        "whole-chunk forward " + ", ".join(f"{k} {v:.2e}"
+                                           for k, v in err.items())
+        + f" (gate {HALO_EXACT}); blocks vs plain versions max abs "
+        f"{max(errors):.2e}; launches {launches}")
+    if max(err.values()) > HALO_EXACT:
+        raise AssertionError(f"(a) sharded paths against the whole chunk: "
+                             f"{err}")
+    return {"backend": backend, "points": n, "max_abs_dprob": err,
+            "launches": launches, "forwards": forwards,
+            "block_vs_plain_max_abs": max(errors)}
+
+
+def halo_corridor_rank(rank, world, port, job_path, out, dev):
+    """Phase 17 (b), rank ``rank`` of ``world`` on ``dev`` over gloo: the
+    job's paths on the corridor through `checked_predict` (every block
+    forward held against the plain versions); writes
+    ``<out>/rank<rank>.pt`` with the results, the kernel launches and the
+    block forwards."""
+    sys.path.insert(0, REPO)
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.parallel import mesh
+    mesh.init_group(rank, world, dev, port, backend="gloo",
+                    timeout_s=HALO_TIMEOUT_S)
+    try:
+        job = torch.load(job_path, weights_only=False)
+        cfg = job["cfg"]
+        model = build_model(cfg, dev)
+        ref = build_model(dataclasses.replace(cfg, attn_impl="reference"),
+                          dev)
+        model.load_state_dict(job["state"])
+        ref.load_state_dict(job["state"])
+        mods = attention_kernel_modules()
+        for m_ in mods.values():
+            m_.KERNEL.launches = 0
+        errors = []
+        res = halo_calls(job["paths"], checked_predict(model, ref, errors),
+                         job["coord"], job["feat"], cfg.num_classes, dev)
+        res["launches"] = {k: m_.KERNEL.launches for k, m_ in mods.items()}
+        res["forwards"] = len(errors)
+        res["block_vs_plain_max_abs"] = max(errors)
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def halo_corridor(dev, tmp):
+    """Phase 17 (b): the corridor on HALO_WORLD gloo ranks on the card:
+    host replication, ``ppermute`` and ``allgather`` (at the JAX test's
+    capacities) within HALO_EXACT of the whole-scene forward through the
+    kernels, with no halo point truncated or dropped; the sub-window halo
+    (HALO_SUB) beyond 100 x HALO_EXACT; every block forward against the
+    plain versions; the ranks' results identical."""
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.parallel import halo, mesh
+    cfg = corridor_config()
+    coord, feat = corridor_scene()
+    n = len(coord)
+    model = build_model(cfg, dev)
+    o1_weights(model, seed=0)
+    want = whole_probs(model, coord, feat)
+    hw = halo.receptive_halo(cfg)
+    core_pad = round_tile(n // 4 + 128)
+    halo_cap = round_tile(n // 8)
+    wide = max(float(np.diff(np.quantile(
+        coord[:, 0], np.linspace(0, 1, HALO_WORLD + 1)))[1:-1].min()) * 1.2,
+        hw)
+    coll = dict(core_pad=core_pad, halo_cap=halo_cap)
+    paths = {
+        "host": ("host", dict(n_pad=round_tile(n // 2), halo=hw)),
+        "host_sub": ("host", dict(n_pad=round_tile(n // 2), halo=HALO_SUB)),
+        "ppermute": ("collective", dict(coll, halo=hw)),
+        "ppermute_sub": ("collective", dict(coll, halo=HALO_SUB)),
+        "allgather": ("collective", dict(core_pad=core_pad,
+                                         halo_cap=round_tile(0.45 * n),
+                                         halo=wide))}
+    job_path = os.path.join(tmp, "corridor.pt")
+    torch.save({"cfg": cfg, "state": {k: v.cpu() for k, v in
+                                      model.state_dict().items()},
+                "coord": coord, "feat": feat, "paths": paths}, job_path)
+    del model
+    release(dev)
+    t0 = time.perf_counter()
+    mesh.spawn(halo_corridor_rank, HALO_WORLD, args=(
+        HALO_WORLD, mesh.free_port(), job_path, tmp, dev),
+        timeout_s=2 * HALO_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(HALO_WORLD)]
+    for r, res in enumerate(ranks[1:], 1):
+        for key in paths:
+            if not np.array_equal(res[key]["probs"], ranks[0][key]["probs"]):
+                raise AssertionError(f"(b) {key}: rank {r} differs from "
+                                     "rank 0")
+    blocks = attention_blocks(cfg)
+    for r, res in enumerate(ranks):
+        want_l = {k: blocks * res["forwards"] if k in FWD_KERNELS else 0
+                  for k in res["launches"]}
+        if res["launches"] != want_l:
+            raise AssertionError(f"(b) rank {r}: launches {res['launches']},"
+                                 f" expected {want_l}")
+    got = ranks[0]
+    err = {k: float(np.abs(got[k]["probs"] - want).max()) for k in paths}
+    exact = max(err[k] for k in ("host", "ppermute", "allgather"))
+    dropped = {"host": got["host"]["stats"]["truncated_halo_points"],
+               "ppermute": got["ppermute"]["stats"]["halo_cap_dropped"],
+               "allgather": got["allgather"]["stats"]["halo_cap_dropped"]}
+    modes = {k: [m for m in ("ppermute", "allgather")
+                 if got[k]["stats"].get(f"collective_{m}_scenes")]
+             for k in ("ppermute", "allgather")}
+    out = {"points": n, "halo": hw, "wide_halo": wide, "core_pad": core_pad,
+           "halo_cap": halo_cap, "max_abs_dprob": err, "dropped": dropped,
+           "modes": modes, "spawn_s": spawn_s,
+           "forwards": [res["forwards"] for res in ranks],
+           "launches": [res["launches"] for res in ranks],
+           "block_vs_plain_max_abs": max(res["block_vs_plain_max_abs"]
+                                         for res in ranks),
+           "seconds": {k: got[k]["s"] for k in paths}}
+    log(f"[halo] (b) corridor ({n} points, halo {hw:.2f} m) on {HALO_WORLD} "
+        f"gloo ranks on {dev}: max |dprob| against the whole-scene forward "
+        + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+        + f" (gate {HALO_EXACT}, controls beyond {100 * HALO_EXACT}); "
+        f"dropped {dropped}; modes {modes}; block forwards "
+        f"{out['forwards']}, vs plain versions max abs "
+        f"{out['block_vs_plain_max_abs']:.2e}; {spawn_s:.1f} s")
+    if exact > HALO_EXACT or any(dropped.values()):
+        raise AssertionError(f"(b) sharded paths against the whole scene: "
+                             f"{err}, dropped {dropped}")
+    if min(err["host_sub"], err["ppermute_sub"]) <= 100 * HALO_EXACT:
+        raise AssertionError(f"(b) the sub-window controls do not bite: "
+                             f"{err}")
+    if modes != {"ppermute": ["ppermute"], "allgather": ["allgather"]}:
+        raise AssertionError(f"(b) exchange modes {modes}")
+    return out
+
+
+def halo_driver_rank(rank, world, port, yaml_cfg, passes, out, dev):
+    """Phase 17 (c), (d), rank ``rank`` of ``world`` on ``dev`` over gloo:
+    `eval.driver.run_rank` with ``sharded`` on the first ``passes`` TTA
+    passes, rank 0's lines kept. Records each block forward's device wall
+    (synchronized), each collective's (the exchange's gathers and the sums
+    of the drop counts and the core probabilities), the first chunk's
+    probabilities and block (whose truncation counters it counts on the
+    block's grid, `train.audit`), the scene's prediction, and the kernel
+    launches. Writes ``<out>/rank<rank>.pt``."""
+    sys.path.insert(0, REPO)
+    from stratified_transformer_torch.eval import driver, voting
+    from stratified_transformer_torch.models.stratified import (
+        geometry_pyramid)
+    from stratified_transformer_torch.parallel import halo
+    from stratified_transformer_torch.train import audit
+    mods = attention_kernel_modules()
+    for m_ in mods.values():
+        m_.KERNEL.launches = 0
+    rec = {"forward_s": [], "gather_s": [], "sum_s": [], "lines": []}
+    tta = voting.tta_transforms
+    voting.tta_transforms = lambda name: tta(name)[:passes]
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            sync(dev)
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            sync(dev)
+            rec[key].append(time.perf_counter() - t0)
+            return r
+        return call
+
+    block_predict = halo.block_predict
+    halo.block_predict = lambda m_: timed(block_predict(m_), "forward_s")
+    halo.all_gather_rows = timed(halo.all_gather_rows, "gather_s")
+    halo.all_reduce_sum = timed(halo.all_reduce_sum, "sum_s")
+    collective = halo.sharded_scene_probs_collective
+
+    def first_chunk(predict, coord, *a, **kw):
+        if "first" in rec:
+            return collective(predict, coord, *a, **kw)
+
+        def keep(feats, xyz, offsets):
+            rec["block"] = (xyz.clone(), offsets.clone())
+            return predict(feats, xyz, offsets)
+        rec["first"] = {"coord": coord, "feat": a[0]}
+        rec["first"]["probs"] = collective(keep, coord, *a, **kw)
+        return rec["first"]["probs"]
+
+    halo.sharded_scene_probs_collective = first_chunk
+    scene = voting.evaluate_scene_sharded
+
+    def keep_scene(*a, **kw):
+        rec["scene"] = scene(*a, **kw)
+        return rec["scene"]
+
+    voting.evaluate_scene_sharded = keep_scene
+    t0 = time.perf_counter()
+    rec["metrics"] = driver.run_rank(
+        rank, world, yaml_cfg, dev, port, log=rec["lines"].append,
+        backend="gloo", timeout_s=HALO_TIMEOUT_S)
+    rec["seconds"] = time.perf_counter() - t0
+    rec["launches"] = {k: m_.KERNEL.launches for k, m_ in mods.items()}
+    if "block" in rec:
+        cfg = driver.sharded_config(yaml_cfg)[0]
+        xyz, off = rec.pop("block")
+        anchor = torch.zeros(3, device=dev)
+        with torch.inference_mode():
+            pyr = geometry_pyramid(cfg, xyz, off, anchor)
+            rec["first"]["audit"] = audit.audit_truncation_packed(
+                cfg, {"xyz": xyz, "offsets": off, "pyramid": pyr},
+                anchor=anchor).cpu().numpy()
+        rec["first"]["block_points"] = int(off[-1])
+    torch.save(rec, os.path.join(out, f"rank{rank}.pt"))
+
+
+def run_halo_driver(dev, tmp, yaml_cfg, passes):
+    """`halo_driver_rank` on HALO_DRIVER_WORLD ranks; returns the ranks'
+    records."""
+    from stratified_transformer_torch.parallel import mesh
+    mesh.spawn(halo_driver_rank, HALO_DRIVER_WORLD, args=(
+        HALO_DRIVER_WORLD, mesh.free_port(), yaml_cfg, passes, tmp, dev),
+        timeout_s=2 * HALO_TIMEOUT_S)
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(HALO_DRIVER_WORLD)]
+
+
+def audit_drops(arr):
+    """band / sband / cap dropped pairs over the stages of a packed
+    audit."""
+    return {"band": int(arr[:, 0].sum()), "sband": int(arr[:, 2].sum()),
+            "cap": int(arr[:, 4].sum())}
+
+
+def halo_cli(dev, tmp, ckpt):
+    """Phase 17 (e): the entry point as a user runs it, ``python -m
+    stratified_transformer_torch.eval.driver --config
+    configs/s3dis_stratified.yaml sharded true data_root <rooms>
+    model_path <ckpt>``, without ``--device`` (the card; one visible card
+    is one rank), the YAML as shipped (fast mode), on one S3DIS-format room
+    (HALO_CLI_POINTS points of a synthetic room): its lines, one launch of
+    each fast forward kernel per block and block forward and none of the
+    fp32 ones."""
+    import contextlib
+    import io
+
+    from stratified_transformer_torch.data.datasets import SyntheticRooms
+    from stratified_transformer_torch.eval import driver
+    root = os.path.join(tmp, "rooms")
+    os.makedirs(root)
+    c, f, lab, _ = SyntheticRooms(num_scenes=1, seed=5,
+                                  points=HALO_CLI_POINTS).raw_scene(0)
+    np.save(os.path.join(root, "Area_5_office_1.npy"), np.concatenate(
+        [c, f, lab[:, None]], 1).astype(np.float32))
+    mods = attention_kernel_modules()
+    for m_ in mods.values():
+        m_.KERNEL.launches = m_.KERNEL_FAST.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = driver.main(["--config", CONFIG, "sharded", "true", "data_root",
+                          root, "model_path", ckpt])
+    secs = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    fast = {k + FAST: mods[k].KERNEL_FAST.launches for k in FWD_KERNELS}
+    fp32 = {k: mods[k].KERNEL.launches for k in FWD_KERNELS}
+    stats = [x for x in lines if x.startswith("sharded eval stats: ")]
+    blocks = int(stats[0].split()[3]) if stats else 0
+    log(f"[halo] (e) python -m stratified_transformer_torch.eval.driver "
+        f"--config configs/s3dis_stratified.yaml sharded true (the card, "
+        f"fast mode as shipped) on one {len(c)}-point room: rc {rc}, "
+        f"{secs:.1f} s, {blocks} block forwards, launches {fast} and "
+        f"fp32 {fp32}; " + "; ".join(lines[:2] + stats + lines[-1:]))
+    if rc != 0 or not blocks or set(fast.values()) != {12 * blocks} or any(
+            fp32.values()) or not lines[-1].startswith(
+                "Val result: mIoU/mAcc/allAcc "):
+        raise AssertionError(f"(e) the entry point: rc {rc}, launches "
+                             f"{fast} / {fp32} over {blocks} blocks, "
+                             f"{lines[-3:]}")
+    return {"points": len(c), "seconds": secs, "block_forwards": blocks,
+            "launches": fast, "lines": lines[:2] + stats + lines[-1:]}
+
+
+def halo_phase(dev):
+    """Phase 17: sharded whole-scene inference, fp32 kernels (`PIN_NOTE`):
+    (a) `halo_world_one`; (b) `halo_corridor`; (c) the eval driver with
+    ``sharded: true`` on HALO_DRIVER_WORLD gloo ranks on phase 10's room
+    (HALO_PASSES TTA passes), the capacities at the largest vote chunk and
+    slab: no halo point truncated or dropped and no chunk re-run, one
+    launch of each forward kernel per block and block forward, the stats
+    and result lines; the first chunk against the whole-chunk forward with
+    the audit of each block and of the chunk (the deviation gated at
+    HALO_EXACT where neither drops a band pair); seconds, forwards per rank,
+    the collectives' ms per chunk, the host's share; the same passes
+    through the serial sphere-crop protocol, and the two predictions'
+    agreement; (d) the YAML's own capacities on the same room, one pass:
+    every chunk that overflowed ``halo_cap`` re-run through host
+    replication and logged, none accepted; (e) `halo_cli`."""
+    import tempfile
+
+    from stratified_transformer_torch.data.datasets import SyntheticRooms
+    from stratified_transformer_torch.eval import voting
+    from stratified_transformer_torch.eval.driver import (
+        eval_config, make_predict_probs, sharded_config)
+    from stratified_transformer_torch.models.stratified import (
+        build_model, geometry_pyramid)
+    from stratified_transformer_torch.parallel import halo
+    from stratified_transformer_torch.train import audit, checkpoint
+    from stratified_transformer_torch.utils.config import merge_cfg_from_list
+    t_phase = time.time()
+    log(f"[halo] phase 17: {PIN_NOTE}")
+    yaml0 = yaml_fp32(CONFIG)
+    coord, feat, _, _ = SyntheticRooms(num_scenes=1, seed=999,
+                                       points=SCENE_POINTS).raw_scene(0)
+    voxel = float(yaml0["voxel_size"])
+    # the vote chunks of every pass (the driver's draws), their slabs
+    tfms = voting.tta_transforms("s3dis")[:HALO_PASSES]
+    rng = np.random.default_rng(0)
+    chunk_max = slab_max = chunks = 0
+    first = None
+    for tfm in tfms:
+        c, f = coord.astype(np.float32).copy(), feat.astype(np.float32)
+        if tfm is not None:
+            c, f = tfm(c, f.copy(), rng)
+        c -= c.min(0)
+        for idx in voting.vote_chunks(c, voxel):
+            cp = c[idx] - c[idx].min(0)
+            if first is None:
+                first = (cp, f[idx] / 255.0)
+            chunks += 1
+            chunk_max = max(chunk_max, len(idx))
+            slab_max = max(slab_max, max(len(b["idx"][b["core"]]) for b in
+                                         halo.partition_scene(
+                                             cp, HALO_DRIVER_WORLD, 0.0)))
+    log(f"[halo] phase 10's room: {len(coord)} points, {chunks} vote chunks "
+        f"in {len(tfms)} TTA passes, the largest {chunk_max} points, its "
+        f"largest slab of {HALO_DRIVER_WORLD} {slab_max}")
+    out = {"room_points": len(coord), "passes": len(tfms), "chunks": chunks,
+           "largest_chunk": chunk_max, "largest_slab": slab_max}
+    with tempfile.TemporaryDirectory() as tmp:
+        # weights: phase 5's scale, through a checkpoint the driver reads
+        ecfg = eval_config(yaml0)
+        model = build_model(ecfg, dev, seed=0)
+        o1_weights(model, seed=0)
+        ckpt = checkpoint.save(os.path.join(tmp, "ckpt"), model,
+                               torch.optim.SGD(model.parameters(), lr=0.1),
+                               0, 0)
+        state = model.state_dict()
+        del model
+        bcfg = sharded_config(yaml0)[0]
+        block = build_model(bcfg, dev)
+        ref = build_model(dataclasses.replace(bcfg, attn_impl="reference"),
+                          dev)
+        block.load_state_dict(state)
+        ref.load_state_dict(state)
+
+        # ---- (a) ---------------------------------------------------------
+        out["a"] = halo_world_one(dev, block, ref, *first)
+        del ref
+        release(dev)
+
+        # ---- (b) ---------------------------------------------------------
+        out["b"] = halo_corridor(dev, tmp)
+
+        # ---- (c) ---------------------------------------------------------
+        keys = ["data_name", "synthetic", "synthetic_points",
+                str(SCENE_POINTS), "synthetic_eval_scenes", "1",
+                "model_path", ckpt, "sharded", "True", "sharded_devices",
+                str(HALO_DRIVER_WORLD)]
+        sized = ["sharded_block_points", str(chunk_max),
+                 "sharded_core_points", str(chunk_max),
+                 "sharded_halo_points", str(slab_max)]
+        yaml_c = merge_cfg_from_list(yaml_fp32(CONFIG), keys + sized)
+        t0 = time.perf_counter()
+        ranks = run_halo_driver(dev, tmp, yaml_c, HALO_PASSES)
+        wall = time.perf_counter() - t0
+        out["c"] = halo_driver_report("c", ranks, bcfg, wall)
+        st = out["c"]["stats"]
+        if (st.get("truncated_halo_points") or st.get("halo_cap_dropped")
+                or st.get("collective_rerun_chunks")
+                or st.get("collective_fallback_chunks")
+                or st.get("collective_chunks") != chunks):
+            raise AssertionError(f"(c) the sized run truncated, dropped or "
+                                 f"re-ran: {st}")
+        # the first chunk against the whole-chunk forward on one process,
+        # at the blocks' capacity (gated) and at its own (reported)
+        r0 = ranks[0]["first"]
+        scfg = sharded_config(yaml_c)[1]
+        b_pad = scfg.core_pad + 2 * scfg.halo_cap
+        want = whole_probs(block, r0["coord"], r0["feat"], b_pad)
+        own = whole_probs(block, r0["coord"], r0["feat"])
+        n = len(r0["coord"])
+        xyz = torch.zeros((b_pad, 3), device=dev)
+        xyz[:n] = torch.from_numpy(r0["coord"]).to(dev)
+        off = torch.tensor([n], device=dev)
+        anchor = torch.zeros(3, device=dev)
+        with torch.inference_mode():
+            whole_audit = audit.audit_truncation_packed(bcfg, {
+                "xyz": xyz, "offsets": off,
+                "pyramid": geometry_pyramid(bcfg, xyz, off, anchor)},
+                anchor=anchor).cpu().numpy()
+        drops = {"whole_chunk": audit_drops(whole_audit),
+                 "blocks": [audit_drops(r["first"]["audit"]) for r in ranks]}
+        dev_max = float(np.abs(r0["probs"] - want).max())
+        agree = float((r0["probs"].argmax(1) == want.argmax(1)).mean())
+        own_max = float(np.abs(r0["probs"] - own).max())
+        own_agree = float((r0["probs"].argmax(1) == own.argmax(1)).mean())
+        gated = (drops["whole_chunk"]["band"] == 0
+                 and all(b["band"] == 0 for b in drops["blocks"]))
+        out["c"]["first_chunk"] = {
+            "points": n, "block_points": [r["first"]["block_points"]
+                                          for r in ranks],
+            "b_pad": b_pad, "max_abs_dprob": dev_max,
+            "argmax_agreement": agree, "own_pad_max_abs_dprob": own_max,
+            "own_pad_argmax_agreement": own_agree, "audit_drops": drops,
+            "gated": gated}
+        log(f"[halo] (c) first chunk ({n} points; blocks of "
+            f"{out['c']['first_chunk']['block_points']} points): sharded "
+            f"against the whole-chunk forward at the blocks' capacity "
+            f"{b_pad}: max |dprob| {dev_max:.2e}, argmax agreement "
+            f"{agree:.6f}; at its own ({round_tile(n)}): {own_max:.2e}, "
+            f"{own_agree:.6f}; dropped pairs (band / sband / "
+            f"cap) whole chunk {drops['whole_chunk']}, blocks "
+            f"{drops['blocks']}; " + (
+                f"gated at {HALO_EXACT}" if gated else
+                "not gated (a band pair is dropped)"))
+        if gated and dev_max > HALO_EXACT:
+            raise AssertionError(f"(c) first chunk: max |dprob| {dev_max}")
+        del block
+        release(dev)
+        # the serial sphere-crop protocol on the same passes
+        model = build_model(ecfg, dev)
+        model.load_state_dict(state)
+        t0 = time.perf_counter()
+        pred_s, _ = voting.evaluate_scene(
+            make_predict_probs(model), coord, feat, ecfg.num_classes,
+            data_name="s3dis", voxel_size=voxel,
+            voxel_max=int(yaml0["voxel_max"]),
+            batch_size_test=ecfg.num_scenes, n_pad=ecfg.n_pad,
+            num_scenes=ecfg.num_scenes, concat_xyz=ecfg.concat_xyz,
+            transforms=tfms)
+        serial_s = time.perf_counter() - t0
+        agree = float((ranks[0]["scene"][0] == pred_s).mean())
+        out["c"].update(serial_s=serial_s, protocols_argmax_agreement=agree)
+        log(f"[halo] (c) the serial sphere-crop protocol (phase 10) on the "
+            f"same {len(tfms)} passes: {serial_s:.1f} s; the two protocols' "
+            f"labels agree at {agree:.4f} of the points (slabs against "
+            "sphere crops: not gated)")
+        del model
+        release(dev)
+
+        # ---- (d) ---------------------------------------------------------
+        yaml_d = merge_cfg_from_list(yaml_fp32(CONFIG), keys)
+        t0 = time.perf_counter()
+        ranks = run_halo_driver(dev, tmp, yaml_d, 1)
+        out["d"] = halo_driver_report("d", ranks, bcfg,
+                                      time.perf_counter() - t0)
+        st = out["d"]["stats"]
+        reruns = [x for x in ranks[0]["lines"]
+                  if "re-run through host replication" in x]
+        accepted = st.get("collective_chunks", 0)
+        out["d"].update(rerun_lines=len(reruns))
+        log(f"[halo] (d) the YAML's capacities (block_pad "
+            f"{sharded_config(yaml_d)[1].block_pad}, halo_cap "
+            f"{sharded_config(yaml_d)[1].halo_cap}), 1 pass: truncated "
+            f"{st.get('truncated_halo_points', 0)} halo points, cap-dropped "
+            f"{st.get('halo_cap_dropped', 0)}, re-run "
+            f"{st.get('collective_rerun_chunks', 0)} chunks ({len(reruns)} "
+            f"lines), accepted through the exchange {accepted}; e.g. "
+            f"{reruns[:1]}")
+        if len(reruns) != st.get("collective_rerun_chunks", 0) or (
+                st.get("halo_cap_dropped", 0)
+                and accepted + len(reruns) != out["d"]["chunks"]):
+            raise AssertionError(f"(d) overflowed chunks not all re-run and "
+                                 f"logged: {st}, {len(reruns)} lines")
+
+        # ---- (e) ---------------------------------------------------------
+        out["e"] = halo_cli(dev, tmp, ckpt)
+    out["seconds"] = time.time() - t_phase
+    log(f"[halo] phase 17 in {out['seconds']:.0f} s")
+    return out
+
+
+def halo_driver_report(tag, ranks, bcfg, wall):
+    """The numbers of a `run_halo_driver` run, with its gates: the ranks'
+    predictions identical, one launch of each forward kernel per block and
+    block forward (none backward), rank 0's stats and result lines."""
+    blocks = attention_blocks(bcfg)
+    for r, res in enumerate(ranks):
+        fw = len(res["forward_s"])
+        want_l = {k: blocks * fw if k in FWD_KERNELS else 0
+                  for k in res["launches"]}
+        if res["launches"] != want_l:
+            raise AssertionError(f"({tag}) rank {r}: launches "
+                                 f"{res['launches']} over {fw} block "
+                                 f"forwards, expected {want_l}")
+        if not np.array_equal(res["scene"][1], ranks[0]["scene"][1]):
+            raise AssertionError(f"({tag}) rank {r}'s probabilities differ "
+                                 "from rank 0's")
+    lines = ranks[0]["lines"]
+    stats_line = [x for x in lines if x.startswith("sharded eval stats: ")]
+    if len(stats_line) != 1 or not lines[-1].startswith(
+            "Val result: mIoU/mAcc/allAcc "):
+        raise AssertionError(f"({tag}) the driver's lines: {lines[-3:]}")
+    m = ranks[0]["metrics"]
+    st = m["sharded_stats"]
+    scene_s = m["scenes"][0]["seconds"]
+    fwd = [sum(r["forward_s"]) for r in ranks]
+    chunks = (st.get("collective_chunks", 0)
+              + st.get("collective_rerun_chunks", 0)
+              + st.get("collective_fallback_chunks", 0))
+    gather_ms = [1e3 * sum(r["gather_s"]) / max(chunks, 1) for r in ranks]
+    sum_ms = [1e3 * sum(r["sum_s"]) / max(chunks, 1) for r in ranks]
+    out = {"stats": st, "chunks": chunks, "scene_s": scene_s, "wall_s": wall,
+           "forwards": [len(r["forward_s"]) for r in ranks],
+           "forward_s": fwd, "exchange_ms_per_chunk": gather_ms,
+           "sums_ms_per_chunk": sum_ms,
+           "host_share": [1 - (f + (g + s) * chunks / 1e3) / scene_s
+                          for f, g, s in zip(fwd, gather_ms, sum_ms)],
+           "launches": [r["launches"] for r in ranks],
+           "miou": m["miou"], "all_acc": m["all_acc"],
+           "lines": [x for x in lines if "re-run" not in x][:4]
+           + stats_line + lines[-1:]}
+    log(f"[halo] ({tag}) eval driver, {HALO_DRIVER_WORLD} gloo ranks: scene "
+        f"{scene_s:.1f} s ({wall:.1f} s with the ranks' start), {chunks} "
+        f"chunks, block forwards per rank {out['forwards']} "
+        f"({', '.join(f'{f:.1f}' for f in fwd)} s), exchange "
+        f"{', '.join(f'{g:.1f}' for g in gather_ms)} ms and sums "
+        f"{', '.join(f'{s:.1f}' for s in sum_ms)} ms per chunk, host share "
+        f"{', '.join(f'{h:.1%}' for h in out['host_share'])}; launches "
+        f"{out['launches']}; {stats_line[0]}; {lines[-1]}")
+    return out
+
+
 def phase_only(flag):
     """``--fwd-only`` / ``--bwd-only`` / ``--scene-only`` / ``--loop-only``
     / ``--scannet-only`` / ``--iou-only``: phase 1's build of the kernels
@@ -3887,9 +4598,9 @@ def phase_only(flag):
              for name, text in build.build_logs.items()
              for line in text.splitlines()
              if "registers" in line or "spill" in line]
-    if flag in ("--fast-only", "--swin-only", "--dp-only"):
+    if flag in ("--fast-only", "--swin-only", "--dp-only", "--halo-only"):
         phase = {"--fast-only": fast_phase, "--swin-only": swin_phase,
-                 "--dp-only": dp_phase}[flag]
+                 "--dp-only": dp_phase, "--halo-only": halo_phase}[flag]
         out = {"card": card_line(), "repo": REPO, flag[2:-5]: phase(dev),
                "ptxas": ptxas}
         print(json.dumps(out))
@@ -3946,7 +4657,8 @@ PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS,
               "--iou-only": FWD_KERNELS,
               "--fast-only": FWD_KERNELS + BWD_KERNELS,
               "--swin-only": ("band_attention", "band_attention_bwd"),
-              "--dp-only": FWD_KERNELS + BWD_KERNELS}
+              "--dp-only": FWD_KERNELS + BWD_KERNELS,
+              "--halo-only": FWD_KERNELS}
 
 
 def parse_args(argv):
@@ -4184,6 +4896,9 @@ def main(argv):
 
     # ---- 16. data-parallel training ----------------------------------------
     dp_out = dp_phase(dev)
+
+    # ---- 17. sharded whole-scene inference ---------------------------------
+    halo_out = halo_phase(dev)
     log(f"[run] total {time.time() - t_start:.0f} s")
 
     kernels = []
@@ -4225,7 +4940,9 @@ def main(argv):
         else:
             entry.update(
                 dp_launches=[c[name] for c in dp_out["b"]["launches"]],
-                dp_loop_launches=[c[name] for c in dp_out["c"]["launches"]])
+                dp_loop_launches=[c[name] for c in dp_out["c"]["launches"]],
+                halo_launches=[c[name] for c in halo_out["c"]["launches"]],
+                halo_block_forwards=halo_out["c"]["forwards"])
         kernels.append(entry)
     for name in FAST_KERNELS:
         r, sr = fast["report"][name], fast["scannet_report"][name]
@@ -4314,7 +5031,12 @@ def main(argv):
                         "step with distinct batches (two ranks over gloo on "
                         "one card, n_pad 70016 each), dp_loop_launches per "
                         "rank over (c)'s driver run (rank 0 validates)",
-        "dp": dp_out}))
+        "dp": dp_out,
+        "halo_times_per": "phase 17: halo_launches per rank over (c)'s "
+                          "eval driver run (sharded, two ranks over gloo on "
+                          "one card), halo_block_forwards the block "
+                          "forwards per rank in it",
+        "halo": halo_out}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

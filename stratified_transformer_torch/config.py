@@ -264,6 +264,44 @@ def from_cfg(cfg: CfgNode, n_devices: int = 1) -> StratifiedConfig:
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedConfig:
+    """``test.py``'s sharded whole-scene inference keys (``test.py:92-
+    157``), resolved as it resolves them."""
+    devices: int          # sharded_devices: ranks, 0 = every visible device
+    block_pad: int        # host replication's flat capacity per block
+    halo: float           # sharded_halo: 0 = the model's receptive halo
+    down_quota: str       # the block model's sampler quota
+    collective: bool      # sharded_collective: the halo exchange first
+    core_pad: int         # the exchange's core capacity (0 without it)
+    halo_cap: int         # its halo capacity per side (0 without it)
+
+
+def sharded_from_cfg(cfg: CfgNode, tile: int) -> ShardedConfig:
+    """`ShardedConfig` from a flattened YAML config with ``test.py``'s
+    defaults and rounding: ``sharded_block_points`` (default ``voxel_max``,
+    or 80000 without one) up to a multiple of ``tile``;
+    ``sharded_core_points`` (default the block capacity) likewise; and
+    ``sharded_halo_points`` (default half the core capacity) up to a
+    multiple of ``tile``, at least one tile."""
+    def up(n):
+        return (int(n) + tile - 1) // tile * tile
+
+    voxel_max = cfg.get("voxel_max", 80000)
+    block_pad = up(cfg.get("sharded_block_points", voxel_max or 80000))
+    collective = bool(cfg.get("sharded_collective", True))
+    core_pad = halo_cap = 0
+    if collective:
+        core_pad = up(cfg.get("sharded_core_points", block_pad))
+        halo_cap = max(up(cfg.get("sharded_halo_points", core_pad // 2)),
+                       tile)
+    return ShardedConfig(
+        devices=int(cfg.get("sharded_devices", 0)), block_pad=block_pad,
+        halo=float(cfg.get("sharded_halo", 0.0)),
+        down_quota=str(cfg.get("sharded_down_quota", "cells")),
+        collective=collective, core_pad=core_pad, halo_cap=halo_cap)
+
+
 def load_config(path: str, **overrides) -> StratifiedConfig:
     """Read a YAML config into a `StratifiedConfig`; keyword overrides
     replace fields after reading (e.g. ``n_pad=40960, num_scenes=2``)."""

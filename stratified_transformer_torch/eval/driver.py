@@ -1,9 +1,9 @@
-"""Whole-scene evaluation driver (the JAX package's ``test.py``, its
-non-sharded path; reference ``test_backup.py`` protocol).
+"""Whole-scene evaluation driver (the JAX package's ``test.py``; reference
+``test_backup.py`` protocol).
 
     python -m stratified_transformer_torch.eval.driver \
         --config configs/s3dis_stratified.yaml [--device cpu] \
-        [model_path <checkpoint.pt>] [key value ...]
+        [model_path <checkpoint.pt>] [sharded true] [key value ...]
 
 Reads the YAML (``key value`` pairs override it, as for ``test.py``), builds
 the model at the flat capacity ``eval_max_batch_points`` (default
@@ -20,23 +20,36 @@ features not divided by 255) or, for any other name, synthetic rooms (seed
 999), as ``test.py:177-187`` reads them: rgb 0-255 divided by 255 under
 ``synthetic``, five passes and no division under any other name (``dcf``).
 Runs on the card unless ``--device cpu`` is given.
+
+``sharded: true`` (``test.py:92-157,194-233``) evaluates each vote chunk
+as spatial slabs with receptive halos, one per rank
+(`voting.evaluate_scene_sharded`, `parallel.halo`), on ``sharded_devices``
+ranks (0: every visible card; on the CPU that many gloo ranks, 0 one),
+each rank a spawned process on its own card (NCCL) or on the CPU (gloo),
+rank 0 logging and scoring; with the keys of `config.sharded_from_cfg`.
+It ends with ``test.py``'s line of the sharded counters.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from stratified_transformer_torch.config import from_cfg
+from stratified_transformer_torch.config import from_cfg, sharded_from_cfg
 from stratified_transformer_torch.data.datasets import (
     SyntheticRooms, s3dis_scenes, scannet_scenes)
 from stratified_transformer_torch.device import resolve_device
 from stratified_transformer_torch.eval import voting
+from stratified_transformer_torch.kernels import ATTENTION_SOURCES, build
 from stratified_transformer_torch.models.stratified import build_model
+from stratified_transformer_torch.parallel import halo, mesh
 from stratified_transformer_torch.train import checkpoint
 from stratified_transformer_torch.train.metrics import iou_from_counts
 from stratified_transformer_torch.utils.config import (
@@ -98,15 +111,98 @@ def scenes_of(yaml_cfg, num_classes):
                                                   range(len(ds))))]
 
 
-def run(yaml_cfg, device="cuda", log=print):
+def sharded_config(yaml_cfg):
+    """``(block model configuration, ShardedConfig, halo width)`` of
+    ``sharded: true`` (``test.py:108-157``): the YAML's model at
+    ``sharded_block_points`` in one scene with the ``sharded_down_quota``
+    sampler, and ``sharded_halo`` or else the model's receptive halo."""
+    cfg = from_cfg(yaml_cfg)
+    scfg = sharded_from_cfg(yaml_cfg, cfg.tile)
+    cfg = dataclasses.replace(cfg, n_pad=scfg.block_pad, num_scenes=1,
+                              down_quota=scfg.down_quota)
+    return cfg, scfg, scfg.halo or halo.receptive_halo(cfg)
+
+
+def run(yaml_cfg, device="cuda", log=print, *,
+        timeout_s=mesh.DEFAULT_TIMEOUT_S, join_timeout_s=None):
     """Evaluate every scene; returns `iou_from_counts`' metrics with the
-    per-scene ``scenes`` records (name, acc, seconds)."""
-    if yaml_cfg.get("sharded", False):
-        raise ValueError("sharded whole-scene inference (spatial blocks with "
-                         "halo exchange) is ROADMAP queue 1 item 6; the port "
-                         "runs the sphere-crop protocol (sharded: False)")
+    per-scene ``scenes`` records (name, acc, seconds) and, under
+    ``sharded``, the counters ``sharded_stats``.
+
+    ``sharded`` on more than one rank (`parallel.mesh.resolve_world` of
+    ``sharded_devices``) builds the forward kernels here once and runs
+    `run_rank` in one spawned process per rank (a collective waits
+    ``timeout_s`` seconds at most; the ranks are killed past
+    ``join_timeout_s``, None: no limit); rank 0 prints its lines and its
+    metrics are returned."""
     dev = resolve_device(device)
-    cfg = eval_config(yaml_cfg)
+    world = 1
+    if yaml_cfg.get("sharded", False):
+        world = mesh.resolve_world(yaml_cfg.get("sharded_devices", 0), dev)
+    if world == 1:
+        return run_rank(0, 1, yaml_cfg, dev, log=log)
+    if dev.type == "cuda":
+        # the two forward kernels' sources, once, not once per rank
+        build.build_all(list(ATTENTION_SOURCES[:2]))
+    log(f"spawning {world} ranks on {dev.type}")
+    # CPU ranks share this process's threads
+    threads = max(torch.get_num_threads() // world, 1)
+    with tempfile.TemporaryDirectory() as out:
+        mesh.spawn(_spawned_rank, world, args=(
+            world, dict(yaml_cfg), dev.type, mesh.free_port(), out,
+            timeout_s, threads), timeout_s=join_timeout_s)
+        return torch.load(os.path.join(out, "rank0.pt"), weights_only=False)
+
+
+def _print(msg):
+    print(msg, flush=True)
+
+
+def _spawned_rank(rank, world, yaml_cfg, device_type, port, out, timeout_s,
+                  threads):
+    """A spawned rank of `run`: `run_rank` on `mesh.rank_device` with
+    ``threads`` CPU threads; rank 0 prints and writes its metrics to
+    ``<out>/rank0.pt``."""
+    torch.set_num_threads(threads)
+    m = run_rank(rank, world, yaml_cfg, mesh.rank_device(device_type, rank),
+                 port=port, log=_print, timeout_s=timeout_s)
+    if rank == 0:
+        torch.save(m, os.path.join(out, "rank0.pt"))
+
+
+def run_rank(rank, world, yaml_cfg, device, port=None, log=print, *,
+             backend=None, timeout_s=mesh.DEFAULT_TIMEOUT_S):
+    """Rank ``rank`` of an evaluation on ``world`` ranks, on ``device``:
+    joins the process group at ``port`` (`parallel.mesh.init_group`; NCCL
+    between cards, gloo on the CPU, or ``backend``) when ``world`` > 1,
+    evaluates every scene (each rank the same scenes, its own slabs) and
+    leaves the group. Rank 0 logs to ``log``. Returns `run`'s metrics."""
+    dev = resolve_device(device)
+    if world > 1:
+        mesh.init_group(rank, world, dev, port, backend=backend,
+                        timeout_s=timeout_s)
+    try:
+        return _evaluate(yaml_cfg, dev, log if rank == 0 else _quiet)
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
+
+
+def _quiet(msg):
+    pass
+
+
+def _evaluate(yaml_cfg, dev, log):
+    sharded = bool(yaml_cfg.get("sharded", False))
+    if sharded:
+        cfg, scfg, halo_width = sharded_config(yaml_cfg)
+        log(f"sharded eval: {mesh.world_size()} devices, block_pad "
+            f"{scfg.block_pad}, halo {halo_width:.2f} m, down_quota "
+            f"{cfg.down_quota}" + (
+                f", halo exchange core_pad {scfg.core_pad} halo_cap "
+                f"{scfg.halo_cap}" if scfg.collective else ""))
+    else:
+        cfg = eval_config(yaml_cfg)
     ncls = cfg.num_classes
     model = build_model(cfg, dev, seed=0)
     model_path = yaml_cfg.get("model_path")
@@ -115,7 +211,6 @@ def run(yaml_cfg, device="cuda", log=print):
         log(f"loaded checkpoint from {model_path} (epoch {epoch})")
     else:
         log("WARNING: no model_path given — evaluating random weights")
-    predict_probs = make_predict_probs(model)
     voxel_max = yaml_cfg.get("voxel_max", 80000)
     ignore = int(yaml_cfg.get("ignore_label", 255))
     # test.py:187 divides the colours by 255 and adds the two shifted
@@ -123,16 +218,33 @@ def run(yaml_cfg, device="cuda", log=print):
     # (dcf) its synthetic rooms keep rgb 0-255 in five passes
     data_name = yaml_cfg.get("data_name", "synthetic")
     vote_name = "s3dis" if data_name in ("s3dis", "synthetic") else data_name
+    voxel_size = yaml_cfg.get("voxel_size", 0.04)
+    if sharded:
+        stats = {}
+        predict = halo.block_predict(model)
+
+        def evaluate(coord, feat):
+            return voting.evaluate_scene_sharded(
+                predict, coord, feat, ncls, halo_width=halo_width,
+                block_pad=scfg.block_pad, device=dev, data_name=vote_name,
+                voxel_size=voxel_size, concat_xyz=cfg.concat_xyz,
+                stats=stats, core_pad=scfg.core_pad, halo_cap=scfg.halo_cap,
+                log=log)
+    else:
+        predict_probs = make_predict_probs(model)
+
+        def evaluate(coord, feat):
+            return voting.evaluate_scene(
+                predict_probs, coord, feat, ncls, data_name=vote_name,
+                voxel_size=voxel_size, voxel_max=voxel_max,
+                batch_size_test=cfg.num_scenes, n_pad=cfg.n_pad,
+                num_scenes=cfg.num_scenes, concat_xyz=cfg.concat_xyz)
     inter_sum, union_sum, target_sum = (np.zeros(ncls) for _ in range(3))
     records = []
     scenes = scenes_of(yaml_cfg, ncls)
     for si, (name, coord, feat, label) in enumerate(scenes):
         t0 = time.time()
-        pred, _ = voting.evaluate_scene(
-            predict_probs, coord, feat, ncls, data_name=vote_name,
-            voxel_size=yaml_cfg.get("voxel_size", 0.04), voxel_max=voxel_max,
-            batch_size_test=cfg.num_scenes, n_pad=cfg.n_pad,
-            num_scenes=cfg.num_scenes, concat_xyz=cfg.concat_xyz)
+        pred, _ = evaluate(coord, feat)
         mask = label != ignore
         p, t = pred[mask], label[mask]
         inter = np.bincount(p[p == t], minlength=ncls)[:ncls]
@@ -146,6 +258,15 @@ def run(yaml_cfg, device="cuda", log=print):
         records.append({"name": name, "acc": float(acc), "seconds": secs})
         log(f"Scene [{si + 1}/{len(scenes)}] {name}: acc {acc:.4f} "
             f"({secs:.1f}s)")
+    if sharded and stats:
+        log(f"sharded eval stats: {stats.get('blocks_evaluated', 0)} "
+            f"blocks, {stats.get('truncated_halo_points', 0)} halo "
+            "points truncated (non-zero => raise sharded_block_points); "
+            f"collective chunks {stats.get('collective_chunks', 0)} "
+            f"(host-replication fallbacks "
+            f"{stats.get('collective_fallback_chunks', 0)}, cap-"
+            f"dropped {stats.get('halo_cap_dropped', 0)}, re-run "
+            f"{stats.get('collective_rerun_chunks', 0)})")
     m = iou_from_counts(inter_sum, union_sum, target_sum)
     for c in range(ncls):
         log(f"Class_{c:02d} iou/acc {m['iou_class'][c]:.4f}/"
@@ -153,6 +274,8 @@ def run(yaml_cfg, device="cuda", log=print):
     log(f"Val result: mIoU/mAcc/allAcc {m['miou']:.4f}/{m['macc']:.4f}/"
         f"{m['all_acc']:.4f}")
     m["scenes"] = records
+    if sharded:
+        m["sharded_stats"] = stats
     return m
 
 

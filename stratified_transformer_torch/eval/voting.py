@@ -1,6 +1,7 @@
 """Whole-scene evaluation: voxel-vote chunks, sliding-sphere crops and the
-TTA ensemble (the JAX package's ``eval/voting.py:25-153``; reference
-``test_backup.py``).
+TTA ensemble (the JAX package's ``eval/voting.py``; reference
+``test_backup.py``), and its sharded form over spatial slabs with halos
+(`evaluate_scene_sharded`).
 
   * TTA ensemble: [none, none, rot90, rot180, rot270, (shift +-0.2 for
     s3dis)] (:110-143);
@@ -23,6 +24,7 @@ import numpy as np
 
 from stratified_transformer_torch.data import transforms as T
 from stratified_transformer_torch.data.voxelize import voxelize
+from stratified_transformer_torch.parallel import halo as halo_mod
 
 
 def tta_transforms(data_name):
@@ -127,6 +129,91 @@ def evaluate_scene(predict_probs, coord, feat, num_classes, *,
             probs = np.asarray(predict_probs(feat_b, xyz_b, offsets))
             idx_cat = np.concatenate(idx_list[s:e])
             pred[idx_cat] += probs[:len(idx_cat)]
+
+        pred = pred / (pred.sum(-1, keepdims=True) + 1e-8)
+        pred_all += pred
+
+    pred_all /= len(transforms)
+    return pred_all.argmax(-1), pred_all
+
+
+def _add(stats, key, value):
+    stats[key] = stats.get(key, 0) + value
+
+
+def evaluate_scene_sharded(predict, coord, feat, num_classes, *, halo_width,
+                           block_pad, device, data_name="s3dis",
+                           voxel_size=0.04, concat_xyz=True, transforms=None,
+                           rng=None, stats=None, core_pad=0, halo_cap=0,
+                           log=None):
+    """`evaluate_scene` with each vote chunk split into one spatial slab per
+    rank, each with a halo of ``halo_width`` (``eval/voting.py:156-274`` of
+    the JAX package), in place of the sphere crops; the TTA passes and the
+    vote chunks are `evaluate_scene`'s, drawn alike. Every rank of the
+    process group runs it on the same scene and returns the same result.
+
+    ``predict`` is a rank's block forward (`parallel.halo.block_predict`).
+    With ``core_pad`` (and ``halo_cap``) > 0 each chunk goes through the
+    halo exchange (`parallel.halo.sharded_scene_probs_collective`); a chunk
+    whose core slab exceeds ``core_pad`` falls back to host replication at
+    ``block_pad`` (`parallel.halo.sharded_scene_probs`), which also takes
+    every chunk without the exchange; a chunk whose halo exceeds
+    ``halo_cap`` is re-run through host replication, with one line to
+    ``log``. ``stats`` accumulates the JAX package's counters
+    (``truncated_halo_points``, ``blocks_evaluated``,
+    ``collective_chunks``, ``collective_fallback_chunks``,
+    ``halo_cap_dropped``, ``collective_<mode>_scenes``) and
+    ``collective_rerun_chunks``. Returns ``(pred [N] labels, accumulated
+    probabilities [N, classes])``."""
+    rng = rng or np.random.default_rng(0)
+    stats = {} if stats is None else stats
+    if transforms is None:
+        transforms = tta_transforms(data_name)
+    n = coord.shape[0]
+    pred_all = np.zeros((n, num_classes), np.float64)
+    kw = dict(concat_xyz=concat_xyz, halo=halo_width, device=device)
+
+    for p, tfm in enumerate(transforms):
+        c, f = np.asarray(coord, np.float32).copy(), np.asarray(
+            feat, np.float32).copy()
+        if tfm is not None:
+            c, f = tfm(c, f, rng)
+        c -= c.min(0)
+
+        pred = np.zeros((n, num_classes), np.float64)
+        for k, idx_part in enumerate(vote_chunks(c, voxel_size)):
+            cp, fp = c[idx_part].copy(), f[idx_part].copy()
+            cp -= cp.min(0)
+            if data_name == "s3dis":
+                fp = fp / 255.0
+            bstats = {}
+            probs = None
+            if core_pad:
+                try:
+                    probs = halo_mod.sharded_scene_probs_collective(
+                        predict, cp, fp, num_classes, core_pad=core_pad,
+                        halo_cap=halo_cap, stats=bstats, **kw)
+                    _add(stats, "collective_chunks", 1)
+                except halo_mod.CoreSlabOverflow:
+                    _add(stats, "collective_fallback_chunks", 1)
+                except halo_mod.HaloCapOverflow as e:
+                    _add(stats, "collective_rerun_chunks", 1)
+                    if log is not None:
+                        log(f"pass {p} chunk {k} ({len(idx_part)} points): "
+                            f"{e}; re-run through host replication")
+                for key, v in bstats.items():
+                    if key.startswith("collective_") or (
+                            key == "halo_cap_dropped"):
+                        _add(stats, key, v)
+            if probs is None:
+                bstats = {}
+                probs = halo_mod.sharded_scene_probs(
+                    predict, cp, fp, num_classes, n_pad=block_pad,
+                    stats=bstats, **kw)
+            _add(stats, "truncated_halo_points",
+                 bstats.get("truncated_halo_points", 0))
+            _add(stats, "blocks_evaluated", len(bstats["block_points"]))
+            pred[idx_part] += probs
 
         pred = pred / (pred.sum(-1, keepdims=True) + 1e-8)
         pred_all += pred

@@ -44,22 +44,23 @@ def _round_up(n, m):
     return ((n + m - 1) // m) * m
 
 
-def stem_neighbors(cfg: StratifiedConfig, xyz, offsets):
+def stem_neighbors(cfg: StratifiedConfig, xyz, offsets, anchor=None):
     """The KPConv stem's radius neighbours on the device
     (``models/stratified.py:302-307`` of the JAX package): up to
-    ``max_num_neighbors`` within ``2.5 grid_size sigma``. Returns ``(idx
-    [N, K] int64, mask [N, K])``."""
+    ``max_num_neighbors`` within ``2.5 grid_size sigma``, the cell list
+    anchored at ``anchor`` when given. Returns ``(idx [N, K] int64, mask
+    [N, K])``."""
     n = xyz.shape[0]
     batch = sampling.offsets_to_batch(offsets, n)
     idx, mask = neighbors.radius_neighbors(
         xyz, batch, xyz, batch, sampling.offsets_to_valid(offsets, n),
         2.5 * cfg.grid_size * cfg.sigma, cfg.max_num_neighbors,
         chunk=cfg.knn_chunk, method=cfg.neighbor_method,
-        cap=cfg.neighbor_cap, grid_chunk=cfg.grid_knn_chunk)
+        cap=cfg.neighbor_cap, grid_chunk=cfg.grid_knn_chunk, origin=anchor)
     return idx.long(), mask
 
 
-def _stage_members(cfg, stage, xyz, offsets):
+def _stage_members(cfg, stage, xyz, offsets, anchor=None):
     """The stratified members (far keys) of one stage, as a mask over its
     points (``models/stratified.py:196-218``). A slot of the sampler that
     is not valid sets nothing, as in the host pyramid: the JAX package
@@ -74,10 +75,10 @@ def _stage_members(cfg, stage, xyz, offsets):
         cell = cfg.grid_sizes()[stage] * float(cfg.downsample_scale) ** 0.5
         if cfg.down_quota == "cells":
             d_idx, d_valid, _ = sampling.grid_pool_sampling_all(
-                xyz, offsets, d_pad, cell)
+                xyz, offsets, d_pad, cell, origin=anchor)
         else:
             d_idx, d_valid = sampling.grid_pool_sampling(
-                xyz, offsets, d_offsets, d_pad, cell)
+                xyz, offsets, d_offsets, d_pad, cell, origin=anchor)
     elif cfg.sampler == "blocked_fps":
         d_idx, d_valid = sampling.blocked_fps(
             xyz, offsets, d_offsets, d_pad, cfg.window_sizes()[stage] * 4.0)
@@ -89,7 +90,7 @@ def _stage_members(cfg, stage, xyz, offsets):
     return is_down[:n]
 
 
-def _down_level(cfg, stage, xyz, offsets):
+def _down_level(cfg, stage, xyz, offsets, anchor=None):
     """One ``TransitionDown`` level (``models/layers.py:163-208``): sample
     indices, their offsets and the kNN graph of the samples against the
     level's points."""
@@ -101,10 +102,10 @@ def _down_level(cfg, stage, xyz, offsets):
         sampling.floor_ratio_counts(counts, cfg.ratio))
     if cfg.sampler == "grid" and cfg.down_quota == "cells":
         idx, valid, new_offsets = sampling.grid_pool_sampling_all(
-            xyz, offsets, out_pad, grid_cell)
+            xyz, offsets, out_pad, grid_cell, origin=anchor)
     elif cfg.sampler == "grid":
         idx, valid = sampling.grid_pool_sampling(
-            xyz, offsets, new_offsets, out_pad, grid_cell)
+            xyz, offsets, new_offsets, out_pad, grid_cell, origin=anchor)
     elif cfg.sampler == "blocked_fps":
         idx, valid = sampling.blocked_fps(
             xyz, offsets, new_offsets, out_pad, max(grid_cell * 8.0, 1e-3))
@@ -118,14 +119,15 @@ def _down_level(cfg, stage, xyz, offsets):
     if cfg.neighbor_method == "grid":
         knn_idx, _, knn_mask = neighbors.grid_knn(
             *args, cell=cfg.grid_sizes()[stage] * 3.0, cap=cfg.neighbor_cap,
-            query_valid=valid, chunk=cfg.grid_knn_chunk)
+            query_valid=valid, chunk=cfg.grid_knn_chunk, origin=anchor)
     else:
         knn_idx, _, knn_mask = neighbors.knn(*args, query_valid=valid)
     return {"idx": idx, "valid": valid, "offsets": new_offsets,
             "knn_idx": knn_idx.long(), "knn_mask": knn_mask}
 
 
-def _up_level(cfg, fine_stage, fine_xyz, fine_offsets, xyz, offsets):
+def _up_level(cfg, fine_stage, fine_xyz, fine_offsets, xyz, offsets,
+              anchor=None):
     """One ``Upsample`` level's 3-NN of the fine points among the coarse
     ones (``models/layers.py:237-247``)."""
     n, n_fine = xyz.shape[0], fine_xyz.shape[0]
@@ -137,13 +139,13 @@ def _up_level(cfg, fine_stage, fine_xyz, fine_offsets, xyz, offsets):
         idx, _, mask = neighbors.grid_knn(
             *args, cell=cfg.grid_sizes()[fine_stage] * 6.0,
             cap=cfg.neighbor_cap, query_valid=fine_valid,
-            chunk=cfg.grid_knn_chunk)
+            chunk=cfg.grid_knn_chunk, origin=anchor)
     else:
         idx, _, mask = neighbors.knn(*args, query_valid=fine_valid)
     return {"idx": idx.long(), "mask": mask}
 
 
-def geometry_pyramid(cfg: StratifiedConfig, xyz, offsets):
+def geometry_pyramid(cfg: StratifiedConfig, xyz, offsets, anchor=None):
     """The geometry pyramid computed on ``xyz``'s device, in the host
     pyramid's layout (``data/pyramid.py::build_geometry_pyramid``): the
     samplers and neighbour searches that the JAX package's model runs
@@ -151,19 +153,21 @@ def geometry_pyramid(cfg: StratifiedConfig, xyz, offsets):
     ``Upsample`` when it gets no pyramid; member masks for the transformer
     stages only, and none without stratified keys (``use_stratified``
     False, ``models/stratified.py:191-218``). They read the coordinates and
-    offsets alone, so they run before the first layer."""
+    offsets alone, so they run before the first layer. ``anchor``
+    (``[3]``): the origin of every sampling grid and cell list, as the
+    model's."""
     levels = [(xyz, offsets)]
     down, stage_down = [], []
     for i in range(cfg.num_layers):
         cur_xyz, cur_off = levels[-1]
         if i >= cfg.layer_start and cfg.use_stratified:
-            stage_down.append({"is_down": _stage_members(cfg, i, cur_xyz,
-                                                         cur_off)})
+            stage_down.append({"is_down": _stage_members(
+                cfg, i, cur_xyz, cur_off, anchor)})
         if i < cfg.num_layers - 1:
-            level = _down_level(cfg, i, cur_xyz, cur_off)
+            level = _down_level(cfg, i, cur_xyz, cur_off, anchor)
             down.append(level)
             levels.append((cur_xyz[level["idx"]], level["offsets"]))
-    up = [_up_level(cfg, j - 1, *levels[j - 1], *levels[j])
+    up = [_up_level(cfg, j - 1, *levels[j - 1], *levels[j], anchor)
           for j in range(cfg.num_layers - 1, 0, -1)]
     return {"down": tuple(down), "up": tuple(up),
             "stage_down": tuple(stage_down)}
@@ -197,9 +201,11 @@ class BasicLayer(nn.Module):
                 rpe_mode=cfg.rpe_mode,
                 shift_size=ws / 2.0 if b % 2 else 0.0))
 
-    def forward(self, feats, xyz, offsets, is_down, generator=None):
+    def forward(self, feats, xyz, offsets, is_down, generator=None,
+                anchor=None):
         """``is_down``: the stage's member mask (None without stratified
-        keys)."""
+        keys); ``anchor``: the plans' window-grid origin (None: the batch
+        min)."""
         cfg = self.cfg
         n = xyz.shape[0]
         batch = sampling.offsets_to_batch(offsets, n)
@@ -213,7 +219,7 @@ class BasicLayer(nn.Module):
                 shifted=bool(parity), is_down=is_down,
                 sparse_cap=cfg.sparse_cap,
                 aux_pad=_round_up(d_pad, 128) if is_down is not None
-                else None)
+                else None, anchor=anchor)
             for parity in (0, 1)
         ]
         for b in range(cfg.depths[self.stage]):
@@ -257,13 +263,18 @@ class Stratified(nn.Module):
             self.reg_fc2 = nn.Linear(c[0], 3)
 
     def forward(self, feats, xyz, offsets, *, stem_nidx=None,
-                stem_nmask=None, pyramid=None, generator=None):
+                stem_nmask=None, pyramid=None, generator=None, anchor=None):
         """feats ``[N_pad, C_in]``, xyz ``[N_pad, 3]``, offsets ``[B]``;
         stem_nidx/stem_nmask ``[N_pad, K]`` the stem's radius neighbours and
         pyramid the geometry pyramid, from the host, or computed on the
         device when None (`stem_neighbors`, `geometry_pyramid`);
         ``generator`` (a ``torch.Generator`` on the model's device) draws
-        the drop-path masks in training mode. Returns ``(logits [N_pad,
+        the drop-path masks in training mode; ``anchor`` (``[3]``) is the
+        origin of every window grid, sampling grid and cell list the
+        forward builds (None: each is anchored at its batch min, as the
+        reference's ``xyz.min(0)``): sharded inference passes the scene's
+        anchor so that its spatial blocks share one grid
+        (`parallel.halo`). Returns ``(logits [N_pad,
         classes], shift)``: ``shift [N_pad, 3]`` from the offset head with
         ``with_regressor``, else None."""
         cfg = self.cfg
@@ -271,9 +282,9 @@ class Stratified(nn.Module):
         if n % cfg.tile:
             raise ValueError(f"n_pad {n} must be a multiple of tile {cfg.tile}")
         if stem_nidx is None:
-            stem_nidx, stem_nmask = stem_neighbors(cfg, xyz, offsets)
+            stem_nidx, stem_nmask = stem_neighbors(cfg, xyz, offsets, anchor)
         if pyramid is None:
-            pyramid = geometry_pyramid(cfg, xyz, offsets)
+            pyramid = geometry_pyramid(cfg, xyz, offsets, anchor)
         valid = sampling.offsets_to_valid(offsets, n)
         feats = self.stem_0(feats, xyz, stem_nidx, stem_nmask, valid)
         if not cfg.stem_transformer:
@@ -285,7 +296,7 @@ class Stratified(nn.Module):
                 feats = getattr(self, f"layer_{i}")(
                     feats, xyz, offsets,
                     pyramid["stage_down"][i - cfg.layer_start]["is_down"]
-                    if cfg.use_stratified else None, generator)
+                    if cfg.use_stratified else None, generator, anchor)
             stack.append((feats, xyz, offsets))
             if i < cfg.num_layers - 1:
                 feats, xyz, offsets = getattr(self, down_name(cfg, i))(

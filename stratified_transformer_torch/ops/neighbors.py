@@ -95,12 +95,13 @@ def knn(query_xyz, query_batch, ref_xyz, ref_batch, ref_valid, k, *,
 
 def grid_knn(query_xyz, query_batch, ref_xyz, ref_batch, ref_valid, k, *,
              cell, cap=32, radius=None, query_valid=None, chunk=None,
-             selector="exact"):
+             selector="exact", origin=None):
     """Cell-list k nearest neighbours (``neighbors.py:106-272``).
 
     Reference points are bucketed into grid cells of edge ``cell`` (at most
-    ``cap`` per cell, in index order) on a grid anchored at the valid refs'
-    min; each query examines the 27 cells around its own. ``radius`` drops
+    ``cap`` per cell, in index order) on a grid anchored at ``origin``
+    (``[3]``) when given, else at the valid refs' min; each query examines
+    the 27 cells around its own. ``radius`` drops
     candidates beyond it (the ball-query mode). Queries run in slices of
     ``chunk``
     (None: all at once), or on a CUDA device of as many as
@@ -116,7 +117,11 @@ def grid_knn(query_xyz, query_batch, ref_xyz, ref_batch, ref_valid, k, *,
     query_ok = (torch.ones(nq, dtype=torch.bool, device=dev)
                 if query_valid is None else query_valid)
 
-    start = hashing.masked_min(ref_xyz, ref_valid)
+    # sharded inference passes the scene's anchor: a batch-min origin
+    # would move the cells per block, and with them which refs the per-cell
+    # ``cap`` keeps
+    start = (hashing.masked_min(ref_xyz, ref_valid) if origin is None
+             else torch.as_tensor(origin, dtype=torch.float32, device=dev))
     rcells = hashing.window_cells(ref_xyz, cell, start=start)
     hi = torch.where(ref_valid[:, None], rcells,
                      torch.zeros_like(rcells)).max(0).values + 1
@@ -198,15 +203,16 @@ def grid_knn(query_xyz, query_batch, ref_xyz, ref_batch, ref_valid, k, *,
 
 def radius_neighbors(query_xyz, query_batch, ref_xyz, ref_batch, ref_valid,
                      radius, k, *, chunk=512, method="brute", cap=32,
-                     grid_chunk=None):
+                     grid_chunk=None, origin=None):
     """Up to ``k`` neighbours within ``radius``, nearest first
     (``neighbors.py:275-322``; the reference's ``ball_query``); the cell
-    list's cells are ``radius`` wide. Returns ``(idx [M, k] int32, mask
-    [M, k])``."""
+    list's cells are ``radius`` wide, anchored at ``origin`` (see
+    `grid_knn`). Returns ``(idx [M, k] int32, mask [M, k])``."""
     if method == "grid":
         idx, _, mask = grid_knn(
             query_xyz, query_batch, ref_xyz, ref_batch, ref_valid, k,
-            cell=float(radius), cap=cap, radius=radius, chunk=grid_chunk)
+            cell=float(radius), cap=cap, radius=radius, chunk=grid_chunk,
+            origin=origin)
         return idx, mask
     idx, dist, mask = knn(query_xyz, query_batch, ref_xyz, ref_batch,
                           ref_valid, k, chunk=chunk)
@@ -224,14 +230,16 @@ def inverse_distance_weights(d, mask):
 def three_nn_interpolate(query_xyz, query_batch, support_xyz, support_batch,
                          support_valid, support_feats, *, query_valid=None,
                          chunk=512, method="brute", cell=None, cap=32,
-                         grid_chunk=None):
+                         grid_chunk=None, origin=None):
     """Inverse-distance weighted 3-NN feature interpolation
-    (``neighbors.py:325-367``). Returns ``[M, C]``."""
+    (``neighbors.py:325-367``; ``origin`` as `grid_knn`'s). Returns ``[M,
+    C]``."""
     args = (query_xyz, query_batch, support_xyz, support_batch,
             support_valid, 3)
     if method == "grid":
         idx, dist2, mask = grid_knn(*args, cell=cell, cap=cap,
-                                    query_valid=query_valid, chunk=grid_chunk)
+                                    query_valid=query_valid, chunk=grid_chunk,
+                                    origin=origin)
     else:
         idx, dist2, mask = knn(*args, query_valid=query_valid, chunk=chunk)
     w = inverse_distance_weights(torch.sqrt(dist2), mask)

@@ -59,7 +59,8 @@ class AttentionPlan(NamedTuple):
 
 
 def build_attention_plan(xyz, batch, valid, window_size, *, shifted,
-                         is_down=None, sparse_cap=64, aux_pad=None):
+                         is_down=None, sparse_cap=64, aux_pad=None,
+                         anchor=None):
     """Attention layout for one shift parity.
 
     Args:
@@ -72,12 +73,16 @@ def build_attention_plan(xyz, batch, valid, window_size, *, shifted,
       sparse_cap: far keys kept per large window.
       aux_pad: aux-array capacity (default ``N // 4`` rounded up to 128).
 
-    The window grid's origin is the batch min of valid points (the
-    reference's ``xyz.min(0)``), returned as ``grid_start``.
+    The window grid's origin is ``anchor`` (``[3]``) when given, so that
+    the spatial blocks of one scene share one grid (`parallel.halo`), else
+    the batch min of valid points (the reference's ``xyz.min(0)``); it is
+    returned as ``grid_start``.
     """
     ws = float(window_size)
     n = xyz.shape[0]
-    start = hashing.masked_min(xyz, valid)
+    start = (hashing.masked_min(xyz, valid) if anchor is None
+             else torch.as_tensor(anchor, dtype=torch.float32,
+                                  device=xyz.device))
     shift_small = 0.5 * ws if shifted else 0.0
     cells_small = hashing.window_cells(xyz, ws, start=start, shift=shift_small)
     key_small = hashing.window_keys(cells_small, batch, valid)

@@ -126,13 +126,18 @@ def farthest_point_sampling(xyz, offsets, new_offsets, out_pad):
     return out.to(torch.int32), out_valid
 
 
-def _grid_cells(xyz32, valid, cell_size):
+def _grid_cells(xyz32, valid, cell_size, origin=None):
     """Cells ``floor((xyz - mins) / cell_size)`` of a batch-wide grid
-    anchored at the valid points' min, with the divisor a device tensor
-    (PyTorch's CUDA division by a Python number multiplies by its
-    reciprocal, which is not the correctly rounded quotient)."""
-    mins = torch.where(valid[:, None], xyz32,
-                       torch.full_like(xyz32, BIG)).min(0).values
+    anchored at ``origin`` (``[3]``) when given, else at the valid points'
+    min, with the divisor a device tensor (PyTorch's CUDA division by a
+    Python number multiplies by its reciprocal, which is not the correctly
+    rounded quotient)."""
+    if origin is None:
+        mins = torch.where(valid[:, None], xyz32,
+                           torch.full_like(xyz32, BIG)).min(0).values
+    else:
+        mins = torch.as_tensor(origin, dtype=torch.float32,
+                               device=xyz32.device)
     cell = torch.tensor(cell_size, dtype=torch.float32, device=xyz32.device)
     cells = torch.floor((xyz32 - mins) / cell).to(torch.int32)
     return cells, mins, cell
@@ -149,7 +154,7 @@ def _cell_keys(cells, batch, valid, num_scenes):
     return torch.where(valid, key, torch.full_like(key, INVALID_KEY))
 
 
-def _grid_reps(xyz, offsets, cell_size):
+def _grid_reps(xyz, offsets, cell_size, origin=None):
     """Center-most representative per grid cell (``sampling.py:132-172``),
     in key-sorted order: returns ``(order, batch of each sorted point,
     is_rep, starts, n, num_scenes)``."""
@@ -158,7 +163,7 @@ def _grid_reps(xyz, offsets, cell_size):
     batch = offsets_to_batch(offsets, n)
     valid = offsets_to_valid(offsets, n)
     xyz32 = xyz.to(torch.float32)
-    cells, mins, cell = _grid_cells(xyz32, valid, cell_size)
+    cells, mins, cell = _grid_cells(xyz32, valid, cell_size, origin)
     key = _cell_keys(cells, batch, valid, num_scenes)
     order = torch.argsort(key, stable=True)
     key_s = key[order]
@@ -201,12 +206,14 @@ def _scene_ranks(is_rep, rep_batch, num_scenes, n):
     return (cum - 1) - scene_first[rb], rb
 
 
-def grid_pool_sampling(xyz, offsets, new_offsets, out_pad, cell_size):
+def grid_pool_sampling(xyz, offsets, new_offsets, out_pad, cell_size,
+                       origin=None):
     """The center-most point of each grid cell, at most ``new_offsets``'
     count per scene in flat key order (``sampling.py:175-232``), on a grid
-    anchored at the batch min of the valid points."""
+    anchored at ``origin`` when given (sharded inference's global anchor),
+    else at the batch min of the valid points."""
     order, rep_batch, is_rep, starts, n, num_scenes = _grid_reps(
-        xyz, offsets, cell_size)
+        xyz, offsets, cell_size, origin)
     new_starts = scene_starts(new_offsets).long()
     new_counts = new_offsets.long() - new_starts
     rank, rb = _scene_ranks(is_rep, rep_batch, num_scenes, n)
@@ -221,13 +228,13 @@ def grid_pool_sampling(xyz, offsets, new_offsets, out_pad, cell_size):
     return out, out_valid
 
 
-def grid_pool_sampling_all(xyz, offsets, out_pad, cell_size):
+def grid_pool_sampling_all(xyz, offsets, out_pad, cell_size, origin=None):
     """`grid_pool_sampling` without the per-scene quota: every occupied
     cell keeps its representative, up to ``out_pad`` in all
     (``sampling.py:235-284``). Returns ``(idx, valid, new_offsets)``, the
     last the cumulative representative counts."""
     order, rep_batch, is_rep, starts, n, num_scenes = _grid_reps(
-        xyz, offsets, cell_size)
+        xyz, offsets, cell_size, origin)
     rank, rb = _scene_ranks(is_rep, rep_batch, num_scenes, n)
     rep_counts = segment_reduce(is_rep.to(torch.int64), rb, num_scenes, "sum")
     new_offsets = torch.cumsum(rep_counts, 0).clamp_max(out_pad)

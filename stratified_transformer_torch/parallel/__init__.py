@@ -1,7 +1,8 @@
-"""Data parallelism (the JAX package's ``parallel/``, less its sharded
-inference, ``parallel/halo.py``): process groups and rank processes
-(`mesh`), and the data-parallel training step (`dp`), whose SyncBN runs
-inside the model (`models.layers.MaskedBatchNorm`).
+"""Data parallelism and sharded inference (the JAX package's
+``parallel/``): process groups, rank processes and the collectives of
+sharded inference (`mesh`), the data-parallel training step (`dp`), whose
+SyncBN runs inside the model (`models.layers.MaskedBatchNorm`), and
+whole-scene inference over spatial slabs with receptive halos (`halo`).
 
 The JAX package drives a mesh of devices from one process (``shard_map``,
 gradient ``pmean`` and SyncBN ``psum`` over its ``data`` axis); the port

@@ -91,6 +91,37 @@ def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def resolve_world(count, device) -> int:
+    """The rank count of a ``count`` key (``n_devices``,
+    ``sharded_devices``) on ``device`` (``train.py:403-404``, ``test.py:
+    100``): on a CUDA device 0 means every visible card and a larger count
+    is clamped to them; on the CPU it is that many ranks, 0 one."""
+    count = int(count)
+    if torch.device(device).type == "cuda":
+        visible = torch.cuda.device_count()
+        return min(count or visible, visible)
+    return max(count, 1)
+
+
+def all_reduce_sum(t):
+    """Sum ``t`` over the ranks in place and return it; ``t`` itself
+    without a process group. A group of one rank still runs the
+    collective."""
+    if dist.is_initialized():
+        dist.all_reduce(t)
+    return t
+
+
+def all_gather_rows(t):
+    """``[world, *t.shape]``: row ``r`` is rank ``r``'s ``t``. Each rank
+    fills its own row of a zero-filled buffer and the buffers are summed
+    (`all_reduce_sum`), which is exact (``x + 0 == x``) and runs on CUDA
+    tensors under NCCL and gloo alike (gloo's ``all_gather`` takes none)."""
+    out = t.new_zeros((world_size(),) + tuple(t.shape))
+    out[rank()] = t
+    return all_reduce_sum(out)
+
+
 def barrier():
     """Wait for every rank; nothing without a process group."""
     if world_size() > 1:

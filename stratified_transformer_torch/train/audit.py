@@ -14,7 +14,8 @@ The training loop logs the drop fraction of each, per stage, every
 ``print_freq * audit_freq`` iterations (``truncation_audit``, default on),
 so that a denser dataset cannot silently eat pairs. The counters come from
 the plans the forward builds, over the levels of the batch's host pyramid,
-on the batch's device.
+on the batch's device. Sharded inference counts a block's on the block's
+own grid, anchored at the scene's ``anchor`` as its forward is.
 """
 
 from __future__ import annotations
@@ -59,9 +60,10 @@ def _sparse_band_drops(plan, s_band, tile):
 
 
 def _stage_stats(xyz, offsets, is_down, *, ws, band, tile, s_band,
-                 sparse_cap, aux_pad):
+                 sparse_cap, aux_pad, anchor=None):
     """The six counters of one stage over both shift parities, in
-    `FIELDS` order."""
+    `FIELDS` order, on plans anchored at ``anchor`` (None: the batch
+    min)."""
     n = xyz.shape[0]
     batch = sampling.offsets_to_batch(offsets, n)
     valid = sampling.offsets_to_valid(offsets, n)
@@ -69,7 +71,7 @@ def _stage_stats(xyz, offsets, is_down, *, ws, band, tile, s_band,
     for parity in (0, 1):
         plan = build_attention_plan(
             xyz, batch, valid, ws, shifted=bool(parity), is_down=is_down,
-            sparse_cap=sparse_cap, aux_pad=aux_pad)
+            sparse_cap=sparse_cap, aux_pad=aux_pad, anchor=anchor)
         out[0:2] += torch.stack(_dense_band_drops(plan, band, tile))
         out[2:4] += torch.stack(_sparse_band_drops(plan, s_band, tile))
         out[4] -= plan.sparse_band.sb_valid.sum()
@@ -79,7 +81,7 @@ def _stage_stats(xyz, offsets, is_down, *, ws, band, tile, s_band,
 
 
 @torch.no_grad()
-def audit_truncation_packed(cfg, batch):
+def audit_truncation_packed(cfg, batch, anchor=None):
     """The counters of every transformer stage of one batch with a host
     pyramid (``xyz``, ``offsets``, ``pyramid`` on one device) as ONE int64
     tensor ``[num_layers - layer_start, 6]`` on that device: row ``r`` is
@@ -87,7 +89,9 @@ def audit_truncation_packed(cfg, batch):
     in `FIELDS` order. One tensor, one transfer when the loop reads it.
     Without stratified keys (``use_stratified`` False) there are no
     stages to count: ``[0, 6]`` (the JAX package's ``{}``,
-    ``train/audit.py:102``)."""
+    ``train/audit.py:102``). ``anchor`` (``[3]``): the plans' window-grid
+    origin, as the forward's (`models.stratified.Stratified.forward`); the
+    pyramid must have been built with the same one."""
     if not cfg.use_stratified:
         return torch.zeros(0, len(FIELDS), dtype=torch.int64,
                            device=batch["xyz"].device)
@@ -103,7 +107,7 @@ def audit_truncation_packed(cfg, batch):
             lx, loff.long(), pyramid["stage_down"][r]["is_down"],
             ws=cfg.window_sizes()[i], band=cfg.stage_band(i), tile=cfg.tile,
             s_band=cfg.s_band, sparse_cap=cfg.sparse_cap,
-            aux_pad=((d_pad + 127) // 128) * 128))
+            aux_pad=((d_pad + 127) // 128) * 128, anchor=anchor))
     return torch.stack(rows)
 
 

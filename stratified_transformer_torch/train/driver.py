@@ -105,12 +105,9 @@ def scenes_in(offsets):
 def resolve_n_devices(yaml_cfg, device):
     """The rank count of ``n_devices`` on ``device`` (``train.py:403-404``):
     on a CUDA device 0 means every visible card and a larger count is
-    clamped to them; on the CPU it is that many ranks, 0 one."""
-    n_devices = int(yaml_cfg.get("n_devices", 0))
-    if torch.device(device).type == "cuda":
-        visible = torch.cuda.device_count()
-        return min(n_devices or visible, visible)
-    return max(n_devices, 1)
+    clamped to them; on the CPU it is that many ranks, 0 one
+    (`parallel.mesh.resolve_world`)."""
+    return mesh.resolve_world(yaml_cfg.get("n_devices", 0), device)
 
 
 def state_digest(model, optimizer):

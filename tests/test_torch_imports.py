@@ -74,3 +74,13 @@ def test_the_parallel_modules_are_checked():
     assert {"stratified_transformer_torch/parallel/__init__.py",
             "stratified_transformer_torch/parallel/mesh.py",
             "stratified_transformer_torch/parallel/dp.py"} <= set(FILES)
+
+
+def test_the_sharded_modules_are_checked():
+    """Sharded inference's modules, and the test worker that runs them on
+    ranks without JAX."""
+    assert {"stratified_transformer_torch/parallel/halo.py",
+            "stratified_transformer_torch/parallel/mesh.py"} <= set(FILES)
+    source = (ROOT / "tests" / "torch_halo_worker.py").read_text()
+    assert not [m for m in imported_modules(source)
+                if m.split(".")[0] in FORBIDDEN]

@@ -412,13 +412,20 @@ def test_driver_refuses_a_missing_checkpoint(tmp_path):
 
 
 def test_driver_refuses_what_the_port_does_not_run(monkeypatch):
-    """Sharded inference and a missing data_root are refused; DCF, once
-    refused, is taken as ``test.py`` takes it: its YAML's model (with the
-    offset head) and, for any data_name but s3dis and scannetv2, synthetic
-    rooms of seed 999."""
+    """A missing data_root is refused; sharded inference, once refused,
+    runs (here on one CPU rank; ``test_torch_halo*.py`` hold it against
+    JAX); DCF, once refused, is taken as ``test.py`` takes it: its YAML's
+    model (with the offset head) and, for any data_name but s3dis and
+    scannetv2, synthetic rooms of seed 999."""
     yaml_cfg = load_cfg(os.path.join(CONFIGS, "s3dis_stratified.yaml"))
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 6"):
-        driver.run(dict(yaml_cfg, sharded=True), "cpu")
+    lines = []
+    m = driver.run(merge_cfg_from_list(yaml_cfg, NARROW_ARGS + [
+        "data_name", "synthetic", "synthetic_points", "300",
+        "synthetic_eval_scenes", "1", "sharded", "True",
+        "sharded_block_points", "512"]), "cpu", log=lines.append)
+    assert lines[0].startswith("sharded eval: 1 devices, block_pad 512, ")
+    assert m["sharded_stats"]["collective_chunks"] > 0
+    assert lines[-1].startswith("Val result: mIoU/mAcc/allAcc ")
     dcf = driver.eval_config(load_cfg(os.path.join(
         CONFIGS, "dcf_stratified.yaml")))
     assert dcf.with_regressor and dcf.n_pad == 400000 and dcf.num_scenes == 5
@@ -437,5 +444,7 @@ def test_driver_refuses_what_the_port_does_not_run(monkeypatch):
             driver.scenes_of(dict(yaml_cfg, data_name=name), 13)
     # without --device cpu it needs the card: no fallback to the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        driver.run(dict(yaml_cfg, data_name="synthetic"))
+    for sharded in (False, True):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            driver.run(dict(yaml_cfg, data_name="synthetic",
+                            sharded=sharded))
