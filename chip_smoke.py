@@ -13,12 +13,17 @@ runs phase 4 alone; ``--bwd-only`` builds the two backward kernels and runs
 phase 7 alone; ``--scene-only`` builds the two forward kernels and runs
 phase 10 alone; ``--loop-only`` builds the four attention kernels and runs
 phase 11 alone; ``--scannet-only`` builds the four attention kernels and
-runs phase 12 alone; ``--dcf-only`` builds the four attention kernels and
-runs phase 13 alone; ``--fast-only`` builds the four attention kernels
-(their sources hold the fp32 and the fast forms) and runs phase 14 alone;
+runs phase 12 alone (``--scannet-kernels-only``: its (a) alone, the
+four kernels at ScanNet's plans); ``--dcf-only`` builds the four
+attention kernels and runs phase 13 alone; ``--fast-only`` builds the four
+attention kernels (their sources hold the fp32 and the fast forms) and
+runs phase 14 alone;
 ``--swin-only`` builds the two band kernels and runs phase 15 alone;
 ``--dp-only`` builds the four attention kernels and runs phase 16 alone;
 ``--halo-only`` builds the two forward kernels and runs phase 17 alone;
+``--bwd-phases`` builds the two backward kernels and variants of them
+without one phase of the fast form's block routine each, and times them
+at phase 14's S3DIS and ScanNet plans (`bwd_phases`);
 ``--iou-only`` builds the two forward kernels and times the train and eval
 steps' IoU counters (`iou_phase`). Each prints its
 times as one JSON line (``--fwd-only`` also per stage and parity). Copied into another checkout (say a parent commit
@@ -152,7 +157,8 @@ Phases, each fatal on failure:
      forwards (12 band launches each, none else) and three training steps
      (12 of each band kernel per step) against the plain-version model
      (phases 5 and 8's gates); (d) the same at ScanNet's Swin3D (n_pad
-     250112 in 2 slots, stages 1-4, 18 blocks), one forward and one step;
+     250112 in 2 slots, stages 1-4, 18 blocks), one forward and one step,
+     then (b) and (f)'s kernel checks and times at its batch's plans;
      (e) the shipped S3DIS Swin YAML through the training driver (1 epoch of
      2 steps with validation) and the eval driver (one 40000-point room at
      the YAML's test shape); (f) the fast forms against their plain fast
@@ -1158,7 +1164,7 @@ def fwd_phase(cfg, levels, plans, dev, report, fast=False):
     return rows_out
 
 
-def bwd_phase(cfg, levels, plans, dev, report, fast=False):
+def bwd_phase(cfg, levels, plans, dev, report, fast=False, variants=None):
     """Phase 7: both backward kernels against their plain versions at every
     stage's plans, with random q/k/v/g and tables from seed 0 and the merged
     forward residuals of the plain versions. Adds each kernel's per-step
@@ -1166,7 +1172,11 @@ def bwd_phase(cfg, levels, plans, dev, report, fast=False):
     under ``wrapper_ms``. ``fast`` (phase 14): the bf16 forms against the
     plain fast versions, every gradient within FAST_GRAD_REL_L2 relative
     L2, reported under ``<name>_bf16`` with the fp32 form's time on the
-    same inputs (``fp32_ms``) and no wrapper timing."""
+    same inputs (``fp32_ms``) and no wrapper timing; the bound counts the
+    bytes of the fp32 form's inputs, the function's as the model gives
+    them. ``variants`` (``--bwd-phases``, with ``fast``): per-step times of
+    each variant build's fast entry point on the same arguments, under
+    ``variants`` (`build_bwd_variants`)."""
     from stratified_transformer_torch.kernels import (
         band_attention_bwd as band_bwd_k)
     from stratified_transformer_torch.kernels import (
@@ -1265,12 +1275,18 @@ def bwd_phase(cfg, levels, plans, dev, report, fast=False):
                                 for gn, a, b in zip(grad_names, got, want)]
                     kernel = mod.KERNEL_FAST if fast else mod.KERNEL
                     ms = cuda_time_ms(lambda: kernel(*args), 10)
+                    in_bytes = nbytes(inputs)
                     if fast:
                         args32 = make_args(False)
                         fp32_ms = cuda_time_ms(
                             lambda: mod.KERNEL(*args32[0]), 10)
                         report[key]["fp32_ms"] += blocks * fp32_ms
                         timing = f"fp32 form {fp32_ms:.4f} ms"
+                        in_bytes = nbytes(args32[2])
+                        for tag, fns in (variants or {}).items():
+                            vr = report[key].setdefault("variants", {})
+                            vr[tag] = vr.get(tag, 0.0) + blocks * cuda_time_ms(
+                                lambda: fns[name](*args), 10)
                     else:
                         wrapper_ms = cuda_time_ms(wrapper, 10)
                         busy_ms = device_busy_ms(wrapper, 3)
@@ -1285,7 +1301,7 @@ def bwd_phase(cfg, levels, plans, dev, report, fast=False):
                                           split=fast)
                     bound, by = add_timing(report, key, blocks, ms,
                                            plain_ms,
-                                           nbytes(inputs + tuple(got)),
+                                           in_bytes + nbytes(got),
                                            t_ops, max(errs))
                     per_pair = sum(t_ops) if fast else t_ops
                     log(f"[bwd] {key} stage {i} shifted={int(shifted)} "
@@ -1315,6 +1331,152 @@ def bwd_phase(cfg, levels, plans, dev, report, fast=False):
                f"wrapper {r['wrapper_ms']:.3f} ms, of which the device is "
                f"busy {r['wrapper_busy_ms']:.3f} ms")
             + f"; bound {r['bound_ms']:.3f} ms)")
+
+
+# ``--bwd-phases``: where the fast backward kernels' time goes. Each
+# variant is a build of the backward sources with phases of the fast
+# form's block routine cut out: a cut replaces the opening line of a
+# phase (file, text, replacement) so that its body never runs; the
+# difference of a variant's time from the kernel's is that phase's share
+# (the later phases then read stale shared memory: times only). Cuts of
+# attention_bwd_common.cuh split the routine the fast forms ran before the
+# tensor-core routine (attention_bwd_block at kFast), those of
+# attention_bwd_tc.cuh that routine; a cut whose text a checkout lacks is
+# skipped and logged.
+TC = "attention_bwd_tc.cuh"
+BWD_PHASE_CUTS = {
+    "1 key projections": [
+        ("attention_bwd_common.cuh",
+         "    if (tabs && (tid & (C - 1)) < cn) {", "    if (false) {"),
+        (TC, "  auto key_projections = [&](int b) {\n",
+         "  auto key_projections = [&](int b) {\n    return;\n")],
+    "2 pairs": [
+        ("attention_bwd_common.cuh",
+         "    for (int j = jlo + sub; j < jhi; j += LPR) {",
+         "    for (int j = jhi; j < jhi; j += LPR) {"),
+        (TC, "        if (jlo < key0 + 8 && jhi > key0) {",
+         "        if (false) {")],
+    "2 row masses": [
+        ("attention_bwd_common.cuh",
+         "    if (tabs && sub < 3 && row_ok) {", "    if (false) {"),
+        (TC, "        for (int j = j0; j < j1; j += 8) {",
+         "        for (int j = j1; j < j1; j += 8) {")],
+    "3 key sums and Mk": [
+        ("attention_bwd_common.cuh",
+         "    if (kj < cn && (sums || (tabs && kq < 3))) {",
+         "    if (false) {"),
+        (TC, "        if (kj < s_act[mt][0] || kj >= s_act[mt][1]) "
+             "continue;", "        continue;")],
+    "4 Mk.Tk and Mk^T.k": [
+        ("attention_bwd_common.cuh",
+         "    if (tabs) {\n      const int j8",
+         "    if (false) {\n      const int j8"),
+        (TC, "      if (is_dk && tabs) {", "      if (false) {"),
+        (TC, "      if (!is_dk && tabs) {", "      if (false) {")],
+    "end of block": [
+        ("attention_bwd_common.cuh",
+         "    for (int ab = sub; ab < nb3; ab += LPR) {",
+         "    for (int ab = nb3; ab < nb3; ab += LPR) {"),
+        ("attention_bwd_common.cuh",
+         "      for (int tt = 0; tt < R; ++tt) {\n        const float2 mv",
+         "      for (int tt = R; tt < R; ++tt) {\n        const float2 mv"),
+        (TC, "    if (tabs) {                               // two chains",
+         "    if (false) {                              // two chains"),
+        (TC, "    if ((tmask >> at) & 1u) {", "    if (false) {")],
+}
+
+
+def build_bwd_variants(tmp):
+    """Variant libraries of the two backward sources, one per entry of
+    BWD_PHASE_CUTS and one with every cut ("all"), built in parallel under
+    ``tmp``; returns ``{variant: {kernel name: fast entry point}}`` (each
+    entry point raises on a failed launch)."""
+    import ctypes
+    import shutil
+    from stratified_transformer_torch.kernels import build
+    mods = attention_kernel_modules()
+    cuts = dict(BWD_PHASE_CUTS)
+    cuts["all"] = [c for v in BWD_PHASE_CUTS.values() for c in v]
+    jobs = []
+    for v, (tag, spec) in enumerate(cuts.items()):
+        src = os.path.join(tmp, f"v{v}")
+        shutil.copytree(build.CSRC, src)
+        for fn, old, new in spec:
+            path = os.path.join(src, fn)
+            text = open(path).read() if os.path.exists(path) else ""
+            if text.count(old) != 1:
+                log(f"[bwd-phases] {tag}: cut {old.strip()[:40]!r} not in "
+                    f"{fn}, skipped")
+                continue
+            with open(path, "w") as f:
+                f.write(text.replace(old, new))
+        for name in BWD_KERNELS:
+            out = os.path.join(src, f"lib{name}.so")
+            jobs.append((tag, name, out, subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", out,
+                 os.path.join(src, f"{name}.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+    variants = {}
+    for tag, name, out, proc in jobs:
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {tag} of {name}.cu:\n{text}")
+        fn = getattr(ctypes.CDLL(out), f"{name}{FAST}")
+        fn.argtypes = mods[name].KERNEL_FAST.argtypes
+        fn.restype = ctypes.c_int
+
+        def call(*args, fn=fn, tag=tag):
+            rc = fn(*args)
+            if rc != 0:
+                raise RuntimeError(f"variant {tag}: cudaError_t {rc}")
+        variants.setdefault(tag, {})[name] = call
+    return variants
+
+
+def bwd_phases(dev):
+    """``--bwd-phases``: the fast backward kernels at phase 14 (a)'s S3DIS
+    plans and (c)'s ScanNet plans (`bwd_phase` with ``fast``, gates
+    included), each beside its variant builds without one phase
+    (`build_bwd_variants`); per-step ms of the kernel and of each variant,
+    and each phase's share (the kernel's time less the variant's)."""
+    import tempfile
+    from stratified_transformer_torch.config import load_config
+    from stratified_transformer_torch.data.loader import host_batch
+    FAST_FAILURES.clear()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        variants = build_bwd_variants(tmp)
+        log(f"[bwd-phases] {len(variants)} variants built in "
+            f"{time.time() - t0:.1f} s")
+        out = {}
+        for tag, path, hb_kw, cfg_kw in (
+                ("s3dis", CONFIG, {}, dict(n_pad=N_PAD, num_scenes=SCENES)),
+                ("scannet", SCANNET_CONFIG, SCANNET_ROOMS, {})):
+            cfg = load_config(path, **cfg_kw)
+            hb = host_batch(cfg, seed=0, **hb_kw)
+            levels = stage_levels(cfg, hb)
+            plans = {(i, sh): build_plan(cfg, i, levels[i], sh, dev)
+                     for i in stages(cfg) for sh in (False, True)}
+            report = new_report(FAST_KERNELS)
+            bwd_phase(cfg, levels, plans, dev, report, fast=True,
+                      variants=variants)
+            out[tag] = {}
+            for name in BWD_KERNELS:
+                r = report[name + FAST]
+                out[tag][name + FAST] = {
+                    "ms": r["ms"], "fp32_ms": r["fp32_ms"],
+                    "bound_ms": r["bound_ms"], "variants": r["variants"],
+                    "phase_ms": {v: r["ms"] - t
+                                 for v, t in r["variants"].items()}}
+                log(f"[bwd-phases] {tag} {name}{FAST}: {r['ms']:.3f} ms per "
+                    "step; without " + ", ".join(
+                        f"{v}: {t:.3f} ({r['ms'] - t:+.3f})"
+                        for v, t in r["variants"].items()))
+            del plans
+    if FAST_FAILURES:
+        raise AssertionError(f"--bwd-phases: {len(FAST_FAILURES)} gates or "
+                             f"controls failed: {FAST_FAILURES}")
+    return out
 
 
 def tree_leaves(prefix, x):
@@ -1810,6 +1972,21 @@ def scannet_loop(dev, kernel_mods, blocks):
     return out
 
 
+def scannet_kernels(cfg, hb, dev):
+    """Phase 12 (a) (``--scannet-kernels-only`` alone): the four attention
+    kernels against their plain versions at every transformer stage's plans
+    of the ScanNet batch ``hb`` (phases 4 and 7 at ScanNet's shapes);
+    returns their report."""
+    levels = stage_levels(cfg, hb)
+    plans = {(i, sh): build_plan(cfg, i, levels[i], sh, dev)
+             for i in stages(cfg) for sh in (False, True)}
+    log_pairs("scannet batch 0", cfg, hb, dev)
+    report = new_report(FWD_KERNELS + BWD_KERNELS)
+    fwd_phase(cfg, levels, plans, dev, report)
+    bwd_phase(cfg, levels, plans, dev, report)
+    return report
+
+
 def scannet_phase(dev, kernel_mods):
     """Phase 12: the ScanNet family at full width on its YAML's batch shape
     (module docstring). Returns the numbers of (a)-(e) and each attention
@@ -1838,15 +2015,7 @@ def scannet_phase(dev, kernel_mods):
         f"points {out['valid_points']}, {out['host_batch_s']:.2f} s each")
 
     # (a) the four attention kernels at every stage's real plans
-    levels = stage_levels(cfg, hbs[0])
-    plans = {(i, sh): build_plan(cfg, i, levels[i], sh, dev)
-             for i in stages(cfg) for sh in (False, True)}
-    log_pairs("scannet batch 0", cfg, hbs[0], dev)
-    report = new_report(FWD_KERNELS + BWD_KERNELS)
-    fwd_phase(cfg, levels, plans, dev, report)
-    bwd_phase(cfg, levels, plans, dev, report)
-    out["report"] = report
-    del plans
+    out["report"] = scannet_kernels(cfg, hbs[0], dev)
 
     # (b) three eval forwards
     model = build_model(cfg, "cuda", seed=0)
@@ -2561,16 +2730,17 @@ SWIN_LOOP_OVERRIDES = [
 SWIN_SCENE_POINTS = 40000
 
 
-def swin_kernels(cfg, levels, dev, report):
+def swin_kernels(cfg, levels, dev, report, family="S3DIS"):
     """Phase 15 (b) and (f)'s kernels: at every stage's plans of parity 0
     and 1 (no far keys; each point's window-quantized position from the
     plan's grid origin, the shifted parity at window / 2), with random
-    q/k/v/g and 31-row tables from seed 0: the band forward and backward
-    kernels in the swin mode against their plain versions (phase 4's and
-    phase 7's gates), and their fast forms against the plain fast versions
-    (phase 14's gates, each with its fp32 control). Adds per-step times,
-    bounds and errors to ``report`` (``<kernel>_swin``, ``..._swin_bf16``)
-    and the forward wrapper's device-busy time."""
+    q/k/v/g and tables of 2 qgl - 1 rows (31 at S3DIS) from seed 0: the
+    band forward and backward kernels in the swin mode against their plain
+    versions (phase 4's and phase 7's gates), and their fast forms against
+    the plain fast versions (phase 14's gates, each with its fp32
+    control). Adds per-step times, bounds and errors to ``report``
+    (``<kernel>_swin``, ``..._swin_bf16``) and the forward wrapper's
+    device-busy time; ``family`` names the configuration in the log."""
     from stratified_transformer_torch.kernels import band_attention as band_k
     from stratified_transformer_torch.kernels import (
         band_attention_bwd as band_bwd_k)
@@ -2660,6 +2830,7 @@ def swin_kernels(cfg, levels, dev, report):
                     res = (g, out, m, den)
                     args, outs, inputs = band_bwd_k.launch_args(
                         q, k, v, *geom, *res, *tables, **fkw)
+                    bound_inputs = inputs
                     got = band_bwd_k.band_attention_bwd(
                         q, k, v, *geom, *res, *tables, **fkw)
                     want_g = plain.band_attention_bwd_plain(
@@ -2677,11 +2848,14 @@ def swin_kernels(cfg, levels, dev, report):
                                       FAST_GRAD_REL_L2, rel_l2(c, b))
                         errs = [float((a - b).abs().max())
                                 for a, b in zip(got, want_g)]
-                        fp32_args = band_bwd_k.launch_args(
-                            q, k, v, *geom, *res, *tables, **kw)[0]
+                        fp32_args, _, fp32_inputs = band_bwd_k.launch_args(
+                            q, k, v, *geom, *res, *tables, **kw)
                         side_ms = cuda_time_ms(
                             lambda: band_bwd_k.KERNEL(*fp32_args), 10)
                         report[key]["fp32_ms"] += blocks * side_ms
+                        # the bound counts the fp32 inputs, as the model
+                        # gives them (`bwd_phase`)
+                        bound_inputs = fp32_inputs
                     else:
                         errs = [grads_close(f"{key} {label} {gn}", a, b)
                                 for gn, a, b in zip(grad_names, got, want_g)]
@@ -2693,7 +2867,7 @@ def swin_kernels(cfg, levels, dev, report):
                     t_ops = least_ops_bwd(pairs, n_q, n_q, h, d, nbf,
                                           split=fast, bin_ops=bin_ops)
                     bound, by = add_timing(report, key, blocks, ms, plain_ms,
-                                           nbytes(inputs + tuple(got)),
+                                           nbytes(bound_inputs + tuple(got)),
                                            t_ops, max(errs))
                     log(f"[swin] {key} {label}: {ms:.4f} ms ("
                         + (f"fp32 form {side_ms:.4f} ms; " if fast else "")
@@ -2703,7 +2877,7 @@ def swin_kernels(cfg, levels, dev, report):
                                    for gn, e in zip(grad_names, errs)))
     for name in SWIN_KERNELS + SWIN_FAST_KERNELS:
         r = report[name]
-        log(f"[swin] {name}: {r['ms']:.3f} ms per S3DIS Swin3D train step "
+        log(f"[swin] {name}: {r['ms']:.3f} ms per {family} Swin3D train step "
             f"(plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.3f} ms"
             + (f", fp32 form {r['fp32_ms']:.3f} ms" if "fp32_ms" in r else "")
             + (f", wrapper device busy {r['wrapper_busy_ms']:.3f} ms"
@@ -2984,7 +3158,8 @@ def swin_phase(dev):
     """Phase 15: the Swin3D family (module docstring): (a) the quantized
     positions and the swin bins on the card, (b)/(f) the band kernels' swin
     mode and its fast form against the plain versions, (c) S3DIS and (d)
-    ScanNet Swin3D at full width against the plain-version models, (e) the
+    ScanNet Swin3D at full width against the plain-version models (and (d)'s
+    kernels as (b)/(f) under ``scannet_report``), (e) the
     train and eval drivers on the shipped S3DIS Swin YAML, (f) the same
     YAML at ``default`` precision on the fast kernels. Returns the numbers
     and the kernels' report under ``report``."""
@@ -3073,6 +3248,10 @@ def swin_phase(dev):
         f"{time.time() - t0:.2f} s")
     out["scannet"] = swin_model("[swin-scannet]", scfg, syaml, [shb], [shb],
                                 dev, band_mods, all_mods)
+    # its kernels at the batch's plans: CUDA-event times and bounds
+    sreport = new_report(SWIN_KERNELS + SWIN_FAST_KERNELS)
+    swin_kernels(scfg, stage_levels(scfg, shb), dev, sreport, "ScanNet")
+    out["scannet_report"] = sreport
     del shb
 
     # (e) the drivers
@@ -4598,10 +4777,13 @@ def phase_only(flag):
              for name, text in build.build_logs.items()
              for line in text.splitlines()
              if "registers" in line or "spill" in line]
-    if flag in ("--fast-only", "--swin-only", "--dp-only", "--halo-only"):
+    if flag in ("--fast-only", "--swin-only", "--dp-only", "--halo-only",
+                "--bwd-phases"):
         phase = {"--fast-only": fast_phase, "--swin-only": swin_phase,
-                 "--dp-only": dp_phase, "--halo-only": halo_phase}[flag]
-        out = {"card": card_line(), "repo": REPO, flag[2:-5]: phase(dev),
+                 "--dp-only": dp_phase, "--halo-only": halo_phase,
+                 "--bwd-phases": bwd_phases}[flag]
+        out = {"card": card_line(), "repo": REPO,
+               flag[2:].replace("-only", ""): phase(dev),
                "ptxas": ptxas}
         print(json.dumps(out))
         return 0
@@ -4609,14 +4791,23 @@ def phase_only(flag):
         phase = {"--loop-only": loop_phase, "--scannet-only": scannet_phase,
                  "--dcf-only": dcf_phase}[flag]
         out = {"card": card_line(), "repo": REPO,
-               flag[2:-5]: phase(dev, attention_kernel_modules()),
+               flag[2:].replace("-only", ""): phase(
+                   dev, attention_kernel_modules()),
                "ptxas": ptxas}
+        print(json.dumps(out))
+        return 0
+    out = {"card": card_line(), "repo": REPO}
+    if flag == "--scannet-kernels-only":
+        log(f"[scannet] phase 12 (a): {PIN_NOTE}")
+        cfg = load_config(SCANNET_CONFIG, **FP32)
+        out["ms_per_scannet_train_step"] = scannet_kernels(
+            cfg, host_batch(cfg, seed=0, **SCANNET_ROOMS), dev)
+        out["ptxas"] = ptxas
         print(json.dumps(out))
         return 0
     cfg = load_config(CONFIG, n_pad=N_PAD, num_scenes=SCENES, **FP32)
     log(f"[precision] {PIN_NOTE}")
     hb = host_batch(cfg, seed=0)
-    out = {"card": card_line(), "repo": REPO}
     if flag == "--iou-only":
         out["iou"] = iou_phase(cfg, hb, dev)
         print(json.dumps(out))
@@ -4658,7 +4849,9 @@ PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS,
               "--fast-only": FWD_KERNELS + BWD_KERNELS,
               "--swin-only": ("band_attention", "band_attention_bwd"),
               "--dp-only": FWD_KERNELS + BWD_KERNELS,
-              "--halo-only": FWD_KERNELS}
+              "--halo-only": FWD_KERNELS,
+              "--bwd-phases": BWD_KERNELS,
+              "--scannet-kernels-only": FWD_KERNELS + BWD_KERNELS}
 
 
 def parse_args(argv):
@@ -4967,7 +5160,7 @@ def main(argv):
             "scannet_bound_ms": sr["bound_ms"],
             "scannet_max_abs_err": sr["max_abs_err"]})
     for name in SWIN_KERNELS + SWIN_FAST_KERNELS:
-        r = swin["report"][name]
+        r, sr = swin["report"][name], swin["scannet_report"][name]
         base = name.replace(SWIN, "").replace(FAST, "")
         fast_form = name.endswith(FAST)
         kernels.append({
@@ -4984,7 +5177,10 @@ def main(argv):
             "library_ms": None,
             **({"fp32_ms": r["fp32_ms"]} if fast_form else {}),
             **({"wrapper_busy_ms": r["wrapper_busy_ms"]}
-               if "wrapper_busy_ms" in r else {})})
+               if "wrapper_busy_ms" in r else {}),
+            "scannet_ms": sr["ms"], "scannet_plain_ms": sr["plain_ms"],
+            "scannet_bound_ms": sr["bound_ms"],
+            "scannet_max_abs_err": sr["max_abs_err"]})
     print(json.dumps({
         "kernels": kernels,
         "times_per": "one full-width training step (12 launches of each "
@@ -5022,11 +5218,14 @@ def main(argv):
                  if k not in ("report", "scannet_report")},
         "swin_times_per": "phase 15: a swin kernel's ms, plain_ms and "
                           "bound_ms per S3DIS Swin3D train step (12 launches "
-                          "at phase 2's batch); launches over phase 15 (c)'s "
+                          "at phase 2's batch), scannet_* per ScanNet Swin3D "
+                          "step (18, at (d)'s batch); launches over phase "
+                          "15 (c)'s "
                           f"{EVAL_BATCHES} forwards and {TRAIN_STEPS} train "
                           "steps through the kernels; the fast forms' over "
                           "(f)'s forward and train step",
-        "swin": {k: v for k, v in swin.items() if k != "report"},
+        "swin": {k: v for k, v in swin.items()
+                 if k not in ("report", "scannet_report")},
         "dp_times_per": "phase 16: dp_launches per rank over (b)'s one DP "
                         "step with distinct batches (two ranks over gloo on "
                         "one card, n_pad 70016 each), dp_loop_launches per "

@@ -42,13 +42,18 @@
 //   4. every thread: dk's Tk term Mk·Tk and the block's dTk += Mkᵀk, then
 //      dk and dv go out to the tile's key slots.
 // At the end of the block the row's lanes add their dq parts by shuffles.
-// The products run on fp32 FMA: at d = 16 they take a minority of the
-// kernels' time (PERF.md, Findings), so the tensor cores are not yet the
-// lever.
+// This routine is the fp32 form (the TPU kernels at fast=False): what bounds
+// it on the H100 is the fp32 work of the pairs and of the table products
+// (PERF.md kernel table: bound by operations at 67 TFLOP/s). Its products
+// run on fp32 FMA, register-blocked, which measured faster than 3xTF32
+// mma.sync for these small products (PERF.md, Findings).
 // kFast (the bf16 form, attention_common.cuh; fused_attention_bwd.py:95):
 // q, g, k, v and the tables are staged in shared memory as bf16, and dl, r
 // and the masses Mq, Mr, Mk are rounded where they enter a product; g·o
 // takes the fp32 g and o, and r, dl, the masses and every sum stay fp32.
+// The launchers no longer instantiate it: the fast forms run
+// attention_bwd_block_tc (attention_bwd_tc.cuh), which takes every bf16
+// product to the tensor cores at the same rounding sites.
 // Kept divergences from the TPU kernel's roundings (ROADMAP.md §3): Mk sums
 // dl over the block's R rows and is rounded per row slice (the TPU kernel:
 // per 128-row tile; ops/attention.py's `slice_rows` gives the plain version

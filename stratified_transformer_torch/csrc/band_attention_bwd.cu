@@ -32,15 +32,21 @@
 // table grads out) over 3.35 TB/s. The design spends nothing on masked
 // sub-tiles (the block visits only the union of its rows' segments, and a
 // warp only the keys of a chunk that its rows reach), uses no atomics and
-// keeps 8 warps per SM busy in every phase; the products run on fp32 FMA
-// (tensor cores and TMA staging are left for later work).
-// The fast form (band_attention_bwd_bf16) is the TPU kernel's fast=True
-// (fused_attention_bwd.py:95): the operands of its DEFAULT products in bf16
-// (attention_bwd_common.cuh). Its bf16 staging leaves room for more table
-// rows per block, so the launcher may pick a taller block than the fp32
-// form for the same table.
+// keeps 8 warps per SM busy in every phase; the products run on fp32 FMA.
+// The fast form (band_attention_bwd_bf16, its kSwin mode included) is the
+// TPU kernel's fast=True (fused_attention_bwd.py:95): the operands of its
+// DEFAULT products in bf16. What bounds it on the H100 is bytes (PERF.md:
+// 0.096 ms per S3DIS train step, 0.503 per ScanNet step, the products at
+// the bf16 tensor-core peak); it runs attention_bwd_block_tc
+// (attention_bwd_tc.cuh), which puts every bf16 product on mma.sync, takes
+// bf16 copies made once by the wrapper, loads the key chunks by cp.async
+// into a double buffer and multiplies only the (axis, bin) tiles the
+// block's pairs can reach. Its blocks take their own heights
+// (band_attention_bwd_bf16_limits: 64 rows for S3DIS's 40-row slice,
+// Swin3D's 31-row tables and ScanNet's 48-row slice).
 
 #include "attention_bwd_common.cuh"
+#include "attention_bwd_tc.cuh"
 
 namespace stratified {
 
@@ -51,79 +57,76 @@ namespace stratified {
 constexpr int kBandBwdRows[] = {64, 32, 16};
 constexpr int kBandBwdShapes = 3;
 
-template <int D, int R, bool kFast, bool kSwin>
+template <int D, int R, bool kSwin>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 band_attention_bwd_kernel(BwdQueries Q, BwdKeys K, BwdTables T, BwdOutputs O,
                           int n, int h, int tile, int band, float scale) {
   const int slices = tile / R;
   const int tile_idx = blockIdx.x / slices;
   const int t0 = tile_idx * tile;
-  attention_bwd_block<D, R, kFast, kSwin>(Q, K, T, O, h, blockIdx.x,
+  attention_bwd_block<D, R, false, kSwin>(Q, K, T, O, h, blockIdx.x,
                             t0 + (blockIdx.x - tile_idx * slices) * R,
                             max(t0 - band, 0), min(t0 + tile + band, n),
                             t0 - band, tile + 2 * band, scale);
 }
 
-template <int R, bool kFast>
+template <int R>
 cudaError_t band_bwd_max_nb(int* max_nb) {
   size_t room = 0;
   const cudaError_t err =
-      smem_room(band_attention_bwd_kernel<16, R, kFast, false>, &room);
-  if (err == cudaSuccess) *max_nb = bwd_max_nb<16, R, kFast>(room);
+      smem_room(band_attention_bwd_kernel<16, R, false>, &room);
+  if (err == cudaSuccess) *max_nb = bwd_max_nb<16, R, false>(room);
   return err;
 }
 
 // Rows per block for nb table rows per axis (0 if no block takes them) and
 // the most rows per axis that any block takes on the current device.
-template <bool kFast>
-cudaError_t band_bwd_rows(int nb, int* rows, int* max_nb) {
+inline cudaError_t band_bwd_rows(int nb, int* rows, int* max_nb) {
   int fit[kBandBwdShapes];
-  cudaError_t err = band_bwd_max_nb<64, kFast>(&fit[0]);
-  if (err == cudaSuccess) err = band_bwd_max_nb<32, kFast>(&fit[1]);
-  if (err == cudaSuccess) err = band_bwd_max_nb<16, kFast>(&fit[2]);
+  cudaError_t err = band_bwd_max_nb<64>(&fit[0]);
+  if (err == cudaSuccess) err = band_bwd_max_nb<32>(&fit[1]);
+  if (err == cudaSuccess) err = band_bwd_max_nb<16>(&fit[2]);
   if (err == cudaSuccess)
     bwd_pick_rows(nb, kBandBwdRows, fit, kBandBwdShapes, rows, max_nb);
   return err;
 }
 
-template <int R, bool kFast, bool kSwin>
+template <int R, bool kSwin>
 cudaError_t band_bwd_launch(const BwdQueries& Q, const BwdKeys& K,
                             const BwdTables& T, const BwdOutputs& O, int n,
                             int h, int tile, int band, float scale,
                             cudaStream_t stream) {
-  const size_t smem = BwdSmem<16, R, kFast>(T.nb).bytes();
+  const size_t smem = BwdSmem<16, R, false>(T.nb).bytes();
   const cudaError_t err = cudaFuncSetAttribute(
-      band_attention_bwd_kernel<16, R, kFast, kSwin>,
+      band_attention_bwd_kernel<16, R, kSwin>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid(n / R, h);
-  band_attention_bwd_kernel<16, R, kFast, kSwin><<<grid, kBwdThreads, smem,
-                                                   stream>>>(
+  band_attention_bwd_kernel<16, R, kSwin><<<grid, kBwdThreads, smem, stream>>>(
       Q, K, T, O, n, h, tile, band, scale);
   return cudaGetLastError();
 }
 
 // The launch at the block height band_bwd_rows picked.
-template <bool kFast, bool kSwin>
+template <bool kSwin>
 cudaError_t band_bwd_rows_launch(int rows, const BwdQueries& Q,
                                  const BwdKeys& K, const BwdTables& T,
                                  const BwdOutputs& O, int n, int h, int tile,
                                  int band, float scale, cudaStream_t st) {
   switch (rows) {
     case 64:
-      return band_bwd_launch<64, kFast, kSwin>(Q, K, T, O, n, h, tile, band,
-                                               scale, st);
+      return band_bwd_launch<64, kSwin>(Q, K, T, O, n, h, tile, band, scale,
+                                        st);
     case 32:
-      return band_bwd_launch<32, kFast, kSwin>(Q, K, T, O, n, h, tile, band,
-                                               scale, st);
+      return band_bwd_launch<32, kSwin>(Q, K, T, O, n, h, tile, band, scale,
+                                        st);
     default:
-      return band_bwd_launch<16, kFast, kSwin>(Q, K, T, O, n, h, tile, band,
-                                               scale, st);
+      return band_bwd_launch<16, kSwin>(Q, K, T, O, n, h, tile, band, scale,
+                                        st);
   }
 }
 
-template <bool kFast>
-cudaError_t band_bwd(
+inline cudaError_t band_bwd(
     const float* q, const float* k, const float* v, const float* xyz,
     const int32_t* seg_start, const int32_t* seg_end, const uint8_t* valid,
     const float* g, const float* o, const float* m, const float* den,
@@ -132,7 +135,7 @@ cudaError_t band_bwd(
     int tile, int band, int nb, int bin_lo, int nb_full, int swin,
     float bin_offset, float inv_quant, float scale, cudaStream_t st) {
   int rows = 0, max_nb = 0;
-  const cudaError_t err = band_bwd_rows<kFast>(nb, &rows, &max_nb);
+  const cudaError_t err = band_bwd_rows(nb, &rows, &max_nb);
   if (err != cudaSuccess) return err;
   // Every stage of the ported configurations has D = 16; instantiate more
   // head sizes when a configuration needs them. The swin mode reads the
@@ -146,10 +149,108 @@ cudaError_t band_bwd(
   const BwdKeys K{k, v, xyz, valid, nullptr};
   const BwdTables T{tq, tk, tv, nb, bin_lo, nb_full, bin_offset, inv_quant};
   const BwdOutputs O{dq, dk_part, dv_part, dt_part};
-  return swin ? band_bwd_rows_launch<kFast, true>(rows, Q, K, T, O, n, h,
-                                                  tile, band, scale, st)
-              : band_bwd_rows_launch<kFast, false>(rows, Q, K, T, O, n, h,
-                                                   tile, band, scale, st);
+  return swin ? band_bwd_rows_launch<true>(rows, Q, K, T, O, n, h, tile,
+                                           band, scale, st)
+              : band_bwd_rows_launch<false>(rows, Q, K, T, O, n, h, tile,
+                                            band, scale, st);
+}
+
+// ---- the fast form: attention_bwd_block_tc (attention_bwd_tc.cuh) -------
+
+template <int R, bool kSwin>
+__global__ void __launch_bounds__(kTcThreads, 1)
+band_attention_bwd_tc_kernel(TcQueries Q, TcKeys K, TcTables T, BwdOutputs O,
+                             int n, int h, int tile, int band, float scale) {
+  const int slices = tile / R;
+  const int tile_idx = blockIdx.x / slices;
+  const int t0 = tile_idx * tile;
+  attention_bwd_block_tc<R, kSwin>(Q, K, T, O, h, blockIdx.x,
+                                   t0 + (blockIdx.x - tile_idx * slices) * R,
+                                   max(t0 - band, 0),
+                                   min(t0 + tile + band, n), t0 - band,
+                                   tile + 2 * band, scale);
+}
+
+template <int R>
+cudaError_t band_bwd_tc_max_nb(int* max_nb) {
+  size_t room = 0;
+  const cudaError_t err =
+      smem_room(band_attention_bwd_tc_kernel<R, false>, &room);
+  if (err == cudaSuccess) *max_nb = tc_max_nb<R>(room);
+  return err;
+}
+
+// Rows per block of the fast form for nb table rows per axis (0 if no block
+// takes them) and the most rows per axis that any of its blocks takes.
+inline cudaError_t band_bwd_tc_rows(int nb, int* rows, int* max_nb) {
+  int fit[kBandBwdShapes];
+  cudaError_t err = band_bwd_tc_max_nb<64>(&fit[0]);
+  if (err == cudaSuccess) err = band_bwd_tc_max_nb<32>(&fit[1]);
+  if (err == cudaSuccess) err = band_bwd_tc_max_nb<16>(&fit[2]);
+  if (err == cudaSuccess)
+    bwd_pick_rows(nb, kBandBwdRows, fit, kBandBwdShapes, rows, max_nb);
+  return err;
+}
+
+template <int R, bool kSwin>
+cudaError_t band_bwd_tc_launch(const TcQueries& Q, const TcKeys& K,
+                               const TcTables& T, const BwdOutputs& O, int n,
+                               int h, int tile, int band, float scale,
+                               cudaStream_t stream) {
+  const size_t smem = TcSmem<R>(T.nb).bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      band_attention_bwd_tc_kernel<R, kSwin>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(n / R, h);
+  band_attention_bwd_tc_kernel<R, kSwin><<<grid, kTcThreads, smem, stream>>>(
+      Q, K, T, O, n, h, tile, band, scale);
+  return cudaGetLastError();
+}
+
+template <bool kSwin>
+cudaError_t band_bwd_tc_rows_launch(int rows, const TcQueries& Q,
+                                    const TcKeys& K, const TcTables& T,
+                                    const BwdOutputs& O, int n, int h,
+                                    int tile, int band, float scale,
+                                    cudaStream_t st) {
+  switch (rows) {
+    case 64:
+      return band_bwd_tc_launch<64, kSwin>(Q, K, T, O, n, h, tile, band,
+                                           scale, st);
+    case 32:
+      return band_bwd_tc_launch<32, kSwin>(Q, K, T, O, n, h, tile, band,
+                                           scale, st);
+    default:
+      return band_bwd_tc_launch<16, kSwin>(Q, K, T, O, n, h, tile, band,
+                                           scale, st);
+  }
+}
+
+inline cudaError_t band_bwd_tc(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const __nv_bfloat16* g, const float* g32, const float* o, const float* m,
+    const float* den, const float4* xyzv, const int32_t* seg_start,
+    const int32_t* seg_end, const __nv_bfloat16* tq,
+    const __nv_bfloat16* tk, const __nv_bfloat16* tv, float* dq,
+    float* dk_part, float* dv_part, float* dt_part, int n, int h, int d,
+    int tile, int band, int nb, int bin_lo, int nb_full, int swin,
+    float bin_offset, float inv_quant, float scale, cudaStream_t st) {
+  int rows = 0, max_nb = 0;
+  const cudaError_t err = band_bwd_tc_rows(nb, &rows, &max_nb);
+  if (err != cudaSuccess) return err;
+  if (d != 16 || rows == 0 || tile <= 0 || tile % rows != 0 ||
+      n % tile != 0 || nb < 0 ||
+      (swin != 0 && (bin_lo != 0 || nb != nb_full)))
+    return cudaErrorInvalidValue;
+  const TcQueries Q{q, g, g32, o, m, den, xyzv, seg_start, seg_end, nullptr};
+  const TcKeys K{k, v, xyzv, nullptr};
+  const TcTables T{tq, tk, tv, nb, bin_lo, nb_full, bin_offset, inv_quant};
+  const BwdOutputs O{dq, dk_part, dv_part, dt_part};
+  return swin ? band_bwd_tc_rows_launch<true>(rows, Q, K, T, O, n, h, tile,
+                                              band, scale, st)
+              : band_bwd_tc_rows_launch<false>(rows, Q, K, T, O, n, h, tile,
+                                               band, scale, st);
 }
 
 }  // namespace stratified
@@ -172,25 +273,29 @@ extern "C" int band_attention_bwd(
     float* dk_part, float* dv_part, float* dt_part, int n, int h, int d,
     int tile, int band, int nb, int bin_lo, int nb_full, int swin,
     float bin_offset, float inv_quant, float scale, void* stream) {
-  return static_cast<int>(stratified::band_bwd<false>(
+  return static_cast<int>(stratified::band_bwd(
       q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den, tq, tk, tv, dq,
       dk_part, dv_part, dt_part, n, h, d, tile, band, nb, bin_lo, nb_full,
       swin, bin_offset, inv_quant, scale, static_cast<cudaStream_t>(stream)));
 }
 
-// The fast (bf16) form: the same arguments and outputs as
+// The fast (bf16) form (attention_bwd_tc.cuh): q (pre-scaled in fp32, then
+// rounded), k, v, g and the table slices bf16, rounded to nearest even by
+// the caller; g32 the fp32 g (for g·o); xyzv [N] float4 (x, y, z, valid as
+// 1 or 0) in place of xyz and valid. The other arguments and the outputs as
 // band_attention_bwd, with R the rows per block that
 // band_attention_bwd_bf16_limits gives for nb.
 extern "C" int band_attention_bwd_bf16(
-    const float* q, const float* k, const float* v, const float* xyz,
-    const int32_t* seg_start, const int32_t* seg_end, const uint8_t* valid,
-    const float* g, const float* o, const float* m, const float* den,
-    const float* tq, const float* tk, const float* tv, float* dq,
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const __nv_bfloat16* g, const float* g32, const float* o, const float* m,
+    const float* den, const float4* xyzv, const int32_t* seg_start,
+    const int32_t* seg_end, const __nv_bfloat16* tq,
+    const __nv_bfloat16* tk, const __nv_bfloat16* tv, float* dq,
     float* dk_part, float* dv_part, float* dt_part, int n, int h, int d,
     int tile, int band, int nb, int bin_lo, int nb_full, int swin,
     float bin_offset, float inv_quant, float scale, void* stream) {
-  return static_cast<int>(stratified::band_bwd<true>(
-      q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den, tq, tk, tv, dq,
+  return static_cast<int>(stratified::band_bwd_tc(
+      q, k, v, g, g32, o, m, den, xyzv, seg_start, seg_end, tq, tk, tv, dq,
       dk_part, dv_part, dt_part, n, h, d, tile, band, nb, bin_lo, nb_full,
       swin, bin_offset, inv_quant, scale, static_cast<cudaStream_t>(stream)));
 }
@@ -201,11 +306,13 @@ extern "C" int band_attention_bwd_bf16(
 // (the band slice of S3DIS's 64-bin tables has 40), 32 rows up to 64 (of
 // ScanNet's 80-bin tables 48), 16 rows up to 116. Returns a cudaError_t.
 extern "C" int band_attention_bwd_limits(int nb, int* rows, int* max_nb) {
-  return static_cast<int>(stratified::band_bwd_rows<false>(nb, rows, max_nb));
+  return static_cast<int>(stratified::band_bwd_rows(nb, rows, max_nb));
 }
 
-// The same for the fast form.
+// The same for the fast form: on the H100, 64 rows up to 48 (S3DIS's band
+// slice of 40, ScanNet's 48, Swin3D's 31-row tables), 32 rows up to 91, 16
+// rows up to 128.
 extern "C" int band_attention_bwd_bf16_limits(int nb, int* rows,
                                               int* max_nb) {
-  return static_cast<int>(stratified::band_bwd_rows<true>(nb, rows, max_nb));
+  return static_cast<int>(stratified::band_bwd_tc_rows(nb, rows, max_nb));
 }

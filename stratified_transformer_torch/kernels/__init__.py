@@ -134,6 +134,29 @@ def pack_tables(tables, lo, rows):
         for t in tables)
 
 
+def stage_bf16(t, scale=None):
+    """``t`` (times ``scale``, in fp32) rounded to bf16, to nearest with ties
+    to even, contiguous: the operand copies the fast backward kernels read
+    (equal to ``ops.attention.bf16_round`` of the same fp32 values)."""
+    t = t.to(torch.float32)
+    if scale is not None:
+        t = t * scale
+    return t.to(torch.bfloat16).contiguous()
+
+
+def xyz_valid(xyz, valid):
+    """``[N, 4]`` fp32 rows (x, y, z, 1 if valid else 0): the fast backward
+    kernels' point records, 16 bytes each."""
+    return torch.cat([xyz.to(torch.float32),
+                      valid.to(torch.float32)[:, None]], 1).contiguous()
+
+
+def pack_tables_bf16(tables, lo, rows):
+    """`pack_tables` staged in bf16 (`stage_bf16`)."""
+    return tuple(None if t is None else stage_bf16(t)
+                 for t in pack_tables(tables, lo, rows))
+
+
 def stream_of(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 

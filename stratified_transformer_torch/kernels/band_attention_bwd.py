@@ -13,15 +13,17 @@ from __future__ import annotations
 import torch
 
 from stratified_transformer_torch.kernels import (
-    CudaKernel, F, I, P, block_limits, check_cuda_inputs, pack_tables, ptr,
-    stream_of, sum_table_partials)
+    CudaKernel, F, I, P, block_limits, check_cuda_inputs, pack_tables,
+    pack_tables_bf16, ptr, stage_bf16, stream_of, sum_table_partials,
+    xyz_valid)
 from stratified_transformer_torch.ops.attention import (
     band_attention_bwd_plain, band_slice, bin_constants, compose_band,
     num_bins, place_table_grads)
 
 ARGTYPES = [P] * 18 + [I] * 9 + [F, F, F, P]
 KERNEL = CudaKernel("band_attention_bwd", "band_attention_bwd", ARGTYPES)
-# the bf16 form (rpe_precision/qk_precision: default)
+# the bf16 form (rpe_precision/qk_precision: default), on the tensor cores:
+# bf16 q, k, v, g and tables, the fp32 g, (x, y, z, valid) point records
 KERNEL_FAST = CudaKernel("band_attention_bwd", "band_attention_bwd_bf16",
                          ARGTYPES)
 
@@ -57,14 +59,23 @@ def launch_args(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
             f"tile={tile} (a multiple of {rows} rows)")
     bin_offset, inv_quant = bin_constants(window_size, quant_size)
     f32 = torch.float32
-    inputs = (
-        (q.to(f32) * scale).contiguous(), k.to(f32).contiguous(),
-        v.to(f32).contiguous(), xyz.to(f32).contiguous(),
-        seg_start.to(torch.int32).contiguous(),
-        seg_end.to(torch.int32).contiguous(),
-        valid.to(torch.bool).contiguous(), g.to(f32).contiguous(),
-        o.to(f32).contiguous(), m.to(f32).contiguous(),
-        den.to(f32).contiguous()) + pack_tables(tables, bin_lo, nb)
+    segs = (seg_start.to(torch.int32).contiguous(),
+            seg_end.to(torch.int32).contiguous())
+    res = (o.to(f32).contiguous(), m.to(f32).contiguous(),
+           den.to(f32).contiguous())
+    if fast:
+        # bf16 operands (q rounded after its fp32 scaling), the fp32 g for
+        # g·o, and the points as (x, y, z, valid) records
+        inputs = ((stage_bf16(q, scale), stage_bf16(k), stage_bf16(v),
+                   stage_bf16(g), g.to(f32).contiguous()) + res
+                  + (xyz_valid(xyz, valid),) + segs
+                  + pack_tables_bf16(tables, bin_lo, nb))
+    else:
+        inputs = (
+            (q.to(f32) * scale).contiguous(), k.to(f32).contiguous(),
+            v.to(f32).contiguous(), xyz.to(f32).contiguous()) + segs + (
+            valid.to(torch.bool).contiguous(), g.to(f32).contiguous()) \
+            + res + pack_tables(tables, bin_lo, nb)
     nblk = n // rows
     outs = (torch.empty((n, h, d), dtype=f32, device=dev),
             torch.zeros((nblk, tile + 2 * band, h, d), dtype=f32, device=dev),

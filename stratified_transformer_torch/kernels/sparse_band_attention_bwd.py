@@ -13,8 +13,9 @@ from __future__ import annotations
 import torch
 
 from stratified_transformer_torch.kernels import (
-    CudaKernel, F, I, P, block_limits, check_cuda_inputs, pack_tables, ptr,
-    stream_of, sum_table_partials)
+    CudaKernel, F, I, P, block_limits, check_cuda_inputs, pack_tables,
+    pack_tables_bf16, ptr, stage_bf16, stream_of, sum_table_partials,
+    xyz_valid)
 from stratified_transformer_torch.ops.attention import (
     bin_constants, num_bins, sparse_band_attention_bwd_plain,
     sparse_bwd_finish, sparse_inputs, sparse_window)
@@ -22,9 +23,11 @@ from stratified_transformer_torch.ops.attention import (
 ARGTYPES = [P] * 22 + [I] * 7 + [F, F, F, P]
 KERNEL = CudaKernel("sparse_band_attention_bwd", "sparse_band_attention_bwd",
                     ARGTYPES)
-# the bf16 form (rpe_precision/qk_precision: default)
+# the bf16 form (rpe_precision/qk_precision: default), on the tensor cores:
+# bf16 q, g, k, v and tables, the fp32 g, (x, y, z, valid) point records
 KERNEL_FAST = CudaKernel("sparse_band_attention_bwd",
-                         "sparse_band_attention_bwd_bf16", ARGTYPES)
+                         "sparse_band_attention_bwd_bf16",
+                         [P] * 21 + [I] * 7 + [F, F, F, P])
 
 # head sizes the kernels are instantiated for (csrc/*.cu)
 HEAD_DIMS = (16,)
@@ -59,17 +62,30 @@ def launch_args(q, k, v, sb, g, o, m, den, table_q=None, table_k=None,
     f32 = torch.float32
     lw = sb.lw_map.long()
     q_lw, k_aux, v_aux = sparse_inputs(q, k, v, sb, scale)
-    inputs = (
-        q_lw.contiguous(), g.to(f32)[lw].contiguous(),
-        o.to(f32)[lw].contiguous(), m.to(f32)[lw].contiguous(),
-        den.to(f32)[lw].contiguous(), sb.xyz_lw.to(f32).contiguous(),
-        sb.valid_lw.to(torch.bool).contiguous(),
-        sb.q_skey_lw.to(torch.int32).contiguous(),
-        sb.sb_start.to(torch.int32).contiguous(),
-        sb.sb_end.to(torch.int32).contiguous(), k_aux.contiguous(),
-        v_aux.contiguous(), sb.sb_xyz.to(f32).contiguous(),
-        sb.sb_valid.to(torch.bool).contiguous(),
-        sb.sb_skey.to(torch.int32).contiguous()) + pack_tables(tables, 0, nb)
+    g_lw = g.to(f32)[lw].contiguous()
+    res = (o.to(f32)[lw].contiguous(), m.to(f32)[lw].contiguous(),
+           den.to(f32)[lw].contiguous())
+    skey_lw = sb.q_skey_lw.to(torch.int32).contiguous()
+    ranges = (sb.sb_start.to(torch.int32).contiguous(),
+              sb.sb_end.to(torch.int32).contiguous())
+    skey_aux = sb.sb_skey.to(torch.int32).contiguous()
+    if fast:
+        # bf16 operands (q_lw is scaled in fp32 by sparse_inputs), the fp32
+        # g for g·o, and the points as (x, y, z, valid) records
+        inputs = ((stage_bf16(q_lw), stage_bf16(g_lw), g_lw) + res
+                  + (xyz_valid(sb.xyz_lw, sb.valid_lw), skey_lw) + ranges
+                  + (stage_bf16(k_aux), stage_bf16(v_aux),
+                     xyz_valid(sb.sb_xyz, sb.sb_valid), skey_aux)
+                  + pack_tables_bf16(tables, 0, nb))
+    else:
+        inputs = ((q_lw.contiguous(), g_lw) + res
+                  + (sb.xyz_lw.to(f32).contiguous(),
+                     sb.valid_lw.to(torch.bool).contiguous(), skey_lw)
+                  + ranges
+                  + (k_aux.contiguous(), v_aux.contiguous(),
+                     sb.sb_xyz.to(f32).contiguous(),
+                     sb.sb_valid.to(torch.bool).contiguous(), skey_aux)
+                  + pack_tables(tables, 0, nb))
     nblk = n // rows
     outs = (torch.empty((n, h, d), dtype=f32, device=dev),
             torch.zeros((nblk, s, h, d), dtype=f32, device=dev),

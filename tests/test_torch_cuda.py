@@ -364,29 +364,44 @@ def test_fwd_kernels_refuse_tables_beyond_their_limits(cuda_device):
 def test_bwd_kernels_are_deterministic(cuda_device):
     """Two launches on the same inputs give bit-identical outputs (dq, the
     dk/dv slots and the table partials): every sum of the backward kernels
-    runs in a fixed order. (The sparse wrapper's scatter of the slots into
-    points is PyTorch's ``index_add_``, which is not.)"""
+    runs in a fixed order, in their fp32 forms (``KERNEL``), their bf16
+    forms on the tensor cores (``KERNEL_FAST``) and the band kernel's swin
+    mode in bf16. (The sparse wrapper's scatter of the slots into points is
+    PyTorch's ``index_add_``, which is not.)"""
     plan, qkv, tables, kw, res = _bwd_case(cuda_device, True, 384, 5,
                                            **STAGE2)
     args = _band_bwd_args(plan, qkv, tables, res)
-    launches = {
-        "band": (band_bwd_k, lambda: band_bwd_k.launch_args(
-            *args, **kw, band=384, tile=128)),
-        "sparse": (sparse_bwd_k, lambda: sparse_bwd_k.launch_args(
-            *qkv, plan.sparse_band, *res, *tables, **kw, s_band=128,
-            tile=128)),
-    }
+    sgeom, sqkv, sg, stables, skw = _swin_case(cuda_device, 5, True)
     with torch.no_grad():
-        for name, (mod, make) in launches.items():
+        sres = (sg,) + plain.merge([plain.band_attention_plain(
+            *sqkv, *sgeom, *stables, **skw, fast=True)])
+    launches = {}
+    for fast in (False, True):
+        kernel = "KERNEL_FAST" if fast else "KERNEL"
+        launches[f"band {kernel}"] = (
+            getattr(band_bwd_k, kernel),
+            lambda f=fast: band_bwd_k.launch_args(
+                *args, **kw, band=384, tile=128, fast=f))
+        launches[f"sparse {kernel}"] = (
+            getattr(sparse_bwd_k, kernel),
+            lambda f=fast: sparse_bwd_k.launch_args(
+                *qkv, plan.sparse_band, *res, *tables, **kw, s_band=128,
+                tile=128, fast=f))
+    launches["swin KERNEL_FAST"] = (
+        band_bwd_k.KERNEL_FAST, lambda: band_bwd_k.launch_args(
+            *sqkv, *sgeom, *sres, *stables, **skw, fast=True))
+    with torch.no_grad():
+        for name, (kernel, make) in launches.items():
             outs = []
             for _ in range(2):
                 largs, out, _inputs = make()
-                mod.KERNEL(*largs)
+                kernel(*largs)
                 torch.cuda.synchronize()
                 outs.append(out)
             for o_name, a, b in zip(("dq", "dk_part", "dv_part", "dt_part"),
                                     *outs):
                 assert torch.equal(a, b), (name, o_name)
+            assert float(outs[0][3].abs().max()) > 0, name
         got = [band_bwd_k.band_attention_bwd(*args, **kw, band=384,
                                              tile=128) for _ in range(2)]
     for a, b in zip(*got):

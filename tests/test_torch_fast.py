@@ -290,26 +290,29 @@ def test_stage3_divergence_is_bf16_rounding():
 # The CUDA backward kernels sum a key's dl per bin over their block's R rows
 # and round that mass (a row slice of the 128-row tile); the TPU kernel sums
 # over the whole tile. `slice_rows` gives the plain fast versions the
-# kernels' form. Only dk and dtk take the key masses; measured on this case
-# (tile 32, far-key half): 1.0e-4 to 2.7e-4 (dk) and 3.7e-4 to 1.0e-3 (dtk)
-# at 16 and 8 rows, against 5.2e-3 to 5.7e-3 between the fast and fp32
-# forms.
+# kernels' form. Only dk and dtk take the key masses. The cases are the
+# fast kernels' block heights (64 for the band half at S3DIS's and Swin3D's
+# tables, 32 for the far-key half and ScanNet's band half, 16 beyond); the
+# far-key half of this case (one 128-row tile), measured: 1.2e-4 to 2.4e-4
+# (dk) and 3.5e-4 to 7.8e-4 (dtk) at 64, 32 and 16 rows, against 3.2e-3 to
+# 5.7e-3 between the fast and fp32 forms.
 SLICE_DIVERGENCE = (1e-5, 2e-3)
+SLICE_TILE = 128
 
 
-@pytest.mark.parametrize("slice_rows", [16, 8])
+@pytest.mark.parametrize("slice_rows", [64, 32, 16])
 def test_key_mass_slices_divergence(slice_rows):
     J = jax_modules()
     jp, tp, qkv, g, tables = _case(J, 5)
     res = tuple(map(_t, (g,) + _residuals(J, jp, qkv, tables)))
     args = tuple(map(_t, qkv)) + (tp.sparse_band,) + res + tuple(
         map(_t, tables))
-    kw = dict(window_size=WS, quant_size=QUANT, scale=SCALE, tile=TILE,
-              s_band=S_BAND, fast=True)
+    kw = dict(window_size=WS, quant_size=QUANT, scale=SCALE,
+              tile=SLICE_TILE, s_band=S_BAND, fast=True)
     fn = plain.sparse_band_attention_bwd_plain
     tile, sliced = fn(*args, **kw), fn(*args, **kw, slice_rows=slice_rows)
     assert all(torch.equal(a, b) for a, b in zip(
-        tile, fn(*args, **kw, slice_rows=TILE)))
+        tile, fn(*args, **kw, slice_rows=SLICE_TILE)))
     lo, hi = SLICE_DIVERGENCE
     for i, name in enumerate(("dq", "dk", "dv", "dtq", "dtk", "dtv")):
         if name in ("dk", "dtk"):
@@ -319,6 +322,45 @@ def test_key_mass_slices_divergence(slice_rows):
 
 
 # ---- the config keys
+
+
+def test_bf16_staging_equals_bf16_round():
+    """The fast backward wrappers' operand copies (`kernels.stage_bf16`:
+    q after its fp32 scaling, k, v, g, the table slices) are bit-equal to
+    ``ops/attention.py::bf16_round`` of the same fp32 values, which the
+    plain fast versions take: rounded to nearest, ties to even, on values
+    that sit on ties, at bf16's extremes and beyond them."""
+    from stratified_transformer_torch.kernels import (
+        pack_tables, pack_tables_bf16, stage_bf16, xyz_valid)
+    rng = np.random.default_rng(3)
+    bits = rng.integers(0, 1 << 16, 4096, dtype=np.uint32)
+    # fp32 values at bf16 ties (low half 0x8000), beside them, and exact
+    ties = np.concatenate([(bits << 16) | low for low in
+                           (0x8000, 0x7FFF, 0x8001, 0)]).view(np.float32)
+    x = torch.from_numpy(np.concatenate([
+        ties[np.isfinite(ties)],
+        rng.normal(size=4096).astype(np.float32) * 10.0 ** rng.integers(
+            -30, 30, 4096),
+        np.float32([3.3895314e38, -3.3895314e38, 3.4028235e38, 1e-45,
+                    -0.0, 0.0])]))
+    for scale in (None, 0.25, 16 ** -0.5):
+        got = stage_bf16(x, scale)
+        assert got.dtype == torch.bfloat16 and got.is_contiguous()
+        want = plain.bf16_round(x if scale is None else x * scale)
+        assert torch.equal(got.float().view(torch.int32),
+                           want.view(torch.int32)), scale
+    tables = tuple(torch.randn(64, 3, 16, 3) for _ in range(2)) + (None,)
+    for a, b in zip(pack_tables_bf16(tables, 12, 40),
+                    pack_tables(tables, 12, 40)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a.float(), plain.bf16_round(b))
+    xyz = torch.randn(10, 3, dtype=torch.float64)
+    valid = torch.arange(10) < 7
+    rec = xyz_valid(xyz, valid)
+    assert rec.dtype == torch.float32 and rec.shape == (10, 4)
+    assert torch.equal(rec[:, :3], xyz.float())
+    assert torch.equal(rec[:, 3], valid.float())
 
 
 @pytest.mark.parametrize("name", SHIPPED)
@@ -585,14 +627,42 @@ def test_fast_fwd_kernels_match_plain_fast(cuda_device, tables_of):
         assert float(w_[2].max()) > 0
 
 
+# The fast backward kernels' block heights by table size (the tables' rows
+# per axis: S3DIS's band slice of 40 and far-key 64, ScanNet's 48 and 80),
+# and cases that reach the 32-row band and the 16-row blocks: (ws, quant) of each case, the
+# heights its band and far-key halves take, or None for a half whose table
+# no block of the fast form takes (of 200 rows per axis, the band slice
+# has 104; the far keys' 200 are beyond any block).
+FAST_BWD_CASES = {
+    "s3dis": (0.64, 0.04, 64, 32),
+    "scannet": (0.4, 0.02, 64, 32),
+    "band16": (0.4, 0.008, 16, None),
+    "sparse16": (0.4, 0.016, 32, 16),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("tables_of", ["s3dis", "scannet"])
+@pytest.mark.parametrize("tables_of", list(FAST_BWD_CASES))
 def test_fast_bwd_kernels_match_plain_fast(cuda_device, tables_of):
-    scannet = dict(ws=0.4, quant=0.02, n_pad=512, n_valid=450, h=3)
+    """Both fast backward kernels (on the tensor cores) against the plain
+    fast versions in the kernels' row slices, at S3DIS's and ScanNet's
+    table sizes and at every block height the fast limits pick: phase 14's
+    gates, each with its fp32 control."""
+    ws, quant, band_rows, sparse_rows = FAST_BWD_CASES[tables_of]
+    small = dict(n_pad=512, n_valid=450, h=3)
     plan, qkv, g, tables, kw = _cuda_case(
-        cuda_device, 12, **(scannet if tables_of == "scannet" else {}))
+        cuda_device, 12, ws=ws, quant=quant,
+        **({} if tables_of == "s3dis" else small))
     band = 384 if tables_of == "s3dis" else 128
     geom = (plan.xyz_sorted, plan.seg_start, plan.seg_end, plan.valid_sorted)
+    nbf = tables[0].shape[0]
+    # the key masses are summed over the kernels' row slices
+    rows = {name: block_limits(name, cuda_device, nb, fast=True)[0]
+            for name, nb in (("band_attention_bwd",
+                              plain.band_table_slice(nbf)[1]),
+                             ("sparse_band_attention_bwd", nbf))}
+    assert rows == {"band_attention_bwd": band_rows,
+                    "sparse_band_attention_bwd": sparse_rows or 0}
     with torch.no_grad():
         res = (g,) + plain.merge([
             plain.band_attention_plain(*qkv, *geom, *tables, **kw, band=band,
@@ -600,52 +670,57 @@ def test_fast_bwd_kernels_match_plain_fast(cuda_device, tables_of):
             plain.sparse_band_attention_plain(*qkv, plan.sparse_band,
                                               *tables, **kw, s_band=128,
                                               tile=128, fast=True)])
-        before = _launches()
-        got = [band_bwd_k.band_attention_bwd(*qkv, *geom, *res, *tables,
-                                             **kw, band=band, tile=128,
-                                             fast=True),
-               sparse_bwd_k.sparse_band_attention_bwd(
-                   *qkv, plan.sparse_band, *res, *tables, **kw, s_band=128,
-                   tile=128, fast=True)]
-        torch.cuda.synchronize()
-        after = _launches()
-        # the key masses summed over the kernels' row slices
-        nbf = tables[0].shape[0]
-        rows = [block_limits(name, cuda_device, nb, fast=True)[0]
-                for name, nb in (("band_attention_bwd",
-                                  plain.band_table_slice(nbf)[1]),
-                                 ("sparse_band_attention_bwd", nbf))]
-        want = [plain.band_attention_bwd_plain(*qkv, *geom, *res, *tables,
-                                               **kw, band=band, tile=128,
-                                               fast=True,
-                                               slice_rows=rows[0]),
-                plain.sparse_band_attention_bwd_plain(
+        runs = {"band_attention_bwd": (
+            lambda f: band_bwd_k.band_attention_bwd(
+                *qkv, *geom, *res, *tables, **kw, band=band, tile=128,
+                fast=f),
+            lambda r: plain.band_attention_bwd_plain(
+                *qkv, *geom, *res, *tables, **kw, band=band, tile=128,
+                fast=True, slice_rows=r))}
+        if sparse_rows:
+            runs["sparse_band_attention_bwd"] = (
+                lambda f: sparse_bwd_k.sparse_band_attention_bwd(
                     *qkv, plan.sparse_band, *res, *tables, **kw, s_band=128,
-                    tile=128, fast=True, slice_rows=rows[1])]
-        fp32 = [band_bwd_k.band_attention_bwd(*qkv, *geom, *res, *tables,
-                                              **kw, band=band, tile=128),
+                    tile=128, fast=f),
+                lambda r: plain.sparse_band_attention_bwd_plain(
+                    *qkv, plan.sparse_band, *res, *tables, **kw, s_band=128,
+                    tile=128, fast=True, slice_rows=r))
+        else:
+            with pytest.raises(ValueError, match="table rows"):
                 sparse_bwd_k.sparse_band_attention_bwd(
                     *qkv, plan.sparse_band, *res, *tables, **kw, s_band=128,
-                    tile=128)]
-    for name in ("band_attention_bwd", "sparse_band_attention_bwd"):
-        assert after[name] == (before[name][0], before[name][1] + 1), name
-    for grads_k, grads_p, grads_32 in zip(got, want, fp32):
-        for name, a, b, c in zip(("dq", "dk", "dv", "dtq", "dtk", "dtv"),
-                                 grads_k, grads_p, grads_32):
-            assert _rel_l2(a.cpu(), b.cpu()) <= FAST_GRAD_REL_L2, name
-            assert _rel_l2(c.cpu(), b.cpu()) > FAST_GRAD_REL_L2, name
-        assert float(grads_p[1].abs().max()) > 1e-2
+                    tile=128, fast=True)
+        for name, (kernel, plain_fast) in runs.items():
+            before = _launches()
+            got = kernel(True)
+            torch.cuda.synchronize()
+            after = _launches()
+            assert after[name] == (before[name][0], before[name][1] + 1), name
+            want = plain_fast(rows[name])
+            fp32 = kernel(False)
+            for gn, a, b, c in zip(("dq", "dk", "dv", "dtq", "dtk", "dtv"),
+                                   got, want, fp32):
+                assert _rel_l2(a.cpu(), b.cpu()) <= FAST_GRAD_REL_L2, \
+                    (name, gn)
+                assert _rel_l2(c.cpu(), b.cpu()) > FAST_GRAD_REL_L2, \
+                    (name, gn)
+            assert float(want[1].abs().max()) > 1e-2
 
 
 @pytest.mark.cuda
 def test_fast_limits_take_the_shipped_tables(cuda_device):
     """The fast forms' own limits: S3DIS's and ScanNet's tables fit every
     one of them; the backward picks its block height from its own shared
-    memory."""
+    memory: the band half 64 rows for S3DIS's slice of 40, Swin3D's 31 and
+    ScanNet's 48 (the fp32 form: 32); the far-key half 32 rows for S3DIS's
+    64 and ScanNet's 80 (the fp32 form: 16)."""
     for name, nb in (("band_attention", 48), ("sparse_band_attention", 80)):
         assert block_limits(name, cuda_device, fast=True)[1] >= nb
-    for name, nb in (("band_attention_bwd", 48),
-                     ("sparse_band_attention_bwd", 80)):
+    for name, nb, want in (("band_attention_bwd", 40, 64),
+                           ("band_attention_bwd", 31, 64),
+                           ("band_attention_bwd", 48, 64),
+                           ("sparse_band_attention_bwd", 64, 32),
+                           ("sparse_band_attention_bwd", 80, 32)):
         rows, max_nb = block_limits(name, cuda_device, nb, fast=True)
-        assert rows in (64, 32, 16) and max_nb >= nb
+        assert (rows, max_nb >= nb) == (want, True), (name, nb)
         assert rows >= block_limits(name, cuda_device, nb)[0]

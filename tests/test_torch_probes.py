@@ -141,8 +141,8 @@ def test_times_two_plain():
 
 def test_library_inputs_follow_includes():
     assert build._inputs("band_attention_bwd", build.CSRC) == [
-        "attention_bwd_common.cuh", "attention_common.cuh",
-        "band_attention_bwd.cu"]
+        "attention_bwd_common.cuh", "attention_bwd_tc.cuh",
+        "attention_common.cuh", "band_attention_bwd.cu"]
     assert build._inputs("cache_key_probe", build.CSRC) == [
         "cache_key_probe.cu"]
     assert build.sources() == [
@@ -199,5 +199,5 @@ def test_cache_key_stable_across_processes_and_complete(tmp_path):
     assert comp["nvcc_version"].startswith("nvcc stub")
     assert comp["flags"] == " ".join(build.NVCC_FLAGS)
     assert sorted(comp["files"]) == [
-        "attention_bwd_common.cuh", "attention_common.cuh",
-        "band_attention_bwd.cu"]
+        "attention_bwd_common.cuh", "attention_bwd_tc.cuh",
+        "attention_common.cuh", "band_attention_bwd.cu"]
