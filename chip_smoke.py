@@ -142,7 +142,9 @@ Phases, each fatal on failure:
      launches of each fast kernel, step-1 gradients and loss against the
      plain fast step (the fp32 kernels' step beyond the gate), and three
      steps of each kind timed in turns; (c) the four fast kernels at
-     ScanNet's 80-row tables on phase 12's plans of one batch;
+     ScanNet's 80-row tables on phase 12's plans of one batch, and the
+     shipped ScanNet YAML's full-width eval forward on that batch, fast and
+     pinned to fp32, three of each in turns;
  15. the Swin3D family (``configs/s3dis_swin3d.yaml`` and
      ``configs/scannetv2_swin3d.yaml``: ``arch: swin3d_transformer``, no far
      keys, window-quantized cRPE bins over 31 table rows, through the band
@@ -1017,7 +1019,7 @@ def kernel_slice_rows(name, dev, nb, fast=True):
     return block_limits(name, dev, nb, fast=True)[0] if fast else None
 
 
-def fwd_phase(cfg, levels, plans, dev, report, fast=False):
+def fwd_phase(cfg, levels, plans, dev, report, fast=False, variants=None):
     """Phase 4: both forward kernels against their plain versions at every
     stage's plans, with random q/k/v and tables from seed 0. Adds each
     kernel's per-step times, bounds and errors to ``report``, and the public
@@ -1025,7 +1027,11 @@ def fwd_phase(cfg, levels, plans, dev, report, fast=False):
     per (kernel, stage, parity). ``fast`` (phase 14): the kernels' bf16
     forms against the plain fast versions (`check_fast_triple`), reported
     under ``<name>_bf16`` with the fp32 form's time on the same inputs
-    (``fp32_ms``) and no wrapper profile."""
+    (``fp32_ms``) beside the wrapper's device-busy time; the bound counts
+    the bytes of the fp32 form's inputs, the function's as the model gives
+    them, not the wrapper's bf16 copies. ``variants`` (``--fwd-phases``,
+    with ``fast``): per-step times of each variant build's fast entry point
+    on the same arguments, under ``variants`` (`build_variants`)."""
     from stratified_transformer_torch.kernels import band_attention as band_k
     from stratified_transformer_torch.kernels import (
         sparse_band_attention as sparse_k)
@@ -1033,7 +1039,9 @@ def fwd_phase(cfg, levels, plans, dev, report, fast=False):
     gen = torch.Generator(device="cpu").manual_seed(0)
     suffix = FAST if fast else ""
     for name in FWD_KERNELS:
-        report[name + suffix]["fp32_ms" if fast else "wrapper_busy_ms"] = 0.0
+        report[name + suffix]["wrapper_busy_ms"] = 0.0
+        if fast:
+            report[name + suffix]["fp32_ms"] = 0.0
     rows_out = []
     for i in stages(cfg):
         h, d = cfg.num_heads[i], cfg.channels[i] // cfg.num_heads[i]
@@ -1102,36 +1110,41 @@ def fwd_phase(cfg, levels, plans, dev, report, fast=False):
                         errs = [max_errors(g, w) for g, w in zip(got, want)]
                     kernel = mod.KERNEL_FAST if fast else mod.KERNEL
                     ms = cuda_time_ms(lambda: kernel(*args), 20)
-                    # beside the kernel's time: the fp32 form's on the same
-                    # inputs (fast), else the wrapper's device-busy time
+                    # beside the kernel's time: the wrapper's device-busy
+                    # time, and the fp32 form's on the same inputs (fast)
+                    busy_ms = device_busy_ms(wrapper, 3)
+                    report[key]["wrapper_busy_ms"] += blocks * busy_ms
+                    timing = f"wrapper device busy {busy_ms:.4f} ms"
+                    in_bytes = fwd_bytes(name, inputs, outs, sb)
                     if fast:
                         args32 = make_args(False)
-                        side_ms = cuda_time_ms(
+                        fp32_ms = cuda_time_ms(
                             lambda: mod.KERNEL(*args32[0]), 20)
-                        side = "fp32_ms"
-                    else:
-                        side_ms = device_busy_ms(wrapper, 3)
-                        side = "wrapper_busy_ms"
-                    report[key][side] += blocks * side_ms
+                        report[key]["fp32_ms"] += blocks * fp32_ms
+                        timing = f"fp32 form {fp32_ms:.4f} ms, " + timing
+                        in_bytes = fwd_bytes(name, args32[2], outs, sb)
+                        for tag, fns in (variants or {}).items():
+                            vr = report[key].setdefault("variants", {})
+                            vr[tag] = vr.get(tag, 0.0) + blocks * cuda_time_ms(
+                                lambda: fns[name](*args), 20)
                     plain_ms = cuda_time_ms(plain_fn, 3)
                     t_ops = least_ops(pairs, nq, nk, h, d, rows, split=fast)
                     bound, by = add_timing(report, key, blocks, ms,
-                                           plain_ms,
-                                           fwd_bytes(name, inputs, outs, sb),
-                                           t_ops, max(e[0] for e in errs))
+                                           plain_ms, in_bytes, t_ops,
+                                           max(e[0] for e in errs))
                     per_pair = sum(t_ops) if fast else t_ops
-                    rows_out.append({
+                    rows_out.append(dict({
                         "kernel": key, "stage": i, "shifted": int(shifted),
                         "blocks": blocks, "n": n, "h": h, "pairs": pairs,
                         "ops_per_pair_head": per_pair / max(pairs, 1) / h,
-                        "ms": ms, side: side_ms, "plain_ms": plain_ms,
-                        "bound_ms": bound, "bound_by": by})
+                        "ms": ms, "wrapper_busy_ms": busy_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by}, **({"fp32_ms": fp32_ms} if fast
+                                            else {})))
                     log(f"[kernel] {key} stage {i} shifted={int(shifted)} "
                         f"N={n} h={h} d={d} pairs={pairs} "
                         f"ops/pair/head={per_pair / max(pairs, 1) / h:.1f}: "
-                        f"{ms:.4f} ms ("
-                        + (f"fp32 form {side_ms:.4f} ms" if fast else
-                           f"wrapper device busy {side_ms:.4f} ms")
+                        f"{ms:.4f} ms ({timing}"
                         + f"; plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
                         f"by {by}); "
                         + (f"acc relative L2 {acc_l2:.2e} (fp32 form "
@@ -1158,8 +1171,8 @@ def fwd_phase(cfg, levels, plans, dev, report, fast=False):
     for name in FWD_KERNELS:
         r = report[name + suffix]
         log(f"[kernel] {name + suffix}: {r['ms']:.3f} ms per eval forward ("
-            + (f"fp32 form {r['fp32_ms']:.3f} ms" if fast else
-               f"wrapper device busy {r['wrapper_busy_ms']:.3f} ms")
+            + (f"fp32 form {r['fp32_ms']:.3f} ms, " if fast else "")
+            + f"wrapper device busy {r['wrapper_busy_ms']:.3f} ms"
             + f"; bound {r['bound_ms']:.3f} ms)")
     return rows_out
 
@@ -1176,7 +1189,7 @@ def bwd_phase(cfg, levels, plans, dev, report, fast=False, variants=None):
     bytes of the fp32 form's inputs, the function's as the model gives
     them. ``variants`` (``--bwd-phases``, with ``fast``): per-step times of
     each variant build's fast entry point on the same arguments, under
-    ``variants`` (`build_bwd_variants`)."""
+    ``variants`` (`build_variants`)."""
     from stratified_transformer_torch.kernels import (
         band_attention_bwd as band_bwd_k)
     from stratified_transformer_torch.kernels import (
@@ -1386,17 +1399,18 @@ BWD_PHASE_CUTS = {
 }
 
 
-def build_bwd_variants(tmp):
-    """Variant libraries of the two backward sources, one per entry of
-    BWD_PHASE_CUTS and one with every cut ("all"), built in parallel under
-    ``tmp``; returns ``{variant: {kernel name: fast entry point}}`` (each
-    entry point raises on a failed launch)."""
+def build_variants(tmp, phase_cuts, kernels, flag):
+    """Variant libraries of the ``kernels``' sources, one per entry of
+    ``phase_cuts`` (`BWD_PHASE_CUTS`, `FWD_PHASE_CUTS`) and one with every
+    cut ("all"), built in parallel under ``tmp``; returns ``{variant:
+    {kernel name: fast entry point}}`` (each entry point raises on a failed
+    launch). ``flag`` labels the log lines."""
     import ctypes
     import shutil
     from stratified_transformer_torch.kernels import build
     mods = attention_kernel_modules()
-    cuts = dict(BWD_PHASE_CUTS)
-    cuts["all"] = [c for v in BWD_PHASE_CUTS.values() for c in v]
+    cuts = dict(phase_cuts)
+    cuts["all"] = [c for v in phase_cuts.values() for c in v]
     jobs = []
     for v, (tag, spec) in enumerate(cuts.items()):
         src = os.path.join(tmp, f"v{v}")
@@ -1405,12 +1419,12 @@ def build_bwd_variants(tmp):
             path = os.path.join(src, fn)
             text = open(path).read() if os.path.exists(path) else ""
             if text.count(old) != 1:
-                log(f"[bwd-phases] {tag}: cut {old.strip()[:40]!r} not in "
+                log(f"[{flag}] {tag}: cut {old.strip()[:40]!r} not in "
                     f"{fn}, skipped")
                 continue
             with open(path, "w") as f:
                 f.write(text.replace(old, new))
-        for name in BWD_KERNELS:
+        for name in kernels:
             out = os.path.join(src, f"lib{name}.so")
             jobs.append((tag, name, out, subprocess.Popen(
                 [build.nvcc_path(), *build.NVCC_FLAGS, "-o", out,
@@ -1421,7 +1435,7 @@ def build_bwd_variants(tmp):
         text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"variant {tag} of {name}.cu:\n{text}")
-        fn = getattr(ctypes.CDLL(out), f"{name}{FAST}")
+        fn = getattr(ctypes.CDLL(out), mods[name].KERNEL_FAST.symbol)
         fn.argtypes = mods[name].KERNEL_FAST.argtypes
         fn.restype = ctypes.c_int
 
@@ -1433,20 +1447,21 @@ def build_bwd_variants(tmp):
     return variants
 
 
-def bwd_phases(dev):
-    """``--bwd-phases``: the fast backward kernels at phase 14 (a)'s S3DIS
-    plans and (c)'s ScanNet plans (`bwd_phase` with ``fast``, gates
-    included), each beside its variant builds without one phase
-    (`build_bwd_variants`); per-step ms of the kernel and of each variant,
-    and each phase's share (the kernel's time less the variant's)."""
+def kernel_phases(dev, flag, phase_cuts, kernels, phase_fn):
+    """``--bwd-phases`` / ``--fwd-phases``: the fast forms of ``kernels`` at
+    phase 14 (a)'s S3DIS plans and (c)'s ScanNet plans (``phase_fn``,
+    `bwd_phase` or `fwd_phase`, with ``fast``, gates included), each beside
+    its variant builds without one phase (`build_variants` of
+    ``phase_cuts``); per-step ms of the kernel and of each variant, and
+    each phase's share (the kernel's time less the variant's)."""
     import tempfile
     from stratified_transformer_torch.config import load_config
     from stratified_transformer_torch.data.loader import host_batch
     FAST_FAILURES.clear()
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
-        variants = build_bwd_variants(tmp)
-        log(f"[bwd-phases] {len(variants)} variants built in "
+        variants = build_variants(tmp, phase_cuts, kernels, flag)
+        log(f"[{flag}] {len(variants)} variants built in "
             f"{time.time() - t0:.1f} s")
         out = {}
         for tag, path, hb_kw, cfg_kw in (
@@ -1458,25 +1473,113 @@ def bwd_phases(dev):
             plans = {(i, sh): build_plan(cfg, i, levels[i], sh, dev)
                      for i in stages(cfg) for sh in (False, True)}
             report = new_report(FAST_KERNELS)
-            bwd_phase(cfg, levels, plans, dev, report, fast=True,
-                      variants=variants)
+            phase_fn(cfg, levels, plans, dev, report, fast=True,
+                     variants=variants)
             out[tag] = {}
-            for name in BWD_KERNELS:
+            for name in kernels:
                 r = report[name + FAST]
                 out[tag][name + FAST] = {
                     "ms": r["ms"], "fp32_ms": r["fp32_ms"],
                     "bound_ms": r["bound_ms"], "variants": r["variants"],
                     "phase_ms": {v: r["ms"] - t
                                  for v, t in r["variants"].items()}}
-                log(f"[bwd-phases] {tag} {name}{FAST}: {r['ms']:.3f} ms per "
+                log(f"[{flag}] {tag} {name}{FAST}: {r['ms']:.3f} ms per "
                     "step; without " + ", ".join(
                         f"{v}: {t:.3f} ({r['ms'] - t:+.3f})"
                         for v, t in r["variants"].items()))
             del plans
     if FAST_FAILURES:
-        raise AssertionError(f"--bwd-phases: {len(FAST_FAILURES)} gates or "
+        raise AssertionError(f"--{flag}: {len(FAST_FAILURES)} gates or "
                              f"controls failed: {FAST_FAILURES}")
     return out
+
+
+def bwd_phases(dev):
+    """``--bwd-phases``: `kernel_phases` of the fast backward kernels."""
+    return kernel_phases(dev, "bwd-phases", BWD_PHASE_CUTS, BWD_KERNELS,
+                         bwd_phase)
+
+
+# ``--fwd-phases``: where the fast forward kernels' time goes, as
+# ``--bwd-phases`` splits the backward's. Cuts of attention_fwd_common.cuh
+# split the routine the fast forms ran before the tensor-core routine
+# (attention_fwd_block at kFast), those of attention_fwd_tc.cuh that
+# routine. "key staging" cuts the loads of k and v (the keys' points and
+# skey stay, so the variant keeps the kernel's pairs); "projections" the
+# tables' staging (Tq, Tk; the old far-key form's three tables) and the
+# projections; "pass 1" the products and cRPE lookups of the logits (the
+# masks stay); "pass 2" the exp and p·v (p is 1 on the pairs, so the walk
+# still runs); "mass walk" the walk; "end of block" mass·Tv (with the old
+# routine's Tv reads) and the old
+# routine's lane reductions (the writes stay, or the compiler would drop
+# the whole block).
+FWD_TC = "attention_fwd_tc.cuh"
+FWD_OLD = "attention_fwd_common.cuh"
+FWD_PHASE_CUTS = {
+    "key staging": [
+        (FWD_OLD, "    for (int i0 = tid; i0 < cn * D; i0 += 2 * NT) {",
+         "    for (int i0 = cn * D; i0 < cn * D; i0 += 2 * NT) {"),
+        (FWD_TC, "    if (ksrc >= 0)\n      kvr = ",
+         "    if (false)\n      kvr = ")],
+    "projections": [
+        (FWD_OLD, "    if (tabs) project_mma<D, S>(s_q, R / 16,",
+         "    if (false) project_mma<D, S>(s_q, R / 16,"),
+        (FWD_OLD, "      if (tabs) project_mma<D, S>(s_k, C / 16,",
+         "      if (false) project_mma<D, S>(s_k, C / 16,"),
+        (FWD_OLD, "  if (!kProj && tabs) {\n    // a thread per (table, bin)",
+         "  if (false) {\n    // a thread per (table, bin)"),
+        (FWD_TC, "    for (int i = tid; i < 3 * nb; i += NT) {",
+         "    for (int i = 3 * nb; i < 3 * nb; i += NT) {"),
+        (FWD_TC, "  if (tabs && lo < hi)\n    project(a_q,",
+         "  if (false)\n    project(a_q,"),
+        (FWD_TC, "    if (tabs)\n      project(a_k,",
+         "    if (false)\n      project(a_k,")],
+    "pass 1": [
+        (FWD_OLD, "#pragma unroll\n          for (int c = 0; c < D; c += 4) "
+                  "lds4(s_k + j * S + c, kc + c);\n          float s = 0.0f;\n"
+                  "#pragma unroll\n          for (int c = 0; c < D; ++c) "
+                  "s = fmaf(q[c], kc[c], s);\n          if (tabs) {",
+         "          float s = 0.0f;\n          if (false) {"),
+        (FWD_TC, "          mma_bf16_16816(sc, qa, b);", ""),
+        (FWD_TC, "              if (tabs) {\n                const float xkk[3]",
+         "              if (false) {\n                const float xkk[3]")],
+    "rescale": [
+        (FWD_OLD, "    if (mx > m) {\n      const float r = expf(m - mx);",
+         "    if (mx > m) m = mx;\n    if (false) {\n"
+         "      const float r = expf(m - mx);"),
+        (FWD_TC, "    if (mx > rm) {\n      const float r = expf(rm - mx);",
+         "    if (mx > rm) mref = rm = mx;\n    if (false) {\n"
+         "      const float r = expf(rm - mx);")],
+    "pass 2": [
+        (FWD_OLD, "      if (j < rhi && ((ok >> u) & 1u)) {\n"
+                  "        p = expf(l[u] - m);",
+         "      p = ((ok >> u) & 1u) ? 1.0f : 0.0f;\n      if (false) {\n"
+         "        p = expf(l[u] - m);"),
+        (FWD_TC, "? expf(l[nt][e] - rm) : 0.0f;", "? 1.0f : 0.0f;"),
+        (FWD_TC, "        mma_bf16_16816(d, pa, b);", "")],
+    "mass walk": [
+        (FWD_OLD, "    if (kMass && tabs) {\n      // the row's masses",
+         "    if (false) {\n      // the row's masses"),
+        (FWD_TC, "    if (tabs) {\n#pragma unroll\n      for (int nt = 0; "
+                 "nt < 4; ++nt) {\n        if (!act[nt]) continue;",
+         "    if (false) {\n#pragma unroll\n      for (int nt = 0; "
+         "nt < 4; ++nt) {\n        if (!act[nt]) continue;")],
+    "end of block": [
+        (FWD_OLD, "  if (!kProj && kMass && T.tv != nullptr) {",
+         "  if (false) {"),
+        (FWD_OLD, "  if (kProj && T.tv != nullptr) {", "  if (false) {"),
+        (FWD_OLD, "#pragma unroll\n  for (int c = 0; c < D; ++c) acc[c] = "
+                  "group_sum<LPR>(acc[c]);\n  den = group_sum<LPR>(den);\n",
+         ""),
+        (FWD_TC, "  if (tabs && lo < hi) {\n    __syncwarp();",
+         "  if (false) {\n    __syncwarp();")],
+}
+
+
+def fwd_phases(dev):
+    """``--fwd-phases``: `kernel_phases` of the fast forward kernels."""
+    return kernel_phases(dev, "fwd-phases", FWD_PHASE_CUTS, FWD_KERNELS,
+                         fwd_phase)
 
 
 def tree_leaves(prefix, x):
@@ -2650,15 +2753,50 @@ def plain_in_kernel_slices(dev):
         yield
 
 
+def fast_forwards_in_turns(tag, cfg, yaml_cfg, hb, dev, reps=3):
+    """Phase 14 (c): the full-width eval forward of the shipped YAML
+    (``cfg``, fast) and the same weights pinned to fp32 on the batch ``hb``:
+    ``reps`` of each in turns (host clock, synchronized). (No device-busy
+    time: the forward waits for the card, so `device_busy_ms` cannot take
+    it, and the profiler lost its device records here, PERF.md §7.)"""
+    from stratified_transformer_torch.data.loader import to_device
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.train.step import make_eval_step
+    model = build_model(cfg, "cuda", seed=0)
+    o1_weights(model, seed=0)
+    fp32 = build_model(dataclasses.replace(cfg, **FP32), "cuda")
+    fp32.load_state_dict(model.state_dict())
+    eval_step = make_eval_step(int(yaml_cfg["ignore_label"]),
+                               cfg.num_classes)
+    batch = to_device(hb, dev)
+    models = {"fast": model, "fp32": fp32}
+    times = {k: [] for k in models}
+    with torch.no_grad():
+        for m_ in models.values():
+            eval_step(m_, batch)                # first call: lazy set-up
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            for k, m_ in models.items():
+                t0 = time.perf_counter()
+                eval_step(m_, batch)
+                torch.cuda.synchronize()
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    log(f"[fast] {tag} eval forward (n_pad {cfg.n_pad}, host clock, "
+        f"synchronized, in turns) fast "
+        f"{', '.join(f'{t:.1f}' for t in times['fast'])} ms, fp32 "
+        f"{', '.join(f'{t:.1f}' for t in times['fp32'])} ms")
+    return {"forward_ms": times}
+
+
 def fast_phase(dev):
     """Phase 14: the shipped YAMLs as they are (``rpe_precision`` /
     ``qk_precision: default``): (a) the four fast kernels against their
     plain fast versions at S3DIS's operating point (N 40960, 2 scenes, host
     pyramid) at every block's plan, with times, bounds and the fp32 forms'
     times from this call; (b) `fast_model_step`; (c) the four fast kernels
-    at ScanNet's 80-row tables on phase 12's plans of one batch. Returns
-    the numbers and each fast kernel's reports under ``report`` and
-    ``scannet_report``."""
+    at ScanNet's 80-row tables on phase 12's plans of one batch, and
+    `fast_forwards_in_turns` on that batch. Returns the numbers and each
+    fast kernel's reports under ``report`` and ``scannet_report``."""
     from stratified_transformer_torch.config import load_config
     from stratified_transformer_torch.data.loader import host_batch
     from stratified_transformer_torch.utils.config import load_cfg
@@ -2700,6 +2838,9 @@ def fast_phase(dev):
     fwd_phase(scfg, slevels, splans, dev, sreport, fast=True)
     bwd_phase(scfg, slevels, splans, dev, sreport, fast=True)
     out["scannet_report"] = sreport
+    del splans
+    out["scannet_forward"] = fast_forwards_in_turns(
+        "ScanNet", scfg, load_cfg(SCANNET_CONFIG), shb, dev)
     out["seconds"] = time.time() - t_phase
     log(f"[fast] phase 14 in {out['seconds']:.0f} s")
     if FAST_FAILURES:
@@ -2794,10 +2935,15 @@ def swin_kernels(cfg, levels, dev, report, family="S3DIS"):
                             band_k.band_attention(
                                 q, k, v, *geom, *tables,
                                 **dict(fkw, fast=False)))
-                        side_ms = cuda_time_ms(lambda: band_k.KERNEL(
-                            *band_k.launch_args(q, k, v, *geom, *tables,
-                                                **kw)[0]), 20)
+                        # the fp32 form on the same inputs; the bound
+                        # counts its inputs, the function's, not the bf16
+                        # copies
+                        args32 = band_k.launch_args(q, k, v, *geom, *tables,
+                                                    **kw)
+                        side_ms = cuda_time_ms(
+                            lambda: band_k.KERNEL(*args32[0]), 20)
                         report[key]["fp32_ms"] += blocks * side_ms
+                        inputs = args32[2]
                         errs = err[2]
                     else:
                         for tn, a, b in zip(("acc", "m", "den"), got, want):
@@ -4778,10 +4924,11 @@ def phase_only(flag):
              for line in text.splitlines()
              if "registers" in line or "spill" in line]
     if flag in ("--fast-only", "--swin-only", "--dp-only", "--halo-only",
-                "--bwd-phases"):
+                "--bwd-phases", "--fwd-phases"):
         phase = {"--fast-only": fast_phase, "--swin-only": swin_phase,
                  "--dp-only": dp_phase, "--halo-only": halo_phase,
-                 "--bwd-phases": bwd_phases}[flag]
+                 "--bwd-phases": bwd_phases,
+                 "--fwd-phases": fwd_phases}[flag]
         out = {"card": card_line(), "repo": REPO,
                flag[2:].replace("-only", ""): phase(dev),
                "ptxas": ptxas}
@@ -4851,6 +4998,7 @@ PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS,
               "--dp-only": FWD_KERNELS + BWD_KERNELS,
               "--halo-only": FWD_KERNELS,
               "--bwd-phases": BWD_KERNELS,
+              "--fwd-phases": FWD_KERNELS,
               "--scannet-kernels-only": FWD_KERNELS + BWD_KERNELS}
 
 

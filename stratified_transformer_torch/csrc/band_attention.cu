@@ -36,10 +36,15 @@
 // The fast form (band_attention_fwd_bf16) is the TPU kernel's fast=True
 // (fused_attention.py:646-668, 86): q (rounded after the fp32 scaling), k,
 // v and the table entries in bf16, p rounded for p·v and the bin masses
-// for mass·Tv, everything else fp32 (attention_fwd_common.cuh). Its
-// projections q·Tq (per block) and k·Tk (per chunk) run on the tensor cores
-// (mma.sync m16n8k16 on the bf16 rows it stages); the pair loops and
-// mass·Tv stay on FMA.
+// for mass·Tv, everything else fp32. What bounds it on the H100 is bytes
+// (PERF.md: 0.049 ms per S3DIS step, 0.255 per ScanNet step, with the
+// products at the bf16 tensor-core peak). It runs attention_fwd_block_tc
+// (attention_fwd_tc.cuh): q·kᵀ, p·v, the projections and mass·Tv on
+// mma.sync from bf16 operands it stages itself (the same arguments as the
+// fp32 form), the next key chunk loaded while one computes, a warp per 8
+// rows over the whole window, the bin masses added in key order; 64-row
+// blocks, two per SM up to ScanNet's band slice of 48 table rows per axis
+// (band_attention_bf16_limits).
 // The swin mode (swin 1; Swin3D, rpe_mode "swin_window") is the same kernel,
 // instantiated with kSwin (the stratified instantiations carry no branch),
 // with Swin3D's bins (swin_bin, attention_common.cuh): xyz holds the points'
@@ -50,19 +55,20 @@
 // computes.
 
 #include "attention_fwd_common.cuh"
+#include "attention_fwd_tc.cuh"
 
 namespace stratified {
 
 constexpr int kBandRows = 64;   // rows per block: 2 slices of a tile
 
-template <int D, int R, bool kFast, bool kSwin>
+template <int D, int R, bool kSwin>
 __global__ void __launch_bounds__(kFwdThreads, 2)
 band_attention_kernel(FwdQueries Q, FwdKeys K, FwdTables T, FwdOutputs O,
                       int n, int h, int tile, int band, float scale) {
   const int slices = tile / R;
   const int tile_idx = blockIdx.x / slices;
   const int t0 = tile_idx * tile;
-  attention_fwd_block<D, R, true, kFast, kSwin>(
+  attention_fwd_block<D, R, true, false, kSwin>(
       Q, K, T, O, h, t0 + (blockIdx.x - tile_idx * slices) * R,
       max(t0 - band, 0), min(t0 + tile + band, n), scale);
 }
@@ -79,47 +85,47 @@ __global__ void rel_bin_probe_kernel(const float* __restrict__ rel,
     out[i] = swin ? table_bin<true>(T, rel[i]) : table_bin<false>(T, rel[i]);
 }
 
-template <bool kFast>
-cudaError_t band_fwd_limits(int* rows, int* max_nb) {
+inline cudaError_t band_fwd_limits(int* rows, int* max_nb) {
   size_t room = 0;
   const cudaError_t err =
-      smem_room(band_attention_kernel<16, kBandRows, kFast, false>, &room);
+      smem_room(band_attention_kernel<16, kBandRows, false>, &room);
   if (err != cudaSuccess) return err;
   *rows = kBandRows;
-  *max_nb = fwd_max_nb<kBandRows, true, kFast>(room);
+  *max_nb = fwd_max_nb<kBandRows, true, false>(room);
   return cudaSuccess;
 }
 
-template <bool kFast, bool kSwin>
+template <bool kSwin>
 cudaError_t band_fwd_launch(const FwdQueries& Q, const FwdKeys& K,
                             const FwdTables& T, const FwdOutputs& O, int n,
                             int h, int tile, int band, float scale,
                             cudaStream_t stream) {
   constexpr int R = kBandRows;
-  const size_t smem = FwdSmem<R, true, kFast>(T.nb).bytes();
+  const size_t smem = FwdSmem<R, true, false>(T.nb).bytes();
   const cudaError_t err = cudaFuncSetAttribute(
-      band_attention_kernel<16, R, kFast, kSwin>,
+      band_attention_kernel<16, R, kSwin>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid(n / R, h);
-  band_attention_kernel<16, R, kFast, kSwin>
+  band_attention_kernel<16, R, kSwin>
       <<<grid, kFwdThreads, smem, stream>>>(Q, K, T, O, n, h, tile, band,
                                             scale);
   return cudaGetLastError();
 }
 
-template <bool kFast>
-cudaError_t band_fwd(const float* q, const float* k, const float* v,
-                     const float* xyz, const int32_t* seg_start,
-                     const int32_t* seg_end, const uint8_t* valid,
-                     const float* tq, const float* tk, const float* tv,
-                     float* acc, float* m, float* den, int n, int h, int d,
-                     int q_rs, int k_rs, int v_rs, int tile, int band, int nb,
-                     int bin_lo, int nb_full, int swin, float bin_offset,
-                     float inv_quant, float scale, cudaStream_t stream) {
+inline cudaError_t band_fwd(const float* q, const float* k, const float* v,
+                            const float* xyz, const int32_t* seg_start,
+                            const int32_t* seg_end, const uint8_t* valid,
+                            const float* tq, const float* tk,
+                            const float* tv, float* acc, float* m, float* den,
+                            int n, int h, int d, int q_rs, int k_rs, int v_rs,
+                            int tile, int band, int nb, int bin_lo,
+                            int nb_full, int swin, float bin_offset,
+                            float inv_quant, float scale,
+                            cudaStream_t stream) {
   constexpr int R = kBandRows;
   int rows = 0, max_nb = 0;
-  cudaError_t err = band_fwd_limits<kFast>(&rows, &max_nb);
+  cudaError_t err = band_fwd_limits(&rows, &max_nb);
   if (err != cudaSuccess) return err;
   // Every stage of the ported configurations has D = 16; instantiate more
   // head sizes when a configuration needs them. The swin mode reads the
@@ -132,10 +138,75 @@ cudaError_t band_fwd(const float* q, const float* k, const float* v,
   const FwdKeys K{k, k_rs, v, v_rs, nullptr, xyz, valid, nullptr};
   const FwdTables T{tq, tk, tv, nb, bin_lo, nb_full, bin_offset, inv_quant};
   const FwdOutputs O{acc, m, den};
-  return swin ? band_fwd_launch<kFast, true>(Q, K, T, O, n, h, tile, band,
-                                             scale, stream)
-              : band_fwd_launch<kFast, false>(Q, K, T, O, n, h, tile, band,
-                                              scale, stream);
+  return swin ? band_fwd_launch<true>(Q, K, T, O, n, h, tile, band, scale,
+                                      stream)
+              : band_fwd_launch<false>(Q, K, T, O, n, h, tile, band, scale,
+                                       stream);
+}
+
+// ---- the fast form: attention_fwd_block_tc (attention_fwd_tc.cuh) -------
+
+template <bool kSwin>
+__global__ void __launch_bounds__(kFtThreads, 2)
+band_attention_tc_kernel(FwdQueries Q, FwdKeys K, FwdTables T, FwdOutputs O,
+                         int n, int h, int tile, int band, float scale) {
+  const int slices = tile / kFtRows;
+  const int tile_idx = blockIdx.x / slices;
+  const int t0 = tile_idx * tile;
+  attention_fwd_block_tc<kSwin>(
+      Q, K, T, O, h, t0 + (blockIdx.x - tile_idx * slices) * kFtRows,
+      max(t0 - band, 0), min(t0 + tile + band, n), scale);
+}
+
+inline cudaError_t band_fwd_tc_limits(int* rows, int* max_nb) {
+  size_t room = 0;
+  const cudaError_t err = smem_room(band_attention_tc_kernel<false>, &room);
+  if (err != cudaSuccess) return err;
+  *rows = kFtRows;
+  *max_nb = ft_max_nb(room);
+  return cudaSuccess;
+}
+
+template <bool kSwin>
+cudaError_t band_fwd_tc_launch(const FwdQueries& Q, const FwdKeys& K,
+                               const FwdTables& T, const FwdOutputs& O,
+                               int n, int h, int tile, int band, float scale,
+                               cudaStream_t stream) {
+  const size_t smem = FtSmem(T.nb).bytes();
+  const cudaError_t err = cudaFuncSetAttribute(
+      band_attention_tc_kernel<kSwin>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(n / kFtRows, h);
+  band_attention_tc_kernel<kSwin><<<grid, kFtThreads, smem, stream>>>(
+      Q, K, T, O, n, h, tile, band, scale);
+  return cudaGetLastError();
+}
+
+inline cudaError_t band_fwd_tc(
+    const float* q, const float* k, const float* v, const float* xyz,
+    const int32_t* seg_start, const int32_t* seg_end, const uint8_t* valid,
+    const float* tq, const float* tk, const float* tv, float* acc, float* m,
+    float* den, int n, int h, int d, int q_rs, int k_rs, int v_rs, int tile,
+    int band, int nb, int bin_lo, int nb_full, int swin, float bin_offset,
+    float inv_quant, float scale, cudaStream_t stream) {
+  int rows = 0, max_nb = 0;
+  const cudaError_t err = band_fwd_tc_limits(&rows, &max_nb);
+  if (err != cudaSuccess) return err;
+  // q, k and v are read a float4 at a time
+  if (d != 16 || tile <= 0 || tile % rows != 0 || n % tile != 0 || nb < 0 ||
+      nb > max_nb || (swin != 0 && (bin_lo != 0 || nb != nb_full)) ||
+      !rows16(q, q_rs) || !rows16(k, k_rs) || !rows16(v, v_rs))
+    return cudaErrorInvalidValue;
+  const FwdQueries Q{q, q_rs, nullptr, xyz, valid, seg_start, seg_end,
+                     nullptr};
+  const FwdKeys K{k, k_rs, v, v_rs, nullptr, xyz, valid, nullptr};
+  const FwdTables T{tq, tk, tv, nb, bin_lo, nb_full, bin_offset, inv_quant};
+  const FwdOutputs O{acc, m, den};
+  return swin ? band_fwd_tc_launch<true>(Q, K, T, O, n, h, tile, band, scale,
+                                         stream)
+              : band_fwd_tc_launch<false>(Q, K, T, O, n, h, tile, band,
+                                          scale, stream);
 }
 
 }  // namespace stratified
@@ -172,14 +243,16 @@ extern "C" int band_attention_fwd(
     float* den, int n, int h, int d, int q_rs, int k_rs, int v_rs, int tile,
     int band, int nb, int bin_lo, int nb_full, int swin, float bin_offset,
     float inv_quant, float scale, void* stream) {
-  return static_cast<int>(stratified::band_fwd<false>(
+  return static_cast<int>(stratified::band_fwd(
       q, k, v, xyz, seg_start, seg_end, valid, tq, tk, tv, acc, m, den, n,
       h, d, q_rs, k_rs, v_rs, tile, band, nb, bin_lo, nb_full, swin,
       bin_offset, inv_quant, scale, static_cast<cudaStream_t>(stream)));
 }
 
-// The fast (bf16) form: the same arguments and outputs as
-// band_attention_fwd; band_attention_bf16_limits gives its table limit.
+// The fast (bf16) form (attention_fwd_tc.cuh): the same arguments and
+// outputs as band_attention_fwd, with q, k and v at 16-byte aligned rows
+// (row strides a multiple of 4 floats); band_attention_bf16_limits gives
+// its limits.
 extern "C" int band_attention_fwd_bf16(
     const float* q, const float* k, const float* v, const float* xyz,
     const int32_t* seg_start, const int32_t* seg_end, const uint8_t* valid,
@@ -187,7 +260,7 @@ extern "C" int band_attention_fwd_bf16(
     float* den, int n, int h, int d, int q_rs, int k_rs, int v_rs, int tile,
     int band, int nb, int bin_lo, int nb_full, int swin, float bin_offset,
     float inv_quant, float scale, void* stream) {
-  return static_cast<int>(stratified::band_fwd<true>(
+  return static_cast<int>(stratified::band_fwd_tc(
       q, k, v, xyz, seg_start, seg_end, valid, tq, tk, tv, acc, m, den, n,
       h, d, q_rs, k_rs, v_rs, tile, band, nb, bin_lo, nb_full, swin,
       bin_offset, inv_quant, scale, static_cast<cudaStream_t>(stream)));
@@ -198,10 +271,11 @@ extern "C" int band_attention_fwd_bf16(
 // of S3DIS's 64-bin tables has 40, of ScanNet's 80-bin tables 48). Returns
 // a cudaError_t.
 extern "C" int band_attention_limits(int* rows, int* max_nb) {
-  return static_cast<int>(stratified::band_fwd_limits<false>(rows, max_nb));
+  return static_cast<int>(stratified::band_fwd_limits(rows, max_nb));
 }
 
-// The same for the fast form.
+// The same for the fast form: 64 rows, and on the H100 up to 101 table
+// rows per axis (two blocks per SM up to ScanNet's slice of 48).
 extern "C" int band_attention_bf16_limits(int* rows, int* max_nb) {
-  return static_cast<int>(stratified::band_fwd_limits<true>(rows, max_nb));
+  return static_cast<int>(stratified::band_fwd_tc_limits(rows, max_nb));
 }

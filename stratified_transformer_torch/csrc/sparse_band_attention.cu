@@ -24,11 +24,14 @@
 // the unmasked pairs (q·k, p·v and the softmax, ~24 operations for the
 // bins, and the table terms). A row has at most sparse_cap far keys (48
 // for S3DIS), fewer than the ~nb rows per axis (64) beyond which projecting
-// it onto the 3·nb table rows costs less than three d-long dot products
-// per pair, so the table terms take the per-pair form (chip_smoke.py::
-// least_ops picks the cheaper form per table, and counts each key's
-// projection once per call; a tile's block sees its keys for too few rows
-// for that). At the S3DIS point the bytes set the bound at most stages.
+// it onto the 3·nb table rows costs fewer FMA than three d-long dot
+// products per pair, so the fp32 form takes the per-pair form
+// (chip_smoke.py::least_ops picks the cheaper form per table, and counts
+// each key's projection once per call). That count is of FMA on the CUDA
+// cores: on the tensor cores a projection is one mma per 16 rows and 8
+// table rows, and the fast form takes the projection form, as the TPU
+// kernel does in this half too (fused_attention.py:340-347, 392-397). At
+// the S3DIS point the bytes set the bound at most stages.
 // The design (attention_fwd_common.cuh): one block of 256 threads per
 // (64-row slice of a tile, head), two blocks per SM, four lanes per row
 // taking whole pairs, one softmax rescale per chunk of 32 keys; the head's
@@ -39,18 +42,24 @@
 // The fast form (sparse_band_attention_fwd_bf16) is the TPU kernel's
 // fast=True: the TPU kernel stages fp32 (fused_attention.py:494-499) and
 // rounds the operands of its DEFAULT products to bf16, which this form
-// stages in bf16 (q after the scaling, k, v and the head's tables), with p
-// rounded for p·v and Tv taken as the TPU kernel takes it: per row and
-// (axis, bin) the fp32 mass of p, rounded once for mass·Tv
-// (fused_attention.py:451-456; attention_fwd_common.cuh).
+// stages in bf16 (q after the scaling, k and v through sb_src, the head's
+// tables), with p rounded for p·v and Tv taken as the TPU kernel takes it:
+// per row and (axis, bin) the fp32 mass of p, rounded once for mass·Tv
+// (fused_attention.py:451-456). It runs attention_fwd_block_tc
+// (attention_fwd_tc.cuh: every bf16 product on mma.sync, the projection
+// form, the next key chunk loaded while one computes, the masses added in
+// key order) in 64-row blocks; at the far keys' full tables (64 rows per
+// axis for S3DIS, 80 for ScanNet) a block's per-row projections and masses
+// take 144-177 KB of shared memory, one block per SM.
 
 #include "attention_fwd_common.cuh"
+#include "attention_fwd_tc.cuh"
 
 namespace stratified {
 
 constexpr int kSparseRows = 64;   // rows per block: 2 slices of a tile
 
-template <int D, int R, bool kFast>
+template <int D, int R>
 __global__ void __launch_bounds__(kFwdThreads, 2)
 sparse_band_attention_kernel(FwdQueries Q, FwdKeys K, FwdTables T,
                              FwdOutputs O, int a_sz, int h, int tile,
@@ -59,24 +68,22 @@ sparse_band_attention_kernel(FwdQueries Q, FwdKeys K, FwdTables T,
   const int tile_idx = blockIdx.x / slices;
   const int t0 = tile_idx * tile;
   const int base = (min(Q.key_lo[t0], a_sz - s_band) / 16) * 16;
-  attention_fwd_block<D, R, false, kFast>(
+  attention_fwd_block<D, R, false, false>(
       Q, K, T, O, h, t0 + (blockIdx.x - tile_idx * slices) * R, base,
       base + s_band, scale);
 }
 
-template <bool kFast>
-cudaError_t sparse_fwd_limits(int* rows, int* max_nb) {
+inline cudaError_t sparse_fwd_limits(int* rows, int* max_nb) {
   size_t room = 0;
   const cudaError_t err =
-      smem_room(sparse_band_attention_kernel<16, kSparseRows, kFast>, &room);
+      smem_room(sparse_band_attention_kernel<16, kSparseRows>, &room);
   if (err != cudaSuccess) return err;
   *rows = kSparseRows;
-  *max_nb = fwd_max_nb<kSparseRows, false, kFast>(room);
+  *max_nb = fwd_max_nb<kSparseRows, false, false>(room);
   return cudaSuccess;
 }
 
-template <bool kFast>
-cudaError_t sparse_fwd(
+inline cudaError_t sparse_fwd(
     const float* q, const float* k, const float* v, const int32_t* lw_map,
     const float* xyz_lw, const uint8_t* valid_lw, const int32_t* skey_lw,
     const int32_t* sb_start, const int32_t* sb_end, const int32_t* sb_src,
@@ -87,7 +94,7 @@ cudaError_t sparse_fwd(
     float scale, cudaStream_t stream) {
   constexpr int R = kSparseRows;
   int rows = 0, max_nb = 0;
-  cudaError_t err = sparse_fwd_limits<kFast>(&rows, &max_nb);
+  cudaError_t err = sparse_fwd_limits(&rows, &max_nb);
   if (err != cudaSuccess) return err;
   // Every stage of the ported configurations has D = 16; instantiate more
   // head sizes when a configuration needs them.
@@ -99,14 +106,70 @@ cudaError_t sparse_fwd(
   const FwdKeys K{k, k_rs, v, v_rs, sb_src, sb_xyz, sb_valid, sb_skey};
   const FwdTables T{tq, tk, tv, nb, 0, nb, bin_offset, inv_quant};
   const FwdOutputs O{acc, m, den};
-  const size_t smem = FwdSmem<R, false, kFast>(nb).bytes();
-  err = cudaFuncSetAttribute(sparse_band_attention_kernel<16, R, kFast>,
+  const size_t smem = FwdSmem<R, false, false>(nb).bytes();
+  err = cudaFuncSetAttribute(sparse_band_attention_kernel<16, R>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid(n / R, h);
-  sparse_band_attention_kernel<16, R, kFast><<<grid, kFwdThreads, smem,
-                                               stream>>>(
+  sparse_band_attention_kernel<16, R><<<grid, kFwdThreads, smem, stream>>>(
+      Q, K, T, O, a_sz, h, tile, s_band, scale);
+  return cudaGetLastError();
+}
+
+// ---- the fast form: attention_fwd_block_tc (attention_fwd_tc.cuh) -------
+
+__global__ void __launch_bounds__(kFtThreads, 2)
+sparse_band_attention_tc_kernel(FwdQueries Q, FwdKeys K, FwdTables T,
+                                FwdOutputs O, int a_sz, int h, int tile,
+                                int s_band, float scale) {
+  const int slices = tile / kFtRows;
+  const int tile_idx = blockIdx.x / slices;
+  const int t0 = tile_idx * tile;
+  const int base = (min(Q.key_lo[t0], a_sz - s_band) / 16) * 16;
+  attention_fwd_block_tc<false>(
+      Q, K, T, O, h, t0 + (blockIdx.x - tile_idx * slices) * kFtRows, base,
+      base + s_band, scale);
+}
+
+inline cudaError_t sparse_fwd_tc_limits(int* rows, int* max_nb) {
+  size_t room = 0;
+  const cudaError_t err = smem_room(sparse_band_attention_tc_kernel, &room);
+  if (err != cudaSuccess) return err;
+  *rows = kFtRows;
+  *max_nb = ft_max_nb(room);
+  return cudaSuccess;
+}
+
+inline cudaError_t sparse_fwd_tc(
+    const float* q, const float* k, const float* v, const int32_t* lw_map,
+    const float* xyz_lw, const uint8_t* valid_lw, const int32_t* skey_lw,
+    const int32_t* sb_start, const int32_t* sb_end, const int32_t* sb_src,
+    const float* sb_xyz, const uint8_t* sb_valid, const int32_t* sb_skey,
+    const float* tq, const float* tk, const float* tv, float* acc, float* m,
+    float* den, int n, int a_sz, int h, int d, int q_rs, int k_rs, int v_rs,
+    int tile, int s_band, int nb, float bin_offset, float inv_quant,
+    float scale, cudaStream_t stream) {
+  int rows = 0, max_nb = 0;
+  cudaError_t err = sparse_fwd_tc_limits(&rows, &max_nb);
+  if (err != cudaSuccess) return err;
+  // q, k and v are read a float4 at a time
+  if (d != 16 || tile <= 0 || tile % rows != 0 || n % tile != 0 || nb < 0 ||
+      nb > max_nb || s_band <= 0 || s_band > a_sz || !rows16(q, q_rs) ||
+      !rows16(k, k_rs) || !rows16(v, v_rs))
+    return cudaErrorInvalidValue;
+  const FwdQueries Q{q, q_rs, lw_map, xyz_lw, valid_lw, sb_start, sb_end,
+                     skey_lw};
+  const FwdKeys K{k, k_rs, v, v_rs, sb_src, sb_xyz, sb_valid, sb_skey};
+  const FwdTables T{tq, tk, tv, nb, 0, nb, bin_offset, inv_quant};
+  const FwdOutputs O{acc, m, den};
+  const size_t smem = FtSmem(nb).bytes();
+  err = cudaFuncSetAttribute(sparse_band_attention_tc_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(n / kFtRows, h);
+  sparse_band_attention_tc_kernel<<<grid, kFtThreads, smem, stream>>>(
       Q, K, T, O, a_sz, h, tile, s_band, scale);
   return cudaGetLastError();
 }
@@ -133,16 +196,17 @@ extern "C" int sparse_band_attention_fwd(
     float* den, int n, int a_sz, int h, int d, int q_rs, int k_rs, int v_rs,
     int tile, int s_band, int nb, float bin_offset, float inv_quant,
     float scale, void* stream) {
-  return static_cast<int>(stratified::sparse_fwd<false>(
+  return static_cast<int>(stratified::sparse_fwd(
       q, k, v, lw_map, xyz_lw, valid_lw, skey_lw, sb_start, sb_end, sb_src,
       sb_xyz, sb_valid, sb_skey, tq, tk, tv, acc, m, den, n, a_sz, h, d,
       q_rs, k_rs, v_rs, tile, s_band, nb, bin_offset, inv_quant, scale,
       static_cast<cudaStream_t>(stream)));
 }
 
-// The fast (bf16) form: the same arguments and outputs as
-// sparse_band_attention_fwd; sparse_band_attention_bf16_limits gives its
-// table limit.
+// The fast (bf16) form (attention_fwd_tc.cuh): the same arguments and
+// outputs as sparse_band_attention_fwd, with q, k and v at 16-byte aligned
+// rows (row strides a multiple of 4 floats);
+// sparse_band_attention_bf16_limits gives its limits.
 extern "C" int sparse_band_attention_fwd_bf16(
     const float* q, const float* k, const float* v, const int32_t* lw_map,
     const float* xyz_lw, const uint8_t* valid_lw, const int32_t* skey_lw,
@@ -152,7 +216,7 @@ extern "C" int sparse_band_attention_fwd_bf16(
     float* den, int n, int a_sz, int h, int d, int q_rs, int k_rs, int v_rs,
     int tile, int s_band, int nb, float bin_offset, float inv_quant,
     float scale, void* stream) {
-  return static_cast<int>(stratified::sparse_fwd<true>(
+  return static_cast<int>(stratified::sparse_fwd_tc(
       q, k, v, lw_map, xyz_lw, valid_lw, skey_lw, sb_start, sb_end, sb_src,
       sb_xyz, sb_valid, sb_skey, tq, tk, tv, acc, m, den, n, a_sz, h, d,
       q_rs, k_rs, v_rs, tile, s_band, nb, bin_offset, inv_quant, scale,
@@ -164,10 +228,11 @@ extern "C" int sparse_band_attention_fwd_bf16(
 // block's shared memory would fit 307; S3DIS's tables have 64, ScanNet's
 // 80). Returns a cudaError_t.
 extern "C" int sparse_band_attention_limits(int* rows, int* max_nb) {
-  return static_cast<int>(stratified::sparse_fwd_limits<false>(rows, max_nb));
+  return static_cast<int>(stratified::sparse_fwd_limits(rows, max_nb));
 }
 
-// The same for the fast form.
+// The same for the fast form: 64 rows, and on the H100 up to 101 table
+// rows per axis.
 extern "C" int sparse_band_attention_bf16_limits(int* rows, int* max_nb) {
-  return static_cast<int>(stratified::sparse_fwd_limits<true>(rows, max_nb));
+  return static_cast<int>(stratified::sparse_fwd_tc_limits(rows, max_nb));
 }

@@ -12,7 +12,8 @@ from stratified_transformer_torch.ops.attention import (
 
 ARGTYPES = [P] * 13 + [I] * 12 + [F, F, F, P]
 KERNEL = CudaKernel("band_attention", "band_attention_fwd", ARGTYPES)
-# the bf16 form (rpe_precision/qk_precision: default)
+# the bf16 form (rpe_precision/qk_precision: default), on the tensor cores;
+# the same arguments
 KERNEL_FAST = CudaKernel("band_attention", "band_attention_fwd_bf16",
                          ARGTYPES)
 BIN_PROBE = CudaKernel(
@@ -29,9 +30,10 @@ def launch_args(q, k, v, xyz, seg_start, seg_end, valid,
     """Output buffers and ``KERNEL`` (``KERNEL_FAST`` with ``fast``)
     arguments for CUDA inputs: returns ``(args, (acc, m, den), inputs)``;
     ``KERNEL(*args)`` fills the outputs.
-    The kernel reads q, k, v (the model's strided views pass as they are)
-    and the model's tables in place; ``inputs`` holds what it reads (the
-    tables as their band slices). The argument tuple holds raw pointers, so
+    Both forms read q, k, v (the model's strided views pass as they are)
+    and the model's tables in place; the fast one rounds its bf16 operands
+    as it stages them. ``inputs`` holds what the kernel reads (the tables
+    as their band slices). The argument tuple holds raw pointers, so
     keep the returned buffers alive while it is used."""
     tables = (table_q, table_k, table_v)
     dev = check_cuda_inputs(

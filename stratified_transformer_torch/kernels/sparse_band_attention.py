@@ -21,7 +21,8 @@ from stratified_transformer_torch.ops.attention import (
 ARGTYPES = [P] * 19 + [I] * 10 + [F, F, F, P]
 KERNEL = CudaKernel("sparse_band_attention", "sparse_band_attention_fwd",
                     ARGTYPES)
-# the bf16 form (rpe_precision/qk_precision: default)
+# the bf16 form (rpe_precision/qk_precision: default), on the tensor cores;
+# the same arguments
 KERNEL_FAST = CudaKernel("sparse_band_attention",
                          "sparse_band_attention_fwd_bf16", ARGTYPES)
 

@@ -307,25 +307,37 @@ def test_fwd_kernels_rows_without_keys(cuda_device):
 @pytest.mark.cuda
 def test_fwd_kernels_are_deterministic(cuda_device):
     """Two launches on the same inputs give bit-identical triples: every sum
-    of the forward kernels runs in a fixed order."""
+    of the forward kernels runs in a fixed order, in their fp32 forms
+    (``KERNEL``), their bf16 forms on the tensor cores (``KERNEL_FAST``,
+    whose bin masses are walked in a fixed order) and the band kernel's
+    swin mode in bf16."""
     plan, qkv, tables, kw = _case(cuda_device, 16, True, seed=10, **STAGE2)
     geom = (plan.xyz_sorted, plan.seg_start, plan.seg_end, plan.valid_sorted)
-    launches = {
-        "band": (band_k, lambda: band_k.launch_args(
-            *qkv, *geom, *tables, **kw, band=384, tile=128)),
-        "sparse": (sparse_k, lambda: sparse_k.launch_args(
-            *qkv, plan.sparse_band, *tables, **kw, s_band=128, tile=128)),
-    }
+    sgeom, sqkv, _, stables, skw = _swin_case(cuda_device, 10, True)
+    launches = {}
+    for fast in (False, True):
+        kernel = "KERNEL_FAST" if fast else "KERNEL"
+        launches[f"band {kernel}"] = (
+            getattr(band_k, kernel), lambda f=fast: band_k.launch_args(
+                *qkv, *geom, *tables, **kw, band=384, tile=128, fast=f))
+        launches[f"sparse {kernel}"] = (
+            getattr(sparse_k, kernel), lambda f=fast: sparse_k.launch_args(
+                *qkv, plan.sparse_band, *tables, **kw, s_band=128, tile=128,
+                fast=f))
+    launches["swin KERNEL_FAST"] = (
+        band_k.KERNEL_FAST, lambda: band_k.launch_args(
+            *sqkv, *sgeom, *stables, **skw, fast=True))
     with torch.no_grad():
-        for name, (mod, make) in launches.items():
+        for name, (kernel, make) in launches.items():
             outs = []
             for _ in range(2):
                 largs, out, _inputs = make()
-                mod.KERNEL(*largs)
+                kernel(*largs)
                 torch.cuda.synchronize()
                 outs.append(out)
             for o_name, a, b in zip(("acc", "m", "den"), *outs):
                 assert torch.equal(a, b), (name, o_name)
+            assert float(outs[0][2].max()) > 0, name
 
 
 @pytest.mark.cuda

@@ -593,12 +593,26 @@ def _launches():
             for m in (band_k, sparse_k, band_bwd_k, sparse_bwd_k)}
 
 
+# the fast forward kernels' cases: S3DIS's tables at stage 2's shape,
+# ScanNet's, and ScanNet's with a tile of padding rows (no row has a key)
+FAST_FWD_CASES = {
+    "s3dis": {},
+    "scannet": dict(ws=0.4, quant=0.02, n_pad=512, n_valid=450, h=3),
+    "empty_rows": dict(ws=0.4, quant=0.02, n_pad=640, n_valid=450, h=3),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("tables_of", ["s3dis", "scannet"])
+@pytest.mark.parametrize("tables_of", list(FAST_FWD_CASES))
 def test_fast_fwd_kernels_match_plain_fast(cuda_device, tables_of):
-    scannet = dict(ws=0.4, quant=0.02, n_pad=512, n_valid=450, h=3)
-    plan, qkv, _, tables, kw = _cuda_case(
-        cuda_device, 11, **(scannet if tables_of == "scannet" else {}))
+    """Both fast forward kernels (on the tensor cores) against the plain
+    fast versions at the block height their limits pick (64 rows for every
+    table size), with the fp32 forms as controls; rows with no key come
+    out as m = -1e30, den = 0, acc = 0 exactly."""
+    plan, qkv, _, tables, kw = _cuda_case(cuda_device, 11,
+                                          **FAST_FWD_CASES[tables_of])
+    for name in ("band_attention", "sparse_band_attention"):
+        assert block_limits(name, cuda_device, fast=True)[0] == 64, name
     band = 384 if tables_of == "s3dis" else 128
     geom = (plan.xyz_sorted, plan.seg_start, plan.seg_end, plan.valid_sorted)
     before = _launches()
@@ -625,6 +639,13 @@ def test_fast_fwd_kernels_match_plain_fast(cuda_device, tables_of):
     for g_, w_, f_ in zip(got, want, fp32):
         _assert_fast_triple(g_, w_, f_)
         assert float(w_[2].max()) > 0
+        empty = w_[1] == plain.NEG_INF
+        assert bool(empty.any())
+        assert bool((g_[1][empty] == plain.NEG_INF).all())
+        assert bool((g_[2][empty] == 0).all())
+        assert bool((g_[0][empty] == 0).all())
+    if tables_of == "empty_rows":
+        assert not bool(plan.valid_sorted[512:].any())
 
 
 # The fast backward kernels' block heights by table size (the tables' rows
@@ -710,12 +731,14 @@ def test_fast_bwd_kernels_match_plain_fast(cuda_device, tables_of):
 @pytest.mark.cuda
 def test_fast_limits_take_the_shipped_tables(cuda_device):
     """The fast forms' own limits: S3DIS's and ScanNet's tables fit every
-    one of them; the backward picks its block height from its own shared
-    memory: the band half 64 rows for S3DIS's slice of 40, Swin3D's 31 and
-    ScanNet's 48 (the fp32 form: 32); the far-key half 32 rows for S3DIS's
-    64 and ScanNet's 80 (the fp32 form: 16)."""
+    one of them; the forward takes 64-row blocks at every table size; the
+    backward picks its block height from its own shared memory: the band
+    half 64 rows for S3DIS's slice of 40, Swin3D's 31 and ScanNet's 48 (the
+    fp32 form: 32); the far-key half 32 rows for S3DIS's 64 and ScanNet's
+    80 (the fp32 form: 16)."""
     for name, nb in (("band_attention", 48), ("sparse_band_attention", 80)):
-        assert block_limits(name, cuda_device, fast=True)[1] >= nb
+        rows, max_nb = block_limits(name, cuda_device, fast=True)
+        assert (rows, max_nb >= nb) == (64, True), name
     for name, nb, want in (("band_attention_bwd", 40, 64),
                            ("band_attention_bwd", 31, 64),
                            ("band_attention_bwd", 48, 64),

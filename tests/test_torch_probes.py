@@ -142,7 +142,7 @@ def test_times_two_plain():
 def test_library_inputs_follow_includes():
     assert build._inputs("band_attention_bwd", build.CSRC) == [
         "attention_bwd_common.cuh", "attention_bwd_tc.cuh",
-        "attention_common.cuh", "band_attention_bwd.cu"]
+        "attention_common.cuh", "band_attention_bwd.cu", "tensor_core.cuh"]
     assert build._inputs("cache_key_probe", build.CSRC) == [
         "cache_key_probe.cu"]
     assert build.sources() == [
@@ -200,4 +200,4 @@ def test_cache_key_stable_across_processes_and_complete(tmp_path):
     assert comp["flags"] == " ".join(build.NVCC_FLAGS)
     assert sorted(comp["files"]) == [
         "attention_bwd_common.cuh", "attention_bwd_tc.cuh",
-        "attention_common.cuh", "band_attention_bwd.cu"]
+        "attention_common.cuh", "band_attention_bwd.cu", "tensor_core.cuh"]

@@ -230,6 +230,7 @@ def test_chip_smoke_refuses_unknown_arguments_or_a_missing_card(capsys):
     (["--fast-only"], "--fast-only"),
     (["--swin-only"], "--swin-only"),
     (["--dp-only"], "--dp-only"),
+    (["--fwd-phases"], "--fwd-phases"),
 ])
 def test_parse_args_picks_the_phase_run_alone(argv, want):
     assert chip_smoke.parse_args(argv) == want
@@ -244,6 +245,33 @@ def test_parse_args_picks_the_phase_run_alone(argv, want):
             "--swin-only": ("band_attention", "band_attention_bwd"),
             "--dp-only": both,
         }.get(want, chip_smoke.FWD_KERNELS)
+
+
+PHASE_CUTS = ([("fwd", tag) for tag in chip_smoke.FWD_PHASE_CUTS]
+              + [("bwd", tag) for tag in chip_smoke.BWD_PHASE_CUTS])
+
+
+@pytest.mark.parametrize("kind,phase", PHASE_CUTS)
+def test_phase_cuts_match_the_sources(kind, phase):
+    """Each ``--fwd-phases`` / ``--bwd-phases`` cut of a phase names text
+    that occurs exactly once in its source in ``csrc/``, so that a variant
+    build cuts that phase and only it (a cut whose text a checkout lacks is
+    skipped at run time, as in a parent checkout without the tensor-core
+    routine); every phase cuts the tensor-core routine the fast forms run,
+    and the variant sources still parse as C++ text (balanced braces)."""
+    import os
+    from stratified_transformer_torch.kernels import build
+    cuts = (chip_smoke.FWD_PHASE_CUTS if kind == "fwd"
+            else chip_smoke.BWD_PHASE_CUTS)[phase]
+    tc = chip_smoke.FWD_TC if kind == "fwd" else chip_smoke.TC
+    assert any(fn == tc for fn, _, _ in cuts)
+    for fn, old, new in cuts:
+        with open(os.path.join(build.CSRC, fn)) as f:
+            text = f.read()
+        assert text.count(old) == 1, (fn, old)
+        cut = text.replace(old, new)
+        assert cut.count("{") - cut.count("}") == (
+            text.count("{") - text.count("}")), (fn, old)
 
 
 def test_bincount_iou_equals_the_port_counters():
@@ -273,7 +301,8 @@ def test_parse_args_refuses_anything_else(argv):
 @pytest.mark.parametrize("flag", ["--fwd-only", "--bwd-only",
                                   "--scene-only", "--loop-only",
                                   "--iou-only", "--scannet-only",
-                                  "--dcf-only", "--swin-only", "--dp-only"])
+                                  "--dcf-only", "--swin-only", "--dp-only",
+                                  "--fwd-phases"])
 def test_phase_only_runs_need_a_card(flag, capsys):
     if torch.cuda.is_available():
         pytest.skip("checks the run without a card")
