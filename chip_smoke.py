@@ -2,7 +2,9 @@
 """Drive the PyTorch port's evaluation forward, training step, whole-scene
 evaluation (sharded too) and training loop, for the S3DIS, ScanNet, DCF
 and Swin3D families, the DCF family's box-mAP and layout-removal drivers,
-its two probes, and the shipped YAMLs' bf16 fast mode, on an NVIDIA GPU.
+its two probes, the shipped YAMLs' bf16 fast mode, and ScanNet's offline
+preparation from raw scans with the legacy dense-batch ops, on an NVIDIA
+GPU.
 
 Run from the repository root with no arguments (needs one CUDA card):
 
@@ -21,6 +23,7 @@ runs phase 14 alone;
 ``--swin-only`` builds the two band kernels and runs phase 15 alone;
 ``--dp-only`` builds the four attention kernels and runs phase 16 alone;
 ``--halo-only`` builds the two forward kernels and runs phase 17 alone;
+``--prep-only`` builds the two forward kernels and runs phase 18 alone;
 ``--bwd-phases`` builds the two backward kernels and variants of them
 without one phase of the fast form's block routine each, and times them
 at phase 14's S3DIS and ScanNet plans (`bwd_phases`);
@@ -33,8 +36,8 @@ turns on one card.
 
 Phases 2-13, 15 (but its (f)) and 16 pin ``rpe_precision``/``qk_precision`` to
 "highest" (the fp32 kernels, `PIN_NOTE`), so that their gates and times
-stay comparable with the runs before the fast forms; phase 14 runs the
-YAMLs as shipped (the Swin YAMLs ship "highest").
+stay comparable with the runs before the fast forms; phases 14 and 18 run
+the YAMLs as shipped (the Swin YAMLs ship "highest").
 
 Phases, each fatal on failure:
   1. device: card name, power limit, CUDA version; builds the six kernels
@@ -205,7 +208,24 @@ Phases, each fatal on failure:
      whose halo overflows ``halo_cap`` re-run through host replication and
      logged; (e) ``python -m stratified_transformer_torch.eval.driver
      --config configs/s3dis_stratified.yaml sharded true`` as a user runs
-     it (the card, the YAML's fast mode) on one S3DIS-format room.
+     it (the card, the YAML's fast mode) on one S3DIS-format room;
+ 18. ScanNet from raw scans (``tools/prepare_scannet.py`` of the port,
+     ``ops/legacy.py``): (a) PREP_SCANS scans in ScanNet's raw layout
+     (binary ``_vh_clean_2.ply`` and ``.labels.ply`` of 200000 vertices
+     and about 400000 faces in a 5 m room, segs and aggregation JSON with
+     every benchmark class and some unmapped nyu40 ids) through the port's
+     preparation tool with ``--gt_txt_out``, its seconds per scene; (b)
+     ``scannet_scenes`` and ``Scannetv2(split="val")`` read the ``.pth``
+     files back, labels, centred coordinates, colours and the GT txt equal
+     to the scans'; (c) one eval forward per prepared scene of
+     ``configs/scannetv2_stratified.yaml`` as shipped (fast kernels,
+     through the validation loader's batches): 18 launches of each fast
+     forward kernel per forward and no other, logits within
+     FAST_LOGITS_REL_L2 of the plain fast versions', the forward's ms; (d)
+     every legacy dense-batch op, ``subtraction`` and ``aggregation`` (with
+     their gradients) and ``divide2patch`` on the card and the CPU at
+     LEGACY's sizes, integers equal, floats within LEGACY_RTOL /
+     LEGACY_ATOL.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -4904,6 +4924,469 @@ def halo_driver_report(tag, ranks, bcfg, wall):
     return out
 
 
+# phase 18: ScanNet from raw scans. (a) PREP_SCANS scans in ScanNet's raw
+# layout (SCANNET_SCENE's 200000-vertex 5 m room, about two faces per
+# vertex) through the port's preparation tool; (b) the readers and the GT
+# txt files; (c) one eval forward per scene of the shipped ScanNet YAML
+# (fast kernels); (d) the legacy dense-batch ops and subtraction /
+# aggregation on the card and the CPU at LEGACY's sizes
+PREP_SCANS = 2
+PREP_FACES_PER_VERTEX = 2
+# ScanNet's 20 benchmark classes as nyu40 ids (the benchmark's list), and
+# nyu40 ids outside them, which the preparation maps to -100
+SCANNET_NYU40 = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33,
+                 34, 36, 39)
+UNMAPPED_NYU40 = (0, 13, 15, 17, 40)
+# over-segmentation cells (m) standing in for ScanNet's mesh segments
+PREP_SEGMENT_CELL = 0.25
+LEGACY = dict(b=2, n=40960, m=4096, nsample=32, k=16, nclass=13, c=48,
+              w_c=6, radius=0.12, patch_n_pad=2048)
+LEGACY_RTOL = LEGACY_ATOL = 1e-6
+# divide2patch's kNN is the model's (`ops.neighbors.knn`, the JAX package's
+# ``|q|^2 + |r|^2 - 2 q.r`` form): its product runs in cuBLAS on the card
+# and in the CPU's BLAS, which round differently. A row whose neighbours
+# differ between the two must pick neighbours as near, rank by rank, within
+# this many float32 ulps of the patch points' largest squared coordinate
+# (about the form's rounding), and few rows may
+KNN_TIE_ULPS = 4
+KNN_TIE_ROWS = 0.02
+
+
+def _ply_header(n_vertex, n_face, label):
+    return "\n".join(
+        ["ply", "format binary_little_endian 1.0",
+         f"element vertex {n_vertex}"]
+        + [f"property float {a}" for a in "xyz"]
+        + [f"property uchar {c}" for c in ("red", "green", "blue", "alpha")]
+        + (["property ushort label"] if label else [])
+        + [f"element face {n_face}",
+           "property list uchar int vertex_indices", "end_header", ""]
+    ).encode("ascii")
+
+
+def write_scannet_scans(root, split, count, seed, points=200000, extent=5.0,
+                        labels=True):
+    """``count`` scans ``<root>/<split>/scene<seed+i>_00*`` in ScanNet's raw
+    layout, from SyntheticRooms' rooms (``points`` vertices in ``extent``
+    metres): the binary ``_vh_clean_2.ply`` (vertex x y z float, red green
+    blue alpha uchar; about PREP_FACES_PER_VERTEX triangles per vertex) and,
+    with ``labels``, its ``.labels.ply`` (plus a ushort nyu40 ``label`` per
+    vertex: each of SCANNET_NYU40 and UNMAPPED_NYU40 on some segment), the
+    ``.0.010000.segs.json`` over-segmentation (PREP_SEGMENT_CELL cells) and
+    the ``.aggregation.json`` instance groups (runs of 1-3 segments; about
+    one segment in ten in none). Returns per scan ``(name, xyz float32,
+    rgb uint8, nyu40 labels, instance ids or -100)``; the last two None
+    without ``labels``."""
+    from stratified_transformer_torch.data.datasets import SyntheticRooms
+    os.makedirs(os.path.join(root, split), exist_ok=True)
+    scans = []
+    for i in range(count):
+        name = f"scene{seed + i:04d}_00"
+        base = os.path.join(root, split, name)
+        xyz, rgb, _, _ = SyntheticRooms(num_scenes=1, points=points,
+                                        extent=extent,
+                                        seed=seed + i).raw_scene(0)
+        rgb = np.rint(rgb).astype(np.uint8)
+        n = len(xyz)
+        rng = np.random.default_rng(seed + i)
+        faces = np.zeros(PREP_FACES_PER_VERTEX * n, np.dtype(
+            [("n", "u1"), ("v", "<i4", 3)]))
+        corner = np.arange(len(faces)) % n
+        faces["n"] = 3
+        faces["v"] = (corner[:, None] + np.concatenate([
+            np.zeros((len(faces), 1), np.int64),
+            rng.integers(1, 9, (len(faces), 2))], 1)) % n
+        vert = [("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("red", "u1"),
+                ("green", "u1"), ("blue", "u1"), ("alpha", "u1")]
+
+        def write(path, label=None):
+            extra = [] if label is None else [("label", "<u2")]
+            v = np.zeros(n, np.dtype(vert + extra))
+            v["x"], v["y"], v["z"] = xyz.T
+            v["red"], v["green"], v["blue"] = rgb.T
+            v["alpha"] = 255
+            if label is not None:
+                v["label"] = label
+            with open(path, "wb") as f:
+                f.write(_ply_header(n, len(faces), label is not None))
+                f.write(v.tobytes())
+                f.write(faces.tobytes())
+
+        nyu = inst = None
+        if labels:
+            cells = np.floor((xyz - xyz.min(0)) / PREP_SEGMENT_CELL)
+            _, seg = np.unique(cells, axis=0, return_inverse=True)
+            seg = seg.reshape(-1)
+            n_seg = int(seg.max()) + 1
+            ids = np.array(SCANNET_NYU40 + UNMAPPED_NYU40)
+            seg_label = ids[rng.integers(0, len(ids), n_seg)]
+            seg_label[:len(ids)] = ids[rng.permutation(len(ids))]
+            nyu = seg_label[seg].astype(np.uint16)
+            seg_ids = seg * 3 + 7               # ScanNet's ids are sparse
+            groups, seg_inst = [], np.full(n_seg, -100)
+            s = 0
+            while s < n_seg:
+                run = int(rng.integers(1, 4))
+                if rng.uniform() >= 0.1:
+                    members = list(range(s, min(s + run, n_seg)))
+                    seg_inst[members] = len(groups)
+                    groups.append({
+                        "id": len(groups), "objectId": len(groups),
+                        "segments": [int(m_) * 3 + 7 for m_ in members],
+                        "label": f"nyu40_{int(seg_label[members[0]])}"})
+                s += run
+            inst = seg_inst[seg]
+            write(base + "_vh_clean_2.labels.ply", nyu)
+            with open(base + "_vh_clean_2.0.010000.segs.json", "w") as f:
+                json.dump({"params": {"kThresh": "0.0001", "segMinVerts":
+                                      "20"}, "sceneId": name,
+                           "segIndices": seg_ids.tolist()}, f)
+            with open(base + ".aggregation.json", "w") as f:
+                json.dump({"sceneId": f"scannet.{name}", "appId": "smoke",
+                           "segGroups": groups, "segmentsFile":
+                           f"scannet.{name}_vh_clean_2.0.010000.segs.json"},
+                          f)
+        write(base + "_vh_clean_2.ply")
+        scans.append((name, xyz, rgb, nyu, inst))
+    return scans
+
+
+def scannet_gt(nyu, inst):
+    """The benchmark's GT ids of one scan from its nyu40 labels and
+    instance ids: ``nyu*1000 + inst + 1`` on the grouped points of a
+    benchmark class other than wall and floor, ``nyu*1000`` on the other
+    points of a benchmark class, 0 elsewhere; and the 20-class semantic
+    labels (-100 outside the benchmark)."""
+    sem = np.full(len(nyu), -100)
+    for i, x in enumerate(SCANNET_NYU40):
+        sem[nyu == x] = i
+    nyu = nyu.astype(np.int64)
+    gt = np.where((sem >= 2) & (inst >= 0), nyu * 1000 + inst + 1,
+                  np.where(sem >= 0, nyu * 1000, 0))
+    return gt, sem
+
+
+def legacy_inputs(scenes, seed=0):
+    """Phase 18 (d)'s inputs: LEGACY's ``n`` references per scene drawn from
+    the prepared scenes' points and ``m`` queries among them, class
+    histograms, and features and weights on a dyadic grid (multiples of
+    1/8 in [-4, 4]): every sum the ops and their backward take is then exact
+    in float32 in any order, so the card and the CPU agree bit for bit and
+    a difference is one of what the ops compute, not of a sum's order."""
+    L = LEGACY
+    rng = np.random.default_rng(seed)
+    refs = np.stack([s[1][rng.choice(len(s[1]), L["n"], replace=False)]
+                     for s in scenes[:L["b"]]]).astype(np.float32)
+    queries = np.stack([r[rng.choice(L["n"], L["m"], replace=False)]
+                        for r in refs])
+    b, n, m, c = L["b"], L["n"], L["m"], L["c"]
+
+    def dyadic(*shape):
+        return (rng.integers(-32, 33, shape) / 8).astype(np.float32)
+
+    return {
+        "refs": refs, "queries": queries,
+        "stat": rng.integers(0, 3, (b, n, L["nclass"])).astype(np.int32),
+        "ref_feats": dyadic(b, c, n), "anchor_feats": dyadic(b, c, m),
+        "int_feats": rng.integers(-50, 50, (b, 4, n)),
+        "query_rows": rng.choice(n, (b, m), replace=False),
+        "weight": dyadic(b * m, L["k"], L["w_c"]),
+        "patch_xyz": np.concatenate(
+            [r[:n // 2] for r in refs]).astype(np.float32),
+        "patch_offsets": np.array([n // 2, n], np.int32)}
+
+
+def legacy_ops(x, dev):
+    """Every op of ``ops/legacy.py`` and ``neighbors.subtraction`` /
+    ``aggregation`` on ``x`` (numpy, `legacy_inputs`) moved to ``dev``:
+    ``{name: (outputs, seconds)}``, with the differentiable ops' input
+    gradients under a cotangent of ones among their outputs."""
+    from stratified_transformer_torch.ops import legacy, neighbors
+    L = LEGACY
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in x.items()}
+    q, r, r_ = t["queries"], t["refs"], L["radius"]
+    out = {}
+
+    def run(name, fn, *args):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        res = res if isinstance(res, tuple) else (res,)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[name] = ([v.detach().cpu() for v in res],
+                     time.perf_counter() - t0)
+        return res
+
+    idx, _ = run("ball_query_dense", legacy.ball_query_dense, q, r, r_,
+                 L["nsample"])
+    run("labelstat_idx", legacy.labelstat_idx, t["stat"], idx)
+    run("labelstat_ballrange", legacy.labelstat_ballrange, q, r, t["stat"],
+        r_)
+    run("labelstat_and_ballquery", legacy.labelstat_and_ballquery, q, r,
+        t["stat"], r_, L["nsample"])
+    (dist_idx,) = run("feature_distribute", legacy.feature_distribute, q, r)
+
+    def gather_grad(feats, ids):
+        feats = feats.detach().clone().requires_grad_()
+        g = legacy.feature_gather(feats, ids)
+        (grad,) = torch.autograd.grad(g.sum(), feats)
+        return g, grad
+
+    run("feature_gather", gather_grad, t["anchor_feats"], dist_idx)
+    run("gathering", legacy.gathering, t["ref_feats"], t["query_rows"])
+    run("grouping_dense", legacy.grouping_dense, t["ref_feats"], idx)
+    run("grouping_dense_int64", legacy.grouping_dense, t["int_feats"], idx)
+    knn_idx, d2 = run("knn_dense", legacy.knn_dense, q, r, L["k"])
+    b, c, n = t["ref_feats"].shape
+    flat_idx = (knn_idx.long() + n * torch.arange(
+        b, device=dev)[:, None, None]).reshape(-1, L["k"])
+    mask = (d2 < r_ * r_).reshape(-1, L["k"])
+    ref_rows = t["ref_feats"].permute(0, 2, 1).reshape(b * n, c)
+    query_rows = torch.gather(
+        t["ref_feats"], 2, t["query_rows"][:, None].expand(
+            b, c, t["query_rows"].shape[1])).permute(0, 2, 1).reshape(-1, c)
+
+    def subtraction(x1, x2):
+        ins = [v.detach().clone().requires_grad_() for v in (x1, x2)]
+        pos = neighbors.subtraction(*ins, flat_idx, mask)
+        return (pos,) + torch.autograd.grad(pos.sum(), ins)
+
+    def aggregation(feats, pos, w):
+        ins = [v.detach().clone().requires_grad_() for v in (feats, pos, w)]
+        agg = neighbors.aggregation(*ins, flat_idx, mask)
+        return (agg,) + torch.autograd.grad(agg.sum(), ins)
+
+    (pos, *_) = run("subtraction", subtraction, query_rows, ref_rows)
+    run("aggregation", aggregation, ref_rows, pos, t["weight"])
+    run("divide2patch", legacy.divide2patch, L["nsample"], t["patch_xyz"],
+        t["patch_offsets"], L["patch_n_pad"])
+    return out
+
+
+def knn_near_ties(got, want, xyz):
+    """Rows of the kNN index lists ``got`` (card) and ``want`` (CPU), ``[M,
+    k]`` into the points ``xyz``, that differ: each must pick neighbours as
+    near as the other's in every rank (float64 distances from the row's
+    nearest point, the anchor itself, within KNN_TIE_ULPS of the squared
+    coordinates), and at most KNN_TIE_ROWS of the rows may differ. Returns
+    the rows, the largest gap and the tolerance."""
+    xyz = xyz.astype(np.float64)
+    centred = xyz - xyz.mean(0)
+    tie = KNN_TIE_ULPS * float(np.spacing(np.float32(
+        (centred ** 2).sum(1).max())))
+    got, want = got.numpy(), want.numpy()
+    rows = np.nonzero((got != want).any(1))[0]
+    gap = 0.0
+    for r in rows:
+        anchor = xyz[want[r, 0]]
+        d_got = np.sort(((xyz[got[r]] - anchor) ** 2).sum(1))
+        d_want = np.sort(((xyz[want[r]] - anchor) ** 2).sum(1))
+        gap = max(gap, float(np.abs(d_got - d_want).max()))
+    if gap > tie or len(rows) > KNN_TIE_ROWS * len(got):
+        raise AssertionError(
+            f"legacy divide2patch: {len(rows)} of {len(got)} kNN rows differ "
+            f"between the card and the CPU, largest distance gap {gap:.3e} "
+            f"m^2 (near-tie tolerance {tie:.3e})")
+    return {"rows": int(len(rows)), "max_gap_m2": gap, "tie_m2": tie}
+
+
+def legacy_phase(x, dev):
+    """Phase 18 (d): `legacy_ops` on the card and on the CPU; integer
+    outputs equal (divide2patch's neighbour lists up to `knn_near_ties`),
+    floats within LEGACY_RTOL / LEGACY_ATOL. Returns each op's card and
+    CPU seconds and largest float difference."""
+    card = legacy_ops(x, dev)
+    cpu = legacy_ops(x, torch.device("cpu"))
+    report = {}
+    for name, (outs, secs) in card.items():
+        want, cpu_s = cpu[name]
+        err = 0.0
+        if name == "divide2patch":
+            ties = knn_near_ties(outs[0], want[0], x["patch_xyz"])
+            outs, want = outs[1:], want[1:]
+        for j, (g, w) in enumerate(zip(outs, want)):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"legacy {name} output {j}: "
+                                     f"{g.dtype} {tuple(g.shape)} on the "
+                                     f"card, {w.dtype} {tuple(w.shape)}")
+            if g.dtype.is_floating_point:
+                assert_close(f"legacy {name} output {j}", g, w, LEGACY_RTOL,
+                             LEGACY_ATOL)
+                err = max(err, max_errors(g, w)[0])
+            elif not torch.equal(g, w):
+                raise AssertionError(
+                    f"legacy {name} output {j}: {int((g != w).sum())} of "
+                    f"{g.numel()} entries differ between the card and the "
+                    "CPU")
+        report[name] = {"card_s": secs, "cpu_s": cpu_s, "max_abs_err": err}
+    report["divide2patch"]["near_tie_rows"] = ties
+    hits = card["ball_query_dense"][0][1]
+    log(f"[prep] (d) {len(report)} legacy ops at b {LEGACY['b']}, n "
+        f"{LEGACY['n']}, m {LEGACY['m']} (ball hits per query "
+        f"{float(hits.float().mean()):.1f}, "
+        f"{float((hits == LEGACY['nsample']).float().mean()):.1%} capped): "
+        "integers equal on the card and the CPU (divide2patch's kNN: "
+        f"{ties['rows']} rows of near ties, largest gap "
+        f"{ties['max_gap_m2']:.2e} m^2 of {ties['tie_m2']:.2e}), floats "
+        f"within {LEGACY_RTOL}/{LEGACY_ATOL}; " + ", ".join(
+            f"{k} {v['card_s'] * 1e3:.1f}/{v['cpu_s'] * 1e3:.0f} ms"
+            for k, v in report.items()) + " (card/CPU, host clock)")
+    return report
+
+
+def prep_phase(dev):
+    """Phase 18: raw ScanNet-layout scans -> the port's preparation tool ->
+    the readers -> the shipped ScanNet YAML's eval forward on the fast
+    kernels, and the legacy ops (module docstring). Returns its numbers;
+    ``launches`` are the fast forward kernels' over (c)'s forwards."""
+    import tempfile
+
+    from stratified_transformer_torch.config import load_config
+    from stratified_transformer_torch.data.datasets import (
+        Scannetv2, scannet_scenes)
+    from stratified_transformer_torch.data.loader import (
+        BatchLoader, build_dataset, to_device)
+    from stratified_transformer_torch.data.ply import read_ply
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.tools import prepare_scannet
+    from stratified_transformer_torch.train.step import make_eval_step
+    from stratified_transformer_torch.utils.config import load_cfg
+    t_phase = time.time()
+    card = card_line()
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) raw scans -> .pth + GT txt
+        t0 = time.time()
+        scans = write_scannet_scans(tmp, "val", PREP_SCANS, seed=0,
+                                    **SCANNET_SCENE)
+        out["write_s"] = time.time() - t0
+        gt_dir = os.path.join(tmp, "gt")
+        t0 = time.time()
+        done = prepare_scannet.main(["--data_split", "val", "--dir", tmp,
+                                     "--workers", "1", "--gt_txt_out",
+                                     gt_dir])
+        out["prep_s"] = time.time() - t0
+        out["prep_s_per_scene"] = [s for _, s in done]
+        if len(done) != PREP_SCANS:
+            raise AssertionError(f"the preparation tool found {len(done)} "
+                                 f"of {PREP_SCANS} scans")
+        # the PLY reader's share: the first scan's two files read again
+        t0 = time.time()
+        for suffix in ("_vh_clean_2.ply", "_vh_clean_2.labels.ply"):
+            read_ply(os.path.join(tmp, "val", scans[0][0] + suffix))
+        out["read_ply_s"] = time.time() - t0
+        log(f"[prep] phase 18 on {card}: (a) {PREP_SCANS} raw scans of "
+            f"{len(scans[0][1])} vertices and "
+            f"{PREP_FACES_PER_VERTEX * len(scans[0][1])} faces written in "
+            f"{out['write_s']:.2f} s; the port's prepare_scannet "
+            f"{', '.join(f'{s:.2f}' for s in out['prep_s_per_scene'])} s per "
+            f"scene ({out['prep_s']:.2f} s with the GT txt; reading the "
+            f"first scene's two PLY files alone {out['read_ply_s']:.2f} s)")
+
+        # (b) the readers and the GT txt
+        scenes = scannet_scenes(tmp)
+        for (name, xyz, rgb, nyu, inst), (sname, coord, color, label) in zip(
+                scans, scenes):
+            gt, sem = scannet_gt(nyu, inst)
+            got_gt = np.loadtxt(os.path.join(gt_dir, name + ".txt"),
+                                dtype=np.int64)
+            want_coord = xyz.astype(np.float64)
+            if not (sname == name + "_inst_nostuff"
+                    and np.array_equal(label, sem)
+                    and np.array_equal(got_gt, gt)
+                    and np.allclose(coord, want_coord - want_coord.mean(0),
+                                    rtol=0, atol=1e-9)
+                    and np.array_equal(color, rgb / 127.5 - 1)):
+                raise AssertionError(f"scan {name}: the prepared scene or "
+                                     "its GT txt differs from the labels "
+                                     "written")
+        val = Scannetv2(split="val", data_root=tmp)
+        item = val[0]
+        if (len(val) != PREP_SCANS or not np.isfinite(item["xyz"]).all()
+                or not set(np.unique(item["labels"]))
+                <= set(np.unique(scenes[0][3]))):
+            raise AssertionError("Scannetv2 does not read the prepared "
+                                 "scenes")
+        out["gt_points"] = [int((np.loadtxt(os.path.join(
+            gt_dir, s[0] + ".txt")) > 0).sum()) for s in scans]
+        log(f"[prep] (b) scannet_scenes and Scannetv2(split=val) read "
+            f"{len(scenes)} scenes: labels, centred coords, colours in "
+            f"[-1, 1] and GT txt ({out['gt_points']} labelled points) equal "
+            "the scans'")
+
+        # (c) the shipped YAML's eval forward per scene, fast kernels
+        cfg = load_config(SCANNET_CONFIG)
+        yaml_cfg = load_cfg(SCANNET_CONFIG)
+        if not cfg.fast:
+            raise AssertionError("the shipped ScanNet YAML does not select "
+                                 "the fast forms")
+        yaml_cfg["data_root"] = tmp
+        loader = BatchLoader(build_dataset(yaml_cfg, "val"), cfg, yaml_cfg,
+                             shuffle=False)
+        t0 = time.time()
+        batches = [to_device(loader.make_batch([i]), dev)
+                   for i in range(PREP_SCANS)]
+        out["batch_s"] = (time.time() - t0) / PREP_SCANS
+        blocks = attention_blocks(cfg)
+        mods = dict(attention_kernel_modules(), **fast_kernel_modules())
+        model = build_model(cfg, "cuda", seed=0)
+        o1_weights(model, seed=0)
+        plain = build_model(dataclasses.replace(cfg, attn_impl="reference"),
+                            "cuda")
+        plain.load_state_dict(model.state_dict())
+        eval_step = make_eval_step(int(yaml_cfg["ignore_label"]),
+                                   cfg.num_classes)
+        with torch.no_grad():
+            eval_step(model, batches[0])        # first call: lazy set-up
+            torch.cuda.synchronize()
+            for m_ in mods.values():
+                m_.KERNEL.launches = 0
+            logits, times = [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                logits.append(eval_step(model, b)[0])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            launches = {k: m_.KERNEL.launches for k, m_ in mods.items()}
+            want = {k: blocks * PREP_SCANS
+                    if k in ("band_attention" + FAST,
+                             "sparse_band_attention" + FAST) else 0
+                    for k in mods}
+            if launches != want:
+                raise AssertionError(f"prepared-scene forwards launched "
+                                     f"{launches}, expected {want}")
+            errs = []
+            for j, b in enumerate(batches):
+                if not bool(torch.isfinite(logits[j]).all()):
+                    raise AssertionError(f"non-finite logits, scene {j}")
+                errs.append(rel_l2(logits[j], eval_step(plain, b)[0]))
+        out.update(launches=launches, forward_ms=times, logits_rel_l2=errs,
+                   valid_points=[int(b["offsets"][0]) for b in batches])
+        log(f"[prep] (c) configs/scannetv2_stratified.yaml as shipped (fast "
+            f"kernels), one eval forward per prepared scene (n_pad "
+            f"{cfg.n_pad}, {out['valid_points']} points after voxelization, "
+            f"batches built in {out['batch_s']:.2f} s each): "
+            f"{', '.join(f'{t_:.1f}' for t_ in times)} ms (host clock, "
+            f"synchronized) on {card}; launches {launches}; logits vs the "
+            f"plain fast versions relative L2 "
+            f"{', '.join(f'{e:.2e}' for e in errs)} (gate "
+            f"{FAST_LOGITS_REL_L2})")
+        bad = [e for e in errs if not e <= FAST_LOGITS_REL_L2]
+        if bad:
+            raise AssertionError(f"prepared-scene logits relative L2 {bad} "
+                                 f"> {FAST_LOGITS_REL_L2}")
+        del model, plain, batches, logits
+
+        # (d) the legacy ops on the card and the CPU
+        out["legacy"] = legacy_phase(legacy_inputs(scenes), dev)
+    out["seconds"] = time.time() - t_phase
+    log(f"[prep] phase 18 in {out['seconds']:.0f} s")
+    return out
+
+
 def phase_only(flag):
     """``--fwd-only`` / ``--bwd-only`` / ``--scene-only`` / ``--loop-only``
     / ``--scannet-only`` / ``--iou-only``: phase 1's build of the kernels
@@ -4924,10 +5407,10 @@ def phase_only(flag):
              for line in text.splitlines()
              if "registers" in line or "spill" in line]
     if flag in ("--fast-only", "--swin-only", "--dp-only", "--halo-only",
-                "--bwd-phases", "--fwd-phases"):
+                "--prep-only", "--bwd-phases", "--fwd-phases"):
         phase = {"--fast-only": fast_phase, "--swin-only": swin_phase,
                  "--dp-only": dp_phase, "--halo-only": halo_phase,
-                 "--bwd-phases": bwd_phases,
+                 "--prep-only": prep_phase, "--bwd-phases": bwd_phases,
                  "--fwd-phases": fwd_phases}[flag]
         out = {"card": card_line(), "repo": REPO,
                flag[2:].replace("-only", ""): phase(dev),
@@ -4997,6 +5480,7 @@ PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS,
               "--swin-only": ("band_attention", "band_attention_bwd"),
               "--dp-only": FWD_KERNELS + BWD_KERNELS,
               "--halo-only": FWD_KERNELS,
+              "--prep-only": FWD_KERNELS,
               "--bwd-phases": BWD_KERNELS,
               "--fwd-phases": FWD_KERNELS,
               "--scannet-kernels-only": FWD_KERNELS + BWD_KERNELS}
@@ -5240,6 +5724,9 @@ def main(argv):
 
     # ---- 17. sharded whole-scene inference ---------------------------------
     halo_out = halo_phase(dev)
+
+    # ---- 18. ScanNet from raw scans; the legacy ops ----------------------
+    prep = prep_phase(dev)
     log(f"[run] total {time.time() - t_start:.0f} s")
 
     kernels = []
@@ -5297,6 +5784,7 @@ def main(argv):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["bound_by"], key=r["bound_by"].get),
             "library_ms": None, "fp32_ms": r["fp32_ms"],
+            "prep_launches": prep["launches"][name],
             # largest relative L2 from the plain fast version over the
             # outputs (forward) or gradients (backward), and the fp32
             # form's smallest (the control)
@@ -5383,7 +5871,11 @@ def main(argv):
                           "eval driver run (sharded, two ranks over gloo on "
                           "one card), halo_block_forwards the block "
                           "forwards per rank in it",
-        "halo": halo_out}))
+        "halo": halo_out,
+        "prep_times_per": "phase 18: prep_launches over (c)'s "
+                          f"{PREP_SCANS} eval forwards of the prepared "
+                          "scenes",
+        "prep": prep}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

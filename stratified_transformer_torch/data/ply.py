@@ -1,6 +1,6 @@
-"""Minimal PLY reader/writer and ``.obj`` vertex reader (no external deps;
-the JAX package's ``data/ply.py`` as far as the layout-removal driver uses
-it, copied so that the port imports none of it).
+"""Minimal PLY reader/writer and ``.obj`` reader and writers (no external
+deps; the JAX package's ``data/ply.py``, copied so that the port imports
+none of it).
 
 Replaces the reference's ``plyfile`` dependency
 (``dataset/scannetv2/prepare_data_inst.py``) and the colored PLY dump
@@ -139,10 +139,17 @@ COLOR_MAP = np.asarray([
     [0, 128, 128]], np.uint8)
 
 
-def save_colored_by_label(path, xyz, labels):
-    """Label-coloured PLY dump (``write_ply_color``)."""
+def save_colored_by_label(path, xyz, labels, fmt="ply"):
+    """Label-coloured dump (``write_ply_color``; ``fmt="obj"``:
+    ``save_obj_color_coding``'s vertex lines with colours in [0, 1])."""
     labels = np.asarray(labels).astype(np.int64) % len(COLOR_MAP)
-    write_ply_points(path, xyz, COLOR_MAP[labels])
+    rgb = COLOR_MAP[labels]
+    if fmt == "ply":
+        write_ply_points(path, xyz, rgb)
+    else:  # obj
+        with open(path, "w") as f:
+            for p, c in zip(np.asarray(xyz), rgb / 255.0):
+                f.write(f"v {p[0]} {p[1]} {p[2]} {c[0]} {c[1]} {c[2]}\n")
 
 
 def load_obj_vertices(path):
@@ -153,3 +160,54 @@ def load_obj_vertices(path):
             if line.startswith("v "):
                 verts.append([float(x) for x in line.split()[1:4]])
     return np.asarray(verts, np.float32)
+
+
+# 29-entry instance color map (reference ``util/iostream.py:7-37``, itself
+# from the MinkowskiEngine indoor example).
+CUBOID_COLOR_MAP = {
+    0: (0.0, 0.0, 0.0), 1: (255.0, 152.0, 150.0), 2: (174.0, 199.0, 232.0),
+    3: (152.0, 223.0, 138.0), 4: (255.0, 187.0, 120.0),
+    5: (188.0, 189.0, 34.0), 6: (140.0, 86.0, 75.0), 7: (31.0, 119.0, 180.0),
+    8: (214.0, 39.0, 40.0), 9: (197.0, 176.0, 213.0),
+    10: (148.0, 103.0, 189.0), 11: (196.0, 156.0, 148.0),
+    12: (23.0, 190.0, 207.0), 13: (200.0, 54.0, 131.0),
+    14: (247.0, 182.0, 210.0), 15: (66.0, 188.0, 102.0),
+    16: (219.0, 219.0, 141.0), 17: (140.0, 57.0, 197.0),
+    18: (202.0, 185.0, 52.0), 19: (51.0, 176.0, 203.0),
+    20: (200.0, 54.0, 131.0), 21: (92.0, 193.0, 61.0),
+    22: (78.0, 71.0, 183.0), 23: (172.0, 114.0, 82.0),
+    24: (255.0, 127.0, 14.0), 25: (91.0, 163.0, 138.0),
+    26: (153.0, 98.0, 156.0), 27: (0.0, 0.0, 0.0),
+    28: (158.0, 218.0, 229.0),
+}
+
+
+def save_obj(path, points, colors=None):
+    """Vertex-only .obj dump (reference ``util/iostream.py:138-146``)."""
+    with open(path, "w") as f:
+        if colors is None:
+            for v in np.asarray(points):
+                f.write(f"v {v[0]:.4f} {v[1]:.4f} {v[2]:.4f}\n")
+        else:
+            for v, c in zip(np.asarray(points), np.asarray(colors)):
+                f.write(f"v {v[0]:.4f} {v[1]:.4f} {v[2]:.4f} "
+                        f"{c[0]:.4f} {c[1]:.4f} {c[2]:.4f}\n")
+
+
+def save_obj_color_coding(path, points, labels):
+    """Label-colored .obj dump (reference ``util/iostream.py:149-154``)."""
+    n = len(CUBOID_COLOR_MAP)
+    cols = [CUBOID_COLOR_MAP[int(l) % n] for l in np.asarray(labels)]
+    save_obj(path, points, cols)
+
+
+def save_obj_line(path, end_pts1, end_pts2):
+    """Line-segment .obj dump (reference ``util/iostream.py:157-166``)."""
+    p1 = np.asarray(end_pts1)
+    p2 = np.asarray(end_pts2)
+    with open(path, "w") as f:
+        for v1, v2 in zip(p1, p2):
+            f.write(f"v {v1[0]:.4f} {v1[1]:.4f} {v1[2]:.4f}\n")
+            f.write(f"v {v2[0]:.4f} {v2[1]:.4f} {v2[2]:.4f}\n")
+        for i in range(len(p1)):
+            f.write(f"l {i * 2 + 1} {i * 2 + 2}\n")

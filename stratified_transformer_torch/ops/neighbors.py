@@ -5,7 +5,9 @@ Covers the reference's ``pointops.knnquery`` (exact kNN within the query's
 scene), ``ball_query`` (radius-limited lists for the KPConv stem,
 ``train.py:324-329``) and ``pointops.interpolation`` (inverse-distance 3-NN).
 `knn` is brute force over query chunks; `grid_knn` is the cell list the
-model uses (``neighbor_method: grid``).
+model uses (``neighbor_method: grid``). `subtraction` and `aggregation` are
+the point-transformer ops of ``pointops``' public API, which no model here
+uses.
 
 Index lists are bit-identical to the JAX package's: the ``k`` smallest
 distances are selected by one key per candidate that packs the distance's
@@ -256,6 +258,39 @@ def interpolate_from_idx(query_xyz, support_xyz, support_feats, idx, mask):
     d = torch.sqrt(((qx[:, None, :] - sx[idx]) ** 2).sum(-1))
     w = inverse_distance_weights(d, mask)
     return (support_feats[idx] * w[..., None].to(support_feats.dtype)).sum(1)
+
+
+def subtraction(input1, input2, idx, mask=None):
+    """Pairwise difference ``out[i, j] = input1[i] - input2[idx[i, j]]``
+    (``neighbors.py:389-406``; ``pointops.subtraction``,
+    ``functions/pointops.py:695-722``): ``[N, C], [N, C], [N, k] -> [N, k,
+    C]``, zero where the optional ``[N, k]`` ``mask`` is False.
+    Differentiable through autograd (the gather's backward is the CUDA
+    backward's scatter-add)."""
+    out = input1[:, None, :] - input2[idx.long()]
+    if mask is not None:
+        out = torch.where(mask[..., None], out, torch.zeros_like(out))
+    return out
+
+
+def aggregation(feats, position, weight, idx, mask=None):
+    """Point-transformer vector aggregation (``neighbors.py:409-431``;
+    ``pointops.aggregation``, ``functions/pointops.py:725-753``):
+    ``out[n] = sum_j (feats[idx[n, j]] + position[n, j]) * weight[n, j]``,
+    weight channel ``c % w_c`` scaling feature channel ``c``
+    (``aggregation_cuda_kernel.cu:5-20``). ``feats [N, C]``, ``position
+    [N, k, C]``, ``weight [N, k, w_c]`` with ``C % w_c == 0``, ``idx [N,
+    k]``, optional ``mask [N, k]`` (masked slots add nothing). Returns ``[N,
+    C]``; differentiable through autograd."""
+    c = feats.shape[-1]
+    w_c = weight.shape[-1]
+    if c % w_c:
+        raise ValueError(f"aggregation: {c} channels in groups of {w_c}")
+    vals = feats[idx.long()] + position
+    w = weight.repeat(1, 1, c // w_c)                  # channel groups
+    if mask is not None:
+        w = torch.where(mask[..., None], w, torch.zeros_like(w))
+    return (vals * w).sum(1)
 
 
 def gather_group(feats, idx, mask, fill=0.0):

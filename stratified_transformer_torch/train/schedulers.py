@@ -1,6 +1,7 @@
 """Learning-rate schedules as pure ``step -> lr`` functions (the JAX
 package's ``train/schedulers.py``; reference ``util/lr.py`` and the
-driver's selection, ``train.py:218-246``).
+selection in ``train.py:218-246``): MultiStep, MultiStepWithWarmup, Poly,
+PolyWithWarmup, Squared, Exp, StepLR and OneCycle, in Python floats.
 
 Epoch-updated schedules are step functions of ``step // iter_per_epoch``;
 the optimizer evaluates a schedule at its own count, starting at 0
@@ -9,6 +10,7 @@ the optimizer evaluates a schedule at its own count, starting at 0
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 
@@ -44,6 +46,52 @@ def multi_step_with_warmup(base_lr, milestones, gamma=0.1,
 def poly(base_lr, max_iter, power=0.9):
     def schedule(step):
         return base_lr * (1.0 - step / (max_iter + 1)) ** power
+    return schedule
+
+
+def poly_with_warmup(base_lr, max_iter, power=1.0, warmup_iters=1500,
+                     warmup_ratio=1e-6):
+    def schedule(step):
+        coeff = (1.0 - step / (max_iter + 1)) ** power
+        return base_lr * coeff * _warmup_coeff(step, warmup_iters,
+                                               warmup_ratio)
+    return schedule
+
+
+def squared(base_lr, max_iter):
+    return poly(base_lr, max_iter, power=2.0)
+
+
+def exponential(base_lr, step_size, gamma=0.9):
+    def schedule(step):
+        return base_lr * gamma ** (step / step_size)
+    return schedule
+
+
+def step_lr(base_lr, step_size, gamma=0.1):
+    """torch ``StepLR`` (``util/lr.py`` initialize_scheduler)."""
+
+    def schedule(step):
+        return base_lr * gamma ** (step // step_size)
+    return schedule
+
+
+def one_cycle(max_lr, total_steps, pct_start=0.3, div_factor=25.0,
+              final_div_factor=1e4):
+    """``OneCycleLR`` (cos anneal): linear warm-up to ``max_lr`` over
+    ``pct_start`` of the steps, then cosine decay to ``max_lr /
+    div_factor / final_div_factor`` (``util/lr.py`` initialize_scheduler
+    OneCycleLR branch). In double precision, where the JAX package's
+    rounds to float32."""
+    initial = max_lr / div_factor
+    final = initial / final_div_factor
+    up = pct_start * total_steps
+
+    def schedule(step):
+        if step <= up:
+            return initial + (max_lr - initial) * min(step / up, 1.0)
+        t = min(max((step - up) / max(total_steps - up, 1), 0.0), 1.0)
+        return final + (max_lr - final) * 0.5 * (1 + math.cos(math.pi * t))
     return schedule
 
 

@@ -84,3 +84,14 @@ def test_the_sharded_modules_are_checked():
     source = (ROOT / "tests" / "torch_halo_worker.py").read_text()
     assert not [m for m in imported_modules(source)
                 if m.split(".")[0] in FORBIDDEN]
+
+
+def test_the_preparation_and_legacy_modules_are_checked():
+    """ScanNet's preparation tool of the port reads scans with the port's
+    own PLY reader (the repository's ``tools/prepare_scannet.py`` imports
+    the JAX package's, and is outside the port)."""
+    assert {"stratified_transformer_torch/ops/legacy.py",
+            "stratified_transformer_torch/tools/prepare_scannet.py",
+            "stratified_transformer_torch/data/transforms.py",
+            "stratified_transformer_torch/train/schedulers.py"} <= set(FILES)
+    assert "tools/prepare_scannet.py" not in FILES

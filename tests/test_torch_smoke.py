@@ -231,6 +231,7 @@ def test_chip_smoke_refuses_unknown_arguments_or_a_missing_card(capsys):
     (["--swin-only"], "--swin-only"),
     (["--dp-only"], "--dp-only"),
     (["--fwd-phases"], "--fwd-phases"),
+    (["--prep-only"], "--prep-only"),
 ])
 def test_parse_args_picks_the_phase_run_alone(argv, want):
     assert chip_smoke.parse_args(argv) == want
@@ -302,7 +303,7 @@ def test_parse_args_refuses_anything_else(argv):
                                   "--scene-only", "--loop-only",
                                   "--iou-only", "--scannet-only",
                                   "--dcf-only", "--swin-only", "--dp-only",
-                                  "--fwd-phases"])
+                                  "--fwd-phases", "--prep-only"])
 def test_phase_only_runs_need_a_card(flag, capsys):
     if torch.cuda.is_available():
         pytest.skip("checks the run without a card")
@@ -514,3 +515,35 @@ def test_plain_in_kernel_slices_takes_the_whole_swin_table(monkeypatch):
             scale=0.25, band=0, rpe_mode="swin_window")
     assert asked == [("band_attention_bwd", 31)]
     assert plain.band_slice(31, "swin_window") == (0, 31)
+
+
+def test_legacy_phase_runs_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """Phase 18 (d) at a small size, the CPU against itself: every op runs
+    and reports, divide2patch's rows agree."""
+    monkeypatch.setitem(chip_smoke.LEGACY, "n", 512)
+    monkeypatch.setitem(chip_smoke.LEGACY, "m", 64)
+    monkeypatch.setitem(chip_smoke.LEGACY, "patch_n_pad", 64)
+    scans = chip_smoke.write_scannet_scans(str(tmp_path), "val", 2, seed=0,
+                                           points=2000, extent=2.0)
+    report = chip_smoke.legacy_phase(chip_smoke.legacy_inputs(scans),
+                                     torch.device("cpu"))
+    assert len(report) == 13
+    assert report["divide2patch"]["near_tie_rows"]["rows"] == 0
+    assert "integers equal" in capsys.readouterr().out
+
+
+def test_knn_near_ties_takes_ties_and_refuses_farther_picks():
+    rng = np.random.default_rng(0)
+    xyz = rng.uniform(0, 5, (200, 3))
+    xyz[11] = xyz[10]                          # a tie at the same point
+    d = ((xyz[:, None] - xyz[None]) ** 2).sum(-1)
+    want = torch.from_numpy(np.argsort(d, 1, kind="stable")[:, :8])
+    got = want.clone()
+    row = int(np.nonzero((want == 10).any(1).numpy())[0][0])
+    got[row][got[row] == 10] = 11
+    ties = chip_smoke.knn_near_ties(got, want, xyz)
+    assert ties["rows"] == 1 and ties["max_gap_m2"] == 0.0
+    far = want.clone()
+    far[0, -1] = int(np.argsort(d[0])[-1])     # the farthest point
+    with pytest.raises(AssertionError, match="kNN rows differ"):
+        chip_smoke.knn_near_ties(far, want, xyz)
