@@ -27,6 +27,10 @@ runs phase 14 alone;
 ``--bwd-phases`` builds the two backward kernels and variants of them
 without one phase of the fast form's block routine each, and times them
 at phase 14's S3DIS and ScanNet plans (`bwd_phases`);
+``--swin-bwd-phases`` builds the two band kernels and variants of the
+backward source without one phase of the fp32 block routine each, and
+times the fp32 swin backward beside them at phase 15's S3DIS and ScanNet
+Swin3D plans (`swin_bwd_phases`);
 ``--iou-only`` builds the two forward kernels and times the train and eval
 steps' IoU counters (`iou_phase`). Each prints its
 times as one JSON line (``--fwd-only`` also per stage and parity). Copied into another checkout (say a parent commit
@@ -1208,8 +1212,8 @@ def bwd_phase(cfg, levels, plans, dev, report, fast=False, variants=None):
     same inputs (``fp32_ms``) and no wrapper timing; the bound counts the
     bytes of the fp32 form's inputs, the function's as the model gives
     them. ``variants`` (``--bwd-phases``, with ``fast``): per-step times of
-    each variant build's fast entry point on the same arguments, under
-    ``variants`` (`build_variants`)."""
+    each variant build's entry point of the same form on the same
+    arguments, under ``variants`` (`build_variants`)."""
     from stratified_transformer_torch.kernels import (
         band_attention_bwd as band_bwd_k)
     from stratified_transformer_torch.kernels import (
@@ -1309,6 +1313,10 @@ def bwd_phase(cfg, levels, plans, dev, report, fast=False, variants=None):
                     kernel = mod.KERNEL_FAST if fast else mod.KERNEL
                     ms = cuda_time_ms(lambda: kernel(*args), 10)
                     in_bytes = nbytes(inputs)
+                    for tag, fns in (variants or {}).items():
+                        vr = report[key].setdefault("variants", {})
+                        vr[tag] = vr.get(tag, 0.0) + blocks * cuda_time_ms(
+                            lambda: fns[name](*args), 10)
                     if fast:
                         args32 = make_args(False)
                         fp32_ms = cuda_time_ms(
@@ -1316,10 +1324,6 @@ def bwd_phase(cfg, levels, plans, dev, report, fast=False, variants=None):
                         report[key]["fp32_ms"] += blocks * fp32_ms
                         timing = f"fp32 form {fp32_ms:.4f} ms"
                         in_bytes = nbytes(args32[2])
-                        for tag, fns in (variants or {}).items():
-                            vr = report[key].setdefault("variants", {})
-                            vr[tag] = vr.get(tag, 0.0) + blocks * cuda_time_ms(
-                                lambda: fns[name](*args), 10)
                     else:
                         wrapper_ms = cuda_time_ms(wrapper, 10)
                         busy_ms = device_busy_ms(wrapper, 3)
@@ -1372,15 +1376,17 @@ def bwd_phase(cfg, levels, plans, dev, report, fast=False, variants=None):
 # phase (file, text, replacement) so that its body never runs; the
 # difference of a variant's time from the kernel's is that phase's share
 # (the later phases then read stale shared memory: times only). Cuts of
-# attention_bwd_common.cuh split the routine the fast forms ran before the
-# tensor-core routine (attention_bwd_block at kFast), those of
-# attention_bwd_tc.cuh that routine; a cut whose text a checkout lacks is
-# skipped and logged.
+# attention_bwd_tc.cuh split the fast forms' routine; those of
+# attention_bwd_common.cuh split the fp32 routine (attention_bwd_block,
+# which the fast forms ran before the tensor-core routine), and
+# ``--swin-bwd-phases`` times them on the fp32 swin backward; a cut whose
+# text a checkout lacks is skipped and logged.
 TC = "attention_bwd_tc.cuh"
 BWD_PHASE_CUTS = {
     "1 key projections": [
         ("attention_bwd_common.cuh",
-         "    if (tabs && (tid & (C - 1)) < cn) {", "    if (false) {"),
+         "    if (!kSwin && tabs && (tid & (C - 1)) < cn) {",
+         "    if (false) {"),
         (TC, "  auto key_projections = [&](int b) {\n",
          "  auto key_projections = [&](int b) {\n    return;\n")],
     "2 pairs": [
@@ -1396,14 +1402,14 @@ BWD_PHASE_CUTS = {
          "        for (int j = j1; j < j1; j += 8) {")],
     "3 key sums and Mk": [
         ("attention_bwd_common.cuh",
-         "    if (kj < cn && (sums || (tabs && kq < 3))) {",
-         "    if (false) {"),
+         "    const int kj = (tid & (NT / 2 - 1)) >> 2, kq = tid & 3;\n",
+         "    const int kj = C, kq = tid & 3;\n"),
         (TC, "        if (kj < s_act[mt][0] || kj >= s_act[mt][1]) "
              "continue;", "        continue;")],
     "4 Mk.Tk and Mk^T.k": [
         ("attention_bwd_common.cuh",
-         "    if (tabs) {\n      const int j8",
-         "    if (false) {\n      const int j8"),
+         "    if (tabs) {\n#pragma unroll\n      for (int u = 0; u < NU; ++u) {",
+         "    if (false) {\n#pragma unroll\n      for (int u = 0; u < NU; ++u) {"),
         (TC, "      if (is_dk && tabs) {", "      if (false) {"),
         (TC, "      if (!is_dk && tabs) {", "      if (false) {")],
     "end of block": [
@@ -1419,12 +1425,14 @@ BWD_PHASE_CUTS = {
 }
 
 
-def build_variants(tmp, phase_cuts, kernels, flag):
+def build_variants(tmp, phase_cuts, kernels, flag, entry="KERNEL_FAST"):
     """Variant libraries of the ``kernels``' sources, one per entry of
-    ``phase_cuts`` (`BWD_PHASE_CUTS`, `FWD_PHASE_CUTS`) and one with every
-    cut ("all"), built in parallel under ``tmp``; returns ``{variant:
-    {kernel name: fast entry point}}`` (each entry point raises on a failed
-    launch). ``flag`` labels the log lines."""
+    ``phase_cuts`` (`BWD_PHASE_CUTS`, `FWD_PHASE_CUTS`,
+    `SWIN_BWD_PHASE_CUTS`) and one with every cut ("all"), built in
+    parallel under ``tmp``; returns ``{variant: {kernel name: entry
+    point}}``, the wrapper module's ``entry`` (``KERNEL_FAST``, the fast
+    form, or ``KERNEL``, the fp32 form), each raising on a failed launch.
+    ``flag`` labels the log lines."""
     import ctypes
     import shutil
     from stratified_transformer_torch.kernels import build
@@ -1455,8 +1463,9 @@ def build_variants(tmp, phase_cuts, kernels, flag):
         text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"variant {tag} of {name}.cu:\n{text}")
-        fn = getattr(ctypes.CDLL(out), mods[name].KERNEL_FAST.symbol)
-        fn.argtypes = mods[name].KERNEL_FAST.argtypes
+        kernel = getattr(mods[name], entry)
+        fn = getattr(ctypes.CDLL(out), kernel.symbol)
+        fn.argtypes = kernel.argtypes
         fn.restype = ctypes.c_int
 
         def call(*args, fn=fn, tag=tag):
@@ -1518,6 +1527,91 @@ def bwd_phases(dev):
     """``--bwd-phases``: `kernel_phases` of the fast backward kernels."""
     return kernel_phases(dev, "bwd-phases", BWD_PHASE_CUTS, BWD_KERNELS,
                          bwd_phase)
+
+
+# ``--swin-bwd-phases``: where the fp32 band backward's time goes in the
+# swin mode (attention_bwd_block, the routine of the fp32 forms). The cuts
+# of BWD_PHASE_CUTS in attention_bwd_common.cuh, and three of this routine
+# alone: "block staging" the tables' copies, "row projections" the rows'
+# q·Tq and g·Tv, "key staging" the chunk's k and v copies (the keys' points
+# stay, so the variant keeps the kernel's pairs). A cut whose text a
+# checkout lacks is skipped and logged (a routine that staged its tables
+# and keys by plain loads had "    for (int i = tid; i < nb3 * D;
+# i += NT) {" and "    for (int i = tid; i < cn * D; i += NT) {").
+BWD_OLD = "attention_bwd_common.cuh"
+SWIN_BWD_PHASE_CUTS = {
+    "block staging": [
+        (BWD_OLD, "    for (int i = tid; i < nb3 * (D / 4); i += NT) {",
+         "    for (int i = nb3 * (D / 4); i < nb3 * (D / 4); i += NT) {")],
+    "row projections": [
+        (BWD_OLD, "    for (int ab = tid / R; ab < nb3; ab += NT / R) {",
+         "    for (int ab = nb3; ab < nb3; ab += NT / R) {")],
+    "key staging": [
+        (BWD_OLD, "    {\n      const int j = tid >> 3, which",
+         "    if (false) {\n      const int j = tid >> 3, which")],
+    **{tag: [c for c in cuts if c[0] == BWD_OLD]
+       for tag, cuts in BWD_PHASE_CUTS.items()}}
+
+
+def swin_bwd_blocks(dev, cfg):
+    """Blocks per SM of the fp32 swin backward's launch at ``cfg``'s first
+    stage's tables (None in a checkout without
+    ``kernels.band_attention_bwd.blocks_per_sm``)."""
+    from stratified_transformer_torch.kernels import band_attention_bwd
+    i = stages(cfg)[0]
+    nbf = 2 * int(cfg.window_sizes()[i] / cfg.quant_sizes()[i]) - 1
+    fn = getattr(band_attention_bwd, "blocks_per_sm", None)
+    return None if fn is None else fn(dev, nbf, "swin_window")
+
+
+def swin_bwd_phases(dev):
+    """``--swin-bwd-phases``: the fp32 band backward in the swin mode at
+    phase 15's S3DIS Swin3D plans (phase 2's batch) and ScanNet Swin3D
+    plans (n_pad 250112), through `swin_kernels` (phase 15 (b) and (f)'s
+    gates), each beside its variant builds without one phase
+    (`build_variants` of `SWIN_BWD_PHASE_CUTS`, the fp32 entry point);
+    per-step ms of the kernel and of each variant, and each phase's share
+    (the kernel's time less the variant's)."""
+    import tempfile
+    from stratified_transformer_torch.config import load_config
+    from stratified_transformer_torch.data.loader import host_batch
+    flag = "swin-bwd-phases"
+    key = "band_attention_bwd" + SWIN
+    FAST_FAILURES.clear()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        variants = build_variants(tmp, SWIN_BWD_PHASE_CUTS,
+                                  ("band_attention_bwd",), flag,
+                                  entry="KERNEL")
+        log(f"[{flag}] {len(variants)} variants built in "
+            f"{time.time() - t0:.1f} s")
+        out = {}
+        for tag, path, cfg_kw, hb_kw in (
+                ("s3dis", SWIN_CONFIG, dict(n_pad=N_PAD, num_scenes=SCENES),
+                 {}),
+                ("scannet", SCANNET_SWIN_CONFIG, dict(num_scenes=2),
+                 SCANNET_ROOMS)):
+            cfg = load_config(path, **cfg_kw, **FP32)
+            hb = host_batch(cfg, seed=0, **hb_kw)
+            report = new_report(SWIN_KERNELS + SWIN_FAST_KERNELS)
+            swin_kernels(cfg, stage_levels(cfg, hb), dev, report,
+                         "S3DIS" if tag == "s3dis" else "ScanNet",
+                         variants=variants)
+            r = report[key]
+            out[tag] = {key: {
+                "ms": r["ms"], "bound_ms": r["bound_ms"],
+                "blocks_per_sm": swin_bwd_blocks(dev, cfg),
+                "variants": r["variants"],
+                "phase_ms": {v: r["ms"] - t
+                             for v, t in r["variants"].items()}}}
+            log(f"[{flag}] {tag} {key}: {r['ms']:.3f} ms per step; "
+                "without " + ", ".join(
+                    f"{v}: {t:.3f} ({r['ms'] - t:+.3f})"
+                    for v, t in r["variants"].items()))
+    if FAST_FAILURES:
+        raise AssertionError(f"--{flag}: {len(FAST_FAILURES)} gates or "
+                             f"controls failed: {FAST_FAILURES}")
+    return out
 
 
 # ``--fwd-phases``: where the fast forward kernels' time goes, as
@@ -2891,7 +2985,7 @@ SWIN_LOOP_OVERRIDES = [
 SWIN_SCENE_POINTS = 40000
 
 
-def swin_kernels(cfg, levels, dev, report, family="S3DIS"):
+def swin_kernels(cfg, levels, dev, report, family="S3DIS", variants=None):
     """Phase 15 (b) and (f)'s kernels: at every stage's plans of parity 0
     and 1 (no far keys; each point's window-quantized position from the
     plan's grid origin, the shifted parity at window / 2), with random
@@ -2901,7 +2995,11 @@ def swin_kernels(cfg, levels, dev, report, family="S3DIS"):
     the plain fast versions (phase 14's gates, each with its fp32
     control). Adds per-step times, bounds and errors to ``report``
     (``<kernel>_swin``, ``..._swin_bf16``) and the forward wrapper's
-    device-busy time; ``family`` names the configuration in the log."""
+    device-busy time; ``family`` names the configuration in the log.
+    ``variants`` (``--swin-bwd-phases``): per-step times of each variant
+    build's fp32 backward entry point on the fp32 backward's arguments,
+    under ``variants`` of ``band_attention_bwd_swin``
+    (`build_variants`)."""
     from stratified_transformer_torch.kernels import band_attention as band_k
     from stratified_transformer_torch.kernels import (
         band_attention_bwd as band_bwd_k)
@@ -3027,6 +3125,10 @@ def swin_kernels(cfg, levels, dev, report, family="S3DIS"):
                                 for gn, a, b in zip(grad_names, got, want_g)]
                     kern = band_bwd_k.KERNEL_FAST if fast else band_bwd_k.KERNEL
                     ms = cuda_time_ms(lambda: kern(*args), 10)
+                    for tag, fns in ({} if fast else variants or {}).items():
+                        vr = report[key].setdefault("variants", {})
+                        vr[tag] = vr.get(tag, 0.0) + blocks * cuda_time_ms(
+                            lambda: fns["band_attention_bwd"](*args), 10)
                     plain_ms = cuda_time_ms(
                         lambda: plain.band_attention_bwd_plain(
                             q, k, v, *geom, *res, *tables, **fkw), 2)
@@ -5407,11 +5509,13 @@ def phase_only(flag):
              for line in text.splitlines()
              if "registers" in line or "spill" in line]
     if flag in ("--fast-only", "--swin-only", "--dp-only", "--halo-only",
-                "--prep-only", "--bwd-phases", "--fwd-phases"):
+                "--prep-only", "--bwd-phases", "--fwd-phases",
+                "--swin-bwd-phases"):
         phase = {"--fast-only": fast_phase, "--swin-only": swin_phase,
                  "--dp-only": dp_phase, "--halo-only": halo_phase,
                  "--prep-only": prep_phase, "--bwd-phases": bwd_phases,
-                 "--fwd-phases": fwd_phases}[flag]
+                 "--fwd-phases": fwd_phases,
+                 "--swin-bwd-phases": swin_bwd_phases}[flag]
         out = {"card": card_line(), "repo": REPO,
                flag[2:].replace("-only", ""): phase(dev),
                "ptxas": ptxas}
@@ -5483,6 +5587,7 @@ PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS,
               "--prep-only": FWD_KERNELS,
               "--bwd-phases": BWD_KERNELS,
               "--fwd-phases": FWD_KERNELS,
+              "--swin-bwd-phases": ("band_attention", "band_attention_bwd"),
               "--scannet-kernels-only": FWD_KERNELS + BWD_KERNELS}
 
 

@@ -7,16 +7,16 @@
 // stratified_transformer_tpu/ops/pallas/fused_attention_bwd.py at
 // fast=True (:95, :474), the mode the shipped YAMLs select. It computes
 // what attention_bwd_block (attention_bwd_common.cuh, which states the
-// formulas and the projection form of the table terms) computes at kFast,
-// at the same rounding sites: q (scaled in fp32, then rounded), k, v, g and
-// the tables are bf16, staged so by the wrapper; dl, r and the bin masses
-// Mq, Mr, Mk are rounded where they enter a product; g·o takes the fp32 g,
-// and the cRPE lookups added to l and gv, r, dl and every sum stay fp32.
-// Only the order of the fp32 sums differs.
+// formulas and the projection form of the table terms) computes in fp32,
+// rounded at the TPU kernel's sites: q (scaled in fp32, then rounded), k,
+// v, g and the tables are bf16, staged so by the wrapper; dl, r and the bin
+// masses Mq, Mr, Mk are rounded where they enter a product; g·o takes the
+// fp32 g, and the cRPE lookups added to l and gv, r, dl and every sum stay
+// fp32, as in the plain fast versions (ops/attention.py).
 //
 // What bounds it on the H100: bytes (PERF.md kernel table: 0.096 ms per
 // S3DIS train step for the band half, 0.077 for the far-key half, with the
-// products at the bf16 tensor-core peak). The kFast routine it replaces ran
+// products at the bf16 tensor-core peak). The bf16 routine it replaced ran
 // every product on fp32 FMA from bf16 values unpacked one by one, so its
 // table products (3·nb rows x 16 channels per key and per row) took most
 // of a block's time and it ran 50-129x its bound. Here every product with

@@ -58,7 +58,7 @@ sparse_band_attention_bwd_kernel(BwdQueries Q, BwdKeys K, BwdTables T,
   const int tile_idx = blockIdx.x / slices;
   const int t0 = tile_idx * tile;
   const int base = (min(Q.key_lo[t0], a_sz - s_band) / 16) * 16;
-  attention_bwd_block<D, R, false>(Q, K, T, O, h, blockIdx.x,
+  attention_bwd_block<D, R>(Q, K, T, O, h, blockIdx.x,
                             t0 + (blockIdx.x - tile_idx * slices) * R, base,
                             base + s_band, base, s_band, scale);
 }
@@ -68,7 +68,7 @@ cudaError_t sparse_bwd_max_nb(int* max_nb) {
   size_t room = 0;
   const cudaError_t err =
       smem_room(sparse_band_attention_bwd_kernel<16, R>, &room);
-  if (err == cudaSuccess) *max_nb = bwd_max_nb<16, R, false>(room);
+  if (err == cudaSuccess) *max_nb = bwd_max_nb<16, R>(room);
   return err;
 }
 
@@ -88,7 +88,7 @@ cudaError_t sparse_bwd_launch(const BwdQueries& Q, const BwdKeys& K,
                               const BwdTables& T, const BwdOutputs& O,
                               int n, int a_sz, int h, int tile, int s_band,
                               float scale, cudaStream_t stream) {
-  const size_t smem = BwdSmem<16, R, false>(T.nb).bytes();
+  const size_t smem = BwdSmem<16, R>(T.nb).bytes();
   const cudaError_t err = cudaFuncSetAttribute(
       sparse_band_attention_bwd_kernel<16, R>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -115,8 +115,14 @@ inline cudaError_t sparse_bwd(
   if (err != cudaSuccess) return err;
   // Every stage of the ported configurations has D = 16; instantiate more
   // head sizes when a configuration needs them.
+  // the routine's cp.async reads rows of 16 bytes
+  const auto rows16 = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
   if (d != 16 || rows == 0 || tile <= 0 || tile % rows != 0 ||
-      n % tile != 0 || nb < 0)
+      n % tile != 0 || nb < 0 || !rows16(q_lw) || !rows16(g_lw) ||
+      !rows16(k_aux) || !rows16(v_aux) || !rows16(tq) || !rows16(tk) ||
+      !rows16(tv))
     return cudaErrorInvalidValue;
   const BwdQueries Q{q_lw, g_lw, o_lw, m_lw, den_lw, xyz_lw, valid_lw,
                      sb_start, sb_end, skey_lw};
@@ -216,12 +222,14 @@ inline cudaError_t sparse_bwd_tc(
 // C entry point, bound with ctypes. Query arrays are in lw order (q_lw
 // pre-scaled, g/o [N,H,D], m/den [N,H] merged over both halves); aux arrays
 // have A rows (k_aux/v_aux [A,H,D], zero in empty slots); s_band <= A; the
-// tables are [H,3,nb,D] fp32 or null. With R the rows per block that
+// tables are [H,3,nb,D] fp32 or null; q_lw, g_lw, k_aux, v_aux and the
+// tables start on 16 bytes. With R the rows per block that
 // sparse_band_attention_bwd_limits gives for nb, dk_part/dv_part ([N / R]
 // [s_band][H][D]) must be zeroed by the caller; dt_part is [N / R][H][3][3]
 // [nb][D]. Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a head size other than 16, a tile that is not
-// a multiple of R, or more table rows per axis than any block takes).
+// a multiple of R, more table rows per axis than any block takes, or a
+// misaligned array).
 extern "C" int sparse_band_attention_bwd(
     const float* q_lw, const float* g_lw, const float* o_lw,
     const float* m_lw, const float* den_lw, const float* xyz_lw,
@@ -267,7 +275,7 @@ extern "C" int sparse_band_attention_bwd_bf16(
 // The rows per block that sparse_band_attention_bwd takes for nb table rows
 // per axis (0 if none), and the most table rows per axis that any of its
 // blocks takes on the current device: on the H100, 32 rows up to 64 (the
-// cap of that block; S3DIS's tables have 64), 16 rows up to 116 (ScanNet's
+// cap of that block; S3DIS's tables have 64), 16 rows up to 112 (ScanNet's
 // 80). Returns a cudaError_t.
 extern "C" int sparse_band_attention_bwd_limits(int nb, int* rows,
                                                 int* max_nb) {

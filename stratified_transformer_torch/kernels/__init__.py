@@ -71,7 +71,7 @@ def _limits(source, symbol, index, nb):
     return rows.value, max_nb.value
 
 
-def block_limits(source, dev, nb=None, fast=False):
+def block_limits(source, dev, nb=None, fast=False, swin=False):
     """``(rows per block, most table rows per axis)`` of the attention
     kernel of ``csrc/<source>.cu`` on the CUDA device ``dev``, from its C
     entry point ``<source>_limits``: the second is the most that the
@@ -80,8 +80,11 @@ def block_limits(source, dev, nb=None, fast=False):
     give them ``nb``, the table rows per axis, and the first value is the
     rows they launch with for it (0 beyond the limit). ``fast``: the limits
     of the kernel's bf16 form (``<source>_bf16_limits``), whose staging in
-    bf16 leaves room for more table rows."""
-    symbol = f"{source}_bf16_limits" if fast else f"{source}_limits"
+    bf16 leaves room for more table rows. ``swin``: those of the fp32 band
+    backward's swin mode (``<source>_swin_limits``), whose blocks take
+    their own heights (the bf16 form's swin mode shares its limits)."""
+    symbol = source + ("_bf16" if fast else "_swin" if swin else "") \
+        + "_limits"
     return _limits(source, symbol, dev.index if dev.index is not None
                    else torch.cuda.current_device(), nb)
 
@@ -125,6 +128,14 @@ def head_rows(t):
             or t.data_ptr() % 16):
         t = t.contiguous()
     return t, t.stride(0)
+
+
+def rows16(t):
+    """``t`` as contiguous fp32 whose data starts on 16 bytes (the fp32
+    backward kernels copy rows of q, g, k and v by cp.async): ``t`` itself
+    where it is so, else a copy."""
+    t = t.to(torch.float32).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def pack_tables(tables, lo, rows):

@@ -14,7 +14,7 @@ import torch
 
 from stratified_transformer_torch.kernels import (
     CudaKernel, F, I, P, block_limits, check_cuda_inputs, pack_tables,
-    pack_tables_bf16, ptr, stage_bf16, stream_of, sum_table_partials,
+    pack_tables_bf16, ptr, rows16, stage_bf16, stream_of, sum_table_partials,
     xyz_valid)
 from stratified_transformer_torch.ops.attention import (
     band_attention_bwd_plain, band_slice, bin_constants, compose_band,
@@ -47,7 +47,8 @@ def launch_args(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
     n, h, d = q.shape
     nb_full = num_bins(*tables)
     bin_lo, nb = band_slice(nb_full, rpe_mode)
-    rows, max_nb = block_limits("band_attention_bwd", dev, nb, fast)
+    rows, max_nb = block_limits("band_attention_bwd", dev, nb, fast,
+                                swin=rpe_mode == "swin_window")
     if nb > max_nb:
         raise ValueError(
             f"band_attention_bwd: {nb} table rows per axis "
@@ -72,9 +73,9 @@ def launch_args(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
                   + pack_tables_bf16(tables, bin_lo, nb))
     else:
         inputs = (
-            (q.to(f32) * scale).contiguous(), k.to(f32).contiguous(),
-            v.to(f32).contiguous(), xyz.to(f32).contiguous()) + segs + (
-            valid.to(torch.bool).contiguous(), g.to(f32).contiguous()) \
+            (q.to(f32) * scale).contiguous(), rows16(k), rows16(v),
+            xyz.to(f32).contiguous()) + segs + (
+            valid.to(torch.bool).contiguous(), rows16(g)) \
             + res + pack_tables(tables, bin_lo, nb)
     nblk = n // rows
     outs = (torch.empty((n, h, d), dtype=f32, device=dev),
@@ -86,6 +87,25 @@ def launch_args(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,
         int(rpe_mode == "swin_window"), bin_offset, inv_quant, float(scale),
         stream_of(dev))
     return args, outs, inputs
+
+
+def blocks_per_sm(dev, nb, rpe_mode="stratified"):
+    """Blocks of the fp32 kernel's launch for tables of ``nb`` rows per
+    axis that one SM of the CUDA device ``dev`` holds at once (on the H100:
+    1 in the stratified bins, 2 in the swin mode's 32-row blocks)."""
+    import ctypes
+
+    from stratified_transformer_torch.kernels import build
+    fn = build.load("band_attention_bwd").band_attention_bwd_occupancy
+    fn.argtypes = [I, I, ctypes.POINTER(I)]
+    fn.restype = I
+    blocks = I()
+    with torch.cuda.device(dev):
+        rc = fn(nb, int(rpe_mode == "swin_window"), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(
+            f"band_attention_bwd_occupancy failed: cudaError_t {rc}")
+    return blocks.value
 
 
 def band_attention_bwd(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,

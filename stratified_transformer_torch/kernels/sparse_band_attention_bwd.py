@@ -14,7 +14,7 @@ import torch
 
 from stratified_transformer_torch.kernels import (
     CudaKernel, F, I, P, block_limits, check_cuda_inputs, pack_tables,
-    pack_tables_bf16, ptr, stage_bf16, stream_of, sum_table_partials,
+    pack_tables_bf16, ptr, rows16, stage_bf16, stream_of, sum_table_partials,
     xyz_valid)
 from stratified_transformer_torch.ops.attention import (
     bin_constants, num_bins, sparse_band_attention_bwd_plain,
@@ -78,11 +78,11 @@ def launch_args(q, k, v, sb, g, o, m, den, table_q=None, table_k=None,
                      xyz_valid(sb.sb_xyz, sb.sb_valid), skey_aux)
                   + pack_tables_bf16(tables, 0, nb))
     else:
-        inputs = ((q_lw.contiguous(), g_lw) + res
+        inputs = ((rows16(q_lw), rows16(g_lw)) + res
                   + (sb.xyz_lw.to(f32).contiguous(),
                      sb.valid_lw.to(torch.bool).contiguous(), skey_lw)
                   + ranges
-                  + (k_aux.contiguous(), v_aux.contiguous(),
+                  + (rows16(k_aux), rows16(v_aux),
                      sb.sb_xyz.to(f32).contiguous(),
                      sb.sb_valid.to(torch.bool).contiguous(), skey_aux)
                   + pack_tables(tables, 0, nb))

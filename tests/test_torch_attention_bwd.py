@@ -281,3 +281,43 @@ def test_compose_band_by_absolute_position():
                 want[t * tile - band + s] += part[t, s]
     torch.testing.assert_close(
         torch_attn.compose_band(part, band, tile, n), want, rtol=0, atol=0)
+
+
+def test_rows16_gives_the_backward_kernels_aligned_rows():
+    """The fp32 backward wrappers hand their kernels q, g, k and v whose
+    data starts on 16 bytes (the kernels copy rows by cp.async and their
+    launchers refuse others): `rows16` keeps an aligned contiguous fp32
+    tensor as it is and copies any other, values unchanged."""
+    from stratified_transformer_torch.kernels import rows16
+    base = torch.randn(4 * 3 * 16 + 1)
+    shifted = base[1:].view(4, 3, 16)
+    assert shifted.data_ptr() % 16 != 0
+    for t in (shifted, torch.randn(4, 3, 16, dtype=torch.float64),
+              torch.randn(4, 16, 3).transpose(1, 2)):
+        got = rows16(t)
+        assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+        assert got.dtype == torch.float32
+        assert torch.equal(got, t.to(torch.float32))
+    aligned = torch.randn(4, 3, 16)
+    assert aligned.data_ptr() % 16 == 0 and rows16(aligned) is aligned
+
+
+def test_block_limits_asks_each_form_its_own_entry_point(monkeypatch):
+    """`block_limits` asks the fp32 band backward's swin mode its own
+    heights (``band_attention_bwd_swin_limits``: 32-row blocks, two per
+    SM), the bf16 form its own whether swin or not, and the stratified
+    fp32 form ``<source>_limits``."""
+    from stratified_transformer_torch import kernels
+    asked = []
+    monkeypatch.setattr(kernels, "_limits",
+                        lambda *a: asked.append(a) or (32, 112))
+    dev = torch.device("cuda", 0)
+    kernels.block_limits("band_attention_bwd", dev, 31, swin=True)
+    kernels.block_limits("band_attention_bwd", dev, 31, fast=True, swin=True)
+    kernels.block_limits("band_attention_bwd", dev, 40)
+    kernels.block_limits("band_attention", dev)
+    assert asked == [
+        ("band_attention_bwd", "band_attention_bwd_swin_limits", 0, 31),
+        ("band_attention_bwd", "band_attention_bwd_bf16_limits", 0, 31),
+        ("band_attention_bwd", "band_attention_bwd_limits", 0, 40),
+        ("band_attention", "band_attention_limits", 0, None)]

@@ -694,6 +694,117 @@ def test_swin_kernels_match_plain(cuda_device, fast, shifted):
             torch.testing.assert_close(a, b, rtol=BWD_RTOL, atol=BWD_ATOL)
 
 
+def _swin_bwd_case(dev, case, seed=11, n=256, h=3):
+    """Inputs of the fp32 swin backward for one of the cases below, on
+    windows given as key segments (the band kernel's semantics: a row sees
+    ``[seg_start, seg_end)`` of its tile's reach, both ends valid):
+    "straddle": windows across the 32-row blocks' and the 32-key chunks'
+    edges, integer positions; "clip": positions at u = 0, 15 and 16 (bins
+    0 and 30 and the clip past the table's edge); "continuous": positions
+    off any lattice (the bins round ``rel`` half to even); "no_key": valid
+    rows whose segment is empty and invalid keys inside windows; "shifted":
+    a plan at the shifted parity (`_swin_case`). Returns ``(geom, qkv, g,
+    tables, kw)`` as `_swin_case`."""
+    if case == "shifted":
+        return _swin_case(dev, seed, True, n_pad=1024, n_valid=900)
+    gen = torch.Generator().manual_seed(seed)
+    # windows: [start, end) ranges that straddle rows 32, 64, ... and the
+    # chunks counted from a block's first key
+    edges = [0, 20, 60, 75, 100, 140, 170, 200, 230]
+    seg_start = torch.zeros(n, dtype=torch.int32)
+    seg_end = torch.zeros(n, dtype=torch.int32)
+    for a, b in zip(edges[:-1], edges[1:]):
+        seg_start[a:b], seg_end[a:b] = a, b
+    valid = torch.arange(n) < edges[-1]
+    seg_start[edges[-1]:] = seg_end[edges[-1]:] = edges[-1]
+    if case == "clip":
+        u = torch.tensor([0.0, 15.0, 16.0])[
+            torch.randint(0, 3, (n, 3), generator=gen)]
+    elif case == "continuous":
+        u = torch.rand(n, 3, generator=gen) * 16.0
+    else:
+        u = torch.randint(0, 16, (n, 3), generator=gen).to(torch.float32)
+    if case == "no_key":
+        # rows 40-49 see no key; keys 80, 81 and 150 are invalid
+        seg_end[40:50] = seg_start[40:50]
+        valid[[80, 81, 150]] = False
+    q, k, v, g = (torch.randn(n, h, 16, generator=gen).to(dev)
+                  for _ in range(4))
+    tables = tuple((torch.randn(SWIN_NBINS, h, 16, 3, generator=gen) * 0.05
+                    ).to(dev) for _ in range(3))
+    geom = (u.to(dev), seg_start.to(dev), seg_end.to(dev), valid.to(dev))
+    kw = dict(window_size=SWIN_WS, quant_size=SWIN_QS, scale=16 ** -0.5,
+              band=128, tile=128, rpe_mode="swin_window")
+    return geom, (q, k, v), g, tables, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["straddle", "clip", "continuous", "no_key",
+                                  "shifted"])
+def test_swin_bwd_matches_plain_at_its_height(cuda_device, case):
+    """The fp32 band backward in the swin mode (32-row blocks, two per SM)
+    against `band_attention_bwd_plain` on windows that straddle its blocks
+    and key chunks, at the bins' edges and clip, off any lattice, with rows
+    that see no key, and at the shifted parity: one launch, the fp32
+    backward tolerances, and no key or row outside a window touched."""
+    geom, qkv, g, tables, kw = _swin_bwd_case(cuda_device, case)
+    with torch.no_grad():
+        out, m, den = plain.merge([plain.band_attention_plain(
+            *qkv, *geom, *tables, **kw)])
+        before = band_bwd_k.KERNEL.launches
+        got = band_bwd_k.band_attention_bwd(*qkv, *geom, g, out, m, den,
+                                            *tables, **kw)
+        want = plain.band_attention_bwd_plain(*qkv, *geom, g, out, m, den,
+                                              *tables, **kw)
+    torch.cuda.synchronize()
+    assert band_bwd_k.KERNEL.launches == before + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=BWD_RTOL, atol=BWD_ATOL)
+    if case == "no_key":
+        assert not bool(got[0][40:50].any())
+        for t in got[:3]:
+            assert not bool(t[[80, 81, 150]].any())
+
+
+@pytest.mark.cuda
+def test_swin_bwd_two_launches_are_bit_identical(cuda_device):
+    """No float atomics and every sum in a fixed order: two launches of the
+    fp32 swin backward on the same inputs give the same bits."""
+    geom, qkv, g, tables, kw = _swin_bwd_case(cuda_device, "straddle")
+    with torch.no_grad():
+        out, m, den = plain.merge([plain.band_attention_plain(
+            *qkv, *geom, *tables, **kw)])
+        runs = [band_bwd_k.band_attention_bwd(*qkv, *geom, g, out, m, den,
+                                              *tables, **kw)
+                for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_swin_bwd_block_limits(cuda_device):
+    """`block_limits` gives the fp32 swin backward its own height: 32 rows
+    for Swin3D's 31-row tables, two blocks per SM; the stratified bins keep
+    theirs (64 rows for S3DIS's 40-row band slice, 32 for ScanNet's 48, one
+    block per SM); the fast form's swin mode keeps the fast heights."""
+    assert band_bwd_k.block_limits("band_attention_bwd", cuda_device,
+                                   SWIN_NBINS, swin=True)[0] == 32
+    assert band_bwd_k.blocks_per_sm(cuda_device, SWIN_NBINS,
+                                    "swin_window") == 2
+    for nb, rows in ((40, 64), (48, 32)):
+        assert band_bwd_k.block_limits("band_attention_bwd", cuda_device,
+                                       nb)[0] == rows
+        assert band_bwd_k.blocks_per_sm(cuda_device, nb) == 1
+    assert band_bwd_k.block_limits(
+        "band_attention_bwd", cuda_device, SWIN_NBINS, fast=True,
+        swin=True) == band_bwd_k.block_limits(
+        "band_attention_bwd", cuda_device, SWIN_NBINS, fast=True)
+    geom, qkv, g, tables, kw = _swin_bwd_case(cuda_device, "straddle")
+    _, (_, dk_part, _, dt_part), _ = band_bwd_k.launch_args(
+        *qkv, *geom, g, g, g[..., 0], g[..., 0], *tables, **kw)
+    assert dk_part.shape[0] == dt_part.shape[0] == qkv[0].shape[0] // 32
+
+
 @pytest.mark.cuda
 def test_swin_bins_on_the_card(cuda_device):
     """The swin `rel_bin_probe` on every integer ``rel`` in ``[-qgl-2,

@@ -232,19 +232,22 @@ def test_chip_smoke_refuses_unknown_arguments_or_a_missing_card(capsys):
     (["--dp-only"], "--dp-only"),
     (["--fwd-phases"], "--fwd-phases"),
     (["--prep-only"], "--prep-only"),
+    (["--swin-bwd-phases"], "--swin-bwd-phases"),
 ])
 def test_parse_args_picks_the_phase_run_alone(argv, want):
     assert chip_smoke.parse_args(argv) == want
     if want is not None:
         # the kernels it builds: the forward pair for phases 4 and 10 and
         # the IoU timing, all four attention kernels for phases 11-14 and
-        # 16, the two band kernels for phase 15 (Swin3D has no far keys)
+        # 16, the two band kernels for phase 15 and the swin backward's
+        # split (Swin3D has no far keys)
         both = chip_smoke.FWD_KERNELS + chip_smoke.BWD_KERNELS
+        band = ("band_attention", "band_attention_bwd")
         assert chip_smoke.PHASE_ONLY[want] == {
             "--bwd-only": chip_smoke.BWD_KERNELS, "--loop-only": both,
             "--scannet-only": both, "--dcf-only": both, "--fast-only": both,
-            "--swin-only": ("band_attention", "band_attention_bwd"),
-            "--dp-only": both,
+            "--swin-only": band, "--dp-only": both,
+            "--swin-bwd-phases": band,
         }.get(want, chip_smoke.FWD_KERNELS)
 
 
@@ -275,6 +278,28 @@ def test_phase_cuts_match_the_sources(kind, phase):
             text.count("{") - text.count("}")), (fn, old)
 
 
+@pytest.mark.parametrize("phase", list(chip_smoke.SWIN_BWD_PHASE_CUTS))
+def test_swin_bwd_phase_cuts_match_the_source(phase):
+    """Each ``--swin-bwd-phases`` cut names text that occurs exactly once in
+    the fp32 backward routine (``csrc/attention_bwd_common.cuh``), so that a
+    variant build cuts that phase and only it, and the variant still parses
+    as C++ text (balanced braces); the flag's variants build the band
+    backward alone and call its fp32 entry point."""
+    import os
+    from stratified_transformer_torch.kernels import build
+    cuts = chip_smoke.SWIN_BWD_PHASE_CUTS[phase]
+    assert cuts and all(fn == chip_smoke.BWD_OLD for fn, _, _ in cuts)
+    for fn, old, new in cuts:
+        with open(os.path.join(build.CSRC, fn)) as f:
+            text = f.read()
+        assert text.count(old) == 1, (fn, old)
+        cut = text.replace(old, new)
+        assert cut != text and cut.count("{") - cut.count("}") == (
+            text.count("{") - text.count("}")), (fn, old)
+    assert chip_smoke.PHASE_ONLY["--swin-bwd-phases"] == (
+        "band_attention", "band_attention_bwd")
+
+
 def test_bincount_iou_equals_the_port_counters():
     """The ``--iou-only`` comparison form counts what the port's
     scatter-add counters count."""
@@ -303,7 +328,8 @@ def test_parse_args_refuses_anything_else(argv):
                                   "--scene-only", "--loop-only",
                                   "--iou-only", "--scannet-only",
                                   "--dcf-only", "--swin-only", "--dp-only",
-                                  "--fwd-phases", "--prep-only"])
+                                  "--fwd-phases", "--prep-only",
+                                  "--swin-bwd-phases"])
 def test_phase_only_runs_need_a_card(flag, capsys):
     if torch.cuda.is_available():
         pytest.skip("checks the run without a card")

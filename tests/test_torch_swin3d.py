@@ -277,6 +277,69 @@ def test_plain_swin_backward_matches_jax_vjp(with_rpe):
                                    atol=ATOL, err_msg=name)
 
 
+def _kernel_case(case, seed=11, n=256):
+    """The windows and positions on which ``tests/test_torch_cuda.py``
+    holds the fp32 swin backward kernel (32-row blocks, 32-key chunks) to
+    the plain version, from numpy: windows given as key segments that
+    straddle the blocks and chunks; integer positions ("straddle"),
+    positions at u = 0, 15 and 16 (both table edges and the clip,
+    "clip"), positions off any lattice ("continuous"), or rows whose
+    segment is empty and invalid keys inside windows ("no_key")."""
+    rng = np.random.default_rng(seed)
+    edges = [0, 20, 60, 75, 100, 140, 170, 200, 230]
+    seg_start = np.full(n, edges[-1], np.int32)
+    seg_end = np.full(n, edges[-1], np.int32)
+    for a, b in zip(edges[:-1], edges[1:]):
+        seg_start[a:b], seg_end[a:b] = a, b
+    valid = np.arange(n) < edges[-1]
+    if case == "clip":
+        u = rng.choice(np.float32([0.0, 15.0, 16.0]), (n, 3))
+    elif case == "continuous":
+        u = (rng.random((n, 3)) * 16.0).astype(np.float32)
+    else:
+        u = rng.integers(0, 16, (n, 3)).astype(np.float32)
+    if case == "no_key":
+        seg_end[40:50] = seg_start[40:50]
+        valid[[80, 81, 150]] = False
+    q, k, v, g = (rng.normal(size=(n, H, D)).astype(np.float32)
+                  for _ in range(4))
+    tables = tuple((rng.normal(size=(NBINS, H, D, 3)) * 0.05).astype(
+        np.float32) for _ in range(3))
+    return (u, seg_start, seg_end, valid), (q, k, v), g, tables
+
+
+@pytest.mark.parametrize("case", ["straddle", "clip", "continuous",
+                                  "no_key"])
+def test_plain_swin_backward_matches_jax_on_the_kernel_cases(case):
+    """The plain swin backward, which the CUDA tests hold the fp32 kernel
+    to on these cases, against JAX's vjp of its jnp swin attention."""
+    geom, qkv, g, tables = _kernel_case(case)
+
+    def f(q, k, v, *tabs):
+        return jax_attn.stratified_attention(
+            q, k, v, *map(jnp.asarray, geom), None, None, *tabs, **KW,
+            band=128, tile=128, rpe_mode="swin_window")
+
+    _, vjp = jax.vjp(f, *map(jnp.asarray, qkv + tables))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    tgeom = tuple(torch.from_numpy(x) for x in geom)
+    tt = tuple(map(_t, tables))
+    out, m, den = plain.merge([plain.band_attention_plain(
+        *map(_t, qkv), *tgeom, *tt, **KW, band=128, tile=128,
+        rpe_mode="swin_window")])
+    got = plain.band_attention_bwd_plain(
+        *map(_t, qkv), *tgeom, _t(g), out, m, den, *tt, **KW, band=128,
+        tile=128, rpe_mode="swin_window")
+    for name, a, b in zip(("dq", "dk", "dv", "dtq", "dtk", "dtv"), got,
+                          want):
+        np.testing.assert_allclose(a.numpy(), b, rtol=RTOL, atol=ATOL,
+                                   err_msg=name)
+    if case == "no_key":
+        assert not got[0][40:50].any()
+        for x in got[:3]:
+            assert not x[[80, 81, 150]].any()
+
+
 # Swin3D at DEFAULT precision (a kept divergence, ROADMAP.md section 3):
 # the JAX package runs the mode on its jnp path, whose DEFAULT contractions
 # are fp32 on the CPU; the port runs the band kernels' fast form, which
