@@ -30,7 +30,9 @@ at phase 14's S3DIS and ScanNet plans (`bwd_phases`);
 ``--swin-bwd-phases`` builds the two band kernels and variants of the
 backward source without one phase of the fp32 block routine each, and
 times the fp32 swin backward beside them at phase 15's S3DIS and ScanNet
-Swin3D plans (`swin_bwd_phases`);
+Swin3D plans (`swin_bwd_phases`); ``--swin-fwd-phases`` does the same for
+the fp32 swin forward with variants of the forward source
+(`swin_fwd_phases`); both also report the kernel's blocks per SM;
 ``--iou-only`` builds the two forward kernels and times the train and eval
 steps' IoU counters (`iou_phase`). Each prints its
 times as one JSON line (``--fwd-only`` also per stage and parity). Copied into another checkout (say a parent commit
@@ -1553,35 +1555,37 @@ SWIN_BWD_PHASE_CUTS = {
        for tag, cuts in BWD_PHASE_CUTS.items()}}
 
 
-def swin_bwd_blocks(dev, cfg):
-    """Blocks per SM of the fp32 swin backward's launch at ``cfg``'s first
-    stage's tables (None in a checkout without
-    ``kernels.band_attention_bwd.blocks_per_sm``)."""
-    from stratified_transformer_torch.kernels import band_attention_bwd
+def swin_blocks(dev, cfg, module):
+    """Blocks per SM of the fp32 swin launch of the band kernel ``module``
+    (`kernels.band_attention` or `kernels.band_attention_bwd`) at ``cfg``'s
+    first stage's tables (None in a checkout whose module lacks
+    ``blocks_per_sm``)."""
     i = stages(cfg)[0]
     nbf = 2 * int(cfg.window_sizes()[i] / cfg.quant_sizes()[i]) - 1
-    fn = getattr(band_attention_bwd, "blocks_per_sm", None)
+    fn = getattr(module, "blocks_per_sm", None)
     return None if fn is None else fn(dev, nbf, "swin_window")
 
 
-def swin_bwd_phases(dev):
-    """``--swin-bwd-phases``: the fp32 band backward in the swin mode at
-    phase 15's S3DIS Swin3D plans (phase 2's batch) and ScanNet Swin3D
-    plans (n_pad 250112), through `swin_kernels` (phase 15 (b) and (f)'s
-    gates), each beside its variant builds without one phase
-    (`build_variants` of `SWIN_BWD_PHASE_CUTS`, the fp32 entry point);
-    per-step ms of the kernel and of each variant, and each phase's share
-    (the kernel's time less the variant's)."""
+def swin_phases(dev, flag, phase_cuts, name):
+    """``--swin-bwd-phases`` / ``--swin-fwd-phases``: the fp32 band kernel
+    ``name`` (``band_attention_bwd`` or ``band_attention``) in the swin
+    mode at phase 15's S3DIS Swin3D plans (phase 2's batch) and ScanNet
+    Swin3D plans (n_pad 250112), through `swin_kernels` (phase 15 (b) and
+    (f)'s gates), each beside its variant builds without one phase
+    (`build_variants` of ``phase_cuts``, the fp32 entry point); per-step
+    ms of the kernel and of each variant, each phase's share (the kernel's
+    time less the variant's), and the kernel's blocks per SM."""
+    import importlib
     import tempfile
     from stratified_transformer_torch.config import load_config
     from stratified_transformer_torch.data.loader import host_batch
-    flag = "swin-bwd-phases"
-    key = "band_attention_bwd" + SWIN
+    module = importlib.import_module(
+        f"stratified_transformer_torch.kernels.{name}")
+    key = name + SWIN
     FAST_FAILURES.clear()
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
-        variants = build_variants(tmp, SWIN_BWD_PHASE_CUTS,
-                                  ("band_attention_bwd",), flag,
+        variants = build_variants(tmp, phase_cuts, (name,), flag,
                                   entry="KERNEL")
         log(f"[{flag}] {len(variants)} variants built in "
             f"{time.time() - t0:.1f} s")
@@ -1600,8 +1604,8 @@ def swin_bwd_phases(dev):
             r = report[key]
             out[tag] = {key: {
                 "ms": r["ms"], "bound_ms": r["bound_ms"],
-                "blocks_per_sm": swin_bwd_blocks(dev, cfg),
-                "variants": r["variants"],
+                "blocks_per_sm": swin_blocks(dev, cfg, module),
+                "stage_ms": r["stage_ms"], "variants": r["variants"],
                 "phase_ms": {v: r["ms"] - t
                              for v, t in r["variants"].items()}}}
             log(f"[{flag}] {tag} {key}: {r['ms']:.3f} ms per step; "
@@ -1614,11 +1618,17 @@ def swin_bwd_phases(dev):
     return out
 
 
+def swin_bwd_phases(dev):
+    """``--swin-bwd-phases``: `swin_phases` of the fp32 band backward."""
+    return swin_phases(dev, "swin-bwd-phases", SWIN_BWD_PHASE_CUTS,
+                       "band_attention_bwd")
+
+
 # ``--fwd-phases``: where the fast forward kernels' time goes, as
 # ``--bwd-phases`` splits the backward's. Cuts of attention_fwd_common.cuh
-# split the routine the fast forms ran before the tensor-core routine
-# (attention_fwd_block at kFast), those of attention_fwd_tc.cuh that
-# routine. "key staging" cuts the loads of k and v (the keys' points and
+# split the fp32 routine (attention_fwd_block, whose fast mode the fast
+# forms ran before the tensor-core routine), those of attention_fwd_tc.cuh
+# that routine. "key staging" cuts the loads of k and v (the keys' points and
 # skey stay, so the variant keeps the kernel's pairs); "projections" the
 # tables' staging (Tq, Tk; the old far-key form's three tables) and the
 # projections; "pass 1" the products and cRPE lookups of the logits (the
@@ -1636,10 +1646,6 @@ FWD_PHASE_CUTS = {
         (FWD_TC, "    if (ksrc >= 0)\n      kvr = ",
          "    if (false)\n      kvr = ")],
     "projections": [
-        (FWD_OLD, "    if (tabs) project_mma<D, S>(s_q, R / 16,",
-         "    if (false) project_mma<D, S>(s_q, R / 16,"),
-        (FWD_OLD, "      if (tabs) project_mma<D, S>(s_k, C / 16,",
-         "      if (false) project_mma<D, S>(s_k, C / 16,"),
         (FWD_OLD, "  if (!kProj && tabs) {\n    // a thread per (table, bin)",
          "  if (false) {\n    // a thread per (table, bin)"),
         (FWD_TC, "    for (int i = tid; i < 3 * nb; i += NT) {",
@@ -1672,15 +1678,13 @@ FWD_PHASE_CUTS = {
         (FWD_TC, "? expf(l[nt][e] - rm) : 0.0f;", "? 1.0f : 0.0f;"),
         (FWD_TC, "        mma_bf16_16816(d, pa, b);", "")],
     "mass walk": [
-        (FWD_OLD, "    if (kMass && tabs) {\n      // the row's masses",
+        (FWD_OLD, "    if (kProj && tabs) {\n      // the row's masses",
          "    if (false) {\n      // the row's masses"),
         (FWD_TC, "    if (tabs) {\n#pragma unroll\n      for (int nt = 0; "
                  "nt < 4; ++nt) {\n        if (!act[nt]) continue;",
          "    if (false) {\n#pragma unroll\n      for (int nt = 0; "
          "nt < 4; ++nt) {\n        if (!act[nt]) continue;")],
     "end of block": [
-        (FWD_OLD, "  if (!kProj && kMass && T.tv != nullptr) {",
-         "  if (false) {"),
         (FWD_OLD, "  if (kProj && T.tv != nullptr) {", "  if (false) {"),
         (FWD_OLD, "#pragma unroll\n  for (int c = 0; c < D; ++c) acc[c] = "
                   "group_sum<LPR>(acc[c]);\n  den = group_sum<LPR>(den);\n",
@@ -1694,6 +1698,61 @@ def fwd_phases(dev):
     """``--fwd-phases``: `kernel_phases` of the fast forward kernels."""
     return kernel_phases(dev, "fwd-phases", FWD_PHASE_CUTS, FWD_KERNELS,
                          fwd_phase)
+
+
+# ``--swin-fwd-phases``: where the fp32 band forward's time goes in the
+# swin mode (attention_fwd_swin.cuh). "q staging" cuts the rows' q loads,
+# "tables' staging" the head's tables, "q projections" the rows' q·Tq onto
+# the 3·nb table rows, "key staging" the chunk's k and v copies (the keys'
+# points stay, so the variant keeps the kernel's pairs), "pass 1" the
+# products and cRPE lookups of the logits (the masks stay), "rescale" the
+# rescale of acc and den, "pass 2" the exp, den and p (v + Tv), "end of
+# block" the row's lane sums (the writes stay). A cut whose text a checkout
+# lacks is skipped and logged. The parent's routine, the band half's
+# projection form of attention_fwd_common.cuh, was split by its own q
+# staging ("  for (int i0 = tid; i0 < R * D; i0 += 4 * NT) {"), q
+# projections ("    for (int b = tid / R; b < nb; b += NT / R) {"), key
+# staging (FWD_PHASE_CUTS'), key projections ("        for (int b = tid /
+# C; b < nb; b += NT / C) {"), and FWD_PHASE_CUTS' pass 1, rescale, pass
+# 2, mass walk ("    if (kMass && tabs) {") and end of block.
+SWIN_FWD = "attention_fwd_swin.cuh"
+SWIN_FWD_PHASE_CUTS = {
+    "q staging": [
+        (SWIN_FWD, "  for (int i = tid; i < R * (D / 4); i += NT) {",
+         "  for (int i = R * (D / 4); i < R * (D / 4); i += NT) {")],
+    "tables' staging": [
+        (SWIN_FWD, "    for (int i0 = tid; i0 < total; i0 += U * NT) {",
+         "    for (int i0 = total; i0 < total; i0 += U * NT) {")],
+    "q projections": [
+        (SWIN_FWD, "    for (int ab = tid / R; ab < nb3; ab += NT / R)",
+         "    for (int ab = nb3; ab < nb3; ab += NT / R)")],
+    "key staging": [
+        (SWIN_FWD, "    {\n      const int j = tid >> 3, which",
+         "    if (false) {\n      const int j = tid >> 3, which")],
+    "pass 1": [
+        (SWIN_FWD, "#pragma unroll\n          for (int c = 0; c < D; c += 4) "
+                   "lds4(s_k + j * S + c, kc + c);\n          float s = 0.0f;"
+                   "\n#pragma unroll\n          for (int c = 0; c < D; ++c) "
+                   "s = fmaf(q[c], kc[c], s);\n          if (tabs) {",
+         "          float s = 0.0f;\n          if (false) {")],
+    "rescale": [
+        (SWIN_FWD, "    if (mx > m) {\n      const float r = expf(m - mx);",
+         "    if (mx > m) m = mx;\n    if (false) {\n"
+         "      const float r = expf(m - mx);")],
+    "pass 2": [
+        (SWIN_FWD, "      if ((ok >> u) & 1u) {\n        const int j = rlo",
+         "      if (false) {\n        const int j = rlo")],
+    "end of block": [
+        (SWIN_FWD, "#pragma unroll\n  for (int c = 0; c < D; ++c) acc[c] = "
+                   "row_sum<LPR, RPW>(acc[c]);\n  den = row_sum<LPR, RPW>"
+                   "(den);\n", "")],
+}
+
+
+def swin_fwd_phases(dev):
+    """``--swin-fwd-phases``: `swin_phases` of the fp32 band forward."""
+    return swin_phases(dev, "swin-fwd-phases", SWIN_FWD_PHASE_CUTS,
+                       "band_attention")
 
 
 def tree_leaves(prefix, x):
@@ -2996,10 +3055,11 @@ def swin_kernels(cfg, levels, dev, report, family="S3DIS", variants=None):
     control). Adds per-step times, bounds and errors to ``report``
     (``<kernel>_swin``, ``..._swin_bf16``) and the forward wrapper's
     device-busy time; ``family`` names the configuration in the log.
-    ``variants`` (``--swin-bwd-phases``): per-step times of each variant
-    build's fp32 backward entry point on the fp32 backward's arguments,
-    under ``variants`` of ``band_attention_bwd_swin``
-    (`build_variants`)."""
+    ``variants`` (``--swin-bwd-phases``, ``--swin-fwd-phases``): per-step
+    times of each variant build's fp32 entry point (`build_variants`) on
+    the fp32 kernel's arguments, under ``variants`` of
+    ``band_attention_bwd_swin`` or ``band_attention_swin``; with them each
+    stage's share of the fp32 kernel's time under ``stage_ms``."""
     from stratified_transformer_torch.kernels import band_attention as band_k
     from stratified_transformer_torch.kernels import (
         band_attention_bwd as band_bwd_k)
@@ -3074,6 +3134,8 @@ def swin_kernels(cfg, levels, dev, report, family="S3DIS", variants=None):
                         report[key]["wrapper_busy_ms"] += blocks * side_ms
                     kern = band_k.KERNEL_FAST if fast else band_k.KERNEL
                     ms = cuda_time_ms(lambda: kern(*args), 20)
+                    swin_variants(report[key], {} if fast else variants,
+                                  "band_attention", args, blocks, ms, i, 20)
                     plain_ms = cuda_time_ms(lambda: plain.band_attention_plain(
                         q, k, v, *geom, *tables, **fkw), 3)
                     t_ops = least_ops(pairs, n_q, n_q, h, d, nbf, split=fast,
@@ -3125,10 +3187,9 @@ def swin_kernels(cfg, levels, dev, report, family="S3DIS", variants=None):
                                 for gn, a, b in zip(grad_names, got, want_g)]
                     kern = band_bwd_k.KERNEL_FAST if fast else band_bwd_k.KERNEL
                     ms = cuda_time_ms(lambda: kern(*args), 10)
-                    for tag, fns in ({} if fast else variants or {}).items():
-                        vr = report[key].setdefault("variants", {})
-                        vr[tag] = vr.get(tag, 0.0) + blocks * cuda_time_ms(
-                            lambda: fns["band_attention_bwd"](*args), 10)
+                    swin_variants(report[key], {} if fast else variants,
+                                  "band_attention_bwd", args, blocks, ms, i,
+                                  10)
                     plain_ms = cuda_time_ms(
                         lambda: plain.band_attention_bwd_plain(
                             q, k, v, *geom, *res, *tables, **fkw), 2)
@@ -3150,6 +3211,21 @@ def swin_kernels(cfg, levels, dev, report, family="S3DIS", variants=None):
             + (f", fp32 form {r['fp32_ms']:.3f} ms" if "fp32_ms" in r else "")
             + (f", wrapper device busy {r['wrapper_busy_ms']:.3f} ms"
                if "wrapper_busy_ms" in r else "") + ")")
+
+
+def swin_variants(r, variants, name, args, blocks, ms, stage, reps):
+    """Adds to ``r`` (a kernel's report) the per-step time of each variant
+    build's entry point of kernel ``name`` on ``args`` (`swin_kernels`),
+    and ``blocks`` launches of ``ms`` to stage ``stage``'s share."""
+    if not variants:
+        return
+    st = r.setdefault("stage_ms", {})
+    st[str(stage)] = st.get(str(stage), 0.0) + blocks * ms
+    for tag, fns in variants.items():
+        if name in fns:
+            vr = r.setdefault("variants", {})
+            vr[tag] = vr.get(tag, 0.0) + blocks * cuda_time_ms(
+                lambda: fns[name](*args), reps)
 
 
 def swin_eval(tag, cfg, yaml_cfg, batches, model, ref_model, all_mods):
@@ -5510,12 +5586,13 @@ def phase_only(flag):
              if "registers" in line or "spill" in line]
     if flag in ("--fast-only", "--swin-only", "--dp-only", "--halo-only",
                 "--prep-only", "--bwd-phases", "--fwd-phases",
-                "--swin-bwd-phases"):
+                "--swin-bwd-phases", "--swin-fwd-phases"):
         phase = {"--fast-only": fast_phase, "--swin-only": swin_phase,
                  "--dp-only": dp_phase, "--halo-only": halo_phase,
                  "--prep-only": prep_phase, "--bwd-phases": bwd_phases,
                  "--fwd-phases": fwd_phases,
-                 "--swin-bwd-phases": swin_bwd_phases}[flag]
+                 "--swin-bwd-phases": swin_bwd_phases,
+                 "--swin-fwd-phases": swin_fwd_phases}[flag]
         out = {"card": card_line(), "repo": REPO,
                flag[2:].replace("-only", ""): phase(dev),
                "ptxas": ptxas}
@@ -5588,6 +5665,7 @@ PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS,
               "--bwd-phases": BWD_KERNELS,
               "--fwd-phases": FWD_KERNELS,
               "--swin-bwd-phases": ("band_attention", "band_attention_bwd"),
+              "--swin-fwd-phases": ("band_attention", "band_attention_bwd"),
               "--scannet-kernels-only": FWD_KERNELS + BWD_KERNELS}
 
 

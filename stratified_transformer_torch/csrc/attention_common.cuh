@@ -1,7 +1,7 @@
 // Device code shared by the stratified-attention kernels, forward
-// (attention_fwd_common.cuh) and backward (attention_bwd_common.cuh): the
-// cRPE bin of one axis, shared-memory and warp helpers, and the bf16
-// helpers of the kernels' fast forms.
+// (attention_fwd_common.cuh, attention_fwd_swin.cuh) and backward
+// (attention_bwd_common.cuh): the cRPE bin of one axis, shared-memory and
+// warp helpers, and the bf16 helpers of the kernels' fast forms.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -63,50 +63,11 @@ __device__ __forceinline__ void lds4(const float* p, float* out) {
   out[3] = v.w;
 }
 
-// The fast forms (kFast) are the TPU kernels' DEFAULT-precision mode, which
-// the shipped YAMLs select (rpe_precision/qk_precision: default): each
-// operand of a product that the TPU kernel contracts at DEFAULT precision is
-// rounded to bf16 (to nearest, ties to even) and the products accumulate in
-// fp32. The product of two bf16 values is exact in fp32, so the kernels'
-// fp32 FMA loops compute it from the rounded values. q, k, v, g and the
-// tables are staged in shared memory as bf16 (Staged<true>); p, dl, r and
-// the bin masses are rounded where they enter a product (op_round).
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <bool kFast>
-__device__ __forceinline__ float op_round(float x) {
-  return kFast ? bf16_round(x) : x;
-}
-
-template <bool kFast>
-struct Staged {
-  using type = float;
-};
-template <>
-struct Staged<true> {
-  using type = __nv_bfloat16;
-};
-
-__device__ __forceinline__ void stage_store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void stage_store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// 4 consecutive bf16 of shared memory at an 8-byte aligned address, as
-// floats (exact).
-__device__ __forceinline__ void lds4(const __nv_bfloat16* p, float* out) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  out[0] = a.x;
-  out[1] = a.y;
-  out[2] = b.x;
-  out[3] = b.y;
-}
+// The fast forms are the TPU kernels' DEFAULT-precision mode, which the
+// shipped YAMLs select (rpe_precision/qk_precision: default): each operand
+// of a product that the TPU kernel contracts at DEFAULT precision is
+// rounded to bf16 (to nearest, ties to even) and the products accumulate
+// in fp32, on the tensor cores (attention_fwd_tc.cuh, attention_bwd_tc.cuh).
 
 // Two floats rounded to bf16 and packed, the first in the low half (the
 // lower-index element of an mma fragment register).
@@ -126,12 +87,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Shared-memory words (4 bytes) of `count` staged elements.
-template <bool kFast>
-__host__ __device__ constexpr int staged_words(int count) {
-  return kFast ? (count + 1) / 2 : count;
 }
 
 // Sum / max over aligned groups of N neighbouring lanes (a butterfly: every

@@ -15,10 +15,11 @@
 //     axis. Tv goes through bin masses: per row and (axis, bin) the sum of
 //     the row's softmax weights p, added once at the end as Σ mass·Tv.
 //   !kProj (far-key half): the per-pair form, three d-long dot products per
-//     table and pair and (fp32 form) the three Tv rows added to v; its fast
-//     form takes Tv through bin masses as kProj does. A row has at most
+//     table and pair and the three Tv rows added to v. A row has at most
 //     sparse_cap far keys (48 for S3DIS, 64 for ScanNet), fewer than the
 //     ~nb at which projecting it onto 3·nb table rows would cost less.
+// The band half's swin mode runs a routine of its own
+// (attention_fwd_swin.cuh).
 //
 // Per key chunk (kFwdChunk keys staged in shared memory): the LPR = 256 / R
 // lanes of a row take every LPR-th key of the row's own keys in the chunk,
@@ -34,18 +35,8 @@
 // read a bin's 3·D floats (all three axes) as float4s through the read-only
 // cache; the per-pair form stages the head's tables transposed into shared
 // memory once per block.
-// kFast (the bf16 form, attention_common.cuh): q (after the scaling), k, v
-// and the per-pair form's tables are staged in shared memory as bf16, and
-// p is rounded where it multiplies v; den and the masses sum the fp32 p
-// (fused_attention.py:193-213). Both fast forms take Tv through the masses,
-// each rounded once where it multiplies Tv, as the TPU kernels do
-// (fused_attention.py:240-244,451-456): the per-pair form adds no Tv row to
-// v, and takes each nonzero mass's staged Tv row at the end. The key chunks start at multiples of kFwdChunk from the window's first
-// key, as the TPU kernel's w_chunk chunks do, so that the running maximum p
-// is rounded at depends on the keys alone (the plain fast versions round at
-// the same maxima, ops/attention.py). The projection form's q·Tq and k·Tk
-// run on the tensor cores (project_mma): with d = 16 each 16-row by
-// 8-column tile of a projection is one mma.m16n8k16 on the staged bf16 rows.
+// This routine is the fp32 form (the TPU kernels at fast=False); the fast
+// (bf16) forms run attention_fwd_block_tc (attention_fwd_tc.cuh).
 // No two threads write one shared-memory address in a phase, and every sum
 // runs in a fixed order: no atomics on data, bit-identical launches.
 #pragma once
@@ -116,10 +107,9 @@ struct FwdOutputs {
 };
 
 // Shared-memory layout of a block of R rows (offsets in 4-byte words, each
-// array 16-byte aligned; the staged arrays hold Staged<kFast> elements).
-// Per-row arrays of (axis, bin) entries have an odd stride (3·nb + 1) so
-// that neighbouring rows fall on other banks.
-template <int R, bool kProj, bool kFast>
+// array 16-byte aligned). Per-row arrays of (axis, bin) entries have an odd
+// stride (3·nb + 1) so that neighbouring rows fall on other banks.
+template <int R, bool kProj>
 struct FwdSmem {
   static constexpr int C = kFwdChunk;
   static constexpr int S = kFwdRowStride;
@@ -127,26 +117,19 @@ struct FwdSmem {
   int tab, q, k, v, xk, skey, qp, mass, kp, total;
 
   __host__ __device__ static int up4(int x) { return (x + 3) & ~3; }
-  __host__ __device__ static int st(int count) {
-    return up4(staged_words<kFast>(count));
-  }
   __host__ __device__ explicit FwdSmem(int nb) : nb3(3 * nb), ps(3 * nb + 1) {
     int o = 0;
     tab = o;                              // per-pair form: Tq, Tk, Tv
-    if (!kProj) o += st(3 * nb3 * S);     // [3][3·nb][S]
-    q = o;    o += st(R * S);             // the rows' scaled q
-    k = o;    o += st(C * S);
-    v = o;    o += st(C * S);
+    if (!kProj) o += 3 * nb3 * S;         // [3][3·nb][S]
+    q = o;    o += R * S;                 // the rows' scaled q
+    k = o;    o += C * S;
+    v = o;    o += C * S;
     xk = o;   o += 4 * C;                 // xyz, valid
     skey = o; o += C;
     qp = mass = kp = o;
     if (kProj) {
       qp = o;   o += up4(R * ps);         // q·Tq [R][ps]
-    }
-    if (kProj || kFast) {
       mass = o; o += up4(R * ps);         // Σ p per (axis, bin) [R][ps]
-    }
-    if (kProj) {
       kp = o;   o += up4(C * ps);         // k·Tk [C][ps]
     }
     total = o;
@@ -158,10 +141,10 @@ struct FwdSmem {
 
 // The most table rows per axis (at most kFwdMaxNb) for which a block of R
 // rows fits in `room` bytes.
-template <int R, bool kProj, bool kFast>
+template <int R, bool kProj>
 __host__ int fwd_max_nb(size_t room) {
   int nb = kFwdMaxNb;
-  while (nb > 0 && FwdSmem<R, kProj, kFast>(nb).bytes() > room) --nb;
+  while (nb > 0 && FwdSmem<R, kProj>(nb).bytes() > room) --nb;
   return nb;
 }
 
@@ -191,64 +174,9 @@ __device__ __forceinline__ void project3(const float4* row, const float* x,
   }
 }
 
-// out[r * ps + n] = Σ_c x[r][c] T[bin_lo + n % nb][head][c][n / nb] for
-// rows r < 16 · m_tiles and columns n < 3·nb (the (axis, bin) order of the
-// per-row projection arrays), from bf16 rows x of stride S (D = 16
-// channels) and a table in the model's [nb_full][H][D][3] layout, its
-// entries rounded to bf16 (null: zeros). The block's warps share the
-// 8-column tiles; a warp loads a tile's table fragment once and multiplies
-// it with every 16-row tile of x.
-template <int D, int S>
-__device__ void project_mma(const __nv_bfloat16* x, int m_tiles,
-                            const float* t, int h, int head, int bin_lo,
-                            int nb, float* out, int ps) {
-  static_assert(D == 16, "one mma k-step per projection");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tg = lane & 3;  // fragment row / column group
-  const int n3 = 3 * nb;
-  for (int n0 = warp * 8; n0 < n3; n0 += (blockDim.x >> 5) * 8) {
-    // B (k = channel, n = column n0 + g): channels 2tg, 2tg+1, +8, +9
-    uint32_t b[2] = {0u, 0u};
-    const int n = n0 + g;
-    if (t != nullptr && n < n3) {
-      const int a = n / nb;
-      const float* col =
-          t + (static_cast<size_t>(bin_lo + n - a * nb) * h + head) * 3 * D +
-          a;
-      b[0] = pack_bf16(__ldg(col + 3 * (2 * tg)), __ldg(col + 3 * (2 * tg + 1)));
-      b[1] = pack_bf16(__ldg(col + 3 * (2 * tg + 8)),
-                       __ldg(col + 3 * (2 * tg + 9)));
-    }
-    const int c = n0 + 2 * tg;            // this lane's two output columns
-    for (int m0 = 0; m0 < 16 * m_tiles; m0 += 16) {
-      // A (m = row, k = channel): rows g and g + 8, channels 2tg, 2tg+1,
-      // +8, +9, each pair one 32-bit read of the bf16 row
-      const __nv_bfloat16* r0 = x + (m0 + g) * S + 2 * tg;
-      const __nv_bfloat16* r1 = r0 + 8 * S;
-      const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(r0),
-                             *reinterpret_cast<const uint32_t*>(r1),
-                             *reinterpret_cast<const uint32_t*>(r0 + 8),
-                             *reinterpret_cast<const uint32_t*>(r1 + 8)};
-      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      mma_bf16_16816(d, a, b);
-      float* o0 = out + (m0 + g) * ps + c;
-      float* o1 = o0 + 8 * ps;
-      if (c < n3) {
-        o0[0] = d[0];
-        o1[0] = d[2];
-      }
-      if (c + 1 < n3) {
-        o0[1] = d[1];
-        o1[1] = d[3];
-      }
-    }
-  }
-}
-
 // The forward of rows [row0, row0 + R), for the head blockIdx.y, over keys
-// [win_lo, win_hi) ∩ the union of the rows' [key_lo, key_hi). kSwin:
-// Swin3D's bins (table_bin).
-template <int D, int R, bool kProj, bool kFast, bool kSwin = false>
+// [win_lo, win_hi) ∩ the union of the rows' [key_lo, key_hi).
+template <int D, int R, bool kProj>
 __device__ void attention_fwd_block(const FwdQueries& Q, const FwdKeys& K,
                                     const FwdTables& T, const FwdOutputs& O,
                                     int h, int row0, int win_lo, int win_hi,
@@ -260,22 +188,19 @@ __device__ void attention_fwd_block(const FwdQueries& Q, const FwdKeys& K,
   constexpr int KPL = C / LPR;          // keys per lane and chunk, at most
   static_assert(D % 4 == 0 && D <= S, "rows are read as float4");
   static_assert(NT % R == 0 && LPR <= 32 && C % LPR == 0, "rows per block");
-  // Tv through the bin masses (else: Tv rows added to v per pair)
-  constexpr bool kMass = kProj || kFast;
-  static_assert(!kMass || LPR >= 4, "the mass walk takes a lane per axis");
-  static_assert(!(kProj && kFast) || (R % 16 == 0 && C % 16 == 0),
-                "project_mma takes 16-row tiles");
+  // the projection form takes Tv through the bin masses, the per-pair form
+  // adds the Tv rows to v per pair
+  static_assert(!kProj || LPR >= 4, "the mass walk takes a lane per axis");
 
-  using Stage = typename Staged<kFast>::type;
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_lo, s_hi;
-  const FwdSmem<R, kProj, kFast> L(T.nb);
+  const FwdSmem<R, kProj> L(T.nb);
   const int nb = T.nb, nb3 = L.nb3, ps = L.ps;
   const bool tabs = nb > 0;
-  Stage* s_tab = reinterpret_cast<Stage*>(smem + L.tab);
-  Stage* s_q = reinterpret_cast<Stage*>(smem + L.q);
-  Stage* s_k = reinterpret_cast<Stage*>(smem + L.k);
-  Stage* s_v = reinterpret_cast<Stage*>(smem + L.v);
+  float* s_tab = smem + L.tab;
+  float* s_q = smem + L.q;
+  float* s_k = smem + L.k;
+  float* s_v = smem + L.v;
   float* s_xk = smem + L.xk;
   int* s_skey = reinterpret_cast<int*>(smem + L.skey);
   float* s_qp = smem + L.qp;
@@ -303,7 +228,7 @@ __device__ void attention_fwd_block(const FwdQueries& Q, const FwdKeys& K,
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int i = i0 + u * NT;
-      if (i < R * D) stage_store(s_q + (i / D) * S + i % D, x[u] * scale);
+      if (i < R * D) s_q[(i / D) * S + i % D] = x[u] * scale;
     }
   }
   if (!kProj && tabs) {
@@ -318,19 +243,19 @@ __device__ void attention_fwd_block(const FwdQueries& Q, const FwdKeys& K,
         x[f] = tabs_in[tb] != nullptr
                    ? __ldg(table_row<D>(tabs_in[tb], T.bin_lo + b, h, head) + f)
                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      Stage* dst = s_tab + (tb * nb3 + b) * S;
+      float* dst = s_tab + (tb * nb3 + b) * S;
 #pragma unroll
       for (int f = 0; f < 3 * D / 4; ++f) {
         const float e[4] = {x[f].x, x[f].y, x[f].z, x[f].w};
 #pragma unroll
         for (int w = 0; w < 4; ++w) {
           const int ca = 4 * f + w;     // channel ca / 3, axis ca % 3
-          stage_store(dst + (ca % 3) * nb * S + ca / 3, e[w]);
+          dst[(ca % 3) * nb * S + ca / 3] = e[w];
         }
       }
     }
   }
-  if (kMass) {
+  if (kProj) {
     for (int i = tid; i < R * ps; i += NT) s_mass[i] = 0.0f;
   }
   if (tid == 0) {
@@ -354,10 +279,7 @@ __device__ void attention_fwd_block(const FwdQueries& Q, const FwdKeys& K,
   for (int c = 0; c < D; c += 4) lds4(s_q + t * S + c, q + c);
   const float xq[3] = {Q.xyz[row * 3 + 0], Q.xyz[row * 3 + 1],
                        Q.xyz[row * 3 + 2]};
-  if constexpr (kProj && kFast) {
-    if (tabs) project_mma<D, S>(s_q, R / 16, T.tq, h, head, T.bin_lo, nb,
-                                s_qp, ps);
-  } else if (kProj && tabs) {
+  if (kProj && tabs) {
     // the rows' projections onto Tq: a thread keeps one row's q in
     // registers and takes every (NT / R)-th bin, all three axes at once
     const int tt = tid % R;
@@ -380,11 +302,8 @@ __device__ void attention_fwd_block(const FwdQueries& Q, const FwdKeys& K,
   const int lo = max(s_lo, win_lo);
   const int hi = min(s_hi, win_hi);
   const int ks_w = max(ks, lo);         // the row's first key in the window
-  // the fast form's chunks start at multiples of C from win_lo (keys of the
-  // first chunk below lo are staged and never read)
-  const int first = kFast ? win_lo + ((lo - win_lo) & ~(C - 1)) : lo;
 
-  for (int c0 = first; c0 < hi; c0 += C) {
+  for (int c0 = lo; c0 < hi; c0 += C) {
     const int cn = min(C, hi - c0);
     for (int i0 = tid; i0 < cn * D; i0 += 2 * NT) {
       float kx[2], vx[2];
@@ -405,8 +324,8 @@ __device__ void attention_fwd_block(const FwdQueries& Q, const FwdKeys& K,
       for (int u = 0; u < 2; ++u) {
         const int i = i0 + u * NT;
         if (i < cn * D) {
-          stage_store(s_k + (i / D) * S + i % D, kx[u]);
-          stage_store(s_v + (i / D) * S + i % D, vx[u]);
+          s_k[(i / D) * S + i % D] = kx[u];
+          s_v[(i / D) * S + i % D] = vx[u];
         }
       }
     }
@@ -420,12 +339,7 @@ __device__ void attention_fwd_block(const FwdQueries& Q, const FwdKeys& K,
     }
     __syncthreads();
 
-    if constexpr (kProj && kFast) {
-      // rows of the chunk beyond cn project stale values nobody reads
-      if (tabs) project_mma<D, S>(s_k, C / 16, T.tk, h, head, T.bin_lo, nb,
-                                  s_kp, ps);
-      __syncthreads();
-    } else if (kProj) {
+    if (kProj) {
       // the chunk's keys projected onto Tk: a thread keeps one key in
       // registers and takes every (NT / C)-th bin, all three axes at once
       if (tabs && (tid & (C - 1)) < cn) {
@@ -471,13 +385,13 @@ __device__ void attention_fwd_block(const FwdQueries& Q, const FwdKeys& K,
             int packed = 0;
 #pragma unroll
             for (int ax = 0; ax < 3; ++ax) {
-              const int bn = table_bin<kSwin>(T, __fsub_rn(xq[ax], xk[ax]));
+              const int bn = table_bin<false>(T, __fsub_rn(xq[ax], xk[ax]));
               packed |= bn << (8 * ax);
               if (kProj) {
                 s += s_qp[t * ps + ax * nb + bn] + s_kp[j * ps + ax * nb + bn];
               } else {
-                const Stage* rq = s_tab + (ax * nb + bn) * S;
-                const Stage* rk = s_tab + (nb3 + ax * nb + bn) * S;
+                const float* rq = s_tab + (ax * nb + bn) * S;
+                const float* rk = s_tab + (nb3 + ax * nb + bn) * S;
                 float sq = 0.0f, sk = 0.0f;
 #pragma unroll
                 for (int c = 0; c < D; c += 4) {
@@ -509,7 +423,7 @@ __device__ void attention_fwd_block(const FwdQueries& Q, const FwdKeys& K,
       den *= r;
 #pragma unroll
       for (int c = 0; c < D; ++c) acc[c] *= r;
-      if (kMass && tabs && m > kNegInf) {
+      if (kProj && tabs && m > kNegInf) {
         for (int ab = sub; ab < nb3; ab += LPR) s_mass[t * ps + ab] *= r;
       }
       m = mx;
@@ -526,10 +440,10 @@ __device__ void attention_fwd_block(const FwdQueries& Q, const FwdKeys& K,
         float vc[D];
 #pragma unroll
         for (int c = 0; c < D; c += 4) lds4(s_v + j * S + c, vc + c);
-        if (!kMass && tabs) {
+        if (!kProj && tabs) {
 #pragma unroll
           for (int ax = 0; ax < 3; ++ax) {
-            const Stage* rv = s_tab +
+            const float* rv = s_tab +
                 (2 * nb3 + ax * nb + ((pk[u] >> (8 * ax)) & 255)) * S;
 #pragma unroll
             for (int c = 0; c < D; c += 4) {
@@ -540,14 +454,13 @@ __device__ void attention_fwd_block(const FwdQueries& Q, const FwdKeys& K,
             }
           }
         }
-        const float pv = op_round<kFast>(p);
 #pragma unroll
-        for (int c = 0; c < D; ++c) acc[c] = fmaf(pv, vc[c], acc[c]);
+        for (int c = 0; c < D; ++c) acc[c] = fmaf(p, vc[c], acc[c]);
       }
       l[u] = p;
     }
 
-    if (kMass && tabs) {
+    if (kProj && tabs) {
       // the row's masses: lane ax of the row takes the chunk's keys of the
       // row in order (p and bins by shuffles from the lanes that own them)
       // and adds a run of keys in one bin with one read-modify-write
@@ -582,36 +495,18 @@ __device__ void attention_fwd_block(const FwdQueries& Q, const FwdKeys& K,
     __syncthreads();
   }
 
-  // ---- end of block: the Tv term Σ mass·Tv (each lane every LPR-th
-  //      (axis, bin)), then the row's lanes add their parts ----------------
-  if (!kProj && kMass && T.tv != nullptr) {
-    // the per-pair form's staged Tv rows, [axis][bin][D]: each nonzero mass
-    for (int ab = sub; ab < nb3; ab += LPR) {
-      const float mv = op_round<kFast>(s_mass[t * ps + ab]);
-      if (mv != 0.0f) {
-        const Stage* rv = s_tab + (2 * nb3 + ab) * S;
-#pragma unroll
-        for (int c = 0; c < D; c += 4) {
-          float tv[4];
-          lds4(rv + c, tv);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[c + e] = fmaf(mv, tv[e], acc[c + e]);
-        }
-      }
-    }
-  }
+  // ---- end of block: the projection form's Tv term Σ mass·Tv (each lane
+  //      every LPR-th bin), then the row's lanes add their parts -----------
   if (kProj && T.tv != nullptr) {
     for (int b = sub; b < nb; b += LPR) {
-      const float mv[3] = {op_round<kFast>(s_mass[t * ps + b]),
-                           op_round<kFast>(s_mass[t * ps + nb + b]),
-                           op_round<kFast>(s_mass[t * ps + 2 * nb + b])};
+      const float mv[3] = {s_mass[t * ps + b], s_mass[t * ps + nb + b],
+                           s_mass[t * ps + 2 * nb + b]};
       if (mv[0] != 0.0f || mv[1] != 0.0f || mv[2] != 0.0f) {
         const float4* tv = table_row<D>(T.tv, T.bin_lo + b, h, head);
 #pragma unroll
         for (int f = 0; f < 3 * D / 4; ++f) {
           const float4 x = __ldg(tv + f);
-          const float e[4] = {op_round<kFast>(x.x), op_round<kFast>(x.y),
-                              op_round<kFast>(x.z), op_round<kFast>(x.w)};
+          const float e[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
           for (int w = 0; w < 4; ++w) {
             const int ca = 4 * f + w;   // channel ca / 3, axis ca % 3

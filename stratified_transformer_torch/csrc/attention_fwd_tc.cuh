@@ -5,8 +5,8 @@
 // sparse_band_attention.cu, the Pallas TPU kernels _band_kernel and
 // _sparse_kernel of stratified_transformer_tpu/ops/pallas/fused_attention.py
 // at fast=True (:86, :303), the mode the shipped YAMLs select. It computes
-// what attention_fwd_block (attention_fwd_common.cuh) computes at kFast, at
-// the same rounding sites: q (scaled in fp32, then rounded), k, v and the
+// what the plain fast versions (ops/attention.py) compute, at the same
+// rounding sites: q (scaled in fp32, then rounded), k, v and the
 // tables are bf16, rounded so where the block stages them; p is rounded
 // where it multiplies v, at the row's running maximum as of the end of its
 // 32-key chunk (chunks counted from the window's first key, as the TPU
@@ -24,9 +24,10 @@
 // adds two looked-up numbers per axis; Tv enters through the rows' bin
 // masses as Σ mass·Tv at the end of the block.
 //
-// What bounds it on the H100: bytes (PERF.md kernel table). The kFast
-// routine it replaces ran q·k and p·v on fp32 FMA from bf16 values
-// unpacked one by one and walked the bin masses with 32-step shuffle loops.
+// What bounds it on the H100: bytes (PERF.md kernel table). The fast mode
+// of the fp32 routine that it replaced ran q·k and p·v on fp32 FMA from
+// bf16 values unpacked one by one and walked the bin masses with 32-step
+// shuffle loops.
 // Here every product with bf16 operands is an mma.sync.m16n8k16 with fp32
 // accumulators:
 //   Q·Kᵀ and P·V per chunk (p rounded to bf16 in registers, the C fragment

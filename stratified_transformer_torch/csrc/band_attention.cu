@@ -45,32 +45,43 @@
 // rows over the whole window, the bin masses added in key order; 64-row
 // blocks, two per SM up to ScanNet's band slice of 48 table rows per axis
 // (band_attention_bf16_limits).
-// The swin mode (swin 1; Swin3D, rpe_mode "swin_window") is the same kernel,
-// instantiated with kSwin (the stratified instantiations carry no branch),
-// with Swin3D's bins (swin_bin, attention_common.cuh): xyz holds the points'
+// The swin mode (swin 1; Swin3D, rpe_mode "swin_window") takes Swin3D's
+// bins (swin_bin, attention_common.cuh): xyz holds the points'
 // window-quantized positions, the bin is round(u_i - u_j) + qgl - 1 over the
 // whole table of 2 qgl - 1 rows (31 at every stage of the shipped Swin
 // YAMLs), no slice. The TPU kernel has no such mode: the JAX package runs
 // Swin3D on its jnp path (ops/attention.py:400-560), whose function this
-// computes.
+// computes. Its fp32 form runs a routine of its own
+// (attention_fwd_swin.cuh: the table terms per pair, cp.async key chunks;
+// 64-row blocks, two per SM; band_attention_swin_limits); its fast form is
+// attention_fwd_block_tc's kSwin mode.
 
 #include "attention_fwd_common.cuh"
+#include "attention_fwd_swin.cuh"
 #include "attention_fwd_tc.cuh"
 
 namespace stratified {
 
 constexpr int kBandRows = 64;   // rows per block: 2 slices of a tile
+constexpr int kSwinRows = 64;   // the swin mode's rows per block
 
+// kSwin: the swin mode's routine (attention_fwd_swin.cuh), else the
+// projection form of attention_fwd_block; both run 256 threads a block.
 template <int D, int R, bool kSwin>
 __global__ void __launch_bounds__(kFwdThreads, 2)
 band_attention_kernel(FwdQueries Q, FwdKeys K, FwdTables T, FwdOutputs O,
                       int n, int h, int tile, int band, float scale) {
+  static_assert(kFwdThreads == kSwinThreads, "one block size");
   const int slices = tile / R;
   const int tile_idx = blockIdx.x / slices;
   const int t0 = tile_idx * tile;
-  attention_fwd_block<D, R, true, false, kSwin>(
-      Q, K, T, O, h, t0 + (blockIdx.x - tile_idx * slices) * R,
-      max(t0 - band, 0), min(t0 + tile + band, n), scale);
+  const int row0 = t0 + (blockIdx.x - tile_idx * slices) * R;
+  const int win_lo = max(t0 - band, 0), win_hi = min(t0 + tile + band, n);
+  if constexpr (kSwin)
+    attention_fwd_swin<D, R>(Q, K, T, O, h, row0, win_lo, win_hi, scale);
+  else
+    attention_fwd_block<D, R, true>(Q, K, T, O, h, row0, win_lo, win_hi,
+                                    scale);
 }
 
 __global__ void rel_bin_probe_kernel(const float* __restrict__ rel,
@@ -91,26 +102,72 @@ inline cudaError_t band_fwd_limits(int* rows, int* max_nb) {
       smem_room(band_attention_kernel<16, kBandRows, false>, &room);
   if (err != cudaSuccess) return err;
   *rows = kBandRows;
-  *max_nb = fwd_max_nb<kBandRows, true, false>(room);
+  *max_nb = fwd_max_nb<kBandRows, true>(room);
   return cudaSuccess;
 }
+
+inline cudaError_t band_fwd_swin_limits(int* rows, int* max_nb) {
+  size_t room = 0;
+  const cudaError_t err =
+      smem_room(band_attention_kernel<16, kSwinRows, true>, &room);
+  if (err != cudaSuccess) return err;
+  *rows = kSwinRows;
+  *max_nb = swin_max_nb<kSwinRows>(room);
+  return cudaSuccess;
+}
+
+// The fp32 kernel of the stratified bins, or (kSwin) of the swin mode, its
+// rows per block and its dynamic shared memory for nb table rows per axis.
+template <bool kSwin>
+struct BandFwd {
+  static constexpr int rows = kSwin ? kSwinRows : kBandRows;
+  static auto kernel() { return band_attention_kernel<16, rows, kSwin>; }
+  static size_t smem(int nb) {
+    return kSwin ? SwinSmem<kSwinRows>(nb).bytes()
+                 : FwdSmem<kBandRows, true>(nb).bytes();
+  }
+  // the swin mode: all of the SM's unified memory as shared memory, so
+  // that two blocks fit side by side (the stratified form reads its tables
+  // through the L1 cache)
+  static cudaError_t attributes(size_t bytes) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err == cudaSuccess && kSwin)
+      err = cudaFuncSetAttribute(
+          kernel(), cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    return err;
+  }
+};
 
 template <bool kSwin>
 cudaError_t band_fwd_launch(const FwdQueries& Q, const FwdKeys& K,
                             const FwdTables& T, const FwdOutputs& O, int n,
                             int h, int tile, int band, float scale,
                             cudaStream_t stream) {
-  constexpr int R = kBandRows;
-  const size_t smem = FwdSmem<R, true, false>(T.nb).bytes();
-  const cudaError_t err = cudaFuncSetAttribute(
-      band_attention_kernel<16, R, kSwin>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  using F = BandFwd<kSwin>;
+  const size_t smem = F::smem(T.nb);
+  const cudaError_t err = F::attributes(smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(n / R, h);
-  band_attention_kernel<16, R, kSwin>
+  dim3 grid(n / F::rows, h);
+  band_attention_kernel<16, F::rows, kSwin>
       <<<grid, kFwdThreads, smem, stream>>>(Q, K, T, O, n, h, tile, band,
                                             scale);
   return cudaGetLastError();
+}
+
+// Blocks of the fp32 launch (kSwin: the swin mode's) for nb table rows per
+// axis that one SM of the current device holds at once.
+template <bool kSwin>
+cudaError_t band_fwd_blocks(int nb, int* blocks) {
+  using F = BandFwd<kSwin>;
+  const size_t smem = F::smem(nb);
+  cudaError_t err = F::attributes(smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, F::kernel(),
+                                                        kFwdThreads, smem);
+  return err;
 }
 
 inline cudaError_t band_fwd(const float* q, const float* k, const float* v,
@@ -123,15 +180,17 @@ inline cudaError_t band_fwd(const float* q, const float* k, const float* v,
                             int nb_full, int swin, float bin_offset,
                             float inv_quant, float scale,
                             cudaStream_t stream) {
-  constexpr int R = kBandRows;
   int rows = 0, max_nb = 0;
-  cudaError_t err = band_fwd_limits(&rows, &max_nb);
+  cudaError_t err = swin ? band_fwd_swin_limits(&rows, &max_nb)
+                         : band_fwd_limits(&rows, &max_nb);
   if (err != cudaSuccess) return err;
   // Every stage of the ported configurations has D = 16; instantiate more
   // head sizes when a configuration needs them. The swin mode reads the
-  // whole table, no slice.
-  if (d != 16 || tile <= 0 || tile % R != 0 || n % tile != 0 || nb < 0 ||
-      nb > max_nb || (swin != 0 && (bin_lo != 0 || nb != nb_full)))
+  // whole table, no slice, and copies rows of q, k and v 16 bytes at a time.
+  if (d != 16 || tile <= 0 || tile % rows != 0 || n % tile != 0 || nb < 0 ||
+      nb > max_nb ||
+      (swin != 0 && (bin_lo != 0 || nb != nb_full || !rows16(q, q_rs) ||
+                     !rows16(k, k_rs) || !rows16(v, v_rs))))
     return cudaErrorInvalidValue;
   const FwdQueries Q{q, q_rs, nullptr, xyz, valid, seg_start, seg_end,
                      nullptr};
@@ -234,8 +293,9 @@ extern "C" int rel_bin_probe(const float* rel, int32_t* out, int n,
 // the points' quantized in-window positions, bin_lo 0 and nb = nb_full.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
 // head size other than 16, a tile that is not a multiple of 64, more table
-// rows per axis than band_attention_limits gives, or a table slice in the
-// swin mode).
+// rows per axis than band_attention_limits (the swin mode:
+// band_attention_swin_limits) gives, or in the swin mode a table slice or
+// rows of q, k, v that do not start on 16 bytes).
 extern "C" int band_attention_fwd(
     const float* q, const float* k, const float* v, const float* xyz,
     const int32_t* seg_start, const int32_t* seg_end, const uint8_t* valid,
@@ -272,6 +332,21 @@ extern "C" int band_attention_fwd_bf16(
 // a cudaError_t.
 extern "C" int band_attention_limits(int* rows, int* max_nb) {
   return static_cast<int>(stratified::band_fwd_limits(rows, max_nb));
+}
+
+// The blocks of band_attention_fwd's launch for nb table rows per axis
+// (swin as band_attention_fwd) that one SM of the current device holds at
+// once. Returns a cudaError_t.
+extern "C" int band_attention_occupancy(int nb, int swin, int* blocks) {
+  return static_cast<int>(swin ? stratified::band_fwd_blocks<true>(nb, blocks)
+                               : stratified::band_fwd_blocks<false>(nb,
+                                                                    blocks));
+}
+
+// The same for the fp32 swin mode (swin 1): 64 rows, two blocks per SM at
+// Swin3D's 31 table rows per axis.
+extern "C" int band_attention_swin_limits(int* rows, int* max_nb) {
+  return static_cast<int>(stratified::band_fwd_swin_limits(rows, max_nb));
 }
 
 // The same for the fast form: 64 rows, and on the H100 up to 101 table

@@ -68,7 +68,7 @@ sparse_band_attention_kernel(FwdQueries Q, FwdKeys K, FwdTables T,
   const int tile_idx = blockIdx.x / slices;
   const int t0 = tile_idx * tile;
   const int base = (min(Q.key_lo[t0], a_sz - s_band) / 16) * 16;
-  attention_fwd_block<D, R, false, false>(
+  attention_fwd_block<D, R, false>(
       Q, K, T, O, h, t0 + (blockIdx.x - tile_idx * slices) * R, base,
       base + s_band, scale);
 }
@@ -79,7 +79,7 @@ inline cudaError_t sparse_fwd_limits(int* rows, int* max_nb) {
       smem_room(sparse_band_attention_kernel<16, kSparseRows>, &room);
   if (err != cudaSuccess) return err;
   *rows = kSparseRows;
-  *max_nb = fwd_max_nb<kSparseRows, false, false>(room);
+  *max_nb = fwd_max_nb<kSparseRows, false>(room);
   return cudaSuccess;
 }
 
@@ -106,7 +106,7 @@ inline cudaError_t sparse_fwd(
   const FwdKeys K{k, k_rs, v, v_rs, sb_src, sb_xyz, sb_valid, sb_skey};
   const FwdTables T{tq, tk, tv, nb, 0, nb, bin_offset, inv_quant};
   const FwdOutputs O{acc, m, den};
-  const size_t smem = FwdSmem<R, false, false>(nb).bytes();
+  const size_t smem = FwdSmem<R, false>(nb).bytes();
   err = cudaFuncSetAttribute(sparse_band_attention_kernel<16, R>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));

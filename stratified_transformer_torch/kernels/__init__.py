@@ -81,12 +81,30 @@ def block_limits(source, dev, nb=None, fast=False, swin=False):
     rows they launch with for it (0 beyond the limit). ``fast``: the limits
     of the kernel's bf16 form (``<source>_bf16_limits``), whose staging in
     bf16 leaves room for more table rows. ``swin``: those of the fp32 band
-    backward's swin mode (``<source>_swin_limits``), whose blocks take
-    their own heights (the bf16 form's swin mode shares its limits)."""
+    kernels' swin mode (``<source>_swin_limits``), whose blocks take their
+    own heights and shared memory (the bf16 forms' swin mode shares their
+    limits; ``fast`` wins)."""
     symbol = source + ("_bf16" if fast else "_swin" if swin else "") \
         + "_limits"
     return _limits(source, symbol, dev.index if dev.index is not None
                    else torch.cuda.current_device(), nb)
+
+
+def occupancy(source, dev, nb, rpe_mode="stratified"):
+    """Blocks of the fp32 launch of the kernel of ``csrc/<source>.cu`` for
+    tables of ``nb`` rows per axis (the swin mode's with ``rpe_mode``
+    "swin_window") that one SM of the CUDA device ``dev`` holds at once,
+    from its C entry point ``<source>_occupancy``."""
+    fn = getattr(build.load(source), source + "_occupancy")
+    fn.argtypes = [I, I, ctypes.POINTER(I)]
+    fn.restype = I
+    blocks = I()
+    with torch.cuda.device(dev):
+        rc = fn(nb, int(rpe_mode == "swin_window"), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(
+            f"{source}_occupancy failed: cudaError_t {rc}")
+    return blocks.value
 
 
 def ptr(t):

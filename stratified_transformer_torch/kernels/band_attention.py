@@ -5,8 +5,8 @@ from __future__ import annotations
 import torch
 
 from stratified_transformer_torch.kernels import (
-    CudaKernel, F, I, P, block_limits, check_cuda_inputs, head_rows, ptr,
-    stream_of)
+    CudaKernel, F, I, P, block_limits, check_cuda_inputs, head_rows,
+    occupancy, ptr, stream_of)
 from stratified_transformer_torch.ops.attention import (
     band_attention_plain, band_slice, bin_constants, num_bins)
 
@@ -41,7 +41,8 @@ def launch_args(q, k, v, xyz, seg_start, seg_end, valid,
     n, h, d = q.shape
     nb_full = num_bins(*tables)
     bin_lo, nb = band_slice(nb_full, rpe_mode)
-    rows, max_nb = block_limits("band_attention", dev, fast=fast)
+    rows, max_nb = block_limits("band_attention", dev, fast=fast,
+                                swin=rpe_mode == "swin_window")
     if d not in HEAD_DIMS or tile <= 0 or n % tile or tile % rows:
         raise ValueError(
             f"band_attention: unsupported shape N={n}, d={d}, tile={tile} "
@@ -69,6 +70,13 @@ def launch_args(q, k, v, xyz, seg_start, seg_end, valid,
     inputs = (q, k, v) + geom + tuple(
         None if t is None else t[bin_lo:bin_lo + nb] for t in tables)
     return args, outs, inputs
+
+
+def blocks_per_sm(dev, nb, rpe_mode="stratified"):
+    """Blocks of the fp32 kernel's launch for tables of ``nb`` rows per
+    axis that one SM of the CUDA device ``dev`` holds at once (on the H100:
+    2 in the stratified bins and in the swin mode's 64-row blocks)."""
+    return occupancy("band_attention", dev, nb, rpe_mode)
 
 
 def band_attention(q, k, v, xyz, seg_start, seg_end, valid,

@@ -13,9 +13,9 @@ from __future__ import annotations
 import torch
 
 from stratified_transformer_torch.kernels import (
-    CudaKernel, F, I, P, block_limits, check_cuda_inputs, pack_tables,
-    pack_tables_bf16, ptr, rows16, stage_bf16, stream_of, sum_table_partials,
-    xyz_valid)
+    CudaKernel, F, I, P, block_limits, check_cuda_inputs, occupancy,
+    pack_tables, pack_tables_bf16, ptr, rows16, stage_bf16, stream_of,
+    sum_table_partials, xyz_valid)
 from stratified_transformer_torch.ops.attention import (
     band_attention_bwd_plain, band_slice, bin_constants, compose_band,
     num_bins, place_table_grads)
@@ -93,19 +93,7 @@ def blocks_per_sm(dev, nb, rpe_mode="stratified"):
     """Blocks of the fp32 kernel's launch for tables of ``nb`` rows per
     axis that one SM of the CUDA device ``dev`` holds at once (on the H100:
     1 in the stratified bins, 2 in the swin mode's 32-row blocks)."""
-    import ctypes
-
-    from stratified_transformer_torch.kernels import build
-    fn = build.load("band_attention_bwd").band_attention_bwd_occupancy
-    fn.argtypes = [I, I, ctypes.POINTER(I)]
-    fn.restype = I
-    blocks = I()
-    with torch.cuda.device(dev):
-        rc = fn(nb, int(rpe_mode == "swin_window"), ctypes.byref(blocks))
-    if rc != 0:
-        raise RuntimeError(
-            f"band_attention_bwd_occupancy failed: cudaError_t {rc}")
-    return blocks.value
+    return occupancy("band_attention_bwd", dev, nb, rpe_mode)
 
 
 def band_attention_bwd(q, k, v, xyz, seg_start, seg_end, valid, g, o, m, den,

@@ -144,3 +144,34 @@ def test_bins_exact_on_boundary_sweep(stage):
                                              64).numpy()
     np.testing.assert_array_equal(got, want)
     assert len(np.unique(want)) > 32
+
+
+@pytest.mark.parametrize("rpe_mode,fast,symbol", [
+    ("swin_window", False, "band_attention_swin_limits"),
+    ("swin_window", True, "band_attention_bf16_limits"),
+    ("stratified", False, "band_attention_limits"),
+    ("stratified", True, "band_attention_bf16_limits")])
+def test_band_forward_asks_each_form_its_own_limits(monkeypatch, rpe_mode,
+                                                    fast, symbol):
+    """The band forward's wrapper asks the fp32 swin mode's own limits
+    (``band_attention_swin_limits``: its routine's blocks and shared
+    memory), the bf16 form its own whether swin or not, and the stratified
+    fp32 form ``band_attention_limits``; it refuses tables beyond the
+    limit it is given before it touches the card."""
+    from stratified_transformer_torch import kernels
+    from stratified_transformer_torch.kernels import band_attention as band_k
+    asked = []
+    monkeypatch.setattr(kernels, "_limits",
+                        lambda *a: asked.append(a) or (64, 0))
+    monkeypatch.setattr(band_k, "check_cuda_inputs",
+                        lambda name, tensors: torch.device("cuda", 0))
+    n, h, d = 128, 1, 16
+    q = torch.zeros(n, h, d)
+    seg = torch.zeros(n, dtype=torch.int32)
+    tables = (torch.zeros(31, h, d, 3),) * 3
+    with pytest.raises(ValueError, match="table rows per axis"):
+        band_k.launch_args(q, q, q, torch.zeros(n, 3), seg, seg,
+                           torch.ones(n, dtype=torch.bool), *tables,
+                           window_size=0.16, quant_size=0.01, scale=0.25,
+                           band=0, fast=fast, rpe_mode=rpe_mode)
+    assert asked == [("band_attention", symbol, 0, None)]

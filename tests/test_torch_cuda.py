@@ -626,11 +626,13 @@ SWIN_QGL = int(SWIN_WS / SWIN_QS)
 SWIN_NBINS = 2 * SWIN_QGL - 1
 
 
-def _swin_case(dev, seed, shifted, n_pad=512, n_valid=430, h=3):
+def _swin_case(dev, seed, shifted, n_pad=512, n_valid=430, h=3,
+               qgl=SWIN_QGL):
     """A plan of 0.16 m windows (no far keys) over two scenes of a 0.6 m
     box, its points' window-quantized positions, q/k/v/g and 31-row
-    tables."""
+    tables (``qgl``: windows of qgl quanta, 2 qgl - 1 table rows)."""
     from stratified_transformer_torch.models.attention import swin_positions
+    ws, nbins = qgl * SWIN_QS, 2 * qgl - 1
     gen = torch.Generator().manual_seed(seed)
     xyz = torch.rand(n_pad, 3, generator=gen) * 0.6
     batch = torch.cat([torch.zeros(n_valid // 2, dtype=torch.int32),
@@ -638,15 +640,15 @@ def _swin_case(dev, seed, shifted, n_pad=512, n_valid=430, h=3):
                        torch.full((n_pad - n_valid,), 2, dtype=torch.int32)])
     valid = torch.arange(n_pad) < n_valid
     plan = plan_mod.build_attention_plan(
-        xyz.to(dev), batch.to(dev), valid.to(dev), SWIN_WS, shifted=shifted)
+        xyz.to(dev), batch.to(dev), valid.to(dev), ws, shifted=shifted)
     u = swin_positions(plan.xyz_sorted, plan.grid_start,
-                       SWIN_WS / 2 if shifted else 0.0, SWIN_WS, SWIN_QS)
+                       ws / 2 if shifted else 0.0, ws, SWIN_QS)
     q, k, v, g = (torch.randn(n_pad, h, 16, generator=gen).to(dev)
                   for _ in range(4))
-    tables = tuple((torch.randn(SWIN_NBINS, h, 16, 3, generator=gen) * 0.05
+    tables = tuple((torch.randn(nbins, h, 16, 3, generator=gen) * 0.05
                     ).to(dev) for _ in range(3))
     geom = (u, plan.seg_start, plan.seg_end, plan.valid_sorted)
-    kw = dict(window_size=SWIN_WS, quant_size=SWIN_QS, scale=16 ** -0.5,
+    kw = dict(window_size=ws, quant_size=SWIN_QS, scale=16 ** -0.5,
               band=128, tile=128, rpe_mode="swin_window")
     return geom, (q, k, v), g, tables, kw
 
@@ -694,8 +696,8 @@ def test_swin_kernels_match_plain(cuda_device, fast, shifted):
             torch.testing.assert_close(a, b, rtol=BWD_RTOL, atol=BWD_ATOL)
 
 
-def _swin_bwd_case(dev, case, seed=11, n=256, h=3):
-    """Inputs of the fp32 swin backward for one of the cases below, on
+def _swin_bwd_case(dev, case, seed=11, n=256, h=3, qgl=SWIN_QGL):
+    """Inputs of the fp32 swin kernels for one of the cases below, on
     windows given as key segments (the band kernel's semantics: a row sees
     ``[seg_start, seg_end)`` of its tile's reach, both ends valid):
     "straddle": windows across the 32-row blocks' and the 32-key chunks'
@@ -703,10 +705,11 @@ def _swin_bwd_case(dev, case, seed=11, n=256, h=3):
     0 and 30 and the clip past the table's edge); "continuous": positions
     off any lattice (the bins round ``rel`` half to even); "no_key": valid
     rows whose segment is empty and invalid keys inside windows; "shifted":
-    a plan at the shifted parity (`_swin_case`). Returns ``(geom, qkv, g,
-    tables, kw)`` as `_swin_case`."""
+    a plan at the shifted parity (`_swin_case`). ``qgl``: windows of qgl
+    quanta (16, 31 table rows; the clip at u = qgl - 1 and qgl). Returns
+    ``(geom, qkv, g, tables, kw)`` as `_swin_case`."""
     if case == "shifted":
-        return _swin_case(dev, seed, True, n_pad=1024, n_valid=900)
+        return _swin_case(dev, seed, True, n_pad=1024, n_valid=900, qgl=qgl)
     gen = torch.Generator().manual_seed(seed)
     # windows: [start, end) ranges that straddle rows 32, 64, ... and the
     # chunks counted from a block's first key
@@ -718,23 +721,23 @@ def _swin_bwd_case(dev, case, seed=11, n=256, h=3):
     valid = torch.arange(n) < edges[-1]
     seg_start[edges[-1]:] = seg_end[edges[-1]:] = edges[-1]
     if case == "clip":
-        u = torch.tensor([0.0, 15.0, 16.0])[
+        u = torch.tensor([0.0, qgl - 1.0, float(qgl)])[
             torch.randint(0, 3, (n, 3), generator=gen)]
     elif case == "continuous":
-        u = torch.rand(n, 3, generator=gen) * 16.0
+        u = torch.rand(n, 3, generator=gen) * float(qgl)
     else:
-        u = torch.randint(0, 16, (n, 3), generator=gen).to(torch.float32)
+        u = torch.randint(0, qgl, (n, 3), generator=gen).to(torch.float32)
     if case == "no_key":
         # rows 40-49 see no key; keys 80, 81 and 150 are invalid
         seg_end[40:50] = seg_start[40:50]
         valid[[80, 81, 150]] = False
     q, k, v, g = (torch.randn(n, h, 16, generator=gen).to(dev)
                   for _ in range(4))
-    tables = tuple((torch.randn(SWIN_NBINS, h, 16, 3, generator=gen) * 0.05
+    tables = tuple((torch.randn(2 * qgl - 1, h, 16, 3, generator=gen) * 0.05
                     ).to(dev) for _ in range(3))
     geom = (u.to(dev), seg_start.to(dev), seg_end.to(dev), valid.to(dev))
-    kw = dict(window_size=SWIN_WS, quant_size=SWIN_QS, scale=16 ** -0.5,
-              band=128, tile=128, rpe_mode="swin_window")
+    kw = dict(window_size=qgl * SWIN_QS, quant_size=SWIN_QS,
+              scale=16 ** -0.5, band=128, tile=128, rpe_mode="swin_window")
     return geom, (q, k, v), g, tables, kw
 
 
@@ -803,6 +806,77 @@ def test_swin_bwd_block_limits(cuda_device):
     _, (_, dk_part, _, dt_part), _ = band_bwd_k.launch_args(
         *qkv, *geom, g, g, g[..., 0], g[..., 0], *tables, **kw)
     assert dk_part.shape[0] == dt_part.shape[0] == qkv[0].shape[0] // 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qgl", [SWIN_QGL, 20])
+@pytest.mark.parametrize("case", ["straddle", "clip", "continuous", "no_key",
+                                  "shifted"])
+def test_swin_fwd_matches_plain_at_its_height(cuda_device, case, qgl):
+    """The fp32 band forward in the swin mode (its own routine, 64-row
+    blocks, 32-key chunks) against `band_attention_plain` on windows that
+    straddle its blocks and key chunks, at the bins' edges and clip, off
+    any lattice, with rows that see no key, and at the shifted parity, at
+    Swin3D's 31 table rows and at 39 (windows of 20 quanta): one launch,
+    phase 4's tolerances, and the empty triple (m = -1e30, den = 0, acc =
+    0) for rows that see no key."""
+    geom, qkv, _, tables, kw = _swin_bwd_case(cuda_device, case, qgl=qgl)
+    assert tables[0].shape[0] == 2 * qgl - 1
+    with torch.no_grad():
+        before = band_k.KERNEL.launches
+        got = band_k.band_attention(*qkv, *geom, *tables, **kw)
+        want = plain.band_attention_plain(*qkv, *geom, *tables, **kw)
+    torch.cuda.synchronize()
+    assert band_k.KERNEL.launches == before + 1
+    _assert_triple(got, want)
+    if case == "no_key":
+        acc, m, den = got
+        assert bool((m[40:50] == -1e30).all())
+        assert not bool(den[40:50].any()) and not bool(acc[40:50].any())
+
+
+@pytest.mark.cuda
+def test_swin_fwd_two_launches_are_bit_identical(cuda_device):
+    """No float atomics and every sum in a fixed order: two launches of the
+    fp32 swin forward on the same inputs give the same bits."""
+    for case in ("straddle", "shifted"):
+        geom, qkv, _, tables, kw = _swin_bwd_case(cuda_device, case)
+        with torch.no_grad():
+            runs = [band_k.band_attention(*qkv, *geom, *tables, **kw)
+                    for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_swin_fwd_block_limits(cuda_device):
+    """`block_limits` gives the fp32 swin forward its own limits: 64-row
+    blocks, two per SM at Swin3D's 31 table rows, and room for every table
+    the fp32 swin backward takes (up to 112 rows per axis: a forward at 111
+    rows against the plain version); beyond its limit the wrapper raises
+    the ValueError before any launch. The stratified fp32 form keeps its
+    limits and two blocks per SM."""
+    rows, max_nb = band_k.block_limits("band_attention", cuda_device,
+                                       swin=True)
+    assert rows == 64
+    assert band_k.blocks_per_sm(cuda_device, SWIN_NBINS, "swin_window") == 2
+    assert band_k.blocks_per_sm(cuda_device, 40) == 2
+    bwd_max = band_bwd_k.block_limits("band_attention_bwd", cuda_device, 31,
+                                      swin=True)[1]
+    assert max_nb >= bwd_max >= 111
+    geom, qkv, _, tables, kw = _swin_bwd_case(cuda_device, "continuous",
+                                              qgl=56)
+    with torch.no_grad():
+        _assert_triple(band_k.band_attention(*qkv, *geom, *tables, **kw),
+                       plain.band_attention_plain(*qkv, *geom, *tables,
+                                                  **kw))
+    qgl = (max_nb + 2) // 2             # 2 qgl - 1 > max_nb
+    geom, qkv, _, tables, kw = _swin_bwd_case(cuda_device, "straddle",
+                                              qgl=qgl)
+    before = band_k.KERNEL.launches
+    with pytest.raises(ValueError, match="table rows per axis"):
+        band_k.band_attention(*qkv, *geom, *tables, **kw)
+    assert band_k.KERNEL.launches == before
 
 
 @pytest.mark.cuda

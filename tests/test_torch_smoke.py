@@ -233,21 +233,22 @@ def test_chip_smoke_refuses_unknown_arguments_or_a_missing_card(capsys):
     (["--fwd-phases"], "--fwd-phases"),
     (["--prep-only"], "--prep-only"),
     (["--swin-bwd-phases"], "--swin-bwd-phases"),
+    (["--swin-fwd-phases"], "--swin-fwd-phases"),
 ])
 def test_parse_args_picks_the_phase_run_alone(argv, want):
     assert chip_smoke.parse_args(argv) == want
     if want is not None:
         # the kernels it builds: the forward pair for phases 4 and 10 and
         # the IoU timing, all four attention kernels for phases 11-14 and
-        # 16, the two band kernels for phase 15 and the swin backward's
-        # split (Swin3D has no far keys)
+        # 16, the two band kernels for phase 15 and the swin kernels'
+        # splits (Swin3D has no far keys)
         both = chip_smoke.FWD_KERNELS + chip_smoke.BWD_KERNELS
         band = ("band_attention", "band_attention_bwd")
         assert chip_smoke.PHASE_ONLY[want] == {
             "--bwd-only": chip_smoke.BWD_KERNELS, "--loop-only": both,
             "--scannet-only": both, "--dcf-only": both, "--fast-only": both,
             "--swin-only": band, "--dp-only": both,
-            "--swin-bwd-phases": band,
+            "--swin-bwd-phases": band, "--swin-fwd-phases": band,
         }.get(want, chip_smoke.FWD_KERNELS)
 
 
@@ -300,6 +301,28 @@ def test_swin_bwd_phase_cuts_match_the_source(phase):
         "band_attention", "band_attention_bwd")
 
 
+@pytest.mark.parametrize("phase", list(chip_smoke.SWIN_FWD_PHASE_CUTS))
+def test_swin_fwd_phase_cuts_match_the_source(phase):
+    """Each ``--swin-fwd-phases`` cut names text that occurs exactly once in
+    its forward source in ``csrc/``, so that a variant build cuts that
+    phase and only it, and the variant still parses as C++ text (balanced
+    braces); the flag's variants build the band forward alone and call its
+    fp32 entry point."""
+    import os
+    from stratified_transformer_torch.kernels import build
+    cuts = chip_smoke.SWIN_FWD_PHASE_CUTS[phase]
+    assert cuts
+    for fn, old, new in cuts:
+        with open(os.path.join(build.CSRC, fn)) as f:
+            text = f.read()
+        assert text.count(old) == 1, (fn, old)
+        cut = text.replace(old, new)
+        assert cut != text and cut.count("{") - cut.count("}") == (
+            text.count("{") - text.count("}")), (fn, old)
+    assert chip_smoke.PHASE_ONLY["--swin-fwd-phases"] == (
+        "band_attention", "band_attention_bwd")
+
+
 def test_bincount_iou_equals_the_port_counters():
     """The ``--iou-only`` comparison form counts what the port's
     scatter-add counters count."""
@@ -329,7 +352,7 @@ def test_parse_args_refuses_anything_else(argv):
                                   "--iou-only", "--scannet-only",
                                   "--dcf-only", "--swin-only", "--dp-only",
                                   "--fwd-phases", "--prep-only",
-                                  "--swin-bwd-phases"])
+                                  "--swin-bwd-phases", "--swin-fwd-phases"])
 def test_phase_only_runs_need_a_card(flag, capsys):
     if torch.cuda.is_available():
         pytest.skip("checks the run without a card")

@@ -310,6 +310,28 @@ def _kernel_case(case, seed=11, n=256):
 
 @pytest.mark.parametrize("case", ["straddle", "clip", "continuous",
                                   "no_key"])
+def test_plain_swin_forward_matches_jax_on_the_kernel_cases(case):
+    """The plain swin forward, which the CUDA tests hold the fp32 kernel to
+    on these cases, merged, against JAX's jnp swin attention; rows whose
+    segment is empty give the empty triple (m = -1e30, den = 0, acc = 0)."""
+    geom, qkv, _, tables = _kernel_case(case)
+    want = np.asarray(jax_attn.stratified_attention(
+        *map(jnp.asarray, qkv + geom), None, None,
+        *map(jnp.asarray, tables), **KW, band=128, tile=128,
+        rpe_mode="swin_window"))
+    tgeom = tuple(torch.from_numpy(x) for x in geom)
+    acc, m, den = plain.band_attention_plain(
+        *map(_t, qkv), *tgeom, *map(_t, tables), **KW, band=128, tile=128,
+        rpe_mode="swin_window")
+    got = plain.merge([(acc, m, den)])[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    if case == "no_key":
+        assert bool((m[40:50] == -1e30).all())
+        assert not den[40:50].any() and not acc[40:50].any()
+
+
+@pytest.mark.parametrize("case", ["straddle", "clip", "continuous",
+                                  "no_key"])
 def test_plain_swin_backward_matches_jax_on_the_kernel_cases(case):
     """The plain swin backward, which the CUDA tests hold the fp32 kernel
     to on these cases, against JAX's vjp of its jnp swin attention."""
