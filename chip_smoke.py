@@ -34,7 +34,8 @@ Swin3D plans (`swin_bwd_phases`); ``--swin-fwd-phases`` does the same for
 the fp32 swin forward with variants of the forward source
 (`swin_fwd_phases`); both also report the kernel's blocks per SM;
 ``--iou-only`` builds the two forward kernels and times the train and eval
-steps' IoU counters (`iou_phase`). Each prints its
+steps' IoU counters (`iou_phase`); ``--probe-only`` builds the six
+kernels and runs phase 9 alone. Each prints its
 times as one JSON line (``--fwd-only`` also per stage and parity). Copied into another checkout (say a parent commit
 unpacked beside the tree) and run from there, it times that checkout's
 kernels and wrappers the same way, so two versions can be compared in
@@ -77,7 +78,15 @@ Phases, each fatal on failure:
      kernel equal to its plain version on the CPU on all 65536 sweep values
      (``[probe]`` line with the probe's counts), and the cache-key probe run
      twice in fresh processes, both reporting the same keys as this process
-     and every library reused; both probe kernels timed;
+     and every library reused; both probe kernels equal to their plain
+     versions at PROBE_TAILS' sizes and the entry size, at element offsets
+     0 and 1 (not 16-byte aligned), and on every input that is timed (the
+     entry shapes, PROBE_LARGE = 2^26 values; ``max_abs_err`` is the
+     largest difference over all of these); each timed at its entry point's size and at PROBE_LARGE by device time
+     (`device_busy_ms`), beside its launch floor (an empty kernel on the
+     same grid), plain version, ``torch.mul(x, 2)`` for ``x * 2``, bound
+     and share of the bound (``[probe]`` lines; the old reading, CUDA
+     events around 200 launches from the host, kept as "host enqueue");
  10. whole-scene evaluation (``test.py``'s protocol, no host pyramid):
      (a) at phase 2's batch, the on-device stem radius neighbours and
      geometry pyramid (every sampling, kNN, 3-NN and member mask) and FPS
@@ -898,12 +907,215 @@ def profile_call(label, fn):
     return wall_ms, busy_ms, by_name
 
 
+# phase 9: the sizes at which both probe kernels are held against their
+# plain versions besides their entry points' (each also on a view one
+# element in, not 16-byte aligned): n % 4 tails on the one-element-a-thread
+# path, and above a wave of the card a vector pass whose last chunk is
+# partial with a tail of 3; and the size at which bytes, not launches, set
+# their time: 2^26 fp32 values, 256 MiB in and 256 MiB out, far past the
+# H100's 50 MB L2
+PROBE_TAILS = (1, 3, 5, 4097, 65539, (1 << 20) + 1203)
+PROBE_LARGE = 1 << 26
+# fp32 operations per element of the probes' functions: the bin formula's
+# multiply, round, divide, add, subtract, divide and floor; x * 2's multiply
+PROBE_OPS = {"bin_math_probe": 7, "cache_key_probe": 1}
+# calls per device-busy reading at the entry points' sizes and at
+# PROBE_LARGE: their launches must fit the card's queue of pending launches
+# (about a thousand; the plain bin formula takes 11 a call), or the host
+# waits for the card and `device_busy_ms` refuses the reading
+PROBE_REPS = {"entry": 50, "large": 20}
+# rounds of phase 9's readings, the order reversed every other round; each
+# time is the median (a reading now and then runs long on the H100, for any
+# design: PERF.md)
+PROBE_ROUNDS = 5
+
+
+def sweep_tiles(tiles, device="cpu"):
+    """The bin-math probe's `sweep` repeated ``tiles`` times down its rows,
+    made on ``device``: ``[256 * tiles, 256]`` fp32, every ``[256,256]``
+    tile the sweep itself (1024 tiles are PROBE_LARGE values)."""
+    from stratified_transformer_torch.tools import bin_math_probe as bin_p
+    return torch.from_numpy(bin_p.sweep()).to(device).repeat(tiles, 1)
+
+
+def probe_inputs(dev):
+    """Phase 9's timing inputs on ``dev`` by (kernel, size "entry" or
+    "large"): the bin-math probe's sweep (``[256,256]``; `sweep_tiles` at
+    PROBE_LARGE) and random values from seed 0 for ``x * 2``
+    (``[128,128]``; PROBE_LARGE), each as ``(x, launch, plain)``:
+    ``launch(fn)`` gives a call of a probe entry point ``fn`` on ``x`` (the
+    wrapper's C arguments, into an output buffer it returns), ``plain()``
+    the plain version's output on the card."""
+    from stratified_transformer_torch.kernels import ptr, stream_of
+    bin_p, key_p = probe_kernel_modules().values()
+    ws, qs = bin_p.WS, bin_p.QS
+    args = {"bin_math_probe": (float(np.float32(2 * ws)),
+                               float(np.float32(qs))), "cache_key_probe": ()}
+    plain = {"bin_math_probe": lambda x: bin_p.bin_formula_plain(x, ws, qs),
+             "cache_key_probe": key_p.times_two_plain}
+    stream = stream_of(dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    xs = {("bin_math_probe", "entry"): sweep_tiles(1, device=dev),
+          ("bin_math_probe", "large"): sweep_tiles(
+              PROBE_LARGE // (1 << 16), device=dev),
+          ("cache_key_probe", "entry"): torch.randn(128, 128, device=dev,
+                                                    generator=gen),
+          ("cache_key_probe", "large"): torch.randn(PROBE_LARGE, device=dev,
+                                                    generator=gen)}
+    out = {}
+    for (name, size), x in xs.items():
+        y = torch.empty(x.shape, device=dev, dtype=(
+            torch.int32 if name == "bin_math_probe" else torch.float32))
+
+        def launch(fn, x=x, y=y, a=args[name]):
+            def call():
+                fn(ptr(x), ptr(y), x.numel(), *a, stream)
+                return y
+            return call
+        out[name, size] = x, launch, (lambda x=x, f=plain[name]: f(x))
+    return out
+
+
+def probe_checks(dev, inputs):
+    """Phase 9's checks beyond the entry points: both probe kernels, through
+    their wrappers, equal to their plain versions on the CPU at every size
+    of PROBE_TAILS and at the entry size, each as a view at element 0 and
+    at element 1 (not 16-byte aligned), and on every input that
+    `probe_times` times (``inputs``, `probe_inputs`): at the entry shapes
+    against the plain versions on the CPU, at PROBE_LARGE the bin-math
+    kernel against the plain version of one sweep tiled, the cache-key
+    kernel against the plain version on the card. Raises on a mismatch;
+    returns the number of comparisons and the largest |kernel - plain| of
+    each kernel over them."""
+    bin_p, key_p = probe_kernel_modules().values()
+    ws, qs = bin_p.WS, bin_p.QS
+    wrapper = {"bin_math_probe": lambda x: bin_p.bin_formula(x, ws, qs),
+               "cache_key_probe": key_p.times_two}
+    plain = {"bin_math_probe": lambda x: bin_p.bin_formula_plain(x, ws, qs),
+             "cache_key_probe": key_p.times_two_plain}
+    flat = sweep_tiles(max(PROBE_TAILS) // (1 << 16) + 1).reshape(-1)
+    flat_dev = flat.to(dev)
+    bad, n_checks, err = [], 0, dict.fromkeys(wrapper, 0.0)
+
+    def check(name, label, got, want):
+        nonlocal n_checks
+        n_checks += 1
+        want = want.to(got.device)
+        err[name] = max(err[name], float(
+            (got.double() - want.double()).abs().max()))
+        if not torch.equal(got, want):
+            bad.append(f"{name} {label}: {int((got != want).sum())} values "
+                       "differ")
+
+    for n in PROBE_TAILS + (1 << 16,):
+        for off in (0, 1):
+            x = flat_dev[off:off + n]
+            if off and x.data_ptr() % 16 == 0:
+                raise AssertionError("the offset view is 16-byte aligned")
+            for name in wrapper:
+                check(name, f"n={n} offset={off}", wrapper[name](x),
+                      plain[name](flat[off:off + n]))
+    for (name, size), (x, _, plain_dev) in inputs.items():
+        if size == "entry":
+            want = plain[name](x.cpu())
+        elif name == "bin_math_probe":
+            want = plain[name](torch.from_numpy(bin_p.sweep())).to(
+                dev).repeat(x.shape[0] // 256, 1)
+        else:
+            want = plain_dev()
+        check(name, f"timed input {list(x.shape)}", wrapper[name](x), want)
+    torch.cuda.synchronize()
+    if bad:
+        raise AssertionError("probe kernels differ from their plain "
+                             "versions: " + "; ".join(bad))
+    return n_checks, err
+
+
+def probe_times(dev, report, inputs):
+    """Phase 9's times: each probe kernel on ``inputs`` (`probe_inputs`: at
+    its entry point's size, the ``[256,256]`` sweep and the ``[128,128]``
+    tensor, and at PROBE_LARGE), by `device_busy_ms` (calls queued behind a
+    sleep kernel, so the card's time and not the host's enqueue rate),
+    beside its launch floor (an empty kernel on the same grid through the
+    same ctypes path, where the tool module has one: ``FLOOR``), its plain
+    version, ``torch.mul(x, 2)`` for ``x * 2``, and its bound: each the
+    median of PROBE_ROUNDS readings taken in rounds (kernel, floor, plain,
+    library, then the reverse). At the entry size also the old reading,
+    CUDA events around 200 launches from the host (the host's enqueue
+    rate). Fills ``report[name]``: ``ms`` etc. at the entry size, ``probe``
+    with both sizes' readings."""
+    from stratified_transformer_torch.kernels import stream_of
+    stream = stream_of(dev)
+    for name, mod in probe_kernel_modules().items():
+        r = report[name]
+        r["probe"] = {}
+        floor_fn = getattr(mod, "FLOOR", None)
+        for size in ("entry", "large"):
+            x, launch, plain_fn = inputs[name, size]
+            n = x.numel()
+            kernel = launch(mod.KERNEL)
+            calls = {"kernel": kernel,
+                     "floor": (None if floor_fn is None else
+                               lambda: floor_fn(n, stream)),
+                     "plain": plain_fn,
+                     "library": (None if name == "bin_math_probe" else
+                                 lambda: torch.mul(x, 2))}
+            calls = {k: fn for k, fn in calls.items() if fn is not None}
+            readings = {k: [] for k in calls}
+            for k in range(PROBE_ROUNDS):
+                for key in (list(calls) if k % 2 == 0
+                            else list(reversed(list(calls)))):
+                    readings[key].append(
+                        device_busy_ms(calls[key], PROBE_REPS[size]))
+            med = {k: float(np.median(v)) for k, v in readings.items()}
+            ms, plain = med["kernel"], med["plain"]
+            floor, library = med.get("floor"), med.get("library")
+            t_bytes = n * 8 / PEAK_BYTES * 1e3
+            t_ops = n * PROBE_OPS[name] / PEAK_FP32 * 1e3
+            bound = max(t_bytes, t_ops)
+            rec = {"values": n, "ms": ms, "ms_readings": readings["kernel"],
+                   "floor_ms": floor, "plain_ms": plain,
+                   "library_ms": library, "bound_ms": bound,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bytes_ms": t_bytes, "operations_ms": t_ops,
+                   "share_of_bound": bound / ms}
+            if library is not None:
+                rec["library_ms_readings"] = readings["library"]
+            if size == "entry":
+                rec["host_enqueue_ms"] = cuda_time_ms(kernel, 200)
+            r["probe"][size] = rec
+            log(f"[probe] {name} at {n} values ({size}): device "
+                f"{ms * 1e3:.3f} us (median of "
+                + ", ".join(f"{t * 1e3:.3f}" for t in readings["kernel"])
+                + "), launch floor "
+                + ("not measured (no FLOOR entry point)" if floor is None
+                   else f"{floor * 1e3:.3f} us")
+                + f", bound {bound * 1e3:.3f} us by {rec['bound_by']} (bytes "
+                f"{t_bytes * 1e3:.3f}, operations {t_ops * 1e3:.3f}), "
+                f"share of bound {100 * bound / ms:.1f}%; plain "
+                f"{plain * 1e3:.3f} us, library "
+                + ("none" if library is None else
+                   f"{library * 1e3:.3f} us (torch.mul(x, 2); "
+                   + ", ".join(f"{t * 1e3:.3f}"
+                               for t in readings["library"]) + ")")
+                + (f"; host enqueue {rec['host_enqueue_ms'] * 1e3:.3f} us "
+                   "(CUDA events around 200 launches from the host, not "
+                   "device time)" if size == "entry" else ""))
+        e = r["probe"]["entry"]
+        r.update(ms=e["ms"], plain_ms=e["plain_ms"],
+                 library_ms=e["library_ms"], bound_ms=e["bound_ms"],
+                 bound_by={e["bound_by"]: e["bound_ms"]})
+    log("[probe] library_ms: null for bin_math_probe — no single PyTorch call "
+        "computes the bin formula (round, divide, add, divide, floor); "
+        "torch.mul(x, 2) for cache_key_probe")
+
+
 def probe_phase(dev, report):
-    """Phase 9: the two probes through their entry points, then their
-    kernels timed against the plain versions (and ``torch.mul`` for
-    ``x * 2``). Fills ``report``; returns each probe kernel's launches by
-    its entry point."""
-    from stratified_transformer_torch.kernels import build, ptr, stream_of
+    """Phase 9: the two probes through their entry points, both probe
+    kernels against their plain versions beyond them (`probe_checks`),
+    then their times (`probe_times`). Fills ``report``; returns each probe
+    kernel's launches by its entry point."""
+    from stratified_transformer_torch.kernels import build
     from stratified_transformer_torch.tools import bin_math_probe as bin_p
     from stratified_transformer_torch.tools import cache_key_probe as key_p
     for m_ in (bin_p, key_p):
@@ -941,48 +1153,16 @@ def probe_phase(dev, report):
     log(f"[probe] cache_key_probe: two fresh processes, identical keys for "
         f"all {len(here)} sources ({json.dumps(keys[0])}), every library "
         f"reused, sum 32768; {nvcc}")
-
-    # timing: the bare launches, the plain versions, the library call
-    x = torch.from_numpy(bin_p.sweep()).to(dev)
-    bins = torch.empty(x.shape, dtype=torch.int32, device=dev)
-    two_ws, qs = float(np.float32(2 * bin_p.WS)), float(np.float32(bin_p.QS))
-    xr = torch.randn(128, 128,
-                     generator=torch.Generator().manual_seed(0)).to(dev)
-    doubled = torch.empty_like(xr)
-    cases = {
-        "bin_math_probe": (
-            lambda: bin_p.KERNEL(ptr(x), ptr(bins), x.numel(), two_ws, qs,
-                                 stream_of(dev)),
-            lambda: bin_p.bin_formula_plain(x, bin_p.WS, bin_p.QS), None,
-            x.numel() * 8,
-            lambda: float((bin_p.bin_formula(x, bin_p.WS, bin_p.QS).cpu()
-                           - bin_p.bin_formula_plain(x.cpu(), bin_p.WS,
-                                                     bin_p.QS)).abs().max())),
-        "cache_key_probe": (
-            lambda: key_p.KERNEL(ptr(xr), ptr(doubled), xr.numel(),
-                                 stream_of(dev)),
-            lambda: key_p.times_two_plain(xr), lambda: torch.mul(xr, 2),
-            xr.numel() * 8,
-            lambda: float((key_p.times_two(xr) - key_p.times_two_plain(
-                xr)).abs().max())),
-    }
-    for name, (kern, plain_fn, lib_fn, n_bytes, err_fn) in cases.items():
-        r = report[name]
-        r["max_abs_err"] = err_fn()
-        r["ms"] = cuda_time_ms(kern, 200)
-        r["plain_ms"] = cuda_time_ms(plain_fn, 200)
-        r["library_ms"] = None if lib_fn is None else cuda_time_ms(lib_fn,
-                                                                   200)
-        r["bound_ms"] = n_bytes / PEAK_BYTES * 1e3
-        r["bound_by"] = {"bytes": r["bound_ms"]}
-        log(f"[probe] {name}: {r['ms'] * 1e3:.2f} us per launch (plain "
-            f"{r['plain_ms'] * 1e3:.2f} us, library "
-            + ("none" if lib_fn is None else f"{r['library_ms'] * 1e3:.2f} us")
-            + f", bound {r['bound_ms'] * 1e3:.3f} us by bytes); max abs err "
-            f"{r['max_abs_err']}")
-    log("[probe] library_ms: null for bin_math_probe — no single PyTorch call "
-        "computes the bin formula (round, divide, add, divide, floor); "
-        "torch.mul(x, 2) for cache_key_probe")
+    inputs = probe_inputs(dev)
+    n_checks, err = probe_checks(dev, inputs)
+    log(f"[probe] both kernels equal to their plain versions in {n_checks} "
+        f"comparisons: sizes {list(PROBE_TAILS)} and 65536 at element "
+        "offsets 0 and 1 (not 16-byte aligned), and the timed inputs "
+        f"(the entry shapes and {PROBE_LARGE} values); max abs err "
+        f"{json.dumps(err)}")
+    probe_times(dev, report, inputs)
+    for name in PROBE_KERNELS:
+        report[name]["max_abs_err"] = err[name]
     return launched
 
 
@@ -1211,7 +1391,9 @@ def bwd_phase(cfg, levels, plans, dev, report, fast=False, variants=None):
     under ``wrapper_ms``. ``fast`` (phase 14): the bf16 forms against the
     plain fast versions, every gradient within FAST_GRAD_REL_L2 relative
     L2, reported under ``<name>_bf16`` with the fp32 form's time on the
-    same inputs (``fp32_ms``) and no wrapper timing; the bound counts the
+    same inputs (``fp32_ms``) and the wrapper's device-busy time alone
+    (``wrapper_busy_ms``: its bf16 copies, zeroed partials, launch and
+    sums, `device_busy_ms`); the bound counts the
     bytes of the fp32 form's inputs, the function's as the model gives
     them. ``variants`` (``--bwd-phases``, with ``fast``): per-step times of
     each variant build's entry point of the same form on the same
@@ -1226,10 +1408,11 @@ def bwd_phase(cfg, levels, plans, dev, report, fast=False, variants=None):
     suffix = FAST if fast else ""
     for name in BWD_KERNELS:
         r = report[name + suffix]
+        r["wrapper_busy_ms"] = 0.0
         if fast:
             r["fp32_ms"] = 0.0
         else:
-            r["wrapper_ms"] = r["wrapper_busy_ms"] = 0.0
+            r["wrapper_ms"] = 0.0
     for i in stages(cfg):
         h, d = cfg.num_heads[i], cfg.channels[i] // cfg.num_heads[i]
         ws, qs = cfg.window_sizes()[i], cfg.quant_sizes()[i]
@@ -1324,7 +1507,10 @@ def bwd_phase(cfg, levels, plans, dev, report, fast=False, variants=None):
                         fp32_ms = cuda_time_ms(
                             lambda: mod.KERNEL(*args32[0]), 10)
                         report[key]["fp32_ms"] += blocks * fp32_ms
-                        timing = f"fp32 form {fp32_ms:.4f} ms"
+                        busy_ms = device_busy_ms(wrapper, 3)
+                        report[key]["wrapper_busy_ms"] += blocks * busy_ms
+                        timing = (f"fp32 form {fp32_ms:.4f} ms, wrapper "
+                                  f"device busy {busy_ms:.4f} ms")
                         in_bytes = nbytes(args32[2])
                     else:
                         wrapper_ms = cuda_time_ms(wrapper, 10)
@@ -1366,7 +1552,8 @@ def bwd_phase(cfg, levels, plans, dev, report, fast=False, variants=None):
     for name in BWD_KERNELS:
         r = report[name + suffix]
         log(f"[bwd] {name + suffix}: {r['ms']:.3f} ms per train step ("
-            + (f"fp32 form {r['fp32_ms']:.3f} ms" if fast else
+            + (f"fp32 form {r['fp32_ms']:.3f} ms, wrapper device busy "
+               f"{r['wrapper_busy_ms']:.3f} ms" if fast else
                f"wrapper {r['wrapper_ms']:.3f} ms, of which the device is "
                f"busy {r['wrapper_busy_ms']:.3f} ms")
             + f"; bound {r['bound_ms']:.3f} ms)")
@@ -2708,6 +2895,14 @@ def dcf_phase(dev, kernel_mods):
     return out
 
 
+def probe_kernel_modules():
+    """The two probe kernels' tool modules by kernel name."""
+    from stratified_transformer_torch.tools import bin_math_probe
+    from stratified_transformer_torch.tools import cache_key_probe
+    return {"bin_math_probe": bin_math_probe,
+            "cache_key_probe": cache_key_probe}
+
+
 def attention_kernel_modules():
     """The four attention kernels' wrapper modules by kernel name."""
     from stratified_transformer_torch.kernels import (
@@ -3071,6 +3266,7 @@ def swin_kernels(cfg, levels, dev, report, family="S3DIS", variants=None):
     report[SWIN_KERNELS[0]]["wrapper_busy_ms"] = 0.0
     for name in SWIN_FAST_KERNELS:
         report[name]["fp32_ms"] = 0.0
+    report[SWIN_FAST_KERNELS[1]]["wrapper_busy_ms"] = 0.0
     for i in stages(cfg):
         h, d = cfg.num_heads[i], cfg.channels[i] // cfg.num_heads[i]
         ws, qs = cfg.window_sizes()[i], cfg.quant_sizes()[i]
@@ -3179,6 +3375,10 @@ def swin_kernels(cfg, levels, dev, report, family="S3DIS", variants=None):
                         side_ms = cuda_time_ms(
                             lambda: band_bwd_k.KERNEL(*fp32_args), 10)
                         report[key]["fp32_ms"] += blocks * side_ms
+                        busy_ms = device_busy_ms(
+                            lambda: band_bwd_k.band_attention_bwd(
+                                q, k, v, *geom, *res, *tables, **fkw), 3)
+                        report[key]["wrapper_busy_ms"] += blocks * busy_ms
                         # the bound counts the fp32 inputs, as the model
                         # gives them (`bwd_phase`)
                         bound_inputs = fp32_inputs
@@ -3199,7 +3399,8 @@ def swin_kernels(cfg, levels, dev, report, family="S3DIS", variants=None):
                                            nbytes(bound_inputs + tuple(got)),
                                            t_ops, max(errs))
                     log(f"[swin] {key} {label}: {ms:.4f} ms ("
-                        + (f"fp32 form {side_ms:.4f} ms; " if fast else "")
+                        + (f"fp32 form {side_ms:.4f} ms, wrapper device busy "
+                           f"{busy_ms:.4f} ms; " if fast else "")
                         + f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms by "
                         f"{by}); max abs err "
                         + " ".join(f"{gn} {e:.2e}"
@@ -5571,8 +5772,8 @@ def phase_only(flag):
     the phase runs, and phase 4 (the forward kernels, with phase 2's host
     batch and plans on the card), phase 7 (the backward kernels, likewise),
     phase 10 (whole-scene evaluation, with phase 5's full-width models),
-    phase 11 (the training loop), phase 12 (ScanNet) or `iou_phase`; prints
-    one JSON line."""
+    phase 11 (the training loop), phase 12 (ScanNet), `iou_phase` or
+    phase 9 (``--probe-only``: the probes); prints one JSON line."""
     sys.path.insert(0, REPO)
     from stratified_transformer_torch.config import load_config
     from stratified_transformer_torch.data.loader import host_batch
@@ -5597,6 +5798,13 @@ def phase_only(flag):
                flag[2:].replace("-only", ""): phase(dev),
                "ptxas": ptxas}
         print(json.dumps(out))
+        return 0
+    if flag == "--probe-only":
+        report = new_report(PROBE_KERNELS)
+        launched = probe_phase(dev, report)
+        print(json.dumps({"card": card_line(), "repo": REPO,
+                          "probe": report, "launches": launched,
+                          "ptxas": ptxas}))
         return 0
     if flag in ("--loop-only", "--scannet-only", "--dcf-only"):
         phase = {"--loop-only": loop_phase, "--scannet-only": scannet_phase,
@@ -5666,7 +5874,9 @@ PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS,
               "--fwd-phases": FWD_KERNELS,
               "--swin-bwd-phases": ("band_attention", "band_attention_bwd"),
               "--swin-fwd-phases": ("band_attention", "band_attention_bwd"),
-              "--scannet-kernels-only": FWD_KERNELS + BWD_KERNELS}
+              "--scannet-kernels-only": FWD_KERNELS + BWD_KERNELS,
+              # all six: the cache-key probe's processes reuse every library
+              "--probe-only": tuple(TPU_KERNELS)}
 
 
 def parse_args(argv):
@@ -5947,7 +6157,9 @@ def main(argv):
                 dcf_iou_launches=dcf["iou"]["launches"][name])
         if name in PROBE_KERNELS:
             entry["probe_launches"] = probe_launches[name]
-            entry["times_per"] = "one launch of the probe"
+            entry["times_per"] = ("one launch of the probe at its entry "
+                                  "point's shape, device time")
+            entry["probe"] = r["probe"]
         else:
             entry.update(
                 dp_launches=[c[name] for c in dp_out["b"]["launches"]],
@@ -5967,6 +6179,9 @@ def main(argv):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": max(r["bound_by"], key=r["bound_by"].get),
             "library_ms": None, "fp32_ms": r["fp32_ms"],
+            **({"wrapper_busy_ms": r["wrapper_busy_ms"],
+                "scannet_wrapper_busy_ms": sr["wrapper_busy_ms"]}
+               if "wrapper_busy_ms" in r else {}),
             "prep_launches": prep["launches"][name],
             # largest relative L2 from the plain fast version over the
             # outputs (forward) or gradients (backward), and the fp32
@@ -5995,7 +6210,8 @@ def main(argv):
             "bound_by": max(r["bound_by"], key=r["bound_by"].get),
             "library_ms": None,
             **({"fp32_ms": r["fp32_ms"]} if fast_form else {}),
-            **({"wrapper_busy_ms": r["wrapper_busy_ms"]}
+            **({"wrapper_busy_ms": r["wrapper_busy_ms"],
+                "scannet_wrapper_busy_ms": sr["wrapper_busy_ms"]}
                if "wrapper_busy_ms" in r else {}),
             "scannet_ms": sr["ms"], "scannet_plain_ms": sr["plain_ms"],
             "scannet_bound_ms": sr["bound_ms"],
@@ -6005,7 +6221,9 @@ def main(argv):
         "times_per": "one full-width training step (12 launches of each "
                      "attention kernel; a forward kernel's time is also one "
                      "eval forward's); a probe's: one launch, and its "
-                     "launches on the train step are 0; the fast (_bf16) "
+                     "launches on the train step are 0 (probe: both "
+                     "sizes' device times, launch floors and bounds); "
+                     "the fast (_bf16) "
                      "forms': see fast_times_per",
         "launches_over_train_steps": TRAIN_STEPS,
         "eval_launches_over_forwards": EVAL_BATCHES,

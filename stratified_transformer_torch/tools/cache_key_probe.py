@@ -24,6 +24,9 @@ from stratified_transformer_torch.kernels import (
     CudaKernel, I, P, build, check_cuda_inputs, ptr, stream_of)
 
 KERNEL = CudaKernel("cache_key_probe", "times_two", [P, P, I, P])
+# an empty kernel on the grid KERNEL takes for n elements: the launch floor
+# that chip_smoke.py reads the kernel's times against (on no path)
+FLOOR = CudaKernel("cache_key_probe", "times_two_floor", [I, P])
 
 
 def times_two_plain(x):

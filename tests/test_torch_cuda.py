@@ -556,6 +556,88 @@ def test_cache_key_probe_kernel_doubles(cuda_device):
     assert torch.equal(got.cpu(), cache_key_probe.times_two_plain(x))
 
 
+# sizes with n % 4 tails one element a thread, a vector pass with a partial
+# last chunk and a tail, and one of whole chunks
+PROBE_SIZES = (1, 3, 5, 4097, 65539, (1 << 20) + 1203, 1 << 22)
+
+
+def _probe_input(n, offset, dev):
+    """``n`` sweep values on ``dev`` as a view ``offset`` elements into a
+    larger tensor (at 1, 2 or 3 not 16-byte aligned), and the same values
+    on the CPU."""
+    tiles = -(-(n + offset) // (1 << 16))
+    import chip_smoke
+    flat = chip_smoke.sweep_tiles(tiles).reshape(-1)
+    x = flat.to(dev)[offset:offset + n]
+    assert (x.data_ptr() % 16 == 0) is (offset % 4 == 0)
+    return x, flat[offset:offset + n]
+
+
+def _probe_call(name, x):
+    if name == "bin_math_probe":
+        return bin_math_probe.bin_formula(x, bin_math_probe.WS,
+                                          bin_math_probe.QS)
+    return cache_key_probe.times_two(x)
+
+
+def _probe_plain(name, x):
+    if name == "bin_math_probe":
+        return bin_math_probe.bin_formula_plain(x, bin_math_probe.WS,
+                                                bin_math_probe.QS)
+    return cache_key_probe.times_two_plain(x)
+
+
+PROBES = {"bin_math_probe": bin_math_probe, "cache_key_probe": cache_key_probe}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", PROBE_SIZES)
+@pytest.mark.parametrize("name", list(PROBES))
+def test_probe_kernels_equal_plain_at_tail_sizes(cuda_device, name, n):
+    x, x_cpu = _probe_input(n, 0, cuda_device)
+    before = PROBES[name].KERNEL.launches
+    got = _probe_call(name, x)
+    torch.cuda.synchronize()
+    assert PROBES[name].KERNEL.launches == before + 1
+    assert got.shape == (n,)
+    assert torch.equal(got.cpu(), _probe_plain(name, x_cpu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("name", list(PROBES))
+def test_probe_kernels_read_unaligned_views(cuda_device, name, offset):
+    for n in (5, 65539, (1 << 20) + 1203):
+        x, x_cpu = _probe_input(n, offset, cuda_device)
+        got = _probe_call(name, x)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), _probe_plain(name, x_cpu)), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(PROBES))
+def test_probe_kernels_are_deterministic(cuda_device, name):
+    x, _ = _probe_input(65539, 0, cuda_device)
+    first, second = _probe_call(name, x), _probe_call(name, x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(PROBES))
+def test_probe_floor_launches(cuda_device, name):
+    """The empty kernel that chip_smoke.py reads the probe kernels' times
+    against launches at every size and refuses none; it is no probe
+    launch."""
+    from stratified_transformer_torch.kernels import stream_of
+    mod = PROBES[name]
+    before = mod.KERNEL.launches
+    for n in (1, 1 << 16, 1 << 26):
+        mod.FLOOR(n, stream_of(cuda_device))
+    torch.cuda.synchronize()
+    assert mod.KERNEL.launches == before
+
+
 def _narrow_cfg(**kw):
     from stratified_transformer_torch.config import StratifiedConfig
     return StratifiedConfig(channels=(16, 32, 64, 128), num_heads=(1, 2, 4, 8),

@@ -24,6 +24,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+import chip_smoke
 from stratified_transformer_torch.kernels import build
 from stratified_transformer_torch.tools import bin_math_probe, cache_key_probe
 
@@ -139,12 +140,70 @@ def test_times_two_plain():
         == 32768.0
 
 
+# the sizes at which the CUDA kernels take n % 4 tails one element a
+# thread, and (the last) a vector pass with a partial last chunk and a tail;
+# chip_smoke.py's phase 9 and tests/test_torch_cuda.py hold the kernels to
+# the plain versions there
+TAIL_SIZES = (1, 3, 5, 4097, 65539, (1 << 20) + 1203)
+
+
+@pytest.mark.parametrize("n", TAIL_SIZES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_bin_formula_plain_at_tail_sizes(n, offset):
+    flat = chip_smoke.sweep_tiles(n // (1 << 16) + 1).reshape(-1)
+    x = flat[offset:offset + n]
+    want = _literal_f32(x.numpy())
+    got = bin_math_probe.bin_formula(x, WS, QS)
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        bin_math_probe.bin_formula_plain(x, WS, QS).numpy(), want)
+
+
+@pytest.mark.parametrize("n", TAIL_SIZES)
+def test_times_two_plain_at_tail_sizes(n):
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        n + 1).astype(np.float32))[1:]      # a view one element in
+    for got in (cache_key_probe.times_two(x),
+                cache_key_probe.times_two_plain(x)):
+        assert got.dtype == torch.float32 and got.shape == (n,)
+        np.testing.assert_array_equal(got.numpy(), x.numpy() * 2)
+
+
+@pytest.mark.parametrize("tiles", [1, 3])
+def test_sweep_tiles_repeat_the_sweep(tiles):
+    rel = bin_math_probe.sweep()
+    got = chip_smoke.sweep_tiles(tiles)
+    assert got.shape == (256 * tiles, 256) and got.dtype == torch.float32
+    for t in range(tiles):
+        np.testing.assert_array_equal(got[256 * t:256 * (t + 1)].numpy(),
+                                      rel)
+
+
+def test_bin_formula_plain_on_tiles_against_fp64():
+    """The plain version at a tiled size differs from the fp64 bins by the
+    same count in every tile (the sweep's), at the same places."""
+    tiles = 16
+    x = chip_smoke.sweep_tiles(tiles)
+    got = bin_math_probe.bin_formula_plain(x, WS, QS).numpy()
+    gt = bin_math_probe.ground_truth(x.numpy())
+    one = int((_literal_f32(bin_math_probe.sweep())
+               != bin_math_probe.ground_truth(bin_math_probe.sweep())).sum())
+    per_tile = (got != gt).reshape(tiles, -1)
+    assert per_tile.sum(1).tolist() == [one] * tiles
+    assert (per_tile == per_tile[:1]).all()
+    assert 0 < one < 4 * 64
+
+
 def test_library_inputs_follow_includes():
     assert build._inputs("band_attention_bwd", build.CSRC) == [
         "attention_bwd_common.cuh", "attention_bwd_tc.cuh",
         "attention_common.cuh", "band_attention_bwd.cu", "tensor_core.cuh"]
+    # the probes share their elementwise pass, which their keys follow
     assert build._inputs("cache_key_probe", build.CSRC) == [
-        "cache_key_probe.cu"]
+        "cache_key_probe.cu", "elementwise.cuh"]
+    assert build._inputs("bin_math_probe", build.CSRC) == [
+        "bin_math_probe.cu", "elementwise.cuh"]
     assert build.sources() == [
         "band_attention", "band_attention_bwd", "bin_math_probe",
         "cache_key_probe", "sparse_band_attention",

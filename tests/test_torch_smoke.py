@@ -234,6 +234,7 @@ def test_chip_smoke_refuses_unknown_arguments_or_a_missing_card(capsys):
     (["--prep-only"], "--prep-only"),
     (["--swin-bwd-phases"], "--swin-bwd-phases"),
     (["--swin-fwd-phases"], "--swin-fwd-phases"),
+    (["--probe-only"], "--probe-only"),
 ])
 def test_parse_args_picks_the_phase_run_alone(argv, want):
     assert chip_smoke.parse_args(argv) == want
@@ -241,7 +242,8 @@ def test_parse_args_picks_the_phase_run_alone(argv, want):
         # the kernels it builds: the forward pair for phases 4 and 10 and
         # the IoU timing, all four attention kernels for phases 11-14 and
         # 16, the two band kernels for phase 15 and the swin kernels'
-        # splits (Swin3D has no far keys)
+        # splits (Swin3D has no far keys), all six for phase 9 (whose
+        # cache-key processes reuse every library)
         both = chip_smoke.FWD_KERNELS + chip_smoke.BWD_KERNELS
         band = ("band_attention", "band_attention_bwd")
         assert chip_smoke.PHASE_ONLY[want] == {
@@ -249,6 +251,7 @@ def test_parse_args_picks_the_phase_run_alone(argv, want):
             "--scannet-only": both, "--dcf-only": both, "--fast-only": both,
             "--swin-only": band, "--dp-only": both,
             "--swin-bwd-phases": band, "--swin-fwd-phases": band,
+            "--probe-only": tuple(chip_smoke.TPU_KERNELS),
         }.get(want, chip_smoke.FWD_KERNELS)
 
 
@@ -341,7 +344,8 @@ def test_bincount_iou_equals_the_port_counters():
 
 
 @pytest.mark.parametrize("argv", [["--fwd"], ["--fwd-only", "--bwd-only"],
-                                  ["--fwd-only", "x"], ["fwd-only"]])
+                                  ["--fwd-only", "x"], ["fwd-only"],
+                                  ["--probe-only", "runs/parent"]])
 def test_parse_args_refuses_anything_else(argv):
     with pytest.raises(ValueError, match="--fwd-only"):
         chip_smoke.parse_args(argv)
@@ -352,7 +356,8 @@ def test_parse_args_refuses_anything_else(argv):
                                   "--iou-only", "--scannet-only",
                                   "--dcf-only", "--swin-only", "--dp-only",
                                   "--fwd-phases", "--prep-only",
-                                  "--swin-bwd-phases", "--swin-fwd-phases"])
+                                  "--swin-bwd-phases", "--swin-fwd-phases",
+                                  "--probe-only"])
 def test_phase_only_runs_need_a_card(flag, capsys):
     if torch.cuda.is_available():
         pytest.skip("checks the run without a card")
