@@ -1,0 +1,9 @@
+"""The attention calls' least time over their device time, in percent, on
+the timed batch's own plans (`benchlib.probe.Probe.attention_roofline`):
+forward of the program's public attention Function alone."""
+
+
+def read(probe):
+    if probe.kind != "eval":
+        return None
+    return 100.0 * probe.attention_roofline()
