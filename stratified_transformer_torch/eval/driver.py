@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import os
 import tempfile
 import time
@@ -52,6 +53,7 @@ from stratified_transformer_torch.models.stratified import build_model
 from stratified_transformer_torch.parallel import halo, mesh
 from stratified_transformer_torch.train import checkpoint
 from stratified_transformer_torch.train.metrics import iou_from_counts
+from stratified_transformer_torch.utils import trace
 from stratified_transformer_torch.utils.config import (
     load_cfg, merge_cfg_from_list)
 
@@ -75,13 +77,19 @@ def make_predict_probs(model):
     the softmax of one eval-mode forward on the model's device, with no
     host pyramid."""
     dev = next(model.parameters()).device
+    calls = itertools.count()
 
     @torch.inference_mode()
     def predict_probs(feats, xyz, offsets):
-        logits, _ = model(torch.from_numpy(feats).to(dev),
+        with trace.span("st.predict", next(calls)):
+            with trace.span("st.upload"):
+                inputs = (torch.from_numpy(feats).to(dev),
                           torch.from_numpy(xyz).to(dev),
                           torch.from_numpy(offsets).to(dev, torch.int64))
-        return torch.softmax(logits, -1).cpu().numpy()
+            with trace.span("st.forward"):
+                logits, _ = model(*inputs)
+            with trace.span("st.download"):
+                return torch.softmax(logits, -1).cpu().numpy()
 
     return predict_probs
 

@@ -38,6 +38,7 @@ from stratified_transformer_torch.models.layers import (
     MaskedBatchNorm, TransitionDown, Upsample)
 from stratified_transformer_torch.ops import neighbors, sampling
 from stratified_transformer_torch.ops.plan import build_attention_plan
+from stratified_transformer_torch.utils import trace
 
 
 def _round_up(n, m):
@@ -213,18 +214,20 @@ class BasicLayer(nn.Module):
         d_pad = n // cfg.downsample_scale + cfg.num_scenes
         if not cfg.use_stratified:
             is_down = None
-        plans = [
-            build_attention_plan(
-                xyz, batch, valid, cfg.window_sizes()[self.stage],
-                shifted=bool(parity), is_down=is_down,
-                sparse_cap=cfg.sparse_cap,
-                aux_pad=_round_up(d_pad, 128) if is_down is not None
-                else None, anchor=anchor)
-            for parity in (0, 1)
-        ]
+        with trace.span(f"st.stage{self.stage}.plan"):
+            plans = [
+                build_attention_plan(
+                    xyz, batch, valid, cfg.window_sizes()[self.stage],
+                    shifted=bool(parity), is_down=is_down,
+                    sparse_cap=cfg.sparse_cap,
+                    aux_pad=_round_up(d_pad, 128) if is_down is not None
+                    else None, anchor=anchor)
+                for parity in (0, 1)
+            ]
         for b in range(cfg.depths[self.stage]):
-            feats = getattr(self, f"blocks_{b}")(feats, plans[b % 2],
-                                                  generator)
+            with trace.span(f"st.stage{self.stage}.block{b}"):
+                feats = getattr(self, f"blocks_{b}")(feats, plans[b % 2],
+                                                      generator)
         return feats
 
 
@@ -282,41 +285,49 @@ class Stratified(nn.Module):
         if n % cfg.tile:
             raise ValueError(f"n_pad {n} must be a multiple of tile {cfg.tile}")
         if stem_nidx is None:
-            stem_nidx, stem_nmask = stem_neighbors(cfg, xyz, offsets, anchor)
+            with trace.span("st.geometry.stem"):
+                stem_nidx, stem_nmask = stem_neighbors(cfg, xyz, offsets,
+                                                       anchor)
         if pyramid is None:
-            pyramid = geometry_pyramid(cfg, xyz, offsets, anchor)
+            with trace.span("st.geometry.pyramid"):
+                pyramid = geometry_pyramid(cfg, xyz, offsets, anchor)
         valid = sampling.offsets_to_valid(offsets, n)
-        feats = self.stem_0(feats, xyz, stem_nidx, stem_nmask, valid)
-        if not cfg.stem_transformer:
-            feats = self.stem_1(feats, xyz, stem_nidx, stem_nmask, valid)
+        with trace.span("st.stem"):
+            feats = self.stem_0(feats, xyz, stem_nidx, stem_nmask, valid)
+            if not cfg.stem_transformer:
+                feats = self.stem_1(feats, xyz, stem_nidx, stem_nmask, valid)
 
         stack = []
         for i in range(cfg.num_layers):
             if i >= cfg.layer_start:
-                feats = getattr(self, f"layer_{i}")(
-                    feats, xyz, offsets,
-                    pyramid["stage_down"][i - cfg.layer_start]["is_down"]
-                    if cfg.use_stratified else None, generator, anchor)
+                is_down = (pyramid["stage_down"][i - cfg.layer_start]
+                           ["is_down"] if cfg.use_stratified else None)
+                with trace.span(f"st.stage{i}"):
+                    feats = getattr(self, f"layer_{i}")(
+                        feats, xyz, offsets, is_down, generator, anchor)
             stack.append((feats, xyz, offsets))
             if i < cfg.num_layers - 1:
-                feats, xyz, offsets = getattr(self, down_name(cfg, i))(
-                    feats, xyz, pyramid["down"][i])
+                with trace.span(f"st.down{i}"):
+                    feats, xyz, offsets = getattr(self, down_name(cfg, i))(
+                        feats, xyz, pyramid["down"][i])
 
         feats, xyz, offsets = stack.pop()
         for j in range(cfg.num_layers - 1):
             skip_feats, skip_xyz, offsets = stack.pop()
-            feats = getattr(self, f"up_{j}")(
-                feats, xyz, skip_feats, skip_xyz, pyramid["up"][j])
+            with trace.span(f"st.up{j}"):
+                feats = getattr(self, f"up_{j}")(
+                    feats, xyz, skip_feats, skip_xyz, pyramid["up"][j])
             xyz = skip_xyz
 
-        valid0 = sampling.offsets_to_valid(offsets, xyz.shape[0])
-        h = F.relu(self.cls_bn(self.cls_fc1(feats), valid0))
-        shift = None
-        if cfg.with_regressor:
-            g = self.reg_bn(self.reg_fc1(feats), valid0)
-            g = torch.tanh(g) if cfg.activation == "Tanh" else F.relu(g)
-            shift = self.reg_fc2(g)
-        return self.cls_fc2(h), shift
+        with trace.span("st.head"):
+            valid0 = sampling.offsets_to_valid(offsets, xyz.shape[0])
+            h = F.relu(self.cls_bn(self.cls_fc1(feats), valid0))
+            shift = None
+            if cfg.with_regressor:
+                g = self.reg_bn(self.reg_fc1(feats), valid0)
+                g = torch.tanh(g) if cfg.activation == "Tanh" else F.relu(g)
+                shift = self.reg_fc2(g)
+            return self.cls_fc2(h), shift
 
 
 def _trunc_normal_(t, std, gen):

@@ -71,6 +71,7 @@ from stratified_transformer_torch.train.metrics import (
     AverageMeter, iou_from_counts)
 from stratified_transformer_torch.train.state import make_optimizer
 from stratified_transformer_torch.train.step import make_eval_step
+from stratified_transformer_torch.utils import trace
 from stratified_transformer_torch.utils.config import (
     load_cfg, merge_cfg_from_list)
 from stratified_transformer_torch.utils.logger import get_logger
@@ -301,65 +302,66 @@ def _train(rank, world, yaml_cfg, dev, log):
             points_total = 0
             # dispatch the step on the current device batch; while the device
             # runs, take the next host batch from the loader; read the step's
-            # statistics (one transfer); then upload the next batch
-            t_load = t_put = t_blk = 0.0
-            itr = iter(loader)
-            t0 = time.time()
-            cur_host = next(itr, None)
-            t_load += time.time() - t0
-            cur_dev = (to_device(cur_host, dev) if cur_host is not None
-                       else None)
-            it = -1
-            while cur_host is not None:
-                it += 1
-                host, batch = cur_host, cur_dev
-                t_iter0 = time.time()
-                gen = drop_path_generator(dev, seed,
-                                          optimizer.param_groups[0]["t"])
-                packed = train_step(model, optimizer, batch, gen)
-                log_now = (it + 1) % log_every == 0
-                audit_stats = None
-                if (audit_on and log_now
-                        and (it // log_every) % audit_freq == 0):
-                    audit_stats = audit.audit_truncation_packed(cfg, batch)
-                t0 = time.time()
-                cur_host = next(itr, None)
-                t_load += time.time() - t0
-                t0 = time.time()
-                sarr = packed.cpu().numpy()
-                t_blk += time.time() - t0
-                cur_dev = None
-                if cur_host is not None:
-                    t0 = time.time()
-                    cur_dev = to_device(cur_host, dev)
-                    t_put += time.time() - t0
-                # summed over the ranks: the loss is their mean
-                loss = float(sarr[0]) / world
-                loss_meter.update(loss)
-                offset_meter.update(float(sarr[2]) / world)
-                it_points = int(sarr[3])
-                counts += sarr[4:].reshape(3, ncls)
-                points_total += it_points
-                rec = {"epoch": epoch + 1, "iter": it + 1, "loss": loss,
-                       "points": it_points,
-                       "scenes": scenes_in(host["offsets"])}
-                if cfg.with_regressor:
-                    rec["loss_offset"] = float(sarr[2]) / world
-                if log_now:
-                    trunc = ""
-                    if audit_stats is not None:
-                        rec["audit"] = audit.unpack_truncation(
-                            cfg, audit_stats.cpu().numpy())
-                        trunc = " " + audit.format_truncation(rec["audit"])
-                    dt_wall = time.time() - t_iter0
-                    pps = it_points / max(dt_wall, 1e-9)
-                    log(f"Epoch [{epoch + 1}/{epochs}][{it + 1}/"
-                        f"{iter_per_epoch}] loss {loss:.4f} "
-                        f"({loss_meter.avg:.4f}) {pps:,.0f} pts/s "
-                        f"wall {dt_wall * 1e3:.0f}ms{trunc}")
-                rec["wall_s"] = time.time() - t_iter0
-                summary["iters"].append(rec)
-                summary["steps"] += 1
+            # statistics (one transfer); then upload the next batch. The
+            # recorder sums the epoch line's load-wait, upload and step-block
+            with trace.recorder() as spent:
+                itr = iter(loader)
+                with trace.span("st.loader_wait"):
+                    cur_host = next(itr, None)
+                with trace.span("st.upload"):
+                    cur_dev = (to_device(cur_host, dev) if cur_host is not None
+                               else None)
+                it = -1
+                while cur_host is not None:
+                    it += 1
+                    host, batch = cur_host, cur_dev
+                    t_iter0 = time.time()
+                    gen = drop_path_generator(dev, seed,
+                                              optimizer.param_groups[0]["t"])
+                    packed = train_step(model, optimizer, batch, gen)
+                    log_now = (it + 1) % log_every == 0
+                    audit_stats = None
+                    if (audit_on and log_now
+                            and (it // log_every) % audit_freq == 0):
+                        audit_stats = audit.audit_truncation_packed(cfg, batch)
+                    with trace.span("st.loader_wait"):
+                        cur_host = next(itr, None)
+                    with trace.span("st.step_block"):
+                        sarr = packed.cpu().numpy()
+                    cur_dev = None
+                    if cur_host is not None:
+                        with trace.span("st.upload"):
+                            cur_dev = to_device(cur_host, dev)
+                    # summed over the ranks: the loss is their mean
+                    loss = float(sarr[0]) / world
+                    loss_meter.update(loss)
+                    offset_meter.update(float(sarr[2]) / world)
+                    it_points = int(sarr[3])
+                    counts += sarr[4:].reshape(3, ncls)
+                    points_total += it_points
+                    rec = {"epoch": epoch + 1, "iter": it + 1, "loss": loss,
+                           "points": it_points,
+                           "scenes": scenes_in(host["offsets"])}
+                    if cfg.with_regressor:
+                        rec["loss_offset"] = float(sarr[2]) / world
+                    if log_now:
+                        trunc = ""
+                        if audit_stats is not None:
+                            rec["audit"] = audit.unpack_truncation(
+                                cfg, audit_stats.cpu().numpy())
+                            trunc = " " + audit.format_truncation(rec["audit"])
+                        dt_wall = time.time() - t_iter0
+                        pps = it_points / max(dt_wall, 1e-9)
+                        log(f"Epoch [{epoch + 1}/{epochs}][{it + 1}/"
+                            f"{iter_per_epoch}] loss {loss:.4f} "
+                            f"({loss_meter.avg:.4f}) {pps:,.0f} pts/s "
+                            f"wall {dt_wall * 1e3:.0f}ms{trunc}")
+                    rec["wall_s"] = time.time() - t_iter0
+                    summary["iters"].append(rec)
+                    summary["steps"] += 1
+            t_load, t_put, t_blk = (
+                spent.get(k, 0.0) for k in (
+                    "st.loader_wait", "st.upload", "st.step_block"))
             m = iou_from_counts(*counts)
             t_wall_ep = time.time() - t_epoch
             pps_wall = points_total / max(t_wall_ep, 1e-9)

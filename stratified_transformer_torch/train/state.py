@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from stratified_transformer_torch.utils import trace
+
 
 def param_groups(model, transformer_lr_scale=0.1):
     """``[blocks group, rest group]``, each with its ``lr_scale``."""
@@ -71,9 +73,10 @@ def optimizer_step(optimizer):
     ``max_grad_norm``, each group's LR ``schedule(t) * lr_scale`` at its
     count ``t`` (from 0), then the step, then the count."""
     if getattr(optimizer, "max_grad_norm", None):
-        clip_by_global_norm(
-            [p.grad for g in optimizer.param_groups for p in g["params"]
-             if p.grad is not None], float(optimizer.max_grad_norm))
+        with trace.span("st.clip"):
+            clip_by_global_norm(
+                [p.grad for g in optimizer.param_groups for p in g["params"]
+                 if p.grad is not None], float(optimizer.max_grad_norm))
     for g in optimizer.param_groups:
         g["lr"] = float(optimizer.schedule(g["t"])) * g["lr_scale"]
     optimizer.step()

@@ -8,6 +8,7 @@ import torch
 from stratified_transformer_torch.ops import sampling
 from stratified_transformer_torch.train import losses, metrics
 from stratified_transformer_torch.train.state import optimizer_step
+from stratified_transformer_torch.utils import trace
 
 
 def make_train_step(ignore_label, num_classes, offset_weight=1.0,
@@ -30,28 +31,36 @@ def make_train_step(ignore_label, num_classes, offset_weight=1.0,
     def train_step(model, optimizer, batch, generator=None):
         if not model.training:
             raise ValueError("train_step expects a model in training mode")
-        n = batch["xyz"].shape[0]
-        valid = sampling.offsets_to_valid(batch["offsets"], n)
-        logits, shift = model(
-            batch["feats"], batch["xyz"], batch["offsets"],
-            stem_nidx=batch["stem_nidx"], stem_nmask=batch["stem_nmask"],
-            pyramid=batch.get("pyramid"), generator=generator)
-        loss_seg = losses.cross_entropy(logits, batch["labels"], ignore_label,
-                                        valid)
-        loss = loss_seg
-        loss_off = torch.zeros((), dtype=torch.float32, device=logits.device)
-        if shift is not None and batch.get("target_shift") is not None:
-            loss_off = losses.l1_offset(shift, batch["target_shift"], valid)
-            loss = loss + offset_weight * loss_off
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if reduce_grads is not None:
-            reduce_grads(model)
-        optimizer_step(optimizer)
-        with torch.no_grad():
-            pred = logits.argmax(-1)
-            inter, union, target = metrics.intersection_and_union(
-                pred, batch["labels"], num_classes, ignore_label, valid)
+        with trace.span("st.train_step", optimizer.param_groups[0]["t"]):
+            n = batch["xyz"].shape[0]
+            valid = sampling.offsets_to_valid(batch["offsets"], n)
+            with trace.span("st.forward"):
+                logits, shift = model(
+                    batch["feats"], batch["xyz"], batch["offsets"],
+                    stem_nidx=batch["stem_nidx"],
+                    stem_nmask=batch["stem_nmask"],
+                    pyramid=batch.get("pyramid"), generator=generator)
+            with trace.span("st.loss"):
+                loss_seg = losses.cross_entropy(logits, batch["labels"],
+                                                ignore_label, valid)
+                loss = loss_seg
+                loss_off = torch.zeros((), dtype=torch.float32,
+                                       device=logits.device)
+                if shift is not None and batch.get("target_shift") is not None:
+                    loss_off = losses.l1_offset(shift, batch["target_shift"],
+                                                valid)
+                    loss = loss + offset_weight * loss_off
+            optimizer.zero_grad(set_to_none=True)
+            with trace.span("st.backward"):
+                loss.backward()
+            if reduce_grads is not None:
+                reduce_grads(model)
+            with trace.span("st.optimizer"):
+                optimizer_step(optimizer)
+            with trace.span("st.metrics"), torch.no_grad():
+                pred = logits.argmax(-1)
+                inter, union, target = metrics.intersection_and_union(
+                    pred, batch["labels"], num_classes, ignore_label, valid)
         return {"loss": loss.detach(), "loss_seg": loss_seg.detach(),
                 "loss_offset": loss_off.detach(),
                 "intersection": inter, "union": union, "target": target,
