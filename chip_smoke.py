@@ -34,8 +34,9 @@ Swin3D plans (`swin_bwd_phases`); ``--swin-fwd-phases`` does the same for
 the fp32 swin forward with variants of the forward source
 (`swin_fwd_phases`); both also report the kernel's blocks per SM;
 ``--iou-only`` builds the two forward kernels and times the train and eval
-steps' IoU counters (`iou_phase`); ``--probe-only`` builds the six
-kernels and runs phase 9 alone. Each prints its
+steps' IoU counters (`iou_phase`); ``--probe-only`` builds the seven
+sources and runs phase 9 alone; ``--gather-only`` builds the masked row
+gather and runs phase 19 alone. Each prints its
 times as one JSON line (``--fwd-only`` also per stage and parity). Copied into another checkout (say a parent commit
 unpacked beside the tree) and run from there, it times that checkout's
 kernels and wrappers the same way, so two versions can be compared in
@@ -240,7 +241,20 @@ Phases, each fatal on failure:
      every legacy dense-batch op, ``subtraction`` and ``aggregation`` (with
      their gradients) and ``divide2patch`` on the card and the CPU at
      LEGACY's sizes, integers equal, floats within LEGACY_RTOL /
-     LEGACY_ATOL.
+     LEGACY_ATOL;
+ 19. the masked row gather (``csrc/gather_rows.cu``, the model's gathers
+     that autograd differentiates) at the S3DIS and ScanNet train steps'
+     own shapes (`GATHER_FAMILIES`: the YAMLs as shipped at the
+     benchmark's train batches, from a host batch): an eval forward under
+     ``torch.inference_mode`` launches none of its kernels (and, run
+     alone, never loads its library); a train step launches one forward,
+     one inverse map and one backward per gather of a gradient; at each
+     such gather of the step, the forward kernel equal to the plain
+     version bit for bit, the backward within fp32 sum order of the
+     float64 sum and two launches bit-identical; the device ms of the
+     forward, the map and the backward against their byte bounds, and of
+     PyTorch's own backward of ``torch.where(mask, feats[idx], fill)``
+     (``indexing_backward_kernel``) as ``library_ms``.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -424,6 +438,20 @@ BWD_KERNELS = ("band_attention_bwd", "sparse_band_attention_bwd")
 FAST = "_bf16"
 FAST_KERNELS = tuple(n + FAST for n in FWD_KERNELS + BWD_KERNELS)
 PROBE_KERNELS = ("bin_math_probe", "cache_key_probe")
+# phase 19: the masked row gather, which replaces no TPU kernel (the JAX
+# package's gathers are jnp indexing)
+GATHER_KERNELS = ("gather_rows",)
+# (YAML, config overrides, host-batch rooms) of the benchmark's train
+# cells: S3DIS 3 rooms of 80000 raw points in 6 m (41000 voxels each) in the
+# YAML's 140032 points, ScanNet 2 rooms cropped to 120000 in 250112
+GATHER_FAMILIES = {
+    "s3dis": (CONFIG, dict(num_scenes=3),
+              dict(points=80000, extent=6.0, voxel_max=41000)),
+    "scannet": (SCANNET_CONFIG, {}, SCANNET_ROOMS)}
+# calls per device-busy reading of the gather's kernels and of PyTorch's
+# backward (hundreds of ms a call at ScanNet's stem)
+GATHER_REPS, GATHER_LIBRARY_REPS = 20, 3
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg):
@@ -5766,6 +5794,187 @@ def prep_phase(dev):
     return out
 
 
+def gather_bytes(idx, mask, rows, named, c):
+    """Bytes the masked row gather's forward, inverse map and backward must
+    move at one gather (the bounds of ``csrc/gather_rows.cu``'s note, each
+    input byte read once: the forward reads the ``named`` rows' features
+    once)."""
+    slots, unmasked = idx.numel(), int(mask.sum())
+    b, r1 = idx.element_size(), (rows + 1) * 4
+    return {"fwd": named * c * 4 + slots * (b + 1) + slots * c * 4,
+            "map": 2 * slots * (b + 1) + 4 * r1 + 3 * unmasked * 4,
+            "bwd": unmasked * c * 4 + unmasked * 4 + r1 + rows * c * 4}
+
+
+def gather_site(feats, idx, mask, fill, dev):
+    """Phase 19 at one gather of a train step: the kernels against the
+    plain versions and their device times (module docstring)."""
+    from stratified_transformer_torch.kernels import gather_rows as gather_k
+    rows, c = feats.shape
+    out = gather_k.gather_rows(feats, idx, mask, fill)
+    if not torch.equal(out, gather_k.gather_rows_plain(feats, idx, mask,
+                                                       fill)):
+        raise AssertionError(f"gather forward [{rows}, {c}] at "
+                             f"{tuple(idx.shape)} differs from the plain "
+                             "version")
+    g = torch.randn(out.shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    first = gather_k.gather_rows_bwd(g, idx, mask, rows)
+    second = gather_k.gather_rows_bwd(g, idx, mask, rows)
+    if not torch.equal(first, second):
+        raise AssertionError("two gather backward launches differ")
+    keep = mask.reshape(-1)
+    ix = idx.reshape(-1)[keep].long()
+    g64 = g.reshape(-1, c)[keep].double()
+    zeros = torch.zeros((rows, c), dtype=torch.float64, device=dev)
+    exact = zeros.index_add(0, ix, g64)
+    mag = zeros.index_add(0, ix, g64.abs())
+    n = torch.bincount(ix, minlength=rows).double()[:, None]
+    err = (first.double() - exact).abs()
+    excess = float((err - (n - 1).clamp_min(0) * 2.0 ** -24 * mag).max())
+    if excess > 0:
+        raise AssertionError(f"gather backward beyond fp32 sum order by "
+                             f"{excess:.3e}")
+    flat_g = g.reshape(-1, c).contiguous()
+    start, order = gather_k.inverse_map(idx, mask, rows)
+    x = feats.detach().clone().requires_grad_(True)
+    gathered = x[idx]
+    want = torch.where(mask[..., None], gathered,
+                       torch.full_like(gathered, fill))
+    library_ms = device_busy_ms(
+        lambda: torch.autograd.grad(want, x, g, retain_graph=True),
+        GATHER_LIBRARY_REPS)
+    ms = {"fwd": device_busy_ms(
+              lambda: gather_k.gather_rows(feats, idx, mask, fill),
+              GATHER_REPS),
+          "map": device_busy_ms(lambda: gather_k.inverse_map(idx, mask, rows),
+                                GATHER_REPS),
+          "bwd": device_busy_ms(
+              lambda: gather_k.sum_rows(flat_g, start, order, rows),
+              GATHER_REPS)}
+    moved = gather_bytes(idx, mask, rows, int((n > 0).sum()), c)
+    return {"rows": rows, "channels": c, "slots": list(idx.shape),
+            "unmasked": int(keep.sum()), "fill": fill,
+            "idx_dtype": str(idx.dtype).replace("torch.", ""),
+            "max_abs_err": float(err.max()), "ms": ms,
+            "bound_ms": {k: v / HBM_BYTES_PER_S * 1e3
+                         for k, v in moved.items()},
+            "library_ms": library_ms}
+
+
+def gather_phase(dev):
+    """Phase 19 (module docstring): per family, the gather's launches per
+    eval forward and per train step, and each gather of the step's
+    numbers (`gather_site`) with their sums."""
+    from stratified_transformer_torch.config import load_config
+    from stratified_transformer_torch.data.loader import host_batch, to_device
+    from stratified_transformer_torch.kernels import build
+    from stratified_transformer_torch.kernels import gather_rows as gather_k
+    from stratified_transformer_torch.models.stratified import build_model
+    from stratified_transformer_torch.ops.neighbors import GatherRows
+    from stratified_transformer_torch.train import schedulers
+    from stratified_transformer_torch.train.state import make_optimizer
+    from stratified_transformer_torch.train.step import make_train_step
+    from stratified_transformer_torch.utils.config import load_cfg
+    t_phase = time.time()
+    kernels = {"fwd": gather_k.FWD, "map": gather_k.MAP,
+               "bwd": gather_k.BWD}
+
+    def counts():
+        return {k: v.launches for k, v in kernels.items()}
+
+    def deltas(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    out = {}
+    for family, (path, overrides, rooms) in GATHER_FAMILIES.items():
+        yaml_cfg = load_cfg(path)
+        cfg = load_config(path, **overrides)
+        hb = host_batch(cfg, seed=0, train=True,
+                        rng=np.random.default_rng(0), aug=yaml_cfg, **rooms)
+        batch = to_device(hb, dev)
+        model = build_model(cfg, "cuda", seed=0)
+        o1_weights(model, seed=0)
+
+        def forward():
+            return model(batch["feats"], batch["xyz"], batch["offsets"],
+                         stem_nidx=batch["stem_nidx"],
+                         stem_nmask=batch["stem_nmask"],
+                         pyramid=batch["pyramid"])
+
+        # (a) an eval forward, as the eval driver runs it
+        loaded_before = "gather_rows" in build._libs
+        before = counts()
+        with torch.inference_mode():
+            forward()
+        torch.cuda.synchronize()
+        eval_launches = deltas(before)
+        loaded = "gather_rows" in build._libs
+        if any(eval_launches.values()) or (loaded and not loaded_before):
+            raise AssertionError(f"{family}: the eval forward launched "
+                                 f"{eval_launches} gather kernels (library "
+                                 f"loaded: {loaded})")
+        # (b) train steps: a warm-up, then one whose gathers are captured
+        model.train()
+        opt = make_optimizer(
+            model, schedulers.from_config(yaml_cfg, TRAIN_ITERS_PER_EPOCH)[0],
+            weight_decay=float(yaml_cfg["weight_decay"]),
+            transformer_lr_scale=float(yaml_cfg["transformer_lr_scale"]))
+        step = make_train_step(int(yaml_cfg["ignore_label"]),
+                               cfg.num_classes)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        step(model, opt, batch, gen)
+        sites = []
+        apply = GatherRows.apply
+
+        def captured(feats, idx, mask, fill):
+            sites.append((feats.detach(), idx, mask, fill))
+            return apply(feats, idx, mask, fill)
+
+        GatherRows.apply = captured
+        try:
+            before = counts()
+            stats = step(model, opt, batch, gen)
+            torch.cuda.synchronize()
+        finally:
+            GatherRows.apply = apply
+        step_launches = deltas(before)
+        if (not bool(torch.isfinite(stats["loss"])) or not sites
+                or any(v != len(sites) for v in step_launches.values())):
+            raise AssertionError(f"{family}: train step launched "
+                                 f"{step_launches} gather kernels at "
+                                 f"{len(sites)} gathers")
+        del model, opt, stats
+        # (c) each gather of the step
+        per_site = [gather_site(*site, dev) for site in sites]
+        total = {key: {k: sum(r[key][k] for r in per_site)
+                       for k in ("fwd", "map", "bwd")}
+                 for key in ("ms", "bound_ms")}
+        total["library_ms"] = sum(r["library_ms"] for r in per_site)
+        out[family] = {"n_pad": cfg.n_pad,
+                       "valid_points": int(hb["offsets"][-1]),
+                       "library_loaded_before_eval": loaded_before,
+                       "eval_launches": eval_launches,
+                       "step_launches": step_launches, "sites": per_site,
+                       "per_step": total}
+        log(f"[gather] {family}: {len(sites)} gathers a train step, "
+            f"launches {json.dumps(step_launches)} a step, "
+            f"{json.dumps(eval_launches)} an eval forward")
+        for r in per_site:
+            log(f"[gather]   [{r['rows']}, {r['channels']}] at {r['slots']} "
+                f"({r['unmasked']} unmasked, fill {r['fill']}): ms "
+                f"{json.dumps({k: round(v, 4) for k, v in r['ms'].items()})}"
+                f" bound {json.dumps({k: round(v, 4) for k, v in r['bound_ms'].items()})}"
+                f"; library {r['library_ms']:.3f}; "
+                f"max abs err {r['max_abs_err']:.2e}")
+        log(f"[gather] {family} per step: {json.dumps(total)}")
+        del batch, sites
+        torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t_phase
+    log(f"[gather] phase 19 in {out['seconds']:.0f} s")
+    return out
+
+
 def phase_only(flag):
     """``--fwd-only`` / ``--bwd-only`` / ``--scene-only`` / ``--loop-only``
     / ``--scannet-only`` / ``--iou-only``: phase 1's build of the kernels
@@ -5787,10 +5996,11 @@ def phase_only(flag):
              if "registers" in line or "spill" in line]
     if flag in ("--fast-only", "--swin-only", "--dp-only", "--halo-only",
                 "--prep-only", "--bwd-phases", "--fwd-phases",
-                "--swin-bwd-phases", "--swin-fwd-phases"):
+                "--swin-bwd-phases", "--swin-fwd-phases", "--gather-only"):
         phase = {"--fast-only": fast_phase, "--swin-only": swin_phase,
                  "--dp-only": dp_phase, "--halo-only": halo_phase,
                  "--prep-only": prep_phase, "--bwd-phases": bwd_phases,
+                 "--gather-only": gather_phase,
                  "--fwd-phases": fwd_phases,
                  "--swin-bwd-phases": swin_bwd_phases,
                  "--swin-fwd-phases": swin_fwd_phases}[flag]
@@ -5875,8 +6085,11 @@ PHASE_ONLY = {"--fwd-only": FWD_KERNELS, "--bwd-only": BWD_KERNELS,
               "--swin-bwd-phases": ("band_attention", "band_attention_bwd"),
               "--swin-fwd-phases": ("band_attention", "band_attention_bwd"),
               "--scannet-kernels-only": FWD_KERNELS + BWD_KERNELS,
-              # all six: the cache-key probe's processes reuse every library
-              "--probe-only": tuple(TPU_KERNELS)}
+              # all seven: the cache-key probe's processes reuse every
+              # library
+              "--probe-only": tuple(TPU_KERNELS) + GATHER_KERNELS,
+              # built, not loaded: the eval forward must not load it
+              "--gather-only": GATHER_KERNELS}
 
 
 def parse_args(argv):
@@ -5925,8 +6138,9 @@ def main(argv):
         f"torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"count {torch.cuda.device_count()}")
     t0 = time.time()
-    build.build_all(list(TPU_KERNELS))
-    log(f"[device] built the {len(TPU_KERNELS)} kernels with nvcc for "
+    build.build_all(list(TPU_KERNELS) + list(GATHER_KERNELS))
+    log(f"[device] built the {len(TPU_KERNELS) + len(GATHER_KERNELS)} "
+        "sources with nvcc for "
         f"sm_90a in "
         f"{time.time() - t0:.1f} s")
     for name, text in build.build_logs.items():
@@ -6120,6 +6334,9 @@ def main(argv):
 
     # ---- 18. ScanNet from raw scans; the legacy ops ----------------------
     prep = prep_phase(dev)
+
+    # ---- 19. the masked row gather -----------------------------------------
+    gather = gather_phase(dev)
     log(f"[run] total {time.time() - t_start:.0f} s")
 
     kernels = []
@@ -6276,7 +6493,12 @@ def main(argv):
         "prep_times_per": "phase 18: prep_launches over (c)'s "
                           f"{PREP_SCANS} eval forwards of the prepared "
                           "scenes",
-        "prep": prep}))
+        "prep": prep,
+        "gather_times_per": "phase 19: ms, bound_ms and library_ms per "
+                            "gather of one train step (per_step: their "
+                            "sums); launches per train step and per eval "
+                            "forward",
+        "gather": gather}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

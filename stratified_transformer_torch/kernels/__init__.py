@@ -21,6 +21,9 @@ from stratified_transformer_torch.kernels import build
 # fp32, bf16 and swin forms)
 ATTENTION_SOURCES = ("band_attention", "sparse_band_attention",
                      "band_attention_bwd", "sparse_band_attention_bwd")
+# the sources a training step runs: those and the masked row gather of the
+# gathers that autograd differentiates (no eval forward loads it)
+TRAIN_SOURCES = ATTENTION_SOURCES + ("gather_rows",)
 
 P = ctypes.c_void_p
 I = ctypes.c_int

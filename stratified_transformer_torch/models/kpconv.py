@@ -15,6 +15,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from stratified_transformer_torch.models.layers import MaskedBatchNorm
+from stratified_transformer_torch.ops.neighbors import GatherRows, gathers_grad
 
 _INFLUENCE_TO_RADIUS = 1.5
 
@@ -68,8 +69,12 @@ class KPConv(nn.Module):
         infl = torch.clamp(1.0 - d / self.point_influence, min=0.0)
         mask = neighbor_mask[:, :, None]
         infl = torch.where(mask, infl, torch.zeros_like(infl))      # [N,K,P]
-        gathered = feats[neighbor_idx]
-        gathered = torch.where(mask, gathered, torch.zeros_like(gathered))
+        if gathers_grad(feats):
+            gathered = GatherRows.apply(feats, neighbor_idx, neighbor_mask,
+                                        0.0)
+        else:
+            gathered = feats[neighbor_idx]
+            gathered = torch.where(mask, gathered, torch.zeros_like(gathered))
         per_kernel = torch.einsum("nkp,nkc->npc", infl, gathered)
         return torch.einsum("npc,pcd->nd", per_kernel, self.kernel_weights)
 

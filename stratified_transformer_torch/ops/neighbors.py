@@ -13,12 +13,18 @@ Index lists are bit-identical to the JAX package's: the ``k`` smallest
 distances are selected by one key per candidate that packs the distance's
 bits above its position, so equal distances go to the lower position as
 ``lax.top_k`` sends them (``torch.topk`` promises no order among equals).
+
+The feature gathers whose gradient autograd will take (`gathers_grad`) go
+through `GatherRows`, the masked row gather of ``kernels/gather_rows.py``;
+every other gather is plain indexing.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
+from stratified_transformer_torch.kernels import gather_rows as gather_k
 from stratified_transformer_torch.ops import hashing
 from stratified_transformer_torch.ops import windows as win
 from stratified_transformer_torch.ops.sampling import BIG
@@ -257,7 +263,10 @@ def interpolate_from_idx(query_xyz, support_xyz, support_feats, idx, mask):
     sx = support_xyz.to(torch.float32)
     d = torch.sqrt(((qx[:, None, :] - sx[idx]) ** 2).sum(-1))
     w = inverse_distance_weights(d, mask)
-    return (support_feats[idx] * w[..., None].to(support_feats.dtype)).sum(1)
+    # masked slots weigh 0, so the masked gather's fill of 0 adds the same
+    rows = (GatherRows.apply(support_feats, idx, mask, 0.0)
+            if gathers_grad(support_feats) else support_feats[idx])
+    return (rows * w[..., None].to(support_feats.dtype)).sum(1)
 
 
 def subtraction(input1, input2, idx, mask=None):
@@ -293,8 +302,39 @@ def aggregation(feats, position, weight, idx, mask=None):
     return (vals * w).sum(1)
 
 
+class GatherRows(torch.autograd.Function):
+    """``apply(feats, idx, mask, fill)``: ``torch.where(mask[..., None],
+    feats[idx], fill)`` (``[*idx.shape, C]``), whose backward sums each
+    source row's unmasked slots in slot order (`gather_rows.gather_rows`
+    and `gather_rows.gather_rows_bwd`: the kernels on the card, the plain
+    versions on the CPU). Autograd's own backward of ``feats[idx]`` walks
+    every masked slot of a row's duplicates serially on the card."""
+
+    @staticmethod
+    def forward(ctx, feats, idx, mask, fill):
+        ctx.save_for_backward(idx, mask)
+        ctx.rows = feats.shape[0]
+        return gather_k.gather_rows(feats, idx, mask, fill)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        idx, mask = ctx.saved_tensors
+        return (gather_k.gather_rows_bwd(g, idx, mask, ctx.rows), None,
+                None, None)
+
+
+def gathers_grad(feats):
+    """Whether autograd records a gather of ``feats``: the gathers that
+    `GatherRows` takes (never under ``torch.no_grad`` or
+    ``torch.inference_mode``, nor of features that need no gradient)."""
+    return torch.is_grad_enabled() and feats.requires_grad
+
+
 def gather_group(feats, idx, mask, fill=0.0):
     """``feats[idx] -> [M, k, C]`` with masked slots set to ``fill``
     (``pointops.grouping``)."""
+    if gathers_grad(feats):
+        return GatherRows.apply(feats, idx, mask, fill)
     g = feats[idx]
     return torch.where(mask[..., None], g, torch.full_like(g, fill))

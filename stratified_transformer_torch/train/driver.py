@@ -62,7 +62,7 @@ from stratified_transformer_torch.config import from_cfg
 from stratified_transformer_torch.data.loader import (
     BatchLoader, build_dataset, to_device)
 from stratified_transformer_torch.device import resolve_device
-from stratified_transformer_torch.kernels import ATTENTION_SOURCES, build
+from stratified_transformer_torch.kernels import TRAIN_SOURCES, build
 from stratified_transformer_torch.models.stratified import build_model
 from stratified_transformer_torch.parallel import mesh
 from stratified_transformer_torch.parallel.dp import make_dp_train_step
@@ -176,7 +176,7 @@ def run(yaml_cfg, device="cuda", log=None, *,
     log = log or get_logger(
         str(yaml_cfg.get("save_path") or "runs/default")).info
     if dev.type == "cuda":
-        build.build_all(ATTENTION_SOURCES)   # once, not once per rank
+        build.build_all(TRAIN_SOURCES)   # once, not once per rank
     log(f"spawning {world} ranks on {dev.type}")
     # CPU ranks share this process's threads
     threads = max(torch.get_num_threads() // world, 1)

@@ -1,7 +1,7 @@
 """CUDA kernels of the PyTorch port (attention forward and backward, the two
-probes) against their plain PyTorch versions, and the kernels' limits,
-empty rows and determinism; the band kernels' swin mode (Swin3D's
-window-quantized bins).
+probes, the masked row gather) against their plain PyTorch versions, and
+the kernels' limits, empty rows and determinism; the band kernels' swin
+mode (Swin3D's window-quantized bins).
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for the card
 and is skipped where there is none. Run them on a GPU machine with
@@ -18,10 +18,12 @@ import torch
 
 from stratified_transformer_torch.kernels import band_attention as band_k
 from stratified_transformer_torch.kernels import band_attention_bwd as band_bwd_k
+from stratified_transformer_torch.kernels import gather_rows as gather_k
 from stratified_transformer_torch.kernels import sparse_band_attention as sparse_k
 from stratified_transformer_torch.kernels import (
     sparse_band_attention_bwd as sparse_bwd_k)
 from stratified_transformer_torch.ops import attention as plain
+from stratified_transformer_torch.ops.neighbors import GatherRows
 from stratified_transformer_torch.ops import plan as plan_mod
 from stratified_transformer_torch.tools import bin_math_probe, cache_key_probe
 
@@ -1006,3 +1008,126 @@ def test_device_busy_times_the_queued_calls(cuda_device):
             lambda: band_k.band_attention(*qkv, *geom, *tables, **kw), 5)
     kernel = chip_smoke.cuda_time_ms(lambda: band_k.KERNEL(*args), 20)
     assert 0 < busy < 2 * kernel + 0.05
+
+
+def _gather_case(dev, idx_dtype, c, seed=0, rows=3000, m=4000, k=34,
+                 hub=0):
+    """A collate-like gather: ``feats [rows, c]``, ``idx``/``mask [m, k]``
+    with a third of the slots masked, the masked slots of even rows at row
+    0 and of odd rows at the row's own index, every 7th row fully masked,
+    and ``hub`` unmasked slots more at row 1 (a segment of many warps'
+    width in the inverse map)."""
+    gen = torch.Generator().manual_seed(seed)
+    feats = torch.randn(rows, c, generator=gen)
+    idx = torch.randint(0, rows, (m, k), generator=gen)
+    mask = torch.rand(m, k, generator=gen) < 0.67
+    mask[::7] = False
+    own = torch.arange(m)[:, None].expand(m, k) % rows
+    pad = torch.where(torch.arange(m)[:, None] % 2 == 0, 0, own)
+    idx = torch.where(mask, idx, pad)
+    idx.view(-1)[:hub] = 1
+    mask.view(-1)[:hub] = True
+    return feats.to(dev), idx.to(idx_dtype).to(dev), mask.to(dev)
+
+
+def _assert_within_sum_order(got, g, idx, mask, rows):
+    """fp32 sums of the same terms in another order: each row within
+    ``(L - 1) 2^-24`` times the sum of its terms' magnitudes (the bound of
+    L - 1 recursive fp32 additions) of the float64 sum, on the CPU."""
+    g64 = g.double().cpu().reshape(-1, g.shape[-1])
+    keep = mask.cpu().reshape(-1)
+    ix = idx.cpu().reshape(-1).long()[keep]
+    exact = torch.zeros(rows, g.shape[-1], dtype=torch.float64).index_add_(
+        0, ix, g64[keep])
+    mag = torch.zeros_like(exact).index_add_(0, ix, g64[keep].abs())
+    n = torch.bincount(ix, minlength=rows).double()[:, None]
+    bound = (n - 1).clamp_min(0) * 2.0 ** -24 * mag
+    assert bool(((got.double().cpu() - exact).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("c, fill", [(12, 0.0), (96, -float("inf")),
+                                     (6, 0.0)])
+@pytest.mark.parametrize("rows", [3000, 150])
+def test_gather_rows_kernels_match_plain(cuda_device, idx_dtype, c, fill,
+                                         rows):
+    """Forward bit for bit (a copy); backward within fp32 sum order of the
+    float64 sum and equal to the plain version on the CPU, which adds each
+    row in slot order as the kernel does; launch counts. C = 12 and 96 take
+    the float4 path, 6 the scalar one. At 3000 rows a row holds ~30 slots
+    (the warp's ordering) and one 1000 more; at 150 rows every row is long
+    (~600: the blocks' merge sort)."""
+    feats, idx, mask = _gather_case(cuda_device, idx_dtype, c, rows=rows,
+                                    hub=1000)
+    counts = (gather_k.FWD.launches, gather_k.MAP.launches,
+              gather_k.BWD.launches)
+    out = gather_k.gather_rows(feats, idx, mask, fill)
+    assert torch.equal(out, gather_k.gather_rows_plain(feats, idx.long(),
+                                                       mask, fill))
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)
+                    ).to(cuda_device)
+    rows = feats.shape[0]
+    dfeats = gather_k.gather_rows_bwd(g, idx, mask, rows)
+    torch.cuda.synchronize()
+    assert (gather_k.FWD.launches, gather_k.MAP.launches,
+            gather_k.BWD.launches) == tuple(n + 1 for n in counts)
+    _assert_within_sum_order(dfeats, g, idx, mask, rows)
+    cpu = gather_k.gather_rows_bwd_plain(g.cpu(), idx.cpu(), mask.cpu(),
+                                         rows)
+    assert torch.equal(dfeats.cpu(), cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [3000, 40])
+def test_gather_rows_backward_is_deterministic(cuda_device, rows):
+    """No float atomics: two backward launches on the same inputs agree bit
+    for bit (the inverse map's placement order varies, its sorted segments
+    do not), at short rows and a 5000-slot one, and at rows of ~2000."""
+    feats, idx, mask = _gather_case(cuda_device, torch.int64, 48, seed=2,
+                                    rows=rows, hub=5000)
+    g = torch.randn(idx.shape + (48,), device=cuda_device)
+    first = gather_k.gather_rows_bwd(g, idx, mask, feats.shape[0])
+    second = gather_k.gather_rows_bwd(g, idx, mask, feats.shape[0])
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_gather_rows_reads_unaligned_rows_and_edges(cuda_device):
+    """A feats view one float in (not on 16 bytes) takes the scalar path;
+    out-of-range indices of unmasked slots read as masked; a gradient of
+    slots that are all masked is 0."""
+    feats, idx, mask = _gather_case(cuda_device, torch.int32, 8, seed=3,
+                                    rows=500, m=300, k=9)
+    base = torch.randn(feats.numel() + 1, device=cuda_device)
+    view = base[1:].view(feats.shape)
+    out = gather_k.gather_rows(view, idx, mask, 0.5)
+    assert torch.equal(out, gather_k.gather_rows_plain(view, idx.long(),
+                                                       mask, 0.5))
+    bad = idx.clone()
+    bad[0, 0], bad[1, 0] = -1, 500
+    mask2 = mask.clone()
+    mask2[:2, 0] = True
+    out = gather_k.gather_rows(view, bad, mask2, 0.5)
+    assert bool((out[:2, 0] == 0.5).all())
+    g = torch.ones(out.shape, device=cuda_device)
+    zero = gather_k.gather_rows_bwd(g, idx, torch.zeros_like(mask), 500)
+    assert not bool(zero.any())
+
+
+@pytest.mark.cuda
+def test_gather_rows_function_backward_on_the_card(cuda_device):
+    """`GatherRows` through autograd against autograd of the expression it
+    replaces (whose CUDA backward adds in another order)."""
+    feats, idx, mask = _gather_case(cuda_device, torch.int64, 12, seed=4)
+    x = feats.clone().requires_grad_(True)
+    y = feats.clone().requires_grad_(True)
+    got = GatherRows.apply(x, idx, mask, -float("inf"))
+    want = torch.where(mask[..., None], y[idx],
+                       torch.full_like(y[idx], -float("inf")))
+    assert torch.equal(got, want)
+    g = torch.randn(got.shape, device=cuda_device)
+    gx, = torch.autograd.grad(got, x, g)
+    gy, = torch.autograd.grad(want, y, g)
+    _assert_within_sum_order(gx, g, idx, mask, feats.shape[0])
+    _assert_within_sum_order(gy, g, idx, mask, feats.shape[0])

@@ -206,8 +206,9 @@ def test_library_inputs_follow_includes():
         "bin_math_probe.cu", "elementwise.cuh"]
     assert build.sources() == [
         "band_attention", "band_attention_bwd", "bin_math_probe",
-        "cache_key_probe", "sparse_band_attention",
+        "cache_key_probe", "gather_rows", "sparse_band_attention",
         "sparse_band_attention_bwd"]
+    assert build._inputs("gather_rows", build.CSRC) == ["gather_rows.cu"]
 
 
 # One fresh process: the cache key of band_attention_bwd under a stub nvcc

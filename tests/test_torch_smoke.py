@@ -235,6 +235,7 @@ def test_chip_smoke_refuses_unknown_arguments_or_a_missing_card(capsys):
     (["--swin-bwd-phases"], "--swin-bwd-phases"),
     (["--swin-fwd-phases"], "--swin-fwd-phases"),
     (["--probe-only"], "--probe-only"),
+    (["--gather-only"], "--gather-only"),
 ])
 def test_parse_args_picks_the_phase_run_alone(argv, want):
     assert chip_smoke.parse_args(argv) == want
@@ -242,8 +243,9 @@ def test_parse_args_picks_the_phase_run_alone(argv, want):
         # the kernels it builds: the forward pair for phases 4 and 10 and
         # the IoU timing, all four attention kernels for phases 11-14 and
         # 16, the two band kernels for phase 15 and the swin kernels'
-        # splits (Swin3D has no far keys), all six for phase 9 (whose
-        # cache-key processes reuse every library)
+        # splits (Swin3D has no far keys), all seven sources for phase 9
+        # (whose cache-key processes reuse every library), the masked row
+        # gather alone for phase 19
         both = chip_smoke.FWD_KERNELS + chip_smoke.BWD_KERNELS
         band = ("band_attention", "band_attention_bwd")
         assert chip_smoke.PHASE_ONLY[want] == {
@@ -251,7 +253,9 @@ def test_parse_args_picks_the_phase_run_alone(argv, want):
             "--scannet-only": both, "--dcf-only": both, "--fast-only": both,
             "--swin-only": band, "--dp-only": both,
             "--swin-bwd-phases": band, "--swin-fwd-phases": band,
-            "--probe-only": tuple(chip_smoke.TPU_KERNELS),
+            "--probe-only": (tuple(chip_smoke.TPU_KERNELS)
+                             + chip_smoke.GATHER_KERNELS),
+            "--gather-only": chip_smoke.GATHER_KERNELS,
         }.get(want, chip_smoke.FWD_KERNELS)
 
 
